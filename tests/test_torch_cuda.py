@@ -1,0 +1,102 @@
+"""Tests of the port that need the card: the hand-written CUDA edge-relax
+kernel against its plain PyTorch version, and the pipeline on the kernel
+backend against the plain backend. This file imports no JAX, so it runs
+where only the port is installed:
+
+  PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Every test skips where there is no GPU (the kernel has no CPU mode)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import ClusterQuotientEstimator, open_session
+from repro_torch.graph import road_like, social_like
+from repro_torch.kernels.edge_relax import kernel as kmod
+from repro_torch.kernels.edge_relax.ops import (build_relax_graph, edge_relax,
+                                                edge_relax_plain)
+
+INF, BIG = 2**31 - 1, 2**30
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _planes(n, wmax, seed):
+    r = np.random.default_rng(seed)
+    d = np.full(n, INF, np.int32)
+    live = r.random(n) < 0.3
+    d[live] = r.integers(0, min(2 * wmax, BIG), live.sum())
+    c = np.full(n, INF, np.int32)
+    c[live] = r.integers(0, n, live.sum())
+    p = np.full(n, INF, np.int32)
+    p[live] = d[live]
+    rw0 = np.full(n, BIG, np.int32)
+    cov = (r.random(n) < 0.3) & ~live
+    rw0[cov] = r.integers(-wmax, 1, cov.sum())
+    rc = np.full(n, INF, np.int32)
+    rc[cov] = r.integers(0, n, cov.sum())
+    rp = np.full(n, INF, np.int32)
+    rp[cov] = r.integers(0, min(4 * wmax, BIG), cov.sum())
+    return d, c, p, rw0, rc, rp
+
+
+@pytest.mark.parametrize("n,wmax", [(1, 7), (257, 7), (257, 2**30 - 1),
+                                    (5000, 100), (20000, 2**30 - 1)])
+def test_kernel_matches_plain_random(cuda_device, n, wmax):
+    r = np.random.default_rng(n)
+    e = 6 * n
+    src = r.integers(0, n, e).astype(np.int32)
+    dst = r.integers(0, max(n - n // 20, 1), e).astype(np.int32)
+    w = r.integers(1, wmax + 1, e).astype(np.int32)
+    g = build_relax_graph(src, dst, w, n, cuda_device)
+    tp = [torch.from_numpy(x).to(cuda_device) for x in _planes(n, wmax, n)]
+    for delta in (1, int(r.integers(1, min(2 * wmax, BIG))), BIG):
+        before = kmod.edge_relax_cuda.launches
+        out = edge_relax(tp, g, delta)
+        torch.cuda.synchronize()
+        assert kmod.edge_relax_cuda.launches == before + 1
+        for a, b in zip(out, edge_relax_plain(tp, g, delta)):
+            assert torch.equal(a, b)
+
+
+def test_kernel_matches_plain_rmat_hubs(cuda_device):
+    e = social_like(12, seed=3)
+    g = build_relax_graph(e.src, e.dst, e.weight, e.n_nodes, cuda_device)
+    wmax = int(e.weight.max())
+    tp = [torch.from_numpy(x).to(cuda_device)
+          for x in _planes(e.n_nodes, wmax, 4)]
+    out = edge_relax(tp, g, wmax)
+    for a, b in zip(out, edge_relax_plain(tp, g, wmax)):
+        assert torch.equal(a, b)
+
+
+def test_kernel_rejects_bad_inputs(cuda_device):
+    g = build_relax_graph(np.array([0], np.int32), np.array([1], np.int32),
+                          np.array([3], np.int32), 2, cuda_device)
+    planes = [torch.zeros(2, dtype=torch.int32, device=cuda_device)] * 6
+    with pytest.raises(ValueError, match="int32"):
+        edge_relax(planes[:5] + [planes[5].to(torch.int64)], g, 4)
+    with pytest.raises(ValueError, match="delta"):
+        edge_relax(planes, g, 0)
+
+
+@pytest.mark.parametrize("make", [lambda: road_like(3000, seed=1),
+                                  lambda: social_like(11, seed=2)])
+def test_pipeline_kernel_equals_single_on_card(cuda_device, make):
+    e = make()
+    kmod.edge_relax_cuda.launches = 0
+    rk = ClusterQuotientEstimator().estimate(
+        open_session(e, backend="kernel", tau=4, device=cuda_device))
+    assert kmod.edge_relax_cuda.launches == rk.pipeline.kernel_launches > 0
+    rs = ClusterQuotientEstimator().estimate(
+        open_session(e, backend="single", tau=4, device=cuda_device))
+    np.testing.assert_array_equal(rk.decomposition.final_c,
+                                  rs.decomposition.final_c)
+    np.testing.assert_array_equal(rk.decomposition.final_pathw,
+                                  rs.decomposition.final_pathw)
+    assert rk.phi_approx == rs.phi_approx and rk.connected
