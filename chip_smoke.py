@@ -3,21 +3,33 @@
 
   python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from the checkout's sources, then:
+Builds the hand-written CUDA kernels from the checkout's sources (one
+``nvcc`` per kernel, started together), then:
 
   1. kernel vs plain: ``edge_relax`` on random graphs (n = 1, 257, 10,000,
      1,000,000), an RMAT graph (hub skew), weights up to 7 and 2^30 - 1,
      random Δ, covered nodes with negative offsets and INF/BIG sentinels,
      and at the main path's shapes (the n = 1,890,815 road graph). Every
      comparison is exact equality (all planes are int32).
+  1b. megakernel vs plain: the same graphs with a frozen mask and a random
+     frontier, K = 1, 8, 64, both variants, a ``half_target`` met inside a
+     launch and a ``num_it`` cap; exact equality of the four planes AND the
+     whole stats array. Timed at the main path's shapes (the road graph
+     with the one-shot start planes) and on RMAT.
   2. the main path at the size of the DIMACS CAL road graph:
      ``road_like(1_890_815)`` through ``open_session(backend="kernel",
      tau=16)`` + ``ClusterQuotientEstimator``; the kernel's launch count
      must be > 0; the same query on ``backend="single"`` (plain PyTorch on
      the card) must give byte-identical final planes and an equal Phi.
+  2b. the same query fused, ``GraphEngineConfig(fuse_supersteps=8)``: every
+     grow call is one megakernel launch per 8 supersteps; byte-identical to
+     the unfused kernel run of phase 2, equal Phi.
+  2c. one-shot at full size: ``road_like(1_890_815)``, the session default
+     tau (130), ``mode="oneshot"``, ``deterministic=True``, fused (8) and
+     unfused; byte-identical planes and equal Phi.
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
-     upper).
+     upper), stages and one-shot.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -30,6 +42,7 @@ import json
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -102,6 +115,117 @@ def relax_bytes(torch, g, planes, delta) -> int:
             + 12 * n)
 
 
+def mega_bytes(torch, g, planes, relay, frozen, front, delta,
+               n_changed: int, n_marks: int) -> int:
+    """Least bytes one fused superstep must move on these inputs, counted as
+    ``relax_bytes`` counts: every row reads its frozen and dirty bytes and
+    writes its front byte; a row that runs (not frozen, some source on the
+    frontier) reads its two row_ptr entries, src and w of each in-edge, d
+    and rw0 of its sources (once per source), c/pathw or rc/rp of the
+    admissible ones, and its own d; a changed row writes d, c, pathw, reads
+    its two out_ptr entries and its out-edges' destinations, and writes
+    their dirty bytes. Skipped rows move only their flag bytes."""
+    n = g.n_nodes
+    src, dst = g.src.to(torch.int64), g.dst.to(torch.int64)
+    live = ~frozen
+    hits = torch.zeros(n, dtype=torch.int32, device=src.device).index_add_(
+        0, dst, front.to(torch.int32)[src])
+    runs = live & (hits > 0)
+    e_run = runs[dst]
+    s_run = src[e_run]
+    ds, r0, w = planes[0][s_run], relay[0][s_run], g.w[e_run]
+    live_ok = (ds < delta) & (w < delta)
+    w_red = torch.clamp_min(w + torch.clamp_max(r0, BIG), 0)
+    relay_ok = (r0 < BIG) & (w_red < delta)
+    n_src = int(torch.unique(s_run).numel())
+    n_live = int(torch.unique(s_run[live_ok & ~relay_ok]).numel())
+    n_relay = int(torch.unique(s_run[relay_ok]).numel())
+    return (3 * n + 12 * int(runs.sum()) + 8 * int(e_run.sum())
+            + 8 * n_src + 8 * n_live + 8 * n_relay
+            + 20 * n_changed + 5 * n_marks)
+
+
+def mega_launch_bytes(torch, mk, g, planes, relay, frozen, front, params,
+                      k: int) -> int:
+    """``mega_bytes`` summed over the supersteps one launch of ``k``
+    executes on these inputs (stepped one superstep at a time with the
+    plain version, under the same stop rule)."""
+    total = 0
+    for j in range(k):
+        p = params._replace(steps_base=params.steps_base + j)
+        d, c, pw, f, st = mk.fused_grow_supersteps_plain(
+            planes, relay, frozen, front, g, p, 1)
+        if int(st[1, mk.COL_EXECUTED]) == 0:
+            break
+        n_changed = int(st[0, mk.COL_CHANGED])
+        out_ptr, _ = g.out_csr()
+        out_deg = (out_ptr[1:] - out_ptr[:-1]).to(torch.int64)
+        marks = int(out_deg[f.bool()].sum())
+        total += mega_bytes(torch, g, planes, relay, frozen, front,
+                            params.delta, n_changed, marks)
+        planes, front = (d, c, pw), f
+        if n_changed == 0:
+            break
+    return total
+
+
+def profile_decompositions() -> int:
+    """``--profile``: the decompositions of the main paths (stages fused;
+    one-shot fused and unfused) under ``torch.profiler``, each after a
+    warm-up run, printing the device-busy share of the host-clock time and
+    the kernels that take the device time. Not part of the default run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return _fail("torch.cuda.is_available() is False", 2)
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    from repro_torch.common import Timer
+    from repro_torch.core import cluster, make_backend, tau_for
+    from repro_torch.graph import road_like
+
+    dev = torch.device("cuda:0")
+    edges = road_like(CAL_NODES, seed=0)
+    for name, mode, tau, fuse in (
+            ("stages_fused", "stages", 16, 8),
+            ("oneshot_fused", "oneshot", tau_for(CAL_NODES), 8),
+            ("oneshot_unfused", "oneshot", tau_for(CAL_NODES), 0)):
+        backend = make_backend(edges, "kernel", device=dev, fuse=fuse)
+
+        def run():
+            dec = cluster(edges, tau, backend=backend, mode=mode,
+                          deterministic=True)
+            torch.cuda.synchronize()
+            return dec
+
+        run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with Timer() as t:
+                dec = run()
+        with Timer() as t_plain:
+            run()
+
+        def dev_us(e):
+            return (getattr(e, "self_device_time_total", 0)
+                    or getattr(e, "self_cuda_time_total", 0))
+
+        # device-side events only (kernels, copies, fills): an operator's
+        # row repeats the device time of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in events) / 1e6
+        top = sorted(events, key=dev_us, reverse=True)[:8]
+        emit({"phase": "profile", "path": name, "supersteps":
+              dec.growing_steps, "seconds_profiled": t.seconds,
+              "seconds_unprofiled": t_plain.seconds,
+              "device_busy_seconds": busy,
+              "idle_share": 1.0 - busy / t.seconds,
+              "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -116,12 +240,16 @@ def main() -> int:
 
     from scipy.sparse.csgraph import shortest_path
 
-    from repro_torch.common import Timer
+    from repro_torch.common import GraphEngineConfig, Timer
     from repro_torch.core import (ClusterQuotientEstimator, IntervalEstimator,
-                                  open_session)
+                                  open_session, tau_for)
+    from repro_torch.core import state as st
+    from repro_torch.core.engine import (hashed_uniforms, oneshot_budget,
+                                         oneshot_centers)
     from repro_torch.graph import road_like, social_like, to_scipy_csr
     from repro_torch.kernels import _build
     from repro_torch.kernels.edge_relax import kernel as kmod
+    from repro_torch.kernels.edge_relax import megakernel as mk
     from repro_torch.kernels.edge_relax.ops import (build_relax_graph,
                                                     edge_relax,
                                                     edge_relax_plain)
@@ -133,14 +261,23 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    # -- build --------------------------------------------------------------
-    with Timer() as t:
-        kmod.load_library()
-    log = _build.library_path(kmod.NAME, kmod.SOURCES).with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit({"phase": "build", "kernel": "edge_relax", "seconds": t.seconds,
-          "ptxas": ptxas})
+    # -- build: one nvcc per kernel, all started together ---------------------
+    builds = ((kmod.NAME, kmod.SOURCES, kmod.load_library),
+              (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library))
+
+    def timed_load(load):
+        with Timer() as tb:
+            load()
+        return tb.seconds
+
+    with ThreadPoolExecutor(len(builds)) as pool:
+        seconds = list(pool.map(timed_load, [b[2] for b in builds]))
+    for (name, sources, _), secs in zip(builds, seconds):
+        log = _build.library_path(name, sources).with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] if log.exists() else []
+        emit({"phase": "build", "kernel": name, "seconds": secs,
+              "ptxas": ptxas})
 
     # -- phase 1: kernel vs plain --------------------------------------------
     max_err = 0
@@ -189,33 +326,137 @@ def main() -> int:
             int(rng.integers(1, 2 * wmax)), iters=10)
     del g, social
 
-    # -- phase 2: the main path at the CAL road graph's size ------------------
+    # -- phase 1b: megakernel vs plain ----------------------------------------
+    mega_err = 0
+    stopped_inside = capped = 0
+
+    def compare_mega(name, g, planes, relay, frozen, front, params, k,
+                     iters=0):
+        nonlocal mega_err, stopped_inside, capped
+        out = mk.fused_grow_supersteps(planes, relay, frozen, front, g,
+                                       params, k)
+        ref = mk.fused_grow_supersteps_plain(planes, relay, frozen, front, g,
+                                             params, k)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  if a.numel() else 0 for a, b in zip(out, ref))
+        mega_err = max(mega_err, err)
+        if err != 0 or not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"megakernel {name}: kernel != plain "
+                                 f"(max abs err {err})")
+        summ = [int(x) for x in out[4][k]]
+        executed = summ[mk.COL_EXECUTED]
+        if (params.stop_variant and 0 < executed < k
+                and summ[mk.COL_REACHED] >= params.half_target):
+            stopped_inside += 1
+        if params.steps_base + executed == params.num_it and executed < k:
+            capped += 1
+        row = {"phase": "megakernel_vs_plain", "case": name, "n": g.n_nodes,
+               "edges": g.n_edges, "k": k, "delta": params.delta,
+               "variant": "stop" if params.stop_variant else "complete",
+               "executed": executed, "skipped_rows": summ[mk.COL_DEAD],
+               "reached": summ[mk.COL_REACHED], "equal": True}
+        if iters:
+            row["ms"] = time_ms(torch, lambda: mk.fused_grow_supersteps(
+                planes, relay, frozen, front, g, params, k), iters)
+            row["ms_per_superstep"] = row["ms"] / max(executed, 1)
+            row["plain_ms"] = time_ms(
+                torch, lambda: mk.fused_grow_supersteps_plain(
+                    planes, relay, frozen, front, g, params, k),
+                max(iters // 4, 2))
+            row["bound_ms"] = (mega_launch_bytes(
+                torch, mk, g, planes, relay, frozen, front, params, k)
+                / HBM_BYTES_PER_S * 1e3)
+        emit(row)
+        return row
+
+    def mega_cases(name, g, planes_np, delta, seed, ks=(1, 8, 64)):
+        r = np.random.default_rng(seed)
+        d, c, p, rw0, rc, rp = (torch.from_numpy(x).to(dev)
+                                for x in planes_np)
+        n = g.n_nodes
+        frozen = (rw0 < BIG) | torch.from_numpy(r.random(n) < 0.02).to(dev)
+        front = torch.from_numpy((r.random(n) < 0.5).astype(np.uint8)).to(dev)
+        reached0 = int(((~frozen) & (d < delta)).sum())
+        for k in ks:
+            for stop in (0, 1):
+                half = reached0 + max(1, n // 50) if stop else 0
+                compare_mega(f"{name} K={k}", g, (d, c, p), (rw0, rc, rp),
+                             frozen, front,
+                             mk.MegaParams(delta, half, 4 * n, 0, stop), k)
+        compare_mega(f"{name} num_it cap", g, (d, c, p), (rw0, rc, rp),
+                     frozen, front, mk.MegaParams(delta, 0, 4 * n, 4 * n - 3,
+                                                  0), 8)
+
+    for n in (1, 257, 10_000, 1_000_000):
+        for wmax in (7, 2**30 - 1):
+            e = max(6 * n, 3)
+            src = rng.integers(0, n, e).astype(np.int32)
+            dst = rng.integers(0, max(n - n // 50, 1), e).astype(np.int32)
+            w = rng.integers(1, wmax + 1, e).astype(np.int32)
+            g = build_relax_graph(src, dst, w, n, dev)
+            delta = int(rng.integers(1, min(2 * wmax, BIG) + 1))
+            mega_cases(f"random n={n} wmax={wmax}", g,
+                       random_planes(n, wmax, seed=n + wmax), delta,
+                       seed=n + wmax)
+    social = social_like(20, seed=0)
+    g = build_relax_graph(social.src, social.dst, social.weight,
+                          social.n_nodes, dev)
+    wmax = int(social.weight.max())
+    social_planes = random_planes(social.n_nodes, wmax, seed=1)
+    mega_cases("rmat social_like(20)", g, social_planes, 2 * wmax - 1,
+               seed=1)
+    tp = [torch.from_numpy(x).to(dev) for x in social_planes]
+    rmat_row = compare_mega(
+        "rmat social_like(20) timed", g, tp[:3], tp[3:],
+        tp[3] < BIG, torch.ones(social.n_nodes, dtype=torch.uint8,
+                                device=dev),
+        mk.MegaParams(2 * wmax - 1, 0, 4 * social.n_nodes, 0, 0), 8,
+        iters=5)
+    del g, social, tp
+
     with Timer() as t:
         edges = road_like(CAL_NODES, seed=0)
     emit({"phase": "graph", "family": "road_like", "n": edges.n_nodes,
           "edges": edges.n_edges, "seconds": t.seconds})
 
-    def run_main(backend: str):
+    def run_main(backend: str, cfg=None, tau=16, phase="main_path"):
+        cfg = cfg or GraphEngineConfig()
+        fused = backend == "kernel" and cfg.fuse_supersteps > 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kmod.edge_relax_cuda.launches = 0
+        kmod.megakernel_cuda.launches = 0
         with Timer() as tt:
-            session = open_session(edges, backend=backend, tau=16, device=dev)
+            session = open_session(edges, cfg, backend=backend, tau=tau,
+                                   device=dev)
             res = session.estimate(ClusterQuotientEstimator())
             torch.cuda.synchronize()
-        launches = kmod.edge_relax_cuda.launches
+        relax_launches = kmod.edge_relax_cuda.launches
+        mega_launches = kmod.megakernel_cuda.launches
+        launches = mega_launches if fused else relax_launches
+        other = relax_launches if fused else mega_launches
         pm = res.pipeline
-        if launches != pm.kernel_launches:
-            raise AssertionError(f"{backend}: wrapper counted {launches} "
-                                 f"launches, the backend {pm.kernel_launches}")
-        row = {"phase": "main_path", "backend": backend, "n": edges.n_nodes,
-               "edges": edges.n_edges, "tau": 16, "phi_approx": res.phi_approx,
+        if launches != pm.kernel_launches or other != 0:
+            raise AssertionError(
+                f"{phase} {backend}: wrappers counted edge_relax "
+                f"{relax_launches}, megakernel {mega_launches}; the backend "
+                f"{pm.kernel_launches}")
+        row = {"phase": phase, "backend": backend,
+               "mode": session.cfg.mode, "fuse": cfg.fuse_supersteps,
+               "n": edges.n_nodes,
+               "edges": edges.n_edges, "tau": session.tau,
+               "phi_approx": res.phi_approx,
                "radius": res.radius, "clusters": res.n_clusters,
                "quotient_edges": pm.n_quotient_edges,
                "stages": res.n_stages, "supersteps": res.growing_steps,
                "solve_supersteps": pm.solve_supersteps,
                "solve_dtype": "int64" if pm.solve_int64 else "int32",
                "kernel_launches": launches,
+               "kernel": ("megakernel" if fused else
+                          "edge_relax" if backend == "kernel" else None),
+               "kernel_supersteps": pm.kernel_supersteps,
+               "skipped_rows": pm.dma_stall_blocks,
                "host_syncs": pm.total_host_syncs,
                "decompose_syncs": pm.decompose_syncs,
                "solve_syncs": pm.solve_syncs,
@@ -252,19 +493,98 @@ def main() -> int:
     emit({"phase": "main_path_parity", "byte_identical": True,
           "phi_approx": res_k.phi_approx})
 
+    def same_decomposition(a, b) -> bool:
+        da, db = a.decomposition, b.decomposition
+        return (np.array_equal(da.final_c, db.final_c)
+                and np.array_equal(da.final_pathw, db.final_pathw)
+                and a.phi_approx == b.phi_approx
+                and a.growing_steps == b.growing_steps
+                and a.n_clusters == b.n_clusters)
+
+    # -- phase 2b: the same query through the fused megakernel ---------------
+    res_f, row_f, launches_stages_fused, _ = run_main(
+        "kernel", GraphEngineConfig(fuse_supersteps=8),
+        phase="main_path_fused")
+    if launches_stages_fused <= 0:
+        raise AssertionError("fused main path ran without the megakernel")
+    if row_f["kernel_supersteps"] != row_f["supersteps"]:
+        raise AssertionError("fused main path: kernel supersteps != steps")
+    if not same_decomposition(res_f, res_k):
+        raise AssertionError("fused and unfused main paths differ")
+    emit({"phase": "main_path_fused_parity", "byte_identical": True,
+          "phi_approx": res_f.phi_approx,
+          "launches_fused": launches_stages_fused,
+          "launches_unfused": launches})
+
+    # -- phase 2c: one-shot at full size, fused and unfused -------------------
+    tau_oneshot = tau_for(edges.n_nodes)
+    oneshot = {}
+    for fuse in (8, 0):
+        cfg = GraphEngineConfig(mode="oneshot", deterministic=True,
+                                fuse_supersteps=fuse)
+        oneshot[fuse] = run_main("kernel", cfg, tau=tau_oneshot,
+                                 phase="oneshot_full")
+    launches_oneshot_fused = oneshot[8][2]
+    launches_oneshot_unfused = oneshot[0][2]
+    if launches_oneshot_fused <= 0 or launches_oneshot_unfused <= 0:
+        raise AssertionError("one-shot path ran without its kernel")
+    if not same_decomposition(oneshot[8][0], oneshot[0][0]):
+        raise AssertionError("fused and unfused one-shot runs differ")
+    emit({"phase": "oneshot_full_parity", "byte_identical": True,
+          "tau": tau_oneshot, "phi_approx": oneshot[8][0].phi_approx,
+          "clusters": oneshot[8][0].n_clusters,
+          "supersteps": oneshot[8][0].growing_steps})
+
     # the kernel at the main path's shapes: the road graph's CSR with
     # engine-like planes and the run's final Δ
     main_row = compare("main path road_like(1890815)", road_graph,
                        random_planes(edges.n_nodes, int(edges.weight.max()),
                                      seed=2), res_k.delta_end, iters=50)
-    del road_graph, edges
+    # the megakernel at the main path's shapes: the road CSR with the planes
+    # the full-size one-shot grow starts from (deterministic draw, tau 130)
+    b = oneshot_budget(edges, tau_oneshot)
+    mask, start = oneshot_centers(*hashed_uniforms(edges.n_nodes, dev), b.p,
+                                  b.shift_max, b.shift_scale)
+    s0 = st.promote_centers_shifted(st.init_state(edges.n_nodes, dev), mask,
+                                    start)
+    rw0, rc, rp, frozen = st.relay_planes(s0)
+    front = torch.ones(edges.n_nodes, dtype=torch.uint8, device=dev)
+    for k in (1, 8, 64):
+        for stop in (0, 1):
+            compare_mega(f"main path road_like(1890815) K={k}", road_graph,
+                         (s0.d, s0.c, s0.pathw), (rw0, rc, rp), frozen, front,
+                         mk.MegaParams(b.max_delta, 1 + k * 200 if stop else 0,
+                                       b.num_it, 0, stop), k)
+    compare_mega(
+        "main path road_like(1890815) timed, grow start", road_graph,
+        (s0.d, s0.c, s0.pathw), (rw0, rc, rp), frozen, front,
+        mk.MegaParams(b.max_delta, 0, b.num_it, 0, 0), 8, iters=20)
+    # the launches of a running grow call start from a small carried
+    # frontier, not the all-ones one of the call's first launch: time one
+    # from the state 64 supersteps in
+    *p64, f64, _ = mk.fused_grow_supersteps(
+        (s0.d, s0.c, s0.pathw), (rw0, rc, rp), frozen, front, road_graph,
+        mk.MegaParams(b.max_delta, 0, b.num_it, 0, 0), 64)
+    mega_row = compare_mega(
+        "main path road_like(1890815) timed, 64 supersteps in", road_graph,
+        tuple(p64), (rw0, rc, rp), frozen, f64,
+        mk.MegaParams(b.max_delta, 0, b.num_it, 64, 0), 8, iters=20)
+    if not stopped_inside or not capped:
+        raise AssertionError(f"megakernel cases missed a stop inside a "
+                             f"launch ({stopped_inside}) or a num_it cap "
+                             f"({capped})")
+    del road_graph, edges, s0, rw0, rc, rp, frozen, front, p64, f64
 
     # -- phase 3: certified bracket ------------------------------------------
-    for n, check_exact in ((65_536, False), (4_096, True)):
+    for n, check_exact, mode in ((65_536, False, "stages"),
+                                 (4_096, True, "stages"),
+                                 (4_096, True, "oneshot")):
         e = road_like(n, seed=0)
+        cfg = GraphEngineConfig(mode=mode, deterministic=mode == "oneshot",
+                                fuse_supersteps=8 if mode == "oneshot" else 0)
         with Timer() as tt:
-            iv = IntervalEstimator().estimate(open_session(e, device=dev))
-        row = {"phase": "interval", "n": n, "lower": iv.lower,
+            iv = IntervalEstimator().estimate(open_session(e, cfg, device=dev))
+        row = {"phase": "interval", "n": n, "mode": mode, "lower": iv.lower,
                "upper": iv.upper, "connected": iv.connected,
                "host_syncs": iv.pipeline.total_host_syncs,
                "seconds": tt.seconds}
@@ -286,7 +606,24 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]})
+        "library_ms": None,
+        "launches_by_path": {"stages_unfused": launches,
+                             "oneshot_unfused": launches_oneshot_unfused},
+    }, {
+        "name": "megakernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/megakernel.cu",
+        "replaces": "src/repro/kernels/edge_relax/megakernel.py:93",
+        "launches": launches_stages_fused + launches_oneshot_fused,
+        "max_abs_err": mega_err,
+        "ms": mega_row["ms"], "plain_ms": mega_row["plain_ms"],
+        "bound_ms": mega_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "supersteps_per_launch": mega_row["executed"],
+        "ms_per_superstep": mega_row["ms_per_superstep"],
+        "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
+        "launches_by_path": {"stages_fused": launches_stages_fused,
+                             "oneshot_fused": launches_oneshot_fused},
+    }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -295,4 +632,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_decompositions() if sys.argv[1:] == ["--profile"]
+             else main())

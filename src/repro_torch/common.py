@@ -70,7 +70,7 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 @dataclass(frozen=True)
 class GraphEngineConfig:
-    """Config for the decomposition/diameter engine (stages mode)."""
+    """Config for the decomposition/diameter engine."""
 
     tau_fraction: float = 1e-3   # tau ~ n * tau_fraction / log n
     gamma: float = 2.0           # center-sampling constant
@@ -80,3 +80,8 @@ class GraphEngineConfig:
     max_steps_per_phase: int = 0  # 0 -> 2n/tau (paper's num_it)
     seed: int = 0
     backend: str = "kernel"      # single | kernel (core/backend.py)
+    fuse_supersteps: int = 0     # kernel backend: supersteps per megakernel
+                                 # launch (0 = unfused)
+    mode: str = "stages"         # stages | oneshot | auto (core/engine.py;
+                                 # "auto" resolves to "stages": no autotuner)
+    deterministic: bool = False  # oneshot: hash-derived centers and shifts

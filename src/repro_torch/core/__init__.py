@@ -7,10 +7,16 @@ from repro_torch.core.backend import (
 )
 from repro_torch.core.cluster import cluster
 from repro_torch.core.engine import (
+    DECOMPOSITION_MODES,
+    ENGINE_MODES,
     Decomposition,
+    DecompositionMode,
     EngineMetrics,
+    check_engine_mode,
     default_uniform_fn,
+    resolve_engine_mode,
     run_cluster,
+    run_oneshot,
 )
 from repro_torch.core.estimators import (
     ClusterQuotientEstimator,
@@ -29,10 +35,12 @@ from repro_torch.core.session import (
 from repro_torch.core.sssp import farthest_point_lower_bound
 
 __all__ = [
-    "ClusterQuotientEstimator", "Decomposition", "DiameterEstimate",
-    "DiameterInterval", "EngineMetrics", "GraphSession", "IntervalEstimator",
+    "ClusterQuotientEstimator", "DECOMPOSITION_MODES", "Decomposition",
+    "DecompositionMode", "DiameterEstimate", "DiameterInterval",
+    "ENGINE_MODES", "EngineMetrics", "GraphSession", "IntervalEstimator",
     "KernelBackend", "LowerBoundEstimator", "PipelineMetrics", "RelaxBackend",
-    "SessionMetrics", "SingleDeviceBackend", "cluster", "default_uniform_fn",
-    "farthest_point_lower_bound", "make_backend",
-    "open_session", "run_cluster", "tau_for",
+    "SessionMetrics", "SingleDeviceBackend", "check_engine_mode", "cluster",
+    "default_uniform_fn", "farthest_point_lower_bound", "make_backend",
+    "open_session", "resolve_engine_mode", "run_cluster", "run_oneshot",
+    "tau_for",
 ]

@@ -3,9 +3,11 @@ port of the JAX package's ``core/backend.py`` (single and kernel kinds).
 
   * ``SingleDeviceBackend`` — flat edge arrays and the plain PyTorch
     superstep (gather + three chained ``scatter_reduce``);
-  * ``KernelBackend`` — the counterpart of ``PallasBackend`` with
-    ``fuse=0``: a destination-sorted CSR and one launch of the hand-written
-    CUDA relax kernel per superstep (its plain version on CPU tensors).
+  * ``KernelBackend`` — the counterpart of ``PallasBackend``: a
+    destination-sorted CSR and, with ``fuse=0``, one launch of the
+    hand-written CUDA relax kernel per superstep; with ``fuse=K > 0``, one
+    launch of the cooperative CUDA megakernel per K supersteps (each on its
+    plain version for CPU tensors).
 
 Both share the candidate rule and the lexicographic (d, c, pathw)
 tuple-min, and ``growth_loop`` owns the stopping rule, so for a fixed seed
@@ -23,7 +25,9 @@ from repro_torch.core.delta_growing import (GrowthStats, growth_loop,
                                             partial_growth)
 from repro_torch.core.state import EngineState, init_state, relay_planes
 from repro_torch.graph.structures import EdgeList
-from repro_torch.kernels.edge_relax.kernel import edge_relax_cuda
+from repro_torch.kernels.edge_relax.kernel import (edge_relax_cuda,
+                                                   megakernel_cuda)
+from repro_torch.kernels.edge_relax.megakernel import megakernel_growth_loop
 from repro_torch.kernels.edge_relax.ops import build_relax_graph, edge_relax
 
 BACKEND_KINDS = ("single", "kernel")
@@ -85,12 +89,29 @@ class SingleDeviceBackend:
 
 
 class KernelBackend:
-    """Destination-sorted CSR + one edge_relax launch per superstep."""
+    """Destination-sorted CSR + one edge_relax launch per superstep
+    (``fuse=0``) or one megakernel launch per ``fuse`` supersteps.
+
+    The reference drops ``fuse`` to 0 with a warning when its planes exceed
+    the TPU's VMEM budget. Here the planes live in device memory, so the
+    limits are int32 counts (``n * (fuse + 1) < 2^31``, checked here) and
+    the cooperative grid's residency: the kernel sizes its grid to what is
+    resident, and a device that cannot launch cooperatively makes the
+    launch raise. No path drops back to the unfused kernel.
+    """
 
     kind = "kernel"
 
-    def __init__(self, edges: EdgeList, device="cuda"):
+    def __init__(self, edges: EdgeList, device="cuda", fuse: int = 0):
+        fuse = int(fuse)
+        if fuse < 0:
+            raise ValueError(f"fuse must be >= 0, got {fuse}")
+        if fuse and edges.n_nodes * (fuse + 1) >= 2**31:
+            raise ValueError(
+                f"fuse={fuse} at n={edges.n_nodes}: the megakernel's int32 "
+                "counts need n * (fuse + 1) < 2^31")
         self.device = resolve_device(device)
+        self.fuse = fuse
         self.n_nodes = edges.n_nodes
         self.n_pad = edges.n_nodes
         self.graph = build_relax_graph(edges.src, edges.dst, edges.weight,
@@ -107,8 +128,16 @@ class KernelBackend:
 
     def grow(self, state, delta, half_target, num_it, variant,
              chunk=DEFAULT_CHUNK):
-        """PartialGrowth where each superstep is one edge_relax call (the
-        kernel on CUDA tensors, its plain version on CPU tensors)."""
+        """PartialGrowth where each superstep is one edge_relax call, or,
+        with ``fuse > 0``, each launch runs up to ``fuse`` supersteps (the
+        kernels on CUDA tensors, their plain versions on CPU tensors)."""
+        if self.fuse:
+            launches0 = megakernel_cuda.launches
+            out = megakernel_growth_loop(state, self.graph, delta,
+                                         half_target, num_it, variant,
+                                         self.fuse)
+            self.launches += megakernel_cuda.launches - launches0
+            return out
         rw0, rc, rp, frozen = relay_planes(state)
 
         def relax_step(s: EngineState):
@@ -122,14 +151,16 @@ class KernelBackend:
         return out
 
 
-def make_backend(edges: EdgeList, spec="kernel", *,
-                 device="cuda") -> RelaxBackend:
-    """Resolve a backend from a kind name (or pass an instance through)."""
+def make_backend(edges: EdgeList, spec="kernel", *, device="cuda",
+                 fuse: int = 0) -> RelaxBackend:
+    """Resolve a backend from a kind name (or pass an instance through).
+    ``fuse`` applies to the kernel kind only (0 = unfused), as the
+    reference's applies to its pallas kind only."""
     if not isinstance(spec, str):
         return spec
     if spec == "single":
         return SingleDeviceBackend(edges, device=device)
     if spec == "kernel":
-        return KernelBackend(edges, device=device)
+        return KernelBackend(edges, device=device, fuse=fuse)
     raise ValueError(f"unknown backend {spec!r} (expected one of "
                      f"{BACKEND_KINDS})")

@@ -1,6 +1,6 @@
 """CLUSTER(G, tau) — paper Algorithm 1 — as a thin wrapper over the engine
 (``core/engine.py``) and a backend (``core/backend.py``); the port of the
-JAX package's ``core/cluster.py`` in stages mode.
+JAX package's ``core/cluster.py`` (stages and one-shot modes).
 
 The returned radius is the max over nodes of the realized path weight from
 the assigned center: an exact upper bound on the clustering radius in G.
@@ -10,7 +10,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 from repro_torch.core.backend import RelaxBackend, make_backend
-from repro_torch.core.engine import Decomposition, UniformFn, run_cluster
+from repro_torch.core.engine import (Decomposition, UniformFn, run_cluster,
+                                    resolve_engine_mode, run_oneshot)
 from repro_torch.graph.structures import EdgeList
 
 __all__ = ["Decomposition", "cluster", "_initial_delta"]
@@ -41,10 +42,24 @@ def cluster(
     backend: Union[str, RelaxBackend] = "kernel",
     device="cuda",
     uniform_fn: Optional[UniformFn] = None,
+    mode: str = "stages",
+    deterministic: bool = False,
 ) -> Decomposition:
     """Paper Algorithm 1. ``variant`` in {"stop", "complete"}; ``backend``
-    is "single", "kernel" or a backend instance (which fixes the device)."""
+    is "single", "kernel" or a backend instance (which fixes the device).
+
+    ``mode`` is "stages" (the paper's stage loop), "oneshot" (exponential
+    start shifts, one complete grow call) or "auto" (resolves to
+    "stages"); unknown names raise before any device work.
+    ``deterministic`` applies to oneshot only: hashed centers and shifts.
+    """
+    mode = resolve_engine_mode(mode)
     be = make_backend(edges, backend, device=device)
+    if mode == "oneshot":
+        return run_oneshot(
+            edges, be, tau, gamma=gamma, seed=seed,
+            deterministic=deterministic,
+            max_steps_per_phase=max_steps_per_phase, uniform_fn=uniform_fn)
     return run_cluster(
         edges, be, tau,
         gamma=gamma, variant=variant,

@@ -29,7 +29,13 @@ class GrowthStats:
     steps: int          # growing steps executed in this call
     reached: int        # |{uncovered non-center: d < Δ}|
     changed_last: bool  # whether the final step still changed state
-    syncs: int = 0      # host reads spent (one per chunk)
+    syncs: int = 0      # host reads spent (one per chunk or fused launch)
+    # fused path counters (0 on the unfused paths; kernels/edge_relax/
+    # megakernel.py): fused calls (kernel launches on the card, plain-version
+    # calls on the CPU), supersteps run inside them, skipped rows
+    kernel_launches: int = 0
+    kernel_supersteps: int = 0
+    dead_blocks: int = 0
 
 
 def growth_loop(

@@ -24,7 +24,7 @@ import numpy as np
 
 from repro_torch.common import Timer, get_logger
 from repro_torch.core.cluster import cluster
-from repro_torch.core.engine import Decomposition
+from repro_torch.core.engine import Decomposition, resolve_engine_mode
 from repro_torch.core.quotient import (
     build_quotient_device,
     fetch_quotient_counters,
@@ -46,7 +46,10 @@ class PipelineMetrics:
     solve_syncs: int = 0       # solve chunk reads + the packed result read
     solve_supersteps: int = 0  # device BF supersteps inside the solve
     n_quotient_edges: int = 0  # quotient edge count
-    kernel_launches: int = 0   # edge_relax CUDA launches in the decomposition
+    kernel_launches: int = 0   # hand-written CUDA launches in the
+                               # decomposition (edge_relax or megakernel)
+    kernel_supersteps: int = 0  # supersteps run inside fused calls
+    dma_stall_blocks: int = 0   # rows the fused calls skipped
     solve_int64: int = 0       # 1 when the solve needed int64 distances
     # host-clock seconds per phase; each phase ends in a guard.fetch, so
     # the device work it queued is included
@@ -144,9 +147,13 @@ def _resolve_query_cfg(session: GraphSession, est) -> Tuple[object, int]:
         delta_init = str(session.resolve_delta_init(delta_init))
     overrides = {k: v for k, v in (
         ("variant", est.variant), ("seed", est.seed),
-        ("delta_init", delta_init)) if v is not None}
+        ("delta_init", delta_init), ("mode", est.mode)) if v is not None}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    # bad names raise before any device work; "auto" -> "stages"
+    mode = resolve_engine_mode(cfg.mode)
+    if mode != cfg.mode:
+        cfg = dataclasses.replace(cfg, mode=mode)
     tau = est.tau if est.tau is not None else session.tau
     if tau < 1:
         raise ValueError(f"tau must be >= 1, got {tau}")
@@ -162,11 +169,15 @@ def _run_decomposition(session: GraphSession, cfg, tau: int,
             max_stages=cfg.max_stages,
             max_steps_per_phase=cfg.max_steps_per_phase,
             backend=session.backend, uniform_fn=session.uniform_fn,
+            mode=cfg.mode, deterministic=cfg.deterministic,
         )
     pm.decompose_seconds += t.seconds
-    pm.decompose_syncs = dec.metrics.host_syncs
-    pm.finalize_syncs = dec.metrics.finalize_syncs
-    pm.kernel_launches = dec.metrics.kernel_launches
+    m = dec.metrics
+    pm.decompose_syncs = m.host_syncs
+    pm.finalize_syncs = m.finalize_syncs
+    pm.kernel_launches = m.kernel_launches
+    pm.kernel_supersteps = m.kernel_supersteps
+    pm.dma_stall_blocks = m.dma_stall_blocks
     return dec
 
 
@@ -175,8 +186,9 @@ class ClusterQuotientEstimator:
     """Paper pipeline: Phi_approx(G) = Phi(G_C) + 2 R (conservative upper),
     with the quotient and its solve on the session's device.
 
-    ``tau``/``variant``/``seed``/``delta_init`` override the session
-    defaults per query.
+    ``tau``/``variant``/``seed``/``delta_init``/``mode`` override the
+    session defaults per query (``deterministic`` comes from the session's
+    config).
     """
 
     name: ClassVar[str] = "cluster-quotient"
@@ -185,6 +197,7 @@ class ClusterQuotientEstimator:
     variant: Optional[str] = None
     seed: Optional[int] = None
     delta_init: Optional[str] = None
+    mode: Optional[str] = None       # stages | oneshot | auto
 
     def estimate(self, session: GraphSession) -> DiameterEstimate:
         cfg, tau = _resolve_query_cfg(session, self)

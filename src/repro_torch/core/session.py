@@ -10,6 +10,7 @@ events (backend builds, edge uploads) so a warm query can be told apart.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
@@ -19,7 +20,7 @@ import torch
 from repro_torch.common import GraphEngineConfig, get_logger, resolve_device
 from repro_torch.core.backend import RelaxBackend, make_backend
 from repro_torch.core.cluster import _initial_delta
-from repro_torch.core.engine import UniformFn
+from repro_torch.core.engine import UniformFn, resolve_engine_mode
 from repro_torch.graph.structures import EdgeList
 
 log = get_logger("repro_torch.session")
@@ -62,13 +63,19 @@ class GraphSession:
         if tau is not None and tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
         self.cfg = cfg or GraphEngineConfig()
+        # unknown modes raise here, before any device work; "auto" resolves
+        # to "stages" (the port has no autotuning record)
+        mode = resolve_engine_mode(self.cfg.mode)
+        if mode != self.cfg.mode:
+            self.cfg = dataclasses.replace(self.cfg, mode=mode)
         self.metrics = metrics if metrics is not None else SessionMetrics()
         self.metrics.sessions_opened += 1
         if backend is None:
             backend = self.cfg.backend
         if isinstance(backend, str):
             self.device = resolve_device(device)
-            backend = make_backend(edges, backend, device=self.device)
+            backend = make_backend(edges, backend, device=self.device,
+                                   fuse=self.cfg.fuse_supersteps)
         else:
             self.device = backend.device
         # a prebuilt backend counts too: its construction and upload are

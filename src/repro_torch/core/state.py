@@ -112,6 +112,24 @@ def promote_centers(state: EngineState,
     )
 
 
+def promote_centers_shifted(state: EngineState, new_centers: torch.Tensor,
+                            start_d: torch.Tensor) -> EngineState:
+    """One-shot promote: centers enter the wave at ``d = start_d`` (the
+    exponential start shift folded into the initial distance) instead of
+    0. ``pathw`` still starts at 0, so ``final_pathw`` stays a realized path
+    weight from the owning center."""
+    ids = _ids(state)
+    sel = new_centers & ~state.is_center & ~state.covered
+    return state.replace(
+        d=torch.where(sel, start_d, state.d),
+        c=torch.where(sel, ids, state.c),
+        pathw=torch.where(sel, 0, state.pathw),
+        final_c=torch.where(sel, ids, state.final_c),
+        final_pathw=torch.where(sel, 0, state.final_pathw),
+        is_center=state.is_center | sel,
+    )
+
+
 def reset_in_stage(state: EngineState) -> EngineState:
     """Centers at (self, 0), everyone else unreached."""
     ids = _ids(state)

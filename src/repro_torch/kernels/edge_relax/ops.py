@@ -4,7 +4,8 @@
 (``ops.py:53``): instead of dst-sorted [n_blocks, 512] edge blocks padded
 per node tile (built by a per-tile host loop), it is a destination-sorted
 CSR ordered by (dst, src), built with two stable device sorts and a
-bincount — no padding edges, no mask, no Python loop over tiles.
+bincount — no padding edges, no mask, no Python loop over tiles. The
+megakernel also reads the transpose, an out-edge CSR built on first use.
 
 ``edge_relax`` launches the CUDA kernel for CUDA tensors and runs the plain
 PyTorch version (``ref.py``) for CPU tensors. There is no fallback: a CUDA
@@ -12,8 +13,8 @@ tensor either goes through the kernel or the call raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,10 +32,27 @@ class RelaxGraph:
     src: torch.Tensor       # int32 [E]
     dst: torch.Tensor       # int32 [E] (row of each edge)
     w: torch.Tensor         # int32 [E]
+    _out: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
+        default=None, repr=False)
 
     @property
     def n_edges(self) -> int:
         return int(self.src.shape[0])
+
+    def out_csr(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The same edges as an out-edge CSR, ``(out_ptr int32 [n+1],
+        out_dst int32 [E])`` ordered by (src, dst); built on first use (the
+        megakernel marks the out-neighbours of changed rows through it) and
+        kept."""
+        if self._out is None:
+            order = torch.sort(self.src, stable=True).indices
+            src_sorted = self.src[order]
+            out_ptr = torch.searchsorted(
+                src_sorted, torch.arange(self.n_nodes + 1, dtype=torch.int32,
+                                         device=src_sorted.device),
+                out_int32=True)
+            self._out = (out_ptr, self.dst[order].contiguous())
+        return self._out
 
 
 def build_relax_graph(src: Union[np.ndarray, torch.Tensor],

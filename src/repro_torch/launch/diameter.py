@@ -1,7 +1,8 @@
 """Diameter launcher: the paper pipeline on a resident ``GraphSession``.
 
   PYTHONPATH=src python -m repro_torch.launch.diameter --graph road \
-      --n 200000 --tau 16 --backend kernel [--interval] [--device cuda]
+      --n 200000 --tau 16 --backend kernel [--interval] [--device cuda] \
+      [--engine-mode stages|oneshot|auto] [--deterministic]
 
 Prints Phi_approx, the cluster count, quotient size, supersteps, host
 reads, kernel launches, seconds and (on CUDA) peak device memory.
@@ -15,9 +16,10 @@ import json
 
 import torch
 
-from repro_torch.common import Timer, resolve_device
+from repro_torch.common import GraphEngineConfig, Timer, resolve_device
 from repro_torch.core import (ClusterQuotientEstimator, IntervalEstimator,
-                              LowerBoundEstimator, open_session)
+                              LowerBoundEstimator, check_engine_mode,
+                              open_session)
 from repro_torch.graph import road_like
 
 
@@ -35,16 +37,27 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--interval", action="store_true",
                     help="also run the farthest-point lower bound")
+    # no argparse choices: an unknown name reaches check_engine_mode, so the
+    # CLI and the library raise the same ValueError
+    ap.add_argument("--engine-mode", default="stages",
+                    help="decomposition mode: 'stages' (paper stage loop, "
+                         "default), 'oneshot' (exponential-shift single "
+                         "fixpoint) or 'auto' (resolves to 'stages')")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="oneshot mode: hash-derived centers and shifts")
     args = ap.parse_args(argv)
     if args.tau is not None and args.tau < 1:
         ap.error(f"--tau must be >= 1, got {args.tau}")
+    check_engine_mode(args.engine_mode)   # before any graph or device work
 
     dev = resolve_device(args.device)
     edges = road_like(args.n, seed=args.seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with Timer() as t:
-        session = open_session(edges, tau=args.tau, backend=args.backend,
+        cfg = GraphEngineConfig(mode=args.engine_mode,
+                                deterministic=args.deterministic)
+        session = open_session(edges, cfg, tau=args.tau, backend=args.backend,
                                device=dev)
         est = ClusterQuotientEstimator(variant=args.variant, seed=args.seed)
         if args.interval:
@@ -60,6 +73,7 @@ def main(argv=None) -> int:
     out = {
         "graph": args.graph, "n": edges.n_nodes, "edges": edges.n_edges,
         "tau": session.tau, "backend": args.backend, "device": str(dev),
+        "engine_mode": session.cfg.mode,
         "phi_approx": upper.phi_approx, "radius": upper.radius,
         "clusters": upper.n_clusters, "quotient_edges": pm.n_quotient_edges,
         "stages": upper.n_stages, "supersteps": upper.growing_steps,

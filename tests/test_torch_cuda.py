@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the hand-written CUDA edge-relax
-kernel against its plain PyTorch version, and the pipeline on the kernel
-backend against the plain backend. This file imports no JAX, so it runs
+kernel and megakernel against their plain PyTorch versions, the pipeline
+on the kernel backend against the plain backend, and the fused grow path
+against the unfused one in both decomposition modes. This file imports no JAX, so it runs
 where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -10,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common import GraphEngineConfig
 from repro_torch.core import ClusterQuotientEstimator, open_session
 from repro_torch.graph import road_like, social_like
+from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.edge_relax import kernel as kmod
+from repro_torch.kernels.edge_relax import megakernel as mk
 from repro_torch.kernels.edge_relax.ops import (build_relax_graph, edge_relax,
                                                 edge_relax_plain)
 
@@ -100,3 +104,67 @@ def test_pipeline_kernel_equals_single_on_card(cuda_device, make):
     np.testing.assert_array_equal(rk.decomposition.final_pathw,
                                   rs.decomposition.final_pathw)
     assert rk.phi_approx == rs.phi_approx and rk.connected
+
+
+def _fused_inputs(e, dev, seed):
+    """Random engine-like planes on ``e``'s CSR, a frozen mask (relays and
+    some centers) and a random frontier."""
+    r = np.random.default_rng(seed)
+    g = build_relax_graph(e.src, e.dst, e.weight, e.n_nodes, dev)
+    wmax = int(e.weight.max())
+    d, c, p, rw0, rc, rp = (torch.from_numpy(x).to(dev)
+                            for x in _planes(e.n_nodes, wmax, seed))
+    frozen = (rw0 < BIG) | torch.from_numpy(r.random(e.n_nodes) < 0.02).to(dev)
+    front = torch.from_numpy(
+        (r.random(e.n_nodes) < 0.5).astype(np.uint8)).to(dev)
+    return g, (d, c, p), (rw0, rc, rp), frozen, front, wmax
+
+
+def _random_graph(n, wmax, seed):
+    r = np.random.default_rng(seed)
+    src = r.integers(0, n, 6 * n).astype(np.int32)
+    dst = r.integers(0, max(n - n // 20, 1), 6 * n).astype(np.int32)
+    w = r.integers(1, wmax + 1, 6 * n).astype(np.int32)
+    return EdgeList(n, src, dst, w)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("variant", ["stop", "complete"])
+@pytest.mark.parametrize("graph", ["random", "rmat"])
+def test_megakernel_matches_plain(cuda_device, graph, variant, k):
+    e = (_random_graph(5000, 2**30 - 1, 5) if graph == "random"
+         else social_like(12, seed=3))
+    g, planes, relay, frozen, front, wmax = _fused_inputs(e, cuda_device, 6)
+    delta = min(2 * wmax, BIG)
+    reached0 = int(((~frozen) & (planes[0] < delta)).sum())
+    params = mk.MegaParams(delta, reached0 + 40, 4 * e.n_nodes, 0,
+                           int(variant == "stop"))
+    before = kmod.megakernel_cuda.launches
+    out = mk.fused_grow_supersteps(planes, relay, frozen, front, g, params, k)
+    torch.cuda.synchronize()
+    assert kmod.megakernel_cuda.launches == before + 1
+    want = mk.fused_grow_supersteps_plain(planes, relay, frozen, front, g,
+                                          params, k)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert int(out[4][k, mk.COL_EXECUTED]) >= 1
+
+
+@pytest.mark.parametrize("mode", ["stages", "oneshot"])
+def test_fused_decomposition_equals_unfused_on_card(cuda_device, mode):
+    e = road_like(65_536, seed=0)
+    res = {}
+    for fuse in (0, 8):
+        cfg = GraphEngineConfig(mode=mode, deterministic=True,
+                                fuse_supersteps=fuse)
+        kmod.megakernel_cuda.launches = 0
+        res[fuse] = ClusterQuotientEstimator().estimate(
+            open_session(e, cfg, device=cuda_device))
+        assert kmod.megakernel_cuda.launches == (
+            res[fuse].pipeline.kernel_launches if fuse else 0)
+    assert res[8].pipeline.kernel_launches > 0
+    assert res[8].pipeline.kernel_supersteps == res[8].growing_steps
+    for f in ("final_c", "final_pathw"):
+        np.testing.assert_array_equal(getattr(res[0].decomposition, f),
+                                      getattr(res[8].decomposition, f))
+    assert res[0].phi_approx == res[8].phi_approx
