@@ -30,6 +30,22 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
+  4. flash attention vs plain: ``flash_attention_cuda`` against
+     ``attention_ref`` in bf16 on the card, over GQA groups 1 and 2, causal
+     on and off, window 0 and 16, softcap 0 and 50, ``kv_len < Skv``
+     (scalar and per row), ``q_offset > 0``, ragged lengths, fully masked
+     rows, D = 16, 64, 128 and 256 and B > 1; timed at gemma2-9b's
+     full-width prefill shapes (global and local layers), beside the plain
+     version and, as the yardstick, ``scaled_dot_product_attention`` on its
+     flash backend at the causal variant without softcap or window.
+  5. LM prefill at full width: gemma2-9b (9,241,404,928 parameters, random
+     weights from seed 0), B = 1, S = 8192, through ``prefill_step``:
+     exactly 42 flash attention launches (one per layer), finite logits,
+     and their relative L2 error against the same prefill with the plain
+     attention on the card.
+  6. LM serving at full width: the port's serve launcher
+     (``repro_torch.launch.serve``), gemma2-9b, batch 4, prompt 32, 16
+     generated tokens.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -38,6 +54,7 @@ the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -47,6 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (same)
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 
@@ -169,11 +187,13 @@ def mega_launch_bytes(torch, mk, g, planes, relay, frozen, front, params,
     return total
 
 
-def profile_decompositions() -> int:
+def profile_paths() -> int:
     """``--profile``: the decompositions of the main paths (stages fused;
-    one-shot fused and unfused) under ``torch.profiler``, each after a
-    warm-up run, printing the device-busy share of the host-clock time and
-    the kernels that take the device time. Not part of the default run."""
+    one-shot fused and unfused), then gemma2-9b's full-width prefill
+    (B = 1, S = 8192) and 8 decode steps (batch 4), under
+    ``torch.profiler``, each after a warm-up run, printing the device-busy
+    share of the host-clock time, the device ops launched and the kernels
+    that take the device time. Not part of the default run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,35 +201,27 @@ def profile_decompositions() -> int:
         return _fail("torch.cuda.is_available() is False", 2)
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.common import Timer
+    from repro_torch.config import get_arch
     from repro_torch.core import cluster, make_backend, tau_for
     from repro_torch.graph import road_like
+    from repro_torch.models import transformer as tf
 
     dev = torch.device("cuda:0")
-    edges = road_like(CAL_NODES, seed=0)
-    for name, mode, tau, fuse in (
-            ("stages_fused", "stages", 16, 8),
-            ("oneshot_fused", "oneshot", tau_for(CAL_NODES), 8),
-            ("oneshot_unfused", "oneshot", tau_for(CAL_NODES), 0)):
-        backend = make_backend(edges, "kernel", device=dev, fuse=fuse)
 
-        def run():
-            dec = cluster(edges, tau, backend=backend, mode=mode,
-                          deterministic=True)
-            torch.cuda.synchronize()
-            return dec
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
 
+    def profiled(run) -> tuple:
         run()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with Timer() as t:
-                dec = run()
+                out = run()
+                torch.cuda.synchronize()
         with Timer() as t_plain:
             run()
-
-        def dev_us(e):
-            return (getattr(e, "self_device_time_total", 0)
-                    or getattr(e, "self_cuda_time_total", 0))
-
+            torch.cuda.synchronize()
         # device-side events only (kernels, copies, fills): an operator's
         # row repeats the device time of the kernels it launched
         events = [e for e in prof.key_averages()
@@ -217,13 +229,298 @@ def profile_decompositions() -> int:
                   and dev_us(e) > 0]
         busy = sum(dev_us(e) for e in events) / 1e6
         top = sorted(events, key=dev_us, reverse=True)[:8]
-        emit({"phase": "profile", "path": name, "supersteps":
-              dec.growing_steps, "seconds_profiled": t.seconds,
-              "seconds_unprofiled": t_plain.seconds,
-              "device_busy_seconds": busy,
-              "idle_share": 1.0 - busy / t.seconds,
-              "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]})
+        return out, {"seconds_profiled": t.seconds,
+                     "seconds_unprofiled": t_plain.seconds,
+                     "device_busy_seconds": busy,
+                     "idle_share": 1.0 - busy / t.seconds,
+                     "device_ops": sum(e.count for e in events),
+                     "top": [[e.key[:80], dev_us(e) / 1e3, e.count]
+                             for e in top]}
+
+    edges = road_like(CAL_NODES, seed=0)
+    for name, mode, tau, fuse in (
+            ("stages_fused", "stages", 16, 8),
+            ("oneshot_fused", "oneshot", tau_for(CAL_NODES), 8),
+            ("oneshot_unfused", "oneshot", tau_for(CAL_NODES), 0)):
+        backend = make_backend(edges, "kernel", device=dev, fuse=fuse)
+        dec, stats = profiled(lambda: cluster(
+            edges, tau, backend=backend, mode=mode, deterministic=True))
+        emit({"phase": "profile", "path": name,
+              "supersteps": dec.growing_steps, **stats})
+    del edges, backend, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("gemma2-9b")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen,
+                           device=dev)
+    _, stats = profiled(lambda: tf.prefill_step(params, tokens, cfg))
+    emit({"phase": "profile", "path": "lm_prefill", "seq": SEQ, **stats})
+    steps = 8
+    cache = tf.init_cache(cfg, 4, steps, device=dev)
+    tok = tokens[0, :4, None]
+
+    def decode():
+        c = {**cache, "len": 0}
+        for _ in range(steps):
+            _, c = tf.decode_step(params, c, tok, cfg)
+
+    _, stats = profiled(decode)
+    emit({"phase": "profile", "path": "lm_decode", "batch": 4,
+          "steps": steps, **stats})
     return 0
+
+
+# flash attention cases held against the plain version on the card:
+# name -> (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len,
+#          q_offset, q_scale); kv_len may be a per-row list
+FLASH_CASES = {
+    "gqa1 causal": (2, 4, 4, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
+    "gqa2 causal": (2, 4, 2, 100, 100, 64, True, 0, 0.0, None, None, 1.0),
+    "bidirectional": (1, 4, 2, 33, 50, 128, False, 0, 0.0, None, None, 1.0),
+    "window16": (1, 4, 2, 130, 130, 256, True, 16, 0.0, None, None, 1.0),
+    "softcap50": (1, 2, 1, 48, 48, 64, True, 0, 50.0, None, None, 30.0),
+    "window16 softcap50": (2, 4, 2, 145, 145, 256, True, 16, 50.0, None,
+                           None, 30.0),
+    "kv_len chunk": (2, 4, 2, 24, 64, 128, True, 0, 0.0, 40, 16, 1.0),
+    "kv_len per row": (3, 4, 2, 12, 48, 64, True, 8, 50.0, [42, 31, 0], 30,
+                       30.0),
+    "q_offset window softcap": (1, 4, 2, 8, 64, 256, True, 16, 50.0, 48, 40,
+                                30.0),
+    "ragged": (1, 4, 2, 37, 53, 16, True, 16, 0.0, None, None, 1.0),
+    "decode row": (4, 16, 8, 1, 700, 256, True, 512, 50.0, 700, 699, 30.0),
+    "fully masked rows": (1, 4, 2, 8, 64, 64, True, 4, 0.0, 40, 60, 1.0),
+    "no valid key": (2, 2, 1, 16, 32, 128, False, 0, 0.0, 0, None, 1.0),
+    "gemma2 global S=1000": (2, 16, 8, 1000, 1000, 256, True, 0, 50.0, None,
+                             None, 1.0),
+    "gemma2 local S=1000 w=300": (2, 16, 8, 1000, 1000, 256, True, 300, 50.0,
+                                  None, None, 1.0),
+}
+SEQ = 8192                      # the full-width prefill's length
+GEMMA2_PARAMS = 9_241_404_928   # TransformerConfig.param_count() at full width
+
+
+def unmasked_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask leaves, per (batch row, query head), with the
+    queries at positions 0 .. sq-1 and every key valid."""
+    total = 0
+    for qpos in range(sq):
+        hi = min(skv, qpos + 1) if causal else skv
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def attention_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window) -> tuple:
+    """Least time for one attention forward on these shapes: 4 D flops per
+    unmasked pair and query head over the bf16 tensor-core peak, or the
+    bytes of q, k, v read once and o written once over HBM; the larger,
+    and which of the two bounds it."""
+    flops = 4 * D * Hq * B * unmasked_pairs(Sq, Skv, causal, window)
+    nbytes = 2 * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def rel_l2(torch, a, b, chunk: int = 512) -> float:
+    """||a - b|| / ||b|| over the last-but-one axis in chunks (no full-size
+    difference tensor), in float64."""
+    num = den = 0.0
+    for i in range(0, a.shape[-2], chunk):
+        x = a[..., i:i + chunk, :].double()
+        y = b[..., i:i + chunk, :].double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def lm_phases(torch, dev) -> dict:
+    """Phases 4-6; returns the flash attention row of the kernel table."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.common import Timer
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    # -- phase 4: flash attention vs plain, bf16 ------------------------------
+    # tolerance: two bf16 ulps at the output's largest magnitude. Each side
+    # rounds its float32 result to bf16 (one ulp apart at most), and the
+    # kernel also rounds P to bf16 before the P V product.
+    flash_err = 0.0
+    for name, case in FLASH_CASES.items():
+        B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_off, qs = \
+            case
+        q, k, v = (randn(B, Hq, Sq, D, scale=qs), randn(B, Hkv, Skv, D),
+                   randn(B, Hkv, Skv, D))
+        if isinstance(kv_len, list):
+            kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  kv_len=kv_len, q_offset=q_off)
+        out = fmod.flash_attention_cuda(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        amax = float(ref.float().abs().max())
+        tol = 2.0 ** -6 * max(1.0, amax)
+        flash_err = max(flash_err, err)
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"flash attention {name}: kernel vs plain "
+                                 f"max abs err {err} > {tol}")
+        emit({"phase": "flash_vs_plain", "case": name,
+              "shape": [B, Hq, Hkv, Sq, Skv, D], "causal": causal,
+              "window": window, "softcap": softcap,
+              "max_abs_err": err, "tolerance": tol, "equal_within": True})
+
+    # timed at the full-width prefill's shapes: gemma2-9b, B = 1, S = 8192
+    cfg = get_arch("gemma2-9b")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = D ** -0.5
+    q, k, v = randn(1, Hq, SEQ, D), randn(1, Hkv, SEQ, D), randn(1, Hkv,
+                                                                 SEQ, D)
+    timed = {}
+    for layer, window in (("global", 0), ("local", cfg.sliding_window)):
+        kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
+                  scale=scale)
+        out = fmod.flash_attention_cuda(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = 2.0 ** -6 * max(1.0, float(ref.float().abs().max()))
+        if err > tol:
+            raise AssertionError(f"flash attention full width {layer}: "
+                                 f"max abs err {err} > {tol}")
+        flash_err = max(flash_err, err)
+        del out, ref
+        bound, by, flops = attention_bound_ms(1, Hq, Hkv, SEQ, SEQ, D, True,
+                                              window)
+        row = {"phase": "flash_timed", "layer": layer,
+               "shape": [1, Hq, Hkv, SEQ, SEQ, D], "window": window,
+               "softcap": cfg.attn_logit_softcap, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: fmod.flash_attention_cuda(
+                   q, k, v, **kw), 20),
+               "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v,
+                                                                **kw), 3),
+               "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9}
+        row["tflop_s"] = flops / row["ms"] / 1e9
+        row["bound_share"] = bound / row["ms"]
+        timed[layer] = row
+        emit(row)
+    # the yardstick: SDPA's flash backend computes causal attention without
+    # softcap or window; k and v are expanded to 16 heads outside the timing
+    kk, vv = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        sdpa_ms = time_ms(torch, lambda: torch.nn.functional.
+                          scaled_dot_product_attention(q, kk, vv,
+                                                       is_causal=True,
+                                                       scale=scale), 20)
+    same_variant_ms = time_ms(torch, lambda: fmod.flash_attention_cuda(
+        q, k, v, causal=True, scale=scale), 20)
+    emit({"phase": "flash_yardstick", "variant": "causal, no softcap, "
+          "no window", "library": "scaled_dot_product_attention",
+          "backend": "SDPBackend.FLASH_ATTENTION (forced)",
+          "library_ms": sdpa_ms, "kernel_ms": same_variant_ms,
+          "bound_ms": timed["global"]["bound_ms"]})
+    del q, k, v, kk, vv
+
+    # -- phase 5: LM prefill at full width ------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timer() as t_init:
+        params = tf.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in params["layers"].values()) \
+        + params["embed"].numel() + params["final_norm"].numel()
+    if n_params != cfg.param_count() or n_params != GEMMA2_PARAMS:
+        raise AssertionError(f"gemma2-9b has {n_params} parameters")
+    weight_bytes = torch.cuda.memory_allocated(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen,
+                           device=dev)
+    tf.prefill_step(params, tokens[:, :256], cfg)        # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fmod.flash_attention_cuda.launches = 0
+    with Timer() as t_pre:
+        logits = tf.prefill_step(params, tokens, cfg)
+        torch.cuda.synchronize()
+    prefill_launches = fmod.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if prefill_launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash attention "
+                             f"{prefill_launches} times, not {cfg.n_layers}")
+    if tuple(logits.shape) != (1, SEQ, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are malformed or not finite")
+    with Timer() as t_plain:
+        logits_plain = tf.prefill_step(params, tokens, cfg, attn_impl="ref")
+        torch.cuda.synchronize()
+    if fmod.flash_attention_cuda.launches != prefill_launches:
+        raise AssertionError("the plain prefill launched the kernel")
+    # bound: the kernel path and the plain attention differ only in the
+    # attention outputs' bf16 rounding (one ulp), carried through 42 layers
+    err = rel_l2(torch, logits, logits_plain)
+    if not err < 5e-2:
+        raise AssertionError(f"prefill logits: relative L2 error {err} "
+                             f"against the plain attention")
+    emit({"phase": "lm_prefill", "arch": cfg.name, "params": n_params,
+          "batch": 1, "seq": SEQ, "layers": cfg.n_layers,
+          "flash_launches": prefill_launches, "init_seconds": t_init.seconds,
+          "weight_bytes": weight_bytes, "seconds": t_pre.seconds,
+          "tok_s": SEQ / t_pre.seconds, "peak_bytes": peak,
+          "logits_finite": True, "plain_attention_seconds": t_plain.seconds,
+          "rel_l2_vs_plain_attention": err, "rel_l2_bound": 5e-2,
+          "attention_ms_in_prefill": 21 * (timed["global"]["ms"]
+                                           + timed["local"]["ms"])})
+    del params, logits, logits_plain, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 6: LM serving at full width through the launcher --------------
+    fmod.flash_attention_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.parse_args(["--arch", "gemma2-9b", "--batch", "4",
+                             "--prompt-len", "32", "--gen", "16",
+                             "--device", str(dev)])
+    res = serve.serve_lm(args)
+    serve_launches = fmod.flash_attention_cuda.launches
+    ids = res.pop("ids")
+    if tuple(ids.shape) != (4, 16) or not res["logits_finite"] \
+            or not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError("serve: malformed ids or non-finite logits")
+    step_bound_ms = 1e3 * 2 * cfg.param_count() / HBM_BYTES_PER_S
+    emit({"phase": "lm_serve", **res, "ids0": ids[0, :8].tolist(),
+          "flash_launches": serve_launches,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev),
+          "decode_step_bound_ms": step_bound_ms})
+
+    g, loc = timed["global"], timed["local"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:36",
+            "launches": prefill_launches, "max_abs_err": flash_err,
+            "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": sdpa_ms,
+            "library_variant": "scaled_dot_product_attention (flash "
+                               "backend), causal, no softcap, no window",
+            "ms_at_library_variant": same_variant_ms,
+            "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
+            "local_bound_ms": loc["bound_ms"],
+            "launches_by_path": {"lm_prefill": prefill_launches,
+                                 "lm_serve": serve_launches}}
 
 
 def main() -> int:
@@ -253,6 +550,7 @@ def main() -> int:
     from repro_torch.kernels.edge_relax.ops import (build_relax_graph,
                                                     edge_relax,
                                                     edge_relax_plain)
+    from repro_torch.kernels.flash_attention import kernel as fmod
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -263,7 +561,8 @@ def main() -> int:
 
     # -- build: one nvcc per kernel, all started together ---------------------
     builds = ((kmod.NAME, kmod.SOURCES, kmod.load_library),
-              (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library))
+              (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library),
+              (fmod.NAME, fmod.SOURCES, fmod.load_library))
 
     def timed_load(load):
         with Timer() as tb:
@@ -599,6 +898,12 @@ def main() -> int:
                                      f"[{iv.lower}, {iv.upper}]")
         emit(row)
 
+    # -- phases 4-6: flash attention and the LM at full width -----------------
+    del res_k, res_s, res_f, oneshot, dk, ds, fc, mask, start, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_row = lm_phases(torch, dev)
+
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -623,7 +928,7 @@ def main() -> int:
         "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
         "launches_by_path": {"stages_fused": launches_stages_fused,
                              "oneshot_fused": launches_oneshot_fused},
-    }]})
+    }, flash_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -632,5 +937,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_decompositions() if sys.argv[1:] == ["--profile"]
-             else main())
+    sys.exit(profile_paths() if sys.argv[1:] == ["--profile"] else main())

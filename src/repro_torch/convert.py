@@ -1,15 +1,16 @@
-"""Carry graph and engine state over from the JAX package.
+"""Carry state over from the JAX package.
 
-This system has no model weights: its carried state is the graph and the
-engine planes. ``from_reference`` turns the JAX package's ``EdgeList``
-arrays and ``EngineState`` planes, given as numpy, into the port's
-``EdgeList`` and ``EngineState`` on a device, so both packages can start
-from the same mid-decomposition state.
+``from_reference`` turns the JAX package's ``EdgeList`` arrays and
+``EngineState`` planes, given as numpy, into the port's ``EdgeList`` and
+``EngineState`` on a device, so both packages can start from the same
+mid-decomposition state. ``transformer_params_from_reference`` turns the
+reference's transformer parameter tree, given as numpy, into the port's
+parameter dict, so both packages can run the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,3 +43,35 @@ def from_reference(edges_np: Any, planes_np: Any = None,
         tensors[name] = torch.tensor(np.asarray(planes_np[name]), dtype=dtype,
                                      device=dev)
     return edges, EngineState(**tensors)
+
+
+def _tensor_from_numpy(a: Any, dev: torch.device) -> torch.Tensor:
+    """One array as a tensor on ``dev``, bit for bit. ``torch.from_numpy``
+    rejects ``ml_dtypes.bfloat16``, so bf16 moves as its raw 16-bit words
+    (viewed as int16, then as ``torch.bfloat16``)."""
+    a = np.array(a)   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def transformer_params_from_reference(params_np: Dict[str, Any], cfg,
+                                      device="cuda") -> Dict[str, Any]:
+    """The reference's stacked transformer parameter tree (``embed``,
+    ``final_norm``, optional ``unembed``, and ``layers`` of ``[L, ...]``
+    arrays), as numpy, turned into the port's dict on ``device`` with the
+    same names, shapes and values. ``cfg`` is the port's
+    ``TransformerConfig``; each array must already be in its dtype."""
+    dev = resolve_device(device)
+    want = getattr(torch, cfg.dtype)
+
+    def conv(a):
+        t = _tensor_from_numpy(a, dev)
+        if t.dtype != want:
+            raise ValueError(f"transformer_params_from_reference: a "
+                             f"{t.dtype} array in a {cfg.dtype} model")
+        return t
+
+    return {k: ({kk: conv(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else conv(v))
+            for k, v in params_np.items()}

@@ -13,6 +13,7 @@ from repro_torch.core.engine import (
     DecompositionMode,
     EngineMetrics,
     check_engine_mode,
+    default_oneshot_uniform_fn,
     default_uniform_fn,
     resolve_engine_mode,
     run_cluster,
@@ -40,7 +41,7 @@ __all__ = [
     "ENGINE_MODES", "EngineMetrics", "GraphSession", "IntervalEstimator",
     "KernelBackend", "LowerBoundEstimator", "PipelineMetrics", "RelaxBackend",
     "SessionMetrics", "SingleDeviceBackend", "check_engine_mode", "cluster",
-    "default_uniform_fn", "farthest_point_lower_bound", "make_backend",
+    "default_oneshot_uniform_fn", "default_uniform_fn", "farthest_point_lower_bound", "make_backend",
     "open_session", "resolve_engine_mode", "run_cluster", "run_oneshot",
     "tau_for",
 ]

@@ -23,10 +23,10 @@ Eager PyTorch cannot loop on a device value without reading it, so here:
     draw is γ·τ·log n centers).
 
 The center draw is pluggable: ``uniform_fn(stage, t, n)`` returns the
-float32 uniforms of redraw ``t`` of ``stage``. The default seeds a
-``torch.Generator`` on the device from ``(seed, stage, t)``; tests inject
-the reference's ``jax.random`` uniforms, which makes the decomposition
-byte-identical to the reference's.
+float32 uniforms of redraw ``t`` of ``stage``. The default reproduces the
+reference's ``jax.random`` draws bit for bit (``core/prng.py``), so with
+the same seed the decomposition is byte-identical to the reference's;
+tests may still inject draws of their own.
 
 One-shot mode (MPVX exponential start times): the full center budget
 ``k ~ gamma * tau * log n`` is drawn at once, each center enters the wave at
@@ -45,6 +45,7 @@ import torch
 
 from repro_torch import guard
 from repro_torch.common import get_logger
+from repro_torch.core import prng
 from repro_torch.core.backend import RelaxBackend
 from repro_torch.core.state import (
     INF,
@@ -127,16 +128,26 @@ def _empty_decomposition(n: int, metrics: EngineMetrics) -> Decomposition:
 
 
 def default_uniform_fn(seed: int, device) -> UniformFn:
-    """Center draws from a ``torch.Generator`` on ``device`` seeded from
-    ``(seed, stage, t)`` — deterministic, but not the reference's
-    ``jax.random`` stream."""
-    dev = torch.device(device)
+    """The reference's stage center draw, bit for bit: redraw ``t`` of
+    ``stage`` is ``uniform(fold_in(fold_in(PRNGKey(seed), stage), t), n)``
+    (``jax.random``, reproduced on ``device`` by ``core/prng.py``)."""
+    root = prng.prng_key(seed)
 
     def draw(stage: int, t: int, n: int) -> torch.Tensor:
-        words = np.random.SeedSequence([seed, stage, t]).generate_state(2)
-        g = torch.Generator(device=dev)
-        g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
-        return torch.rand(n, generator=g, dtype=torch.float32, device=dev)
+        return prng.uniform(prng.fold_in(prng.fold_in(root, stage), t), n,
+                            device)
+
+    return draw
+
+
+def default_oneshot_uniform_fn(seed: int, device) -> UniformFn:
+    """The reference's random one-shot draw, bit for bit: ``u1`` (``t = 0``)
+    and ``u2`` (``t = 1``) are uniforms of the two halves of
+    ``split(PRNGKey(seed))``."""
+    keys = prng.split(prng.prng_key(seed))
+
+    def draw(stage: int, t: int, n: int) -> torch.Tensor:
+        return prng.uniform(keys[t], n, device)
 
     return draw
 
@@ -384,8 +395,8 @@ def run_oneshot(
     graph).
 
     The random draw takes ``u1 = uniform_fn(0, 0, n)`` and ``u2 =
-    uniform_fn(0, 1, n)`` (default: ``default_uniform_fn(seed)``); tests
-    inject the reference's ``jax.random.split`` uniforms there. ``start_d``
+    uniform_fn(0, 1, n)`` (default: ``default_oneshot_uniform_fn(seed)``,
+    the reference's ``jax.random.split`` uniforms bit for bit). ``start_d``
     replaces the computed start planes (tests pass the reference's, which
     takes the float32 ``log`` out of the comparison).
 
@@ -406,7 +417,7 @@ def run_oneshot(
     if deterministic:
         u1, u2 = hashed_uniforms(n, dev)
     else:
-        draw = uniform_fn or default_uniform_fn(seed, dev)
+        draw = uniform_fn or default_oneshot_uniform_fn(seed, dev)
         u1 = draw(0, 0, n).to(device=dev, dtype=torch.float32)
         u2 = torch.clamp_min(draw(0, 1, n).to(device=dev, dtype=torch.float32),
                              2.0 ** -32)

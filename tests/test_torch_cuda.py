@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the hand-written CUDA edge-relax
 kernel and megakernel against their plain PyTorch versions, the pipeline
-on the kernel backend against the plain backend, and the fused grow path
-against the unfused one in both decomposition modes. This file imports no JAX, so it runs
+on the kernel backend against the plain backend, the fused grow path
+against the unfused one in both decomposition modes, and the flash
+attention kernel against its plain version, alone and inside the
+transformer's prefill and decode. This file imports no JAX, so it runs
 where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -11,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.common import GraphEngineConfig
+from repro_torch.config import get_arch
 from repro_torch.core import ClusterQuotientEstimator, open_session
 from repro_torch.graph import road_like, social_like
 from repro_torch.graph.structures import EdgeList
@@ -19,6 +24,10 @@ from repro_torch.kernels.edge_relax import kernel as kmod
 from repro_torch.kernels.edge_relax import megakernel as mk
 from repro_torch.kernels.edge_relax.ops import (build_relax_graph, edge_relax,
                                                 edge_relax_plain)
+from repro_torch.kernels.flash_attention import kernel as fmod
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
 
@@ -168,3 +177,103 @@ def test_fused_decomposition_equals_unfused_on_card(cuda_device, mode):
         np.testing.assert_array_equal(getattr(res[0].decomposition, f),
                                       getattr(res[8].decomposition, f))
     assert res[0].phi_approx == res[8].phi_approx
+
+
+# B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset, q_scale
+FLASH_CASES = [
+    (2, 4, 4, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
+    (2, 4, 2, 100, 100, 64, True, 0, 0.0, None, None, 1.0),
+    (1, 4, 2, 33, 50, 128, False, 0, 0.0, None, None, 1.0),
+    (1, 4, 2, 130, 130, 256, True, 16, 50.0, None, None, 30.0),
+    (2, 4, 2, 24, 64, 128, True, 0, 0.0, 40, 16, 1.0),
+    (3, 4, 2, 12, 48, 64, True, 8, 50.0, [42, 31, 0], 30, 30.0),
+    (1, 4, 2, 8, 64, 256, True, 4, 0.0, 40, 60, 1.0),
+    (2, 2, 1, 16, 32, 128, False, 0, 0.0, 0, None, 1.0),
+    (1, 4, 2, 50, 50, 48, True, 0, 0.0, None, None, 1.0),   # the row kernel
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(
+    str(x) for x in c[:6]) + f"-w{c[7]}-cap{int(c[8])}")
+def test_flash_attention_matches_plain(cuda_device, case, dtype):
+    """float32 (the row kernel, with tanhf and expf): 2e-5 absolute and
+    relative, from the summation order. bf16: two bf16 ulps at the output's
+    largest magnitude (each side rounds its result to bf16; the tensor-core
+    kernel also rounds P)."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_off, qs = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(Sq * 1000 + Skv)
+    q = (torch.randn(B, Hq, Sq, D, generator=g, device=cuda_device)
+         * qs).to(dt)
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=g,
+                        device=cuda_device).to(dt) for _ in range(2))
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
+              q_offset=q_off)
+    before = fmod.flash_attention_cuda.launches
+    out = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_cuda.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert out.dtype == dt and out.shape == want.shape
+    if dtype == "float32":
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    else:
+        amax = float(want.float().abs().max())
+        err = float((out.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * max(1.0, amax)
+
+
+def test_flash_attention_strided_views_and_bad_inputs(cuda_device):
+    """[B, S, H, D] projections seen as [B, H, S, D] views (the model's
+    layout) need no copy; what the kernel does not take raises."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    x = torch.randn(2, 70, 4, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    kv = torch.randn(2, 70, 2, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    out = fmod.flash_attention_cuda(q, k, k, window=16, softcap=50.0)
+    want = attention_ref(q.contiguous(), k.contiguous(), k.contiguous(),
+                         window=16, softcap=50.0)
+    assert float((out.float() - want.float()).abs().max()) <= 2.0 ** -6 * \
+        max(1.0, float(want.float().abs().max()))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fmod.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head dim"):
+        fmod.flash_attention_cuda(q[..., :60], k[..., :60], k[..., :60])
+    with pytest.raises(ValueError, match="multiple"):
+        fmod.flash_attention_cuda(q[:, :3], k, k)
+    with pytest.raises(ValueError, match="kv_len"):
+        fmod.flash_attention_cuda(q, k, k, kv_len=[3, 4, 5])
+
+
+def test_prefill_and_decode_through_the_kernel_on_card(cuda_device):
+    """The gemma2 smoke model in bf16 at head dim 64: prefill with the
+    kernel equals prefill with the plain attention within bf16 noise (2e-2
+    relative L2: the attention outputs differ by bf16 ulps, carried through
+    four layers), one launch per layer; decode steps launch nothing."""
+    cfg = dataclasses.replace(get_arch("gemma2-9b", smoke=True),
+                              dtype="bfloat16", d_head=64)
+    params = tf.init_params(cfg, seed=3, device=cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                         device=cuda_device)
+    fmod.flash_attention_cuda.launches = 0
+    got = tf.prefill_step(params, toks, cfg)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_cuda.launches == cfg.n_layers
+    want = tf.prefill_step(params, toks, cfg, attn_impl="ref")
+    assert fmod.flash_attention_cuda.launches == cfg.n_layers
+    rel = float((got - want).norm() / want.norm())
+    assert torch.isfinite(got).all() and rel < 2e-2
+    cache = tf.init_cache(cfg, 2, 8, device=cuda_device)
+    for i in range(8):
+        logits, cache = tf.decode_step(params, cache, toks[:, i:i + 1], cfg)
+    assert cache["len"] == 8 and torch.isfinite(logits).all()
+    assert fmod.flash_attention_cuda.launches == cfg.n_layers
