@@ -24,6 +24,9 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
   2b. the same query fused, ``GraphEngineConfig(fuse_supersteps=8)``: every
      grow call is one megakernel launch per 8 supersteps; byte-identical to
      the unfused kernel run of phase 2, equal Phi.
+  2b'. draw spread: the stages decomposition alone for seeds 0-4, with k
+     split into the drawn centers and the nodes left at the stop rule, from
+     the reference's stream and from the port's pre-repair generator.
   2c. one-shot at full size: ``road_like(1_890_815)``, the session default
      tau (130), ``mode="oneshot"``, ``deterministic=True``, fused (8) and
      unfused; byte-identical planes and equal Phi.
@@ -31,13 +34,16 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
   4. flash attention vs plain: ``flash_attention_cuda`` against
-     ``attention_ref`` in bf16 on the card, over GQA groups 1 and 2, causal
-     on and off, window 0 and 16, softcap 0 and 50, ``kv_len < Skv``
-     (scalar and per row), ``q_offset > 0``, ragged lengths, fully masked
-     rows, D = 16, 64, 128 and 256 and B > 1; timed at gemma2-9b's
-     full-width prefill shapes (global and local layers), beside the plain
-     version and, as the yardstick, ``scaled_dot_product_attention`` on its
-     flash backend at the causal variant without softcap or window.
+     ``attention_ref`` in bf16 on the card, over the cases of
+     ``kernels/flash_attention/cases.py`` (GQA groups 1 and 2, causal on
+     and off, window 0 and 16, softcap 0 and 50, ``kv_len < Skv`` scalar
+     and per row, ``q_offset > 0``, ragged lengths, fully masked rows,
+     D = 16, 64, 128 and 256, B > 1), each element within that module's
+     bf16 rule; at gemma2-9b's full-width prefill shapes (global and local
+     layers) the same rule, which must also reject a planted fault there
+     (a kv tile dropped); timed there beside the plain version and, as the
+     yardstick, ``scaled_dot_product_attention`` on its flash backend at
+     the causal variant without softcap or window.
   5. LM prefill at full width: gemma2-9b (9,241,404,928 parameters, random
      weights from seed 0), B = 1, S = 8192, through ``prefill_step``:
      exactly 42 flash attention launches (one per layer), finite logits,
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -274,31 +281,6 @@ def profile_paths() -> int:
     return 0
 
 
-# flash attention cases held against the plain version on the card:
-# name -> (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len,
-#          q_offset, q_scale); kv_len may be a per-row list
-FLASH_CASES = {
-    "gqa1 causal": (2, 4, 4, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
-    "gqa2 causal": (2, 4, 2, 100, 100, 64, True, 0, 0.0, None, None, 1.0),
-    "bidirectional": (1, 4, 2, 33, 50, 128, False, 0, 0.0, None, None, 1.0),
-    "window16": (1, 4, 2, 130, 130, 256, True, 16, 0.0, None, None, 1.0),
-    "softcap50": (1, 2, 1, 48, 48, 64, True, 0, 50.0, None, None, 30.0),
-    "window16 softcap50": (2, 4, 2, 145, 145, 256, True, 16, 50.0, None,
-                           None, 30.0),
-    "kv_len chunk": (2, 4, 2, 24, 64, 128, True, 0, 0.0, 40, 16, 1.0),
-    "kv_len per row": (3, 4, 2, 12, 48, 64, True, 8, 50.0, [42, 31, 0], 30,
-                       30.0),
-    "q_offset window softcap": (1, 4, 2, 8, 64, 256, True, 16, 50.0, 48, 40,
-                                30.0),
-    "ragged": (1, 4, 2, 37, 53, 16, True, 16, 0.0, None, None, 1.0),
-    "decode row": (4, 16, 8, 1, 700, 256, True, 512, 50.0, 700, 699, 30.0),
-    "fully masked rows": (1, 4, 2, 8, 64, 64, True, 4, 0.0, 40, 60, 1.0),
-    "no valid key": (2, 2, 1, 16, 32, 128, False, 0, 0.0, 0, None, 1.0),
-    "gemma2 global S=1000": (2, 16, 8, 1000, 1000, 256, True, 0, 50.0, None,
-                             None, 1.0),
-    "gemma2 local S=1000 w=300": (2, 16, 8, 1000, 1000, 256, True, 300, 50.0,
-                                  None, None, 1.0),
-}
 SEQ = 8192                      # the full-width prefill's length
 GEMMA2_PARAMS = 9_241_404_928   # TransformerConfig.param_count() at full width
 
@@ -335,6 +317,8 @@ def rel_l2(torch, a, b, chunk: int = 512) -> float:
         y = b[..., i:i + chunk, :].double()
         num += float(((x - y) ** 2).sum())
         den += float((y ** 2).sum())
+    if den == 0:       # b is all zero (rows with no valid key)
+        return 0.0 if num == 0 else float("inf")
     return (num / den) ** 0.5
 
 
@@ -345,7 +329,10 @@ def lm_phases(torch, dev) -> dict:
     from repro_torch.common import Timer
     from repro_torch.config import get_arch
     from repro_torch.kernels.flash_attention import kernel as fmod
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.cases import (CASES,
+                                                           bf16_excess,
+                                                           case_kwargs,
+                                                           planted_fault)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
@@ -358,35 +345,35 @@ def lm_phases(torch, dev) -> dict:
             torch.bfloat16)
 
     # -- phase 4: flash attention vs plain, bf16 ------------------------------
-    # tolerance: two bf16 ulps at the output's largest magnitude. Each side
-    # rounds its float32 result to bf16 (one ulp apart at most), and the
-    # kernel also rounds P to bf16 before the P V product.
-    flash_err = 0.0
-    for name, case in FLASH_CASES.items():
-        B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_off, qs = \
-            case
+    # the rule (cases.py): |o - r| <= 2^-7 |r| + 2^-8 max|r| of r's row, read
+    # as "excess", the largest error over its allowance (pass at <= 1)
+    flash_err = flash_excess = 0.0
+    for name, case in CASES.items():
+        B, Hq, Hkv, Sq, Skv, D, *_, qs = case
         q, k, v = (randn(B, Hq, Sq, D, scale=qs), randn(B, Hkv, Skv, D),
                    randn(B, Hkv, Skv, D))
-        if isinstance(kv_len, list):
-            kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-        kw = dict(causal=causal, window=window, softcap=softcap,
-                  kv_len=kv_len, q_offset=q_off)
+        kw = case_kwargs(case, dev)
         out = fmod.flash_attention_cuda(q, k, v, **kw)
         ref = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        amax = float(ref.float().abs().max())
-        tol = 2.0 ** -6 * max(1.0, amax)
-        flash_err = max(flash_err, err)
-        if not (err <= tol and torch.isfinite(out).all()):
+        excess = bf16_excess(out, ref)
+        flash_err, flash_excess = max(flash_err, err), max(flash_excess,
+                                                           excess)
+        if not (excess <= 1.0 and torch.isfinite(out).all()):
             raise AssertionError(f"flash attention {name}: kernel vs plain "
-                                 f"max abs err {err} > {tol}")
+                                 f"error {excess} times the bf16 rule's")
         emit({"phase": "flash_vs_plain", "case": name,
-              "shape": [B, Hq, Hkv, Sq, Skv, D], "causal": causal,
-              "window": window, "softcap": softcap,
-              "max_abs_err": err, "tolerance": tol, "equal_within": True})
+              "shape": [B, Hq, Hkv, Sq, Skv, D], "causal": kw["causal"],
+              "window": kw["window"], "softcap": kw["softcap"],
+              "max_abs_err": err, "excess": excess,
+              "rel_l2": rel_l2(torch, out, ref), "equal_within": True})
 
-    # timed at the full-width prefill's shapes: gemma2-9b, B = 1, S = 8192
+    # timed at the full-width prefill's shapes: gemma2-9b, B = 1, S = 8192.
+    # The rule must also reject a planted fault there: query tiles from row
+    # 4,096 on skip the first kv tile they would visit (a global row loses
+    # keys 0-63 of its 4,097 to 8,192; a local row, up to 63 of its 4,096,
+    # in the tile the window's edge cuts)
     cfg = get_arch("gemma2-9b")
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = D ** -0.5
@@ -399,17 +386,34 @@ def lm_phases(torch, dev) -> dict:
         out = fmod.flash_attention_cuda(q, k, v, **kw)
         ref = attention_ref(q, k, v, **kw)
         err = float((out.float() - ref.float()).abs().max())
-        tol = 2.0 ** -6 * max(1.0, float(ref.float().abs().max()))
-        if err > tol:
+        excess = bf16_excess(out, ref)
+        bad = planted_fault(q, k, v, from_row=SEQ // 2, window=window,
+                            softcap=cfg.attn_logit_softcap, scale=scale)
+        fault_excess = bf16_excess(bad, ref)
+        fault_err = float((bad.float() - ref.float()).abs().max())
+        fault_rel_l2 = rel_l2(torch, bad, ref)
+        # the rule this one replaced: 2^-6 of the tensor's largest |r|
+        global_tol = 2.0 ** -6 * max(1.0, float(ref.float().abs().max()))
+        if excess > 1.0:
             raise AssertionError(f"flash attention full width {layer}: "
-                                 f"max abs err {err} > {tol}")
-        flash_err = max(flash_err, err)
-        del out, ref
+                                 f"error {excess} times the bf16 rule's")
+        if fault_excess <= 1.0:
+            raise AssertionError(f"flash attention full width {layer}: the "
+                                 f"bf16 rule passed a dropped kv tile")
+        flash_err, flash_excess = max(flash_err, err), max(flash_excess,
+                                                           excess)
+        sound_rel_l2 = rel_l2(torch, out, ref)
+        del out, ref, bad
         bound, by, flops = attention_bound_ms(1, Hq, Hkv, SEQ, SEQ, D, True,
                                               window)
         row = {"phase": "flash_timed", "layer": layer,
                "shape": [1, Hq, Hkv, SEQ, SEQ, D], "window": window,
                "softcap": cfg.attn_logit_softcap, "max_abs_err": err,
+               "excess": excess, "rel_l2": sound_rel_l2,
+               "planted_fault": {"excess": fault_excess,
+                                 "max_abs_err": fault_err,
+                                 "rel_l2": fault_rel_l2,
+                                 "global_rule_tolerance": global_tol},
                "ms": time_ms(torch, lambda: fmod.flash_attention_cuda(
                    q, k, v, **kw), 20),
                "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v,
@@ -511,6 +515,7 @@ def lm_phases(torch, dev) -> dict:
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:36",
             "launches": prefill_launches, "max_abs_err": flash_err,
+            "bf16_rule_excess": flash_excess,
             "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": sdpa_ms,
@@ -541,6 +546,7 @@ def main() -> int:
     from repro_torch.core import (ClusterQuotientEstimator, IntervalEstimator,
                                   open_session, tau_for)
     from repro_torch.core import state as st
+    from repro_torch.core.cluster import cluster
     from repro_torch.core.engine import (hashed_uniforms, oneshot_budget,
                                          oneshot_centers)
     from repro_torch.graph import road_like, social_like, to_scipy_csr
@@ -765,6 +771,12 @@ def main() -> int:
                "solve_seconds": pm.solve_seconds,
                "peak_bytes": torch.cuda.max_memory_allocated(dev),
                "connected": res.connected}
+        if session.cfg.mode == "stages":
+            # k = the stages' drawn centers + the nodes left uncovered when
+            # the stop rule fired (singletons)
+            m = res.decomposition.metrics
+            row["centers_drawn"] = m.centers_drawn
+            row["uncovered_at_stop"] = m.uncovered_at_stop
         emit(row)
         graph = session.backend.graph if backend == "kernel" else None
         session.close()
@@ -814,6 +826,48 @@ def main() -> int:
           "phi_approx": res_f.phi_approx,
           "launches_fused": launches_stages_fused,
           "launches_unfused": launches})
+
+    # -- phase 2b': how far k moves with the seed alone -----------------------
+    # the stages decomposition (kernel backend) for seeds 0-4: k is the drawn
+    # centers (about gamma tau ln n per stage) plus the stop rule's remainder
+    # (0 to 8 tau ln n), so another stream moves k by up to a stage's worth.
+    # Beside the reference's stream, the one the port drew from before it
+    # reproduced jax.random (a torch.Generator per (seed, stage, t)), kept
+    # here only as the comparison that accounts for k's move between them
+    def generator_draw(seed):
+        def draw(stage, t, n):
+            words = np.random.SeedSequence([seed, stage, t]).generate_state(2)
+            g = torch.Generator(device=dev)
+            g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+            return torch.rand(n, generator=g, dtype=torch.float32, device=dev)
+        return draw
+
+    spread = {"jax_random": [], "torch_generator": []}
+    for stream, rows in spread.items():
+        for seed in range(5):
+            with Timer() as tt:
+                dec = cluster(edges, 16, seed=seed, backend="kernel",
+                              device=dev,
+                              uniform_fn=(generator_draw(seed)
+                                          if stream == "torch_generator"
+                                          else None))
+            m = dec.metrics
+            rows.append({"seed": seed, "clusters": dec.n_clusters,
+                         "stages": dec.n_stages,
+                         "centers_drawn": m.centers_drawn,
+                         "uncovered_at_stop": m.uncovered_at_stop,
+                         "redraws": m.resamples,
+                         "supersteps": dec.growing_steps,
+                         "seconds": tt.seconds})
+            if m.centers_drawn + m.uncovered_at_stop != dec.n_clusters:
+                raise AssertionError(f"{stream} seed {seed}: k != drawn "
+                                     f"centers + uncovered at stop")
+    if spread["jax_random"][0]["clusters"] != res_k.n_clusters:
+        raise AssertionError("cluster(seed=0) differs from the main path")
+    emit({"phase": "draw_spread", "n": edges.n_nodes, "tau": 16,
+          "stop_threshold": int(8 * 16 * math.log(edges.n_nodes)),
+          **spread})
+    del dec
 
     # -- phase 2c: one-shot at full size, fused and unfused -------------------
     tau_oneshot = tau_for(edges.n_nodes)

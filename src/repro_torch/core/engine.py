@@ -92,6 +92,9 @@ class EngineMetrics:
     grow_calls: int = 0       # PartialGrowth invocations
     state_transfers: int = 0  # plane packs
     resamples: int = 0        # extra center draws taken inside stages
+    centers_drawn: int = 0    # centers of all stages' draws
+    uncovered_at_stop: int = 0  # nodes left when the stop rule fired; each
+                                # becomes a singleton cluster
     growing_steps: int = 0    # total supersteps (the MR-round proxy)
     finalize_syncs: int = 0   # reads of the final planes
     kernel_launches: int = 0  # hand-written kernel launches (backend's count)
@@ -272,6 +275,7 @@ def run_cluster(
             reason="stage open: packed (uncovered, centers drawn)"))
         metrics.host_syncs += 1
         if u_host < threshold:
+            metrics.uncovered_at_stop = u_host
             break
         resamples = 0
         while n_new == 0 and resamples < max_resamples:
@@ -280,6 +284,7 @@ def run_cluster(
             n_new = int(guard.fetch(mask.sum(), reason="stage redraw: centers"))
             metrics.host_syncs += 1
         steps = grows = 0
+        metrics.centers_drawn += n_new
         if n_new > 0:
             state, delta_host, steps, grows = _cluster_stage(
                 backend, state, mask, n_new, u_host, delta_host, max_delta,

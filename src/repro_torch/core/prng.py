@@ -72,7 +72,7 @@ def split(key: Key) -> Tuple[Key, Key]:
     return threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
 
 
-def uniform(key: Key, n: int, device="cpu") -> torch.Tensor:
+def uniform(key: Key, n: int, device) -> torch.Tensor:
     """``jax.random.uniform(key, (n,))``: float32 in ``[0, 1)`` on
     ``device``, from the 32 random bits of counters ``0 .. n-1``."""
     idx = torch.arange(int(n), dtype=torch.int64, device=device)

@@ -36,10 +36,10 @@
 //     use the fast exp and divide (__expf, __fdividef), whose errors are
 //     far below bf16's. The q tiles with the most keys under a causal mask
 //     (the last ones) are scheduled first, which shortens the grid's tail.
-//   * flash_fwd_rows<T> (float32, or bf16 at another D <= 256): one warp per
-//     query row, visiting exactly the row's unmasked keys, float32 math
-//     from the inputs as they are. It keeps the float32 path exact enough
-//     for the tests (no bf16 rounding of P).
+//   * flash_fwd_rows (float32, any D <= 256 that is a multiple of 8): one
+//     warp per query row, visiting exactly the row's unmasked keys, in
+//     float32 throughout. It keeps the float32 path exact enough for the
+//     tests (no bf16 rounding of P). bf16 at another D is refused.
 //
 // Bound (operations over the tensor cores' 989 TFLOP/s, chip_smoke.py
 // computes it from the run's shapes): 4 * D flops per unmasked (q, k) pair
@@ -362,17 +362,7 @@ flash_fwd_mma(const Params p) {
   }
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
 // One warp per query row; lane l holds dims l, l + 32, ... (D <= 256).
-template <typename T>
 __global__ void __launch_bounds__(kRowWarps * 32)
 flash_fwd_rows(const Params p) {
   constexpr int MAXC = 8;
@@ -381,10 +371,10 @@ flash_fwd_rows(const Params p) {
   const int h = blockIdx.y, b = blockIdx.z;
   if (row >= p.Sq) return;  // whole warps only; no block barrier follows
   const int hk = h / (p.Hq / p.Hkv);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + row * p.q_ss;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + row * p.q_ss;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
 
   const int qpos = *p.q_offset + row;
   int k_lo, k_hi;
@@ -393,7 +383,7 @@ flash_fwd_rows(const Params p) {
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
     const int d = lane + 32 * c;
-    qv[c] = d < p.D ? to_f32(qg[d]) : 0.f;
+    qv[c] = d < p.D ? qg[d] : 0.f;
     acc[c] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -402,7 +392,7 @@ flash_fwd_rows(const Params p) {
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const int d = lane + 32 * c;
-      if (d < p.D) part += qv[c] * to_f32(kg[kpos * p.k_ss + d]);
+      if (d < p.D) part += qv[c] * kg[kpos * p.k_ss + d];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -414,7 +404,7 @@ flash_fwd_rows(const Params p) {
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const int d = lane + 32 * c;
-      if (d < p.D) acc[c] = acc[c] * alpha + pe * to_f32(vg[kpos * p.v_ss + d]);
+      if (d < p.D) acc[c] = acc[c] * alpha + pe * vg[kpos * p.v_ss + d];
     }
     m = mn;
   }
@@ -422,7 +412,7 @@ flash_fwd_rows(const Params p) {
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
     const int d = lane + 32 * c;
-    if (d < p.D) from_f32(og + d, acc[c] * inv);
+    if (d < p.D) og[d] = acc[c] * inv;
   }
 }
 
@@ -437,10 +427,9 @@ cudaError_t launch_mma(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
   dim3 grid((p.Sq + kRowWarps - 1) / kRowWarps, p.Hq, B);
-  flash_fwd_rows<T><<<grid, kRowWarps * 32, 0, stream>>>(p);
+  flash_fwd_rows<<<grid, kRowWarps * 32, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -480,14 +469,14 @@ extern "C" int flash_attention_launch(
   p.inv_softcap = softcap > 0.f ? 1.f / softcap : 0.f;
   p.scale = scale;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (dtype == 1) return static_cast<int>(launch_rows<float>(p, B, stream));
+  if (dtype == 1) return static_cast<int>(launch_rows(p, B, stream));
   switch (D) {
     case 16: return static_cast<int>(launch_mma<16>(p, B, stream));
     case 32: return static_cast<int>(launch_mma<32>(p, B, stream));
     case 64: return static_cast<int>(launch_mma<64>(p, B, stream));
     case 128: return static_cast<int>(launch_mma<128>(p, B, stream));
     case 256: return static_cast<int>(launch_mma<256>(p, B, stream));
-    default: return static_cast<int>(launch_rows<__nv_bfloat16>(p, B, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -2,13 +2,14 @@
 
 ``flash_attention_cuda`` (``csrc/flash_attention.cu``) replaces the Pallas
 kernel ``repro/kernels/flash_attention/kernel.py`` (``_flash_kernel``):
-bf16 inputs at a head dim of 16, 32, 64, 128 or 256 take the tensor-core
-kernel, float32 inputs (and bf16 at another head dim up to 256) the
-warp-per-row kernel. The library is built with ``nvcc`` for ``sm_90a`` at
-first use (``kernels/_build.py``). The wrapper checks device, dtype, shapes,
-strides and alignment, allocates the output, launches on PyTorch's current
-stream without synchronising, raises when the launch is refused (the C
-entry returns the CUDA error), and adds one to ``.launches``.
+bf16 inputs take the tensor-core kernel, at a head dim of 16, 32, 64, 128
+or 256; float32 inputs (the tests' precision) the warp-per-row kernel, at
+any head dim that is a multiple of 8 up to 256. The library is built with
+``nvcc`` for ``sm_90a`` at first use (``kernels/_build.py``). The wrapper
+checks device, dtype, shapes, strides and alignment, allocates the output,
+launches on PyTorch's current stream without synchronising, raises when
+the launch is refused (the C entry returns the CUDA error), and adds one
+to ``.launches``.
 
 The kernel masks the ragged edges itself, so the caller pads nothing.
 ``kv_len`` and ``q_offset`` may be Python ints or int32 device tensors
@@ -29,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import IntLike
 NAME = "flash_attention"
 SOURCES = ("flash_attention/csrc/flash_attention.cu",)
 MAX_HEAD_DIM = 256
+BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core instantiations
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,6 +95,9 @@ def flash_attention_cuda(
     if not 0 < D <= MAX_HEAD_DIM or D % 8:
         raise ValueError(f"{who}: head dim must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}], got {D}")
+    if q.dtype == torch.bfloat16 and D not in BF16_HEAD_DIMS:
+        raise ValueError(f"{who}: bf16 head dim must be one of "
+                         f"{BF16_HEAD_DIMS}, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{who}: {name} must be contiguous in its last "

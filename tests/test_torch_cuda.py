@@ -25,6 +25,9 @@ from repro_torch.kernels.edge_relax import megakernel as mk
 from repro_torch.kernels.edge_relax.ops import (build_relax_graph, edge_relax,
                                                 edge_relax_plain)
 from repro_torch.kernels.flash_attention import kernel as fmod
+from repro_torch.kernels.flash_attention.cases import CASES as FLASH_CASES
+from repro_torch.kernels.flash_attention.cases import (bf16_excess,
+                                                       case_kwargs)
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import transformer as tf
@@ -179,29 +182,15 @@ def test_fused_decomposition_equals_unfused_on_card(cuda_device, mode):
     assert res[0].phi_approx == res[8].phi_approx
 
 
-# B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset, q_scale
-FLASH_CASES = [
-    (2, 4, 4, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
-    (2, 4, 2, 100, 100, 64, True, 0, 0.0, None, None, 1.0),
-    (1, 4, 2, 33, 50, 128, False, 0, 0.0, None, None, 1.0),
-    (1, 4, 2, 130, 130, 256, True, 16, 50.0, None, None, 30.0),
-    (2, 4, 2, 24, 64, 128, True, 0, 0.0, 40, 16, 1.0),
-    (3, 4, 2, 12, 48, 64, True, 8, 50.0, [42, 31, 0], 30, 30.0),
-    (1, 4, 2, 8, 64, 256, True, 4, 0.0, 40, 60, 1.0),
-    (2, 2, 1, 16, 32, 128, False, 0, 0.0, 0, None, 1.0),
-    (1, 4, 2, 50, 50, 48, True, 0, 0.0, None, None, 1.0),   # the row kernel
-]
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(
-    str(x) for x in c[:6]) + f"-w{c[7]}-cap{int(c[8])}")
-def test_flash_attention_matches_plain(cuda_device, case, dtype):
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_matches_plain(cuda_device, name, dtype):
     """float32 (the row kernel, with tanhf and expf): 2e-5 absolute and
-    relative, from the summation order. bf16: two bf16 ulps at the output's
-    largest magnitude (each side rounds its result to bf16; the tensor-core
-    kernel also rounds P)."""
-    B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_off, qs = case
+    relative, from the summation order. bf16: the element-wise bf16 rule of
+    ``cases.py`` (one bf16 ulp of the element plus 2^-8 of its row's largest
+    value)."""
+    case = FLASH_CASES[name]
+    B, Hq, Hkv, Sq, Skv, D, *_, qs = case
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device)
     g.manual_seed(Sq * 1000 + Skv)
@@ -209,10 +198,7 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
          * qs).to(dt)
     k, v = (torch.randn(B, Hkv, Skv, D, generator=g,
                         device=cuda_device).to(dt) for _ in range(2))
-    if isinstance(kv_len, list):
-        kv_len = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
-    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
-              q_offset=q_off)
+    kw = case_kwargs(case, cuda_device)
     before = fmod.flash_attention_cuda.launches
     out = attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -222,9 +208,7 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
     if dtype == "float32":
         torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
     else:
-        amax = float(want.float().abs().max())
-        err = float((out.float() - want.float()).abs().max())
-        assert err <= 2.0 ** -6 * max(1.0, amax)
+        assert bf16_excess(out, want) <= 1.0
 
 
 def test_flash_attention_strided_views_and_bad_inputs(cuda_device):
@@ -240,12 +224,14 @@ def test_flash_attention_strided_views_and_bad_inputs(cuda_device):
     out = fmod.flash_attention_cuda(q, k, k, window=16, softcap=50.0)
     want = attention_ref(q.contiguous(), k.contiguous(), k.contiguous(),
                          window=16, softcap=50.0)
-    assert float((out.float() - want.float()).abs().max()) <= 2.0 ** -6 * \
-        max(1.0, float(want.float().abs().max()))
+    assert bf16_excess(out, want) <= 1.0
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fmod.flash_attention_cuda(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="head dim"):
         fmod.flash_attention_cuda(q[..., :60], k[..., :60], k[..., :60])
+    # bf16 takes the tensor-core kernel's head dims only
+    with pytest.raises(ValueError, match="head dim"):
+        fmod.flash_attention_cuda(q[..., :48], k[..., :48], k[..., :48])
     with pytest.raises(ValueError, match="multiple"):
         fmod.flash_attention_cuda(q[:, :3], k, k)
     with pytest.raises(ValueError, match="kv_len"):

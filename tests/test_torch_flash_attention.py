@@ -3,7 +3,10 @@ the JAX package's: the plain version ``attention_ref`` against the
 reference's ``attention_ref`` and against its Pallas kernel in interpret
 mode, over GQA groups 1 and 2, causal on and off, window 0 and 16, softcap
 0 and 50, ``kv_len < Skv`` (scalar and per batch row), ``q_offset > 0``,
-ragged lengths and fully masked rows; the dispatch of ``ops.attention``;
+ragged lengths and fully masked rows (the case table of
+``kernels/flash_attention/cases.py``, which the card's checks share); the
+bf16 rule the card holds the kernel to, which must pass another sound
+computation and reject a planted fault; the dispatch of ``ops.attention``;
 and the CUDA wrapper's refusal of CPU tensors. The CUDA kernel itself runs
 only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
@@ -30,32 +33,19 @@ import torch  # noqa: E402
 
 from repro.kernels.flash_attention.ops import attention as ref_attention  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.cases import (CASES,  # noqa: E402
+                                                       bf16_excess,
+                                                       case_kwargs,
+                                                       planted_fault)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
-
-# name: B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset,
-# q_scale (large scores make the softcap bite)
-CASES = {
-    "gqa1-causal": (2, 4, 4, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
-    "gqa2-causal": (2, 4, 2, 40, 40, 16, True, 0, 0.0, None, None, 1.0),
-    "gqa2-bidirectional": (1, 4, 2, 33, 50, 32, False, 0, 0.0, None, None,
-                           1.0),
-    "window16": (1, 4, 2, 64, 64, 16, True, 16, 0.0, None, None, 1.0),
-    "softcap50": (1, 2, 1, 48, 48, 64, True, 0, 50.0, None, None, 30.0),
-    "window16-softcap50": (2, 4, 2, 45, 45, 16, True, 16, 50.0, None, None,
-                           30.0),
-    "kv_len-chunk": (2, 4, 2, 24, 64, 16, True, 0, 0.0, 40, 16, 1.0),
-    "q_offset-window-softcap": (1, 4, 2, 8, 64, 32, True, 16, 50.0, 48, 40,
-                                30.0),
-    "ragged": (1, 4, 2, 37, 53, 16, True, 16, 0.0, None, None, 1.0),
-    "decode-row": (2, 4, 2, 1, 70, 16, True, 16, 50.0, 70, 69, 30.0),
-    # rows at 60.. see keys (60 - 4, 60] only, and kv_len 40 hides them all
-    "fully-masked-rows": (1, 4, 2, 8, 64, 16, True, 4, 0.0, 40, 60, 1.0),
-    "no-valid-key": (2, 2, 1, 16, 32, 16, False, 0, 0.0, 0, None, 1.0),
-}
+# Pallas interpret mode steps through its grid in Python: the cases beyond
+# this many (q, k) score entries (gemma2's widths) are held to the JAX ref
+# only
+INTERPRET_MAX_SCORES = 2 ** 20
 
 
 def _inputs(case, dtype=np.float32):
@@ -67,12 +57,6 @@ def _inputs(case, dtype=np.float32):
     return q, k, v
 
 
-def _kw(case):
-    _, _, _, _, _, _, causal, window, softcap, kv_len, q_offset, _ = case
-    return dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
-                q_offset=q_offset)
-
-
 def _port(q, k, v, kw):
     return attention_ref(torch.from_numpy(q), torch.from_numpy(k),
                          torch.from_numpy(v), **kw).numpy()
@@ -81,47 +65,49 @@ def _port(q, k, v, kw):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_matches_jax_ref_and_pallas_interpret(name):
     case = CASES[name]
+    B, Hq, _, Sq, Skv, *_ = case
     q, k, v = _inputs(case)
-    kw = _kw(case)
+    kw = case_kwargs(case)
     got = _port(q, k, v, kw)
     jkw = {**kw}
     for key in ("kv_len", "q_offset"):
         if jkw[key] is not None:
-            jkw[key] = jnp.int32(jkw[key])
+            jkw[key] = jnp.asarray(np.asarray(jkw[key], np.int32))
     want = np.asarray(jax_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                         jnp.asarray(v), **jkw))
     np.testing.assert_allclose(got, want, **F32_TOL)
-    pallas = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k),
-                                      jnp.asarray(v), impl="interpret",
-                                      bq=16, bk=32, **jkw))
-    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    # the reference's Pallas kernel takes a scalar kv_len only
+    if jkw["kv_len"] is None or jkw["kv_len"].ndim == 0:
+        if B * Hq * Sq * Skv <= INTERPRET_MAX_SCORES:
+            pallas = np.asarray(ref_attention(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                impl="interpret", bq=16, bk=32, **jkw))
+            np.testing.assert_allclose(got, pallas, **F32_TOL)
     assert np.isfinite(got).all()
 
 
 def test_fully_masked_rows_are_zero():
     case = CASES["fully-masked-rows"]
-    got = _port(*_inputs(case), _kw(case))
+    got = _port(*_inputs(case), case_kwargs(case))
     # q positions 60 .. 67 with window 4 see keys 57 .. 67, all >= kv_len 40
     assert (got == 0).all()
     case = CASES["no-valid-key"]
-    assert (_port(*_inputs(case), _kw(case)) == 0).all()
+    assert (_port(*_inputs(case), case_kwargs(case)) == 0).all()
 
 
 def test_per_row_kv_len_matches_jax_ref():
     """``kv_len`` of shape ``[B]`` (the reference's plain version takes it;
-    its Pallas kernel takes a scalar only)."""
-    case = (3, 4, 2, 12, 48, 16, True, 8, 50.0, None, 30, 30.0)
+    its Pallas kernel takes a scalar only); the row with kv_len 0 is zero."""
+    case = CASES["kv_len-per-row"]
     q, k, v = _inputs(case)
-    kv_len = np.array([42, 31, 0], np.int32)
-    kw = {**_kw(case), "kv_len": kv_len}
-    got = attention_ref(torch.from_numpy(q), torch.from_numpy(k),
-                        torch.from_numpy(v),
-                        **{**kw, "kv_len": torch.from_numpy(kv_len)}).numpy()
+    kv_len = np.array(case[9], np.int32)
+    got = _port(q, k, v, case_kwargs(case))
     want = np.asarray(jax_attention_ref(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        **{**kw, "kv_len": jnp.asarray(kv_len), "q_offset": jnp.int32(30)}))
+        **{**case_kwargs(case), "kv_len": jnp.asarray(kv_len),
+           "q_offset": jnp.int32(case[10])}))
     np.testing.assert_allclose(got, want, **F32_TOL)
-    assert (got[2] == 0).all()
+    assert (got[kv_len == 0] == 0).all()
 
 
 def test_bf16_plain_matches_jax_ref():
@@ -131,24 +117,70 @@ def test_bf16_plain_matches_jax_ref():
     case = CASES["window16-softcap50"]
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(case))
-    got = attention_ref(q, k, v, **_kw(case)).float().numpy()
+    got = attention_ref(q, k, v, **case_kwargs(case)).float().numpy()
     as_jnp = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
               for x in (q, k, v)]
-    want = np.asarray(jax_attention_ref(*as_jnp, **_kw(case)).astype(
+    want = np.asarray(jax_attention_ref(*as_jnp, **case_kwargs(case)).astype(
         jnp.float32))
     np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -6)
+
+
+# a small windowed, softcapped layer for the bf16 rule: B, Hq, Hkv, S, D
+RULE_SHAPE = (1, 4, 2, 512, 64)
+RULE_KW = dict(causal=True, window=128, softcap=50.0)
+
+
+def _rule_inputs():
+    B, Hq, Hkv, S, D = RULE_SHAPE
+    r = np.random.default_rng(7)
+    return [torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(
+        torch.bfloat16) for shape in ((B, Hq, S, D), (B, Hkv, S, D),
+                                      (B, Hkv, S, D))]
+
+
+def test_bf16_rule_accepts_another_sound_computation():
+    """The reference's plain version in bf16 (another framework, another
+    summation order, its own rounding to bf16) is within the rule the card
+    holds the kernel to; so are zero rows that are exactly zero."""
+    q, k, v = _rule_inputs()
+    got = attention_ref(q, k, v, **RULE_KW)
+    want = torch.from_numpy(np.array(jax_attention_ref(
+        *(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+          for x in (q, k, v)), **RULE_KW).astype(jnp.float32)))
+    assert bf16_excess(got, want) <= 1.0
+    case = CASES["no-valid-key"]
+    zq, zk, zv = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in _inputs(case))
+    zero = attention_ref(zq, zk, zv, **case_kwargs(case))
+    assert bf16_excess(zero, zero) == 0.0
+    assert bf16_excess(zero + 2.0 ** -20, zero) == float("inf")
+
+
+def test_bf16_rule_rejects_a_dropped_kv_tile():
+    """A kernel that skips the first kv tile its window's edge cuts, on the
+    query tiles of the second half, fails the rule; before that row it is
+    the plain version's."""
+    q, k, v = _rule_inputs()
+    ref = attention_ref(q, k, v, **RULE_KW)
+    bad = planted_fault(q, k, v, from_row=256, window=RULE_KW["window"],
+                        softcap=RULE_KW["softcap"], tile=64)
+    assert torch.equal(bad[:, :, :256], ref[:, :, :256])
+    assert bf16_excess(bad, ref) > 4.0
+    assert torch.equal(planted_fault(q, k, v, from_row=512, window=128,
+                                     softcap=50.0), ref)
 
 
 def test_ops_dispatches_cpu_tensors_to_the_plain_version():
     case = CASES["kv_len-chunk"]
     q, k, v = (torch.from_numpy(x) for x in _inputs(case))
     before = flash_attention_cuda.launches
-    out = attention(q, k, v, **_kw(case))
+    kw = case_kwargs(case)
+    out = attention(q, k, v, **kw)
     assert flash_attention_cuda.launches == before
-    torch.testing.assert_close(out, attention_ref(q, k, v, **_kw(case)),
+    torch.testing.assert_close(out, attention_ref(q, k, v, **kw), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(attention(q, k, v, impl="ref", **kw), out,
                                rtol=0, atol=0)
-    torch.testing.assert_close(attention(q, k, v, impl="ref", **_kw(case)),
-                               out, rtol=0, atol=0)
     with pytest.raises(ValueError, match="impl"):
         attention(q, k, v, impl="pallas")
 

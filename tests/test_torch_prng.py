@@ -65,10 +65,11 @@ def test_uniform_matches_jax_bit_for_bit(seed, n):
     for stage, t in ((0, 0), (5, 2)):
         want = jax.random.uniform(
             jax.random.fold_in(jax.random.fold_in(key, stage), t), (n,))
-        got = prng.uniform(prng.fold_in(prng.fold_in(pkey, stage), t), n)
+        got = prng.uniform(prng.fold_in(prng.fold_in(pkey, stage), t), n,
+                           "cpu")
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
     want = jax.random.uniform(jax.random.split(key)[1], (n,))
-    got = prng.uniform(prng.split(pkey)[1], n)
+    got = prng.uniform(prng.split(pkey)[1], n, "cpu")
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
     assert 0.0 <= float(got.min()) and float(got.max()) < 1.0
 
@@ -114,3 +115,22 @@ def test_default_draw_stages_decomposition_matches_reference(n):
               "growing_steps", "n_stages", "connected"):
         assert getattr(got, f) == getattr(want, f), f
     np.testing.assert_array_equal(got.quotient_ecc, want.quotient_ecc)
+
+
+def test_default_draw_decomposition_matches_reference_at_200k():
+    """The same at n = 200,000 and the main path's tau of 16, where most
+    stages draw hundreds of centers. k is the stages' drawn centers plus
+    the nodes still uncovered when the stop rule fires (each a singleton
+    cluster)."""
+    n = 200_000
+    ref_e, e = ref_gen.road_like(n, seed=0), gen.road_like(n, seed=0)
+    for seed in (0, 1):
+        want = ref_cluster(ref_e, 16, seed=seed)
+        got = cluster(e, 16, seed=seed, backend="single", device="cpu")
+        np.testing.assert_array_equal(want.final_c, got.final_c)
+        np.testing.assert_array_equal(want.final_pathw, got.final_pathw)
+        for f in ("radius", "n_stages", "growing_steps", "delta_end",
+                  "n_clusters"):
+            assert getattr(want, f) == getattr(got, f), f
+        m = got.metrics
+        assert m.centers_drawn + m.uncovered_at_stop == got.n_clusters
