@@ -52,6 +52,28 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
   6. LM serving at full width: the port's serve launcher
      (``repro_torch.launch.serve``), gemma2-9b, batch 4, prompt 32, 16
      generated tokens.
+  7. CIN vs plain: ``cin_layer_cuda`` against ``cin_layer_ref`` in float32
+     on the card, over the cases of ``kernels/cin/cases.py`` (B = 1, 7,
+     25, 37 and 512; m = 6 and 39; H = 6 to 200; H2 = 16 and 200; D = 8
+     and 10; ragged last blocks), each within that module's rule
+     (``|o - r| <= 2^-16 A``, A the layer on absolute values), which must
+     reject a planted fault (one h slice of W dropped) at full width.
+  8. CIN timed: xdeepfm's layer-1 (H = 39) and layer-2/3 (H = 200) shapes
+     at B = 512, 16,384 and 262,144, beside the operations bound, the plain
+     version and one ``torch.einsum`` call (the plain and library calls
+     only where Z fits, B <= 16,384; float32, TF32 off).
+  9. xDeepFM serving at full width: ``xdeepfm`` (39 fields, vocab
+     1,000,000 per field, embed dim 10, CIN 200-200-200, DNN 400-400;
+     432,747,202 parameter elements, random weights from seed 0), batches
+     from ``RecsysPipeline(seed=0)``, through ``launch/steps.py``'s
+     ``build_cell``: ``serve_p99`` (B = 512) and ``serve_bulk``
+     (B = 262,144), each exactly 3 CIN launches; the CIN pooled features
+     within the rule and the logits against the plain path, in chunks of
+     16,384 rows.
+  10. Retrieval at full width: ``retrieval_cand``, one query against
+     1,000,000 candidates (13 user and 26 item fields, from one
+     ``RecsysPipeline`` batch), 3 CIN launches, scores and pooled features
+     against the plain path in chunks.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -60,6 +82,7 @@ the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -72,6 +95,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (same)
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 
@@ -197,7 +221,8 @@ def mega_launch_bytes(torch, mk, g, planes, relay, frozen, front, params,
 def profile_paths() -> int:
     """``--profile``: the decompositions of the main paths (stages fused;
     one-shot fused and unfused), then gemma2-9b's full-width prefill
-    (B = 1, S = 8192) and 8 decode steps (batch 4), under
+    (B = 1, S = 8192) and 8 decode steps (batch 4), then one xdeepfm
+    ``serve_bulk`` forward (B = 262,144, full width), under
     ``torch.profiler``, each after a warm-up run, printing the device-busy
     share of the host-clock time, the device ops launched and the kernels
     that take the device time. Not part of the default run."""
@@ -208,9 +233,12 @@ def profile_paths() -> int:
         return _fail("torch.cuda.is_available() is False", 2)
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.common import Timer
-    from repro_torch.config import get_arch
+    from repro_torch.config import RECSYS_SHAPES, get_arch
     from repro_torch.core import cluster, make_backend, tau_for
+    from repro_torch.data.pipeline import DataCursor, RecsysPipeline
     from repro_torch.graph import road_like
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys
     from repro_torch.models import transformer as tf
 
     dev = torch.device("cuda:0")
@@ -278,6 +306,19 @@ def profile_paths() -> int:
     _, stats = profiled(decode)
     emit({"phase": "profile", "path": "lm_decode", "batch": 4,
           "steps": steps, **stats})
+    del params, cache, tokens, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("xdeepfm")
+    params = recsys.init_params(cfg, seed=0, device=dev)
+    cell = build_cell("xdeepfm", "serve_bulk", device=dev)
+    shape = {s.name: s for s in RECSYS_SHAPES}["serve_bulk"]
+    batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
+        DataCursor()))
+    _, stats = profiled(lambda: cell.step_fn(params, batch))
+    emit({"phase": "profile", "path": "recsys_serve_bulk",
+          "batch": shape.batch, **stats})
     return 0
 
 
@@ -528,6 +569,287 @@ def lm_phases(torch, dev) -> dict:
                                  "lm_serve": serve_launches}}
 
 
+XDEEPFM_PARAMS = 432_747_202     # parameter elements at full width
+XDEEPFM_PARAM_COUNT = 393_747_201  # RecsysConfig.param_count(): the
+#                                    reference's count, without the linear
+#                                    table and the last layer's bias
+
+
+def cin_bound_ms(B, m, H, H2, D) -> tuple:
+    """Least time for one CIN layer on these shapes: 2 H2 H m D flops per
+    batch row over the float32 FMA peak, or x0, xk and W read once and out
+    written once over HBM; the larger, and which of the two bounds it."""
+    flops = 2 * B * H2 * H * m * D
+    nbytes = 4 * (B * m * D + B * H * D + H2 * H * m + B * H2 * D)
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def recsys_phases(torch, dev) -> dict:
+    """Phases 7-10; returns the CIN row of the kernel table."""
+    from repro_torch.common import Timer
+    from repro_torch.config import RECSYS_SHAPES, get_arch
+    from repro_torch.data.pipeline import DataCursor, RecsysPipeline
+    from repro_torch.kernels.cin import kernel as cmod
+    from repro_torch.kernels.cin.cases import (CASES, FAULT_CASE,
+                                               PLAIN_CHUNK, case_inputs,
+                                               excess, layer_excess,
+                                               planted_fault,
+                                               pooled_magnitude)
+    from repro_torch.kernels.cin.ops import cin
+    from repro_torch.kernels.cin.ref import cin_layer_ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys
+
+    # float32 products in full float32 (the default, set here explicitly:
+    # the library yardstick and the DNN's matmuls read it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- phase 7: CIN vs plain, float32 ----------------------------------------
+    cin_err = cin_excess = 0.0
+    for name, case in CASES.items():
+        x0, xk, w = (torch.from_numpy(a).to(dev) for a in case_inputs(case))
+        out = cmod.cin_layer_cuda(x0, xk, w)
+        ref = cin_layer_ref(x0, xk, w)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ex = layer_excess(out, ref, x0, xk, w)
+        cin_err, cin_excess = max(cin_err, err), max(cin_excess, ex)
+        if not (ex <= 1.0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"cin {name}: kernel vs plain error {ex} "
+                                 f"times the float32 rule's")
+        emit({"phase": "cin_vs_plain", "case": name, "shape": list(case),
+              "max_abs_err": err, "excess": ex, "equal_within": True})
+    # the rule must reject a dropped h slice at full width (B = 512, H = 200)
+    x0, xk, w = (torch.from_numpy(a).to(dev)
+                 for a in case_inputs(FAULT_CASE))
+    ref = cin_layer_ref(x0, xk, w)
+    fault = {}
+    for h in (0, FAULT_CASE[2] // 2, FAULT_CASE[2] - 1):
+        bad = planted_fault(x0, xk, w, h=h)
+        fault[h] = layer_excess(bad, ref, x0, xk, w)
+        if fault[h] <= 1.0:
+            raise AssertionError(f"cin: the float32 rule passed a dropped h "
+                                 f"slice ({h})")
+    emit({"phase": "cin_planted_fault", "shape": list(FAULT_CASE),
+          "dropped_h": list(fault), "excess": list(fault.values()),
+          "sound_excess": layer_excess(cmod.cin_layer_cuda(x0, xk, w), ref,
+                                       x0, xk, w)})
+    del x0, xk, w, ref, bad, out
+
+    # -- phase 8: CIN timed at xdeepfm's layer shapes --------------------------
+    cfg = get_arch("xdeepfm")
+    m, D, H2 = cfg.n_sparse, cfg.embed_dim, cfg.cin_layers[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    timed = {}
+    for layer, H in (("layer1", m), ("layer2", cfg.cin_layers[0])):
+        for B in (512, PLAIN_CHUNK, 262_144):
+            x0 = torch.randn(B, m, D, generator=gen, device=dev) * 0.01
+            xk = torch.randn(B, H, D, generator=gen, device=dev) * 0.01
+            w = torch.randn(H2, H, m, generator=gen, device=dev) \
+                * (H * m) ** -0.5
+            out = cmod.cin_layer_cuda(x0, xk, w)
+            ref = torch.cat([cin_layer_ref(x0[i:i + PLAIN_CHUNK],
+                                           xk[i:i + PLAIN_CHUNK], w)
+                             for i in range(0, B, PLAIN_CHUNK)])
+            ex = layer_excess(out, ref, x0, xk, w)
+            if ex > 1.0:
+                raise AssertionError(f"cin timed {layer} B={B}: error {ex} "
+                                     f"times the float32 rule's")
+            cin_excess = max(cin_excess, ex)
+            del out, ref
+            bound, by, flops = cin_bound_ms(B, m, H, H2, D)
+            row = {"phase": "cin_timed", "layer": layer,
+                   "shape": [B, m, H, H2, D], "excess": ex,
+                   "ms": time_ms(torch, lambda: cmod.cin_layer_cuda(
+                       x0, xk, w), 20 if B <= PLAIN_CHUNK else 3, warmup=1),
+                   "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+                   "plain_ms": None, "library_ms": None}
+            if B <= PLAIN_CHUNK:   # where Z fits
+                row["plain_ms"] = time_ms(
+                    torch, lambda: cin_layer_ref(x0, xk, w), 5, warmup=1)
+                row["library_ms"] = time_ms(
+                    torch, lambda: torch.einsum("bhd,bmd,nhm->bnd", xk, x0,
+                                                w), 5, warmup=1)
+            row["tflop_s"] = flops / row["ms"] / 1e9
+            row["bound_share"] = bound / row["ms"]
+            timed[(layer, B)] = row
+            emit(row)
+            del x0, xk, w
+            torch.cuda.empty_cache()
+
+    # -- phase 9: xDeepFM serving at full width ---------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timer() as t_init:
+        params = recsys.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    n_params = (params["tables"].numel() + params["linear"].numel()
+                + sum(x.numel() for x in params["cin"])
+                + params["cin_out"].numel() + params["bias"].numel()
+                + sum(lp["w"].numel() + lp["b"].numel()
+                      for lp in params["mlp"]))
+    if n_params != XDEEPFM_PARAMS or cfg.param_count() != XDEEPFM_PARAM_COUNT:
+        raise AssertionError(f"xdeepfm has {n_params} parameter elements, "
+                             f"param_count() {cfg.param_count()}")
+    weight_bytes = torch.cuda.memory_allocated(dev)
+    n_cin = len(cfg.cin_layers)
+
+    def check_against_plain(cell, fwd_batches, logits):
+        """The logits against the plain path's and the CIN pooled features
+        under the rule, over ``fwd_batches`` (forward batches of at most
+        PLAIN_CHUNK rows, in order)."""
+        logit_diff = pooled_ex = 0.0
+        i = 0
+        for fb in fwd_batches:
+            n = fb["ids"].shape[0]
+            plain = recsys.forward(params, fb, cell.cfg, cin_impl="ref")
+            logit_diff = max(logit_diff,
+                             float((logits[i:i + n] - plain).abs().max()))
+            emb = recsys.embedding_bag(params["tables"], fb["ids"],
+                                       fb["id_mask"])
+            pooled_ex = max(pooled_ex, excess(
+                cin(emb, params["cin"]), cin(emb, params["cin"], impl="ref"),
+                pooled_magnitude(emb, params["cin"])))
+            i += n
+        if i != logits.shape[0]:
+            raise AssertionError("the plain check missed rows")
+        # the two paths differ only in the CIN branch, which adds about
+        # 1e-5 to a logit of order 1: its own error is far below an ulp
+        if pooled_ex > 1.0 or not logit_diff < 1e-5:
+            raise AssertionError(f"{cell.shape}: pooled features at "
+                                 f"{pooled_ex} times the rule, logits "
+                                 f"{logit_diff} from the plain path")
+        return pooled_ex, logit_diff
+
+    launches_by_path = {}
+    for shape_name in ("serve_p99", "serve_bulk"):
+        cell = build_cell("xdeepfm", shape_name, device=dev)
+        shape = {s.name: s for s in RECSYS_SHAPES}[shape_name]
+        batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
+            DataCursor()))
+        if shape_name == "serve_p99":
+            cell.step_fn(params, batch)                 # warm-up (cuBLAS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cmod.cin_layer_cuda.launches = 0
+        with Timer() as t:
+            logits = cell.step_fn(params, batch)
+            torch.cuda.synchronize()
+        launches = cmod.cin_layer_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        B = shape.batch
+        if launches != n_cin:
+            raise AssertionError(f"{shape_name} launched the CIN kernel "
+                                 f"{launches} times, not {n_cin}")
+        if tuple(logits.shape) != (B,) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{shape_name}: logits malformed or not "
+                                 f"finite")
+        with Timer() as t_check:
+            pooled_ex, logit_diff = check_against_plain(
+                cell, ({k: v[i:i + PLAIN_CHUNK] for k, v in batch.items()}
+                       for i in range(0, B, PLAIN_CHUNK)), logits)
+        cin_excess = max(cin_excess, pooled_ex)
+        launches_by_path[shape_name] = launches
+        row = {"phase": "recsys_serve", "arch": cfg.name, "shape": shape_name,
+               "batch": B, "params": n_params,
+               "param_count": cfg.param_count(),
+               "init_seconds": t_init.seconds, "weight_bytes": weight_bytes,
+               "seconds": t.seconds, "rows_s": B / t.seconds,
+               "cin_launches": launches, "peak_bytes": peak,
+               "cin_pooled_excess": pooled_ex,
+               "logits_max_abs_diff_vs_plain": logit_diff,
+               "logits_finite": True, "logits0": logits[:4].tolist(),
+               "check_seconds": t_check.seconds}
+        emit(row)
+        del batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10: retrieval, 1 query x 1,000,000 candidates ------------------
+    # the query: row 0's user fields (the first n_sparse // 3) and dense
+    # features; the candidates: every row's item fields, all from one
+    # RecsysPipeline batch of n_candidates rows (its Zipf ids, seed 0)
+    cell = build_cell("xdeepfm", "retrieval_cand", device=dev)
+    n_cand = cell.arg_shapes["cand_ids"][0][0]
+    fu = cell.arg_shapes["user_ids"][0][1]
+    shape = {s.name: s for s in RECSYS_SHAPES}["retrieval_cand"]
+    rows = RecsysPipeline(cfg, dataclasses.replace(shape, batch=n_cand),
+                          seed=0).batch(DataCursor())
+    q = cell.inputs({"user_ids": rows["ids"][:1, :fu],
+                     "user_mask": rows["id_mask"][:1, :fu],
+                     "user_dense": rows["dense"][:1],
+                     "cand_ids": rows["ids"][:, fu:],
+                     "cand_mask": rows["id_mask"][:, fu:]})
+    del rows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cmod.cin_layer_cuda.launches = 0
+    with Timer() as t:
+        scores = cell.step_fn(params, q)
+        torch.cuda.synchronize()
+    launches = cmod.cin_layer_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != n_cin:
+        raise AssertionError(f"retrieval launched the CIN kernel {launches} "
+                             f"times, not {n_cin}")
+    if tuple(scores.shape) != (n_cand,) or not bool(
+            torch.isfinite(scores).all()):
+        raise AssertionError("retrieval: scores malformed or not finite")
+    with Timer() as t_check:
+        pooled_ex, score_diff = check_against_plain(
+            cell, (recsys.retrieval_batch(
+                q["user_ids"], q["user_mask"], q["user_dense"],
+                q["cand_ids"][i:i + PLAIN_CHUNK],
+                q["cand_mask"][i:i + PLAIN_CHUNK])
+                for i in range(0, n_cand, PLAIN_CHUNK)), scores)
+    cin_excess = max(cin_excess, pooled_ex)
+    launches_by_path["retrieval_cand"] = launches
+    emit({"phase": "recsys_retrieval", "arch": cfg.name,
+          "shape": "retrieval_cand", "candidates": n_cand,
+          "user_fields": cell.arg_shapes["user_ids"][0][1],
+          "item_fields": cell.arg_shapes["cand_ids"][0][1],
+          "seconds": t.seconds, "candidates_s": n_cand / t.seconds,
+          "cin_launches": launches, "peak_bytes": peak,
+          "cin_pooled_excess": pooled_ex,
+          "scores_max_abs_diff_vs_plain": score_diff,
+          "top5": torch.topk(scores, 5).indices.tolist(),
+          "check_seconds": t_check.seconds})
+    del params, q, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    p99_l1, p99_l2 = timed[("layer1", 512)], timed[("layer2", 512)]
+    bulk_l1 = timed[("layer1", 262_144)]
+    bulk_l2 = timed[("layer2", 262_144)]
+    mid_l2 = timed[("layer2", PLAIN_CHUNK)]
+    return {"name": "cin", "route": "cuda",
+            "source": "src/repro_torch/kernels/cin/csrc/cin.cu",
+            "replaces": "src/repro/kernels/cin/kernel.py:26",
+            "launches": sum(launches_by_path.values()),
+            "max_abs_err": cin_err, "float32_rule_excess": cin_excess,
+            "shape": "layer 2/3 at serve_p99 (B 512, m 39, H 200, H2 200, "
+                     "D 10)",
+            "ms": p99_l2["ms"], "plain_ms": p99_l2["plain_ms"],
+            "bound_ms": p99_l2["bound_ms"], "bound_by": p99_l2["bound_by"],
+            "library_ms": p99_l2["library_ms"],
+            "library_call": "torch.einsum('bhd,bmd,nhm->bnd', xk, x0, w), "
+                            "float32, TF32 off",
+            "layer1_ms": p99_l1["ms"], "layer1_bound_ms": p99_l1["bound_ms"],
+            "layer1_plain_ms": p99_l1["plain_ms"],
+            "layer1_library_ms": p99_l1["library_ms"],
+            "b16384_ms": mid_l2["ms"], "b16384_plain_ms": mid_l2["plain_ms"],
+            "b16384_library_ms": mid_l2["library_ms"],
+            "b16384_bound_ms": mid_l2["bound_ms"],
+            "serve_bulk_ms": bulk_l2["ms"],
+            "serve_bulk_bound_ms": bulk_l2["bound_ms"],
+            "serve_bulk_layer1_ms": bulk_l1["ms"],
+            "serve_bulk_layer1_bound_ms": bulk_l1["bound_ms"],
+            "launches_by_path": launches_by_path}
+
+
 def main() -> int:
     import torch
 
@@ -556,6 +878,7 @@ def main() -> int:
     from repro_torch.kernels.edge_relax.ops import (build_relax_graph,
                                                     edge_relax,
                                                     edge_relax_plain)
+    from repro_torch.kernels.cin import kernel as cmod
     from repro_torch.kernels.flash_attention import kernel as fmod
 
     dev = torch.device("cuda:0")
@@ -568,7 +891,8 @@ def main() -> int:
     # -- build: one nvcc per kernel, all started together ---------------------
     builds = ((kmod.NAME, kmod.SOURCES, kmod.load_library),
               (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library),
-              (fmod.NAME, fmod.SOURCES, fmod.load_library))
+              (fmod.NAME, fmod.SOURCES, fmod.load_library),
+              (cmod.NAME, cmod.SOURCES, cmod.load_library))
 
     def timed_load(load):
         with Timer() as tb:
@@ -958,6 +1282,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_row = lm_phases(torch, dev)
 
+    # -- phases 7-10: CIN and xDeepFM serving at full width -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cin_row = recsys_phases(torch, dev)
+
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -982,7 +1311,7 @@ def main() -> int:
         "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
         "launches_by_path": {"stages_fused": launches_stages_fused,
                              "oneshot_fused": launches_oneshot_fused},
-    }, flash_row]})
+    }, flash_row, cin_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

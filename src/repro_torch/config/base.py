@@ -1,7 +1,9 @@
 """Copies of the JAX package's ``config/base.py`` dataclasses that the
-ported LM path reads: ``ArchConfig`` and ``TransformerConfig`` (with
-``head_dim`` and ``param_count``). The MoE, GNN and recsys configs wait for
-their slices.
+ported paths read: ``ShapeSpec``, ``ArchConfig``, ``TransformerConfig``
+(with ``head_dim`` and ``param_count``), ``RecsysConfig`` (with
+``param_count`` as the reference has it: it leaves out the ``linear``
+table) and the recsys shape set ``RECSYS_SHAPES``. The MoE and GNN configs
+and the LM and GNN shape sets wait for their slices.
 
 Configs are plain frozen dataclasses: hashable, serialisable with
 ``dataclasses.asdict`` and overridable with ``dataclasses.replace``.
@@ -9,6 +11,36 @@ Configs are plain frozen dataclasses: hashable, serialisable with
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell for an architecture.
+
+    ``kind`` selects which step gets lowered:
+      - "train"    -> train_step
+      - "prefill"  -> serve_prefill (full-sequence forward, no grads)
+      - "decode"   -> serve_step (1 new token against a KV cache of seq_len)
+      - "full_graph" / "minibatch" / "batched_graphs" -> GNN regimes
+      - "recsys_train" / "recsys_serve" / "retrieval" -> recsys regimes
+    """
+
+    name: str
+    kind: str
+    # LM fields
+    seq_len: int = 0
+    global_batch: int = 0
+    # GNN fields
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    n_graphs: int = 0
+    # recsys fields
+    batch: int = 0
+    n_candidates: int = 0
 
 
 @dataclass(frozen=True)
@@ -59,3 +91,41 @@ class TransformerConfig(ArchConfig):
         per_layer = attn + mlp + 2 * d
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + d
+
+
+@dataclass(frozen=True)
+class RecsysConfig(ArchConfig):
+    family: str = "recsys"
+    kind: str = "xdeepfm"
+    n_sparse: int = 39
+    n_dense: int = 13                 # criteo-style numeric features
+    embed_dim: int = 10
+    vocab_per_field: int = 100_000    # embedding rows per sparse field
+    cin_layers: Tuple[int, ...] = (200, 200, 200)
+    mlp_dims: Tuple[int, ...] = (400, 400)
+    multi_hot: int = 1                # ids per field (embedding-bag degree)
+    dtype: str = "float32"
+
+    def param_count(self) -> int:
+        emb = self.n_sparse * self.vocab_per_field * self.embed_dim
+        m = self.n_sparse
+        cin = 0
+        prev = m
+        for hk in self.cin_layers:
+            cin += hk * prev * m
+            prev = hk
+        mlp_in = self.n_sparse * self.embed_dim + self.n_dense
+        mlp = 0
+        prev = mlp_in
+        for w in self.mlp_dims:
+            mlp += prev * w + w
+            prev = w
+        return emb + cin + mlp + prev + sum(self.cin_layers) + 1
+
+
+RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_batch", kind="recsys_train", batch=65536),
+    ShapeSpec(name="serve_p99", kind="recsys_serve", batch=512),
+    ShapeSpec(name="serve_bulk", kind="recsys_serve", batch=262144),
+    ShapeSpec(name="retrieval_cand", kind="retrieval", batch=1, n_candidates=1_000_000),
+)

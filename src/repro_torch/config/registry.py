@@ -16,6 +16,7 @@ _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # arches only; the reference registers more)
 _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
+    "xdeepfm": "xdeepfm",
 }
 
 

@@ -3,9 +3,10 @@
 ``from_reference`` turns the JAX package's ``EdgeList`` arrays and
 ``EngineState`` planes, given as numpy, into the port's ``EdgeList`` and
 ``EngineState`` on a device, so both packages can start from the same
-mid-decomposition state. ``transformer_params_from_reference`` turns the
-reference's transformer parameter tree, given as numpy, into the port's
-parameter dict, so both packages can run the same weights.
+mid-decomposition state. ``transformer_params_from_reference`` and
+``recsys_params_from_reference`` turn the reference's transformer and
+xDeepFM parameter trees, given as numpy, into the port's parameter dicts,
+so both packages can run the same weights.
 """
 from __future__ import annotations
 
@@ -75,3 +76,41 @@ def transformer_params_from_reference(params_np: Dict[str, Any], cfg,
     return {k: ({kk: conv(vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else conv(v))
             for k, v in params_np.items()}
+
+
+def recsys_params_from_reference(params_np: Dict[str, Any], cfg,
+                                 device="cuda") -> Dict[str, Any]:
+    """The reference's xDeepFM parameter tree (``tables``, ``linear``,
+    ``cin`` list, ``cin_out``, ``mlp`` list of ``{w, b}``, ``bias``), as
+    numpy, turned into the port's dict on ``device`` with the same names,
+    shapes and values. ``cfg`` is the port's ``RecsysConfig``; every array
+    must be float32 and of the shape ``cfg`` gives it."""
+    dev = resolve_device(device)
+    F, V, D = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+    dims = [F * D + cfg.n_dense] + list(cfg.mlp_dims) + [1]
+    cin_in = [F] + list(cfg.cin_layers[:-1])
+
+    def conv(a, shape, name):
+        t = _tensor_from_numpy(a, dev)
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"recsys_params_from_reference: {name} is "
+                             f"{t.dtype} {tuple(t.shape)}, expected float32 "
+                             f"{tuple(shape)}")
+        return t
+
+    if len(params_np["cin"]) != len(cfg.cin_layers) \
+            or len(params_np["mlp"]) != len(dims) - 1:
+        raise ValueError("recsys_params_from_reference: the tree's cin/mlp "
+                         "layer counts do not match the config")
+    return {
+        "tables": conv(params_np["tables"], (F, V, D), "tables"),
+        "linear": conv(params_np["linear"], (F, V), "linear"),
+        "cin": [conv(w, (hk, h, F), f"cin[{i}]") for i, (w, hk, h) in
+                enumerate(zip(params_np["cin"], cfg.cin_layers, cin_in))],
+        "cin_out": conv(params_np["cin_out"], (sum(cfg.cin_layers),),
+                        "cin_out"),
+        "mlp": [{"w": conv(lp["w"], (dims[i], dims[i + 1]), f"mlp[{i}].w"),
+                 "b": conv(lp["b"], (dims[i + 1],), f"mlp[{i}].b")}
+                for i, lp in enumerate(params_np["mlp"])],
+        "bias": conv(params_np["bias"], (), "bias"),
+    }

@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder-only transformer (LM slice)."""
+"""Models of the port: the dense decoder-only transformer (LM slice) and
+xDeepFM serving (recsys slice)."""

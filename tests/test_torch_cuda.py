@@ -1,10 +1,11 @@
 """Tests of the port that need the card: the hand-written CUDA edge-relax
 kernel and megakernel against their plain PyTorch versions, the pipeline
 on the kernel backend against the plain backend, the fused grow path
-against the unfused one in both decomposition modes, and the flash
+against the unfused one in both decomposition modes, the flash
 attention kernel against its plain version, alone and inside the
-transformer's prefill and decode. This file imports no JAX, so it runs
-where only the port is installed:
+transformer's prefill and decode, and the CIN kernel against its plain
+version, alone, in a stack and inside xDeepFM's forward and retrieval.
+This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -20,6 +21,13 @@ from repro_torch.config import get_arch
 from repro_torch.core import ClusterQuotientEstimator, open_session
 from repro_torch.graph import road_like, social_like
 from repro_torch.graph.structures import EdgeList
+from repro_torch.kernels.cin import kernel as cmod
+from repro_torch.kernels.cin.cases import CASES as CIN_CASES
+from repro_torch.kernels.cin.cases import (case_inputs, excess,
+                                           layer_excess, planted_fault,
+                                           pooled_magnitude)
+from repro_torch.kernels.cin.ops import cin, cin_layer
+from repro_torch.kernels.cin.ref import cin_layer_ref
 from repro_torch.kernels.edge_relax import kernel as kmod
 from repro_torch.kernels.edge_relax import megakernel as mk
 from repro_torch.kernels.edge_relax.ops import (build_relax_graph, edge_relax,
@@ -30,6 +38,8 @@ from repro_torch.kernels.flash_attention.cases import (bf16_excess,
                                                        case_kwargs)
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
@@ -263,3 +273,103 @@ def test_prefill_and_decode_through_the_kernel_on_card(cuda_device):
         logits, cache = tf.decode_step(params, cache, toks[:, i:i + 1], cfg)
     assert cache["len"] == 8 and torch.isfinite(logits).all()
     assert fmod.flash_attention_cuda.launches == cfg.n_layers
+
+
+@pytest.mark.parametrize("name", sorted(CIN_CASES))
+def test_cin_layer_matches_plain(cuda_device, name):
+    """The float32 rule of ``kernels/cin/cases.py``: ``|o - r| <= 2^-16 A``,
+    ``A`` the layer on absolute values (both sides sum the same float32
+    products in another order); one launch per call."""
+    x0, xk, w = (torch.from_numpy(a).to(cuda_device)
+                 for a in case_inputs(CIN_CASES[name]))
+    before = cmod.cin_layer_cuda.launches
+    out = cin_layer(x0, xk, w)
+    torch.cuda.synchronize()
+    assert cmod.cin_layer_cuda.launches == before + 1
+    want = cin_layer_ref(x0, xk, w)
+    assert out.shape == want.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert layer_excess(out, want, x0, xk, w) <= 1.0
+
+
+def test_cin_rule_rejects_a_planted_fault_on_card(cuda_device):
+    B, m, H, H2, D = CIN_CASES["xdeepfm-layer2-B512"]
+    x0, xk, w = (torch.from_numpy(a).to(cuda_device)
+                 for a in case_inputs((B, m, H, H2, D)))
+    ref = cin_layer_ref(x0, xk, w)
+    assert layer_excess(cmod.cin_layer_cuda(x0, xk, w), ref, x0, xk,
+                        w) <= 1.0
+    assert layer_excess(planted_fault(x0, xk, w, h=H // 2), ref, x0, xk,
+                        w) > 100.0
+
+
+def test_cin_stack_and_bad_inputs(cuda_device):
+    """xdeepfm's CIN stack (m = 39, D = 10, 200-200-200) at B = 100: the
+    pooled features within the rule run through the stack (three
+    launches); what the kernel does not take raises."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    x0 = torch.randn(100, 39, 10, generator=g, device=cuda_device) * 0.01
+    ws, prev = [], 39
+    for hk in (200, 200, 200):
+        ws.append(torch.randn(hk, prev, 39, generator=g, device=cuda_device)
+                  * (prev * 39) ** -0.5)
+        prev = hk
+    before = cmod.cin_layer_cuda.launches
+    got = cin(x0, ws)
+    assert cmod.cin_layer_cuda.launches == before + 3
+    want = cin(x0, ws, impl="ref")
+    assert cmod.cin_layer_cuda.launches == before + 3
+    assert excess(got, want, pooled_magnitude(x0, ws)) <= 1.0
+    empty = cmod.cin_layer_cuda(x0[:0], x0[:0], ws[0][:, :, :])
+    assert empty.shape == (0, 200, 10)
+    with pytest.raises(ValueError, match="float32"):
+        cmod.cin_layer_cuda(x0.bfloat16(), x0.bfloat16(), ws[0].bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        cmod.cin_layer_cuda(x0, x0.transpose(1, 2).contiguous().transpose(
+            1, 2), ws[0])
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_layer_cuda(x0, x0[:, :20], ws[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        cmod.cin_layer_cuda(x0, x0.cpu(), ws[0])
+
+
+def test_recsys_cells_through_the_kernel_on_card(cuda_device):
+    """xdeepfm's smoke config through ``build_cell``: serve_p99 (B = 512)
+    and retrieval (64 candidates) launch the CIN kernel once per layer and
+    give the plain path's logits within 1e-6 (the CIN branch adds about
+    1e-4 to a logit; its pooled features are held to the rule)."""
+    cfg = get_arch("xdeepfm", smoke=True)
+    params = recsys.init_params(cfg, seed=2, device=cuda_device)
+    cell = build_cell("xdeepfm", "serve_p99", smoke=True,
+                      device=cuda_device)
+    r = np.random.default_rng(0)
+    batch = cell.inputs({
+        "ids": r.integers(0, 1000, (512, 6, 2)).astype(np.int32),
+        "id_mask": (r.random((512, 6, 2)) < 0.9).astype(np.float32),
+        "dense": r.standard_normal((512, 4)).astype(np.float32)})
+    cmod.cin_layer_cuda.launches = 0
+    got = cell.step_fn(params, batch)
+    torch.cuda.synchronize()
+    assert cmod.cin_layer_cuda.launches == len(cfg.cin_layers)
+    want = cell.step_fn(params, batch, cin_impl="ref")
+    assert cmod.cin_layer_cuda.launches == len(cfg.cin_layers)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    emb = recsys.embedding_bag(params["tables"], batch["ids"],
+                               batch["id_mask"])
+    assert excess(cin(emb, params["cin"]), cin(emb, params["cin"],
+                                                impl="ref"),
+                  pooled_magnitude(emb, params["cin"])) <= 1.0
+    cell = build_cell("xdeepfm", "retrieval_cand", smoke=True,
+                      device=cuda_device)
+    q = cell.inputs({
+        "user_ids": r.integers(0, 1000, (1, 2, 2)).astype(np.int32),
+        "user_mask": np.ones((1, 2, 2), np.float32),
+        "user_dense": r.standard_normal((1, 4)).astype(np.float32),
+        "cand_ids": r.integers(0, 1000, (64, 4, 2)).astype(np.int32),
+        "cand_mask": np.ones((64, 4, 2), np.float32)})
+    cmod.cin_layer_cuda.launches = 0
+    scores = cell.step_fn(params, q)
+    assert cmod.cin_layer_cuda.launches == len(cfg.cin_layers)
+    torch.testing.assert_close(scores, cell.step_fn(params, q, cin_impl="ref"),
+                               rtol=0, atol=1e-6)
