@@ -66,14 +66,19 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
      1,000,000 per field, embed dim 10, CIN 200-200-200, DNN 400-400;
      432,747,202 parameter elements, random weights from seed 0), batches
      from ``RecsysPipeline(seed=0)``, through ``launch/steps.py``'s
-     ``build_cell``: ``serve_p99`` (B = 512) and ``serve_bulk``
-     (B = 262,144), each exactly 3 CIN launches; the CIN pooled features
-     within the rule and the logits against the plain path, in chunks of
-     16,384 rows.
+     ``build_cell``: ``serve_p99`` (B = 512, 200 timed calls: median and
+     p99) and ``serve_bulk`` (B = 262,144, 5 timed calls), each after one
+     warm-up call and exactly 3 CIN launches per call. Then each CIN
+     layer's kernel output over the whole batch (the shape the path
+     launches it at) is held element by element against the plain layer
+     under the rule, and so are the pooled features it gives against the
+     plain stack's; the logits against the plain path's. The plain side
+     runs in chunks of 16,384 rows so that its Z fits.
   10. Retrieval at full width: ``retrieval_cand``, one query against
      1,000,000 candidates (13 user and 26 item fields, from one
-     ``RecsysPipeline`` batch), 3 CIN launches, scores and pooled features
-     against the plain path in chunks.
+     ``RecsysPipeline`` batch), 3 timed calls after a warm-up, 3 CIN
+     launches per call, checked as in phase 9 with the kernel at
+     B = 1,000,000.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -696,77 +701,103 @@ def recsys_phases(torch, dev) -> dict:
     weight_bytes = torch.cuda.memory_allocated(dev)
     n_cin = len(cfg.cin_layers)
 
-    def check_against_plain(cell, fwd_batches, logits):
-        """The logits against the plain path's and the CIN pooled features
-        under the rule, over ``fwd_batches`` (forward batches of at most
-        PLAIN_CHUNK rows, in order)."""
-        logit_diff = pooled_ex = 0.0
-        i = 0
-        for fb in fwd_batches:
-            n = fb["ids"].shape[0]
-            plain = recsys.forward(params, fb, cell.cfg, cin_impl="ref")
-            logit_diff = max(logit_diff,
-                             float((logits[i:i + n] - plain).abs().max()))
-            emb = recsys.embedding_bag(params["tables"], fb["ids"],
-                                       fb["id_mask"])
+    def check_against_plain(cell, fb, logits):
+        """The kernel at the shape the path launched it, against the plain
+        version: each CIN layer's kernel output over all of ``fb``'s rows
+        (one launch per layer, on the kernel's own previous output) against
+        the plain layer on the same inputs, element by element under the
+        rule; the pooled features those outputs give against the plain
+        stack's; the logits against the plain path's. The plain side runs
+        in slices of PLAIN_CHUNK rows so that its Z fits."""
+        B = logits.shape[0]
+        chunks = [slice(i, i + PLAIN_CHUNK) for i in range(0, B, PLAIN_CHUNK)]
+        emb = recsys.embedding_bag(params["tables"], fb["ids"], fb["id_mask"])
+        if emb.shape[0] != B:
+            raise AssertionError("the plain check's batch is not the path's")
+        layer_ex, xk, pooled = 0.0, emb, []
+        for w in params["cin"]:
+            out = cmod.cin_layer_cuda(emb, xk, w)
+            for s in chunks:
+                layer_ex = max(layer_ex, layer_excess(
+                    out[s], cin_layer_ref(emb[s], xk[s], w), emb[s], xk[s],
+                    w))
+            pooled.append(out.sum(dim=-1))
+            xk = out
+        del xk, out
+        pooled = torch.cat(pooled, dim=-1)
+        pooled_ex = logit_diff = 0.0
+        for s in chunks:
             pooled_ex = max(pooled_ex, excess(
-                cin(emb, params["cin"]), cin(emb, params["cin"], impl="ref"),
-                pooled_magnitude(emb, params["cin"])))
-            i += n
-        if i != logits.shape[0]:
-            raise AssertionError("the plain check missed rows")
+                pooled[s], cin(emb[s], params["cin"], impl="ref"),
+                pooled_magnitude(emb[s], params["cin"])))
+            plain = recsys.forward(params, {k: v[s] for k, v in fb.items()},
+                                   cell.cfg, cin_impl="ref")
+            logit_diff = max(logit_diff,
+                             float((logits[s] - plain).abs().max()))
         # the two paths differ only in the CIN branch, which adds about
         # 1e-5 to a logit of order 1: its own error is far below an ulp
-        if pooled_ex > 1.0 or not logit_diff < 1e-5:
-            raise AssertionError(f"{cell.shape}: pooled features at "
-                                 f"{pooled_ex} times the rule, logits "
-                                 f"{logit_diff} from the plain path")
-        return pooled_ex, logit_diff
+        if layer_ex > 1.0 or pooled_ex > 1.0 or not logit_diff < 1e-5:
+            raise AssertionError(f"{cell.shape}: CIN layers at {layer_ex} "
+                                 f"and pooled features at {pooled_ex} times "
+                                 f"the rule, logits {logit_diff} from the "
+                                 f"plain path")
+        return layer_ex, pooled_ex, logit_diff
+
+    def timed_calls(cell, inputs, n):
+        """One warm-up call, then ``n`` calls of the cell's step, each on the
+        host clock and ending in a synchronize, with the CIN launch count
+        set to 0 just before them and the peak memory reset. Returns the
+        last output and the timing fields of the phase's row."""
+        cell.step_fn(params, inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cmod.cin_layer_cuda.launches = 0
+        secs = []
+        for _ in range(n):
+            with Timer() as t:
+                out = cell.step_fn(params, inputs)
+                torch.cuda.synchronize()
+            secs.append(t.seconds)
+        launches = cmod.cin_layer_cuda.launches
+        if launches != n_cin * n:
+            raise AssertionError(f"{cell.shape}: {launches} CIN launches in "
+                                 f"{n} calls, not {n_cin} per call")
+        return out, {"calls": n, "seconds_median": float(np.median(secs)),
+                     "seconds_p99": float(np.percentile(secs, 99)),
+                     "seconds_min": min(secs), "seconds_max": max(secs),
+                     "cin_launches": launches,
+                     "cin_launches_per_call": launches // n,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
     launches_by_path = {}
-    for shape_name in ("serve_p99", "serve_bulk"):
+    for shape_name, n_calls in (("serve_p99", 200), ("serve_bulk", 5)):
         cell = build_cell("xdeepfm", shape_name, device=dev)
         shape = {s.name: s for s in RECSYS_SHAPES}[shape_name]
         batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
             DataCursor()))
-        if shape_name == "serve_p99":
-            cell.step_fn(params, batch)                 # warm-up (cuBLAS)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        cmod.cin_layer_cuda.launches = 0
-        with Timer() as t:
-            logits = cell.step_fn(params, batch)
-            torch.cuda.synchronize()
-        launches = cmod.cin_layer_cuda.launches
-        peak = torch.cuda.max_memory_allocated(dev)
+        logits, timing = timed_calls(cell, batch, n_calls)
         B = shape.batch
-        if launches != n_cin:
-            raise AssertionError(f"{shape_name} launched the CIN kernel "
-                                 f"{launches} times, not {n_cin}")
         if tuple(logits.shape) != (B,) or not bool(
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{shape_name}: logits malformed or not "
                                  f"finite")
         with Timer() as t_check:
-            pooled_ex, logit_diff = check_against_plain(
-                cell, ({k: v[i:i + PLAIN_CHUNK] for k, v in batch.items()}
-                       for i in range(0, B, PLAIN_CHUNK)), logits)
-        cin_excess = max(cin_excess, pooled_ex)
-        launches_by_path[shape_name] = launches
-        row = {"phase": "recsys_serve", "arch": cfg.name, "shape": shape_name,
-               "batch": B, "params": n_params,
-               "param_count": cfg.param_count(),
-               "init_seconds": t_init.seconds, "weight_bytes": weight_bytes,
-               "seconds": t.seconds, "rows_s": B / t.seconds,
-               "cin_launches": launches, "peak_bytes": peak,
-               "cin_pooled_excess": pooled_ex,
-               "logits_max_abs_diff_vs_plain": logit_diff,
-               "logits_finite": True, "logits0": logits[:4].tolist(),
-               "check_seconds": t_check.seconds}
-        emit(row)
+            layer_ex, pooled_ex, logit_diff = check_against_plain(
+                cell, batch, logits)
+        cin_excess = max(cin_excess, layer_ex, pooled_ex)
+        launches_by_path[shape_name] = timing["cin_launches"]
+        emit({"phase": "recsys_serve", "arch": cfg.name, "shape": shape_name,
+              "batch": B, "params": n_params,
+              "param_count": cfg.param_count(),
+              "init_seconds": t_init.seconds, "weight_bytes": weight_bytes,
+              **timing, "rows_s": B / timing["seconds_median"],
+              "cin_layer_excess": layer_ex, "cin_pooled_excess": pooled_ex,
+              "logits_max_abs_diff_vs_plain": logit_diff,
+              "logits_finite": True, "logits0": logits[:4].tolist(),
+              "check_seconds": t_check.seconds})
         del batch, logits
-    gc.collect()
-    torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # -- phase 10: retrieval, 1 query x 1,000,000 candidates ------------------
     # the query: row 0's user fields (the first n_sparse // 3) and dense
@@ -784,36 +815,23 @@ def recsys_phases(torch, dev) -> dict:
                      "cand_ids": rows["ids"][:, fu:],
                      "cand_mask": rows["id_mask"][:, fu:]})
     del rows
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    cmod.cin_layer_cuda.launches = 0
-    with Timer() as t:
-        scores = cell.step_fn(params, q)
-        torch.cuda.synchronize()
-    launches = cmod.cin_layer_cuda.launches
-    peak = torch.cuda.max_memory_allocated(dev)
-    if launches != n_cin:
-        raise AssertionError(f"retrieval launched the CIN kernel {launches} "
-                             f"times, not {n_cin}")
+    scores, timing = timed_calls(cell, q, 3)
     if tuple(scores.shape) != (n_cand,) or not bool(
             torch.isfinite(scores).all()):
         raise AssertionError("retrieval: scores malformed or not finite")
     with Timer() as t_check:
-        pooled_ex, score_diff = check_against_plain(
-            cell, (recsys.retrieval_batch(
+        layer_ex, pooled_ex, score_diff = check_against_plain(
+            cell, recsys.retrieval_batch(
                 q["user_ids"], q["user_mask"], q["user_dense"],
-                q["cand_ids"][i:i + PLAIN_CHUNK],
-                q["cand_mask"][i:i + PLAIN_CHUNK])
-                for i in range(0, n_cand, PLAIN_CHUNK)), scores)
-    cin_excess = max(cin_excess, pooled_ex)
-    launches_by_path["retrieval_cand"] = launches
+                q["cand_ids"], q["cand_mask"]), scores)
+    cin_excess = max(cin_excess, layer_ex, pooled_ex)
+    launches_by_path["retrieval_cand"] = timing["cin_launches"]
     emit({"phase": "recsys_retrieval", "arch": cfg.name,
           "shape": "retrieval_cand", "candidates": n_cand,
           "user_fields": cell.arg_shapes["user_ids"][0][1],
           "item_fields": cell.arg_shapes["cand_ids"][0][1],
-          "seconds": t.seconds, "candidates_s": n_cand / t.seconds,
-          "cin_launches": launches, "peak_bytes": peak,
-          "cin_pooled_excess": pooled_ex,
+          **timing, "candidates_s": n_cand / timing["seconds_median"],
+          "cin_layer_excess": layer_ex, "cin_pooled_excess": pooled_ex,
           "scores_max_abs_diff_vs_plain": score_diff,
           "top5": torch.topk(scores, 5).indices.tolist(),
           "check_seconds": t_check.seconds})

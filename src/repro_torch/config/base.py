@@ -1,9 +1,9 @@
 """Copies of the JAX package's ``config/base.py`` dataclasses that the
-ported paths read: ``ShapeSpec``, ``ArchConfig``, ``TransformerConfig``
-(with ``head_dim`` and ``param_count``), ``RecsysConfig`` (with
-``param_count`` as the reference has it: it leaves out the ``linear``
-table) and the recsys shape set ``RECSYS_SHAPES``. The MoE and GNN configs
-and the LM and GNN shape sets wait for their slices.
+ported paths read: ``ShapeSpec`` (its recsys fields), ``ArchConfig``,
+``TransformerConfig`` (with ``head_dim`` and ``param_count``),
+``RecsysConfig`` (with ``param_count`` as the reference has it: it leaves
+out the ``linear`` table) and the recsys shape set ``RECSYS_SHAPES``. The
+MoE and GNN configs and the LM and GNN shape sets wait for their slices.
 
 Configs are plain frozen dataclasses: hashable, serialisable with
 ``dataclasses.asdict`` and overridable with ``dataclasses.replace``.
@@ -16,29 +16,16 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell for an architecture.
+    """One input-shape cell for an architecture: the reference's
+    ``ShapeSpec`` with the fields the recsys shapes set (its LM and GNN
+    fields wait for their slices).
 
-    ``kind`` selects which step gets lowered:
-      - "train"    -> train_step
-      - "prefill"  -> serve_prefill (full-sequence forward, no grads)
-      - "decode"   -> serve_step (1 new token against a KV cache of seq_len)
-      - "full_graph" / "minibatch" / "batched_graphs" -> GNN regimes
-      - "recsys_train" / "recsys_serve" / "retrieval" -> recsys regimes
+    ``kind`` selects the step: "recsys_train" / "recsys_serve" /
+    "retrieval".
     """
 
     name: str
     kind: str
-    # LM fields
-    seq_len: int = 0
-    global_batch: int = 0
-    # GNN fields
-    n_nodes: int = 0
-    n_edges: int = 0
-    d_feat: int = 0
-    batch_nodes: int = 0
-    fanout: Tuple[int, ...] = ()
-    n_graphs: int = 0
-    # recsys fields
     batch: int = 0
     n_candidates: int = 0
 

@@ -20,16 +20,9 @@ from repro_torch.config.base import RecsysConfig, ShapeSpec
 
 @dataclass
 class DataCursor:
-    """Checkpointable pipeline position."""
+    """Pipeline position."""
     step: int = 0
     shard: int = 0
-
-    def as_dict(self):
-        return {"step": self.step, "shard": self.shard}
-
-    @staticmethod
-    def from_dict(d):
-        return DataCursor(step=int(d.get("step", 0)), shard=int(d.get("shard", 0)))
 
 
 def _seed_for(base: int, shard: int, step: int) -> np.random.Generator:

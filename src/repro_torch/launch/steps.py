@@ -15,8 +15,9 @@ shardings.
 
 Retrieval scores one query against ``n_candidates`` with the full model:
 ``n_sparse // 3`` user fields broadcast over the candidates, the rest item
-fields. Every other arch, family and kind (``recsys_train`` too) raises,
-naming the ported cells.
+fields. Every other family and kind (``recsys_train`` too) raises
+``NotImplementedError`` naming the ported kinds; an arch the port does not
+register raises the registry's ``KeyError``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ from repro_torch.config.base import RECSYS_SHAPES, RecsysConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.models import recsys as recsys_mod
 
-# arch -> the shapes build_cell ports
-PORTED = {"xdeepfm": ("serve_p99", "serve_bulk", "retrieval_cand")}
+# the recsys shape kinds build_cell ports
+PORTED_KINDS = ("recsys_serve", "retrieval")
 
 
 @dataclass
@@ -55,20 +56,16 @@ class Cell:
                 for name, (_, dtype) in self.arg_shapes.items()}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    cells = "; ".join(f"{a} x {', '.join(s)}" for a, s in PORTED.items())
-    return NotImplementedError(f"{what} is not ported; ported cells: {cells}")
-
-
 def build_cell(arch: str, shape_name: str, smoke: bool = False,
                device="cuda") -> Cell:
-    if arch not in PORTED:
-        raise _not_ported(f"arch {arch!r}")
-    if shape_name not in PORTED[arch]:
-        raise _not_ported(f"{arch} x {shape_name!r}")
-    dev = resolve_device(device)
     cfg = get_arch(arch, smoke=smoke)
-    shape = {s.name: s for s in RECSYS_SHAPES}[shape_name]
+    shape = {s.name: s for s in RECSYS_SHAPES}.get(shape_name)
+    if cfg.family != "recsys" or shape is None \
+            or shape.kind not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"{arch} x {shape_name} is not ported; the port builds the "
+            f"recsys family's {' and '.join(PORTED_KINDS)} shapes")
+    dev = resolve_device(device)
     bag = max(cfg.multi_hot, 1)
     i32, f32 = torch.int32, torch.float32
 
