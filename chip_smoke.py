@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout's sources (one
+Builds the five hand-written CUDA kernels from the checkout's sources (one
 ``nvcc`` per kernel, started together), then:
 
   1. kernel vs plain: ``edge_relax`` on random graphs (n = 1, 257, 10,000,
@@ -79,6 +79,36 @@ Builds the hand-written CUDA kernels from the checkout's sources (one
      ``RecsysPipeline`` batch), 3 timed calls after a warm-up, 3 CIN
      launches per call, checked as in phase 9 with the kernel at
      B = 1,000,000.
+  11. segment_mm vs plain: ``segment_mm_cuda`` against ``segment_mm_ref``
+     run in float64 on the card, over the cases of
+     ``kernels/segment_mm/cases.py`` (the reference's sweep (N, E, D) =
+     (100, 500, 32), (600, 2500, 64), (50, 2000, 128), (257, 513, 16);
+     D = 1, 4, 7, 8 and 256; E = 0; N = 1; duplicates and self-loops;
+     empty rows; a row at and one just past the chunk length; 40,000- and
+     5,000-edge hubs), each at the default chunk (1,024) and at chunk 7
+     (nearly every row split), each element within that module's rule
+     (``|o - r| <= 16 u sqrt(K) A``, A the sum on absolute values, K the
+     row's length), two launches bit-identical; both planted faults (an
+     edge dropped from a row of average length, a chunk of the hub
+     dropped) must read > 1; bad inputs raise before any launch.
+  12. segment_mm timed: on the reference's ``ogb_products`` graph
+     (2,449,029 nodes, 61,859,140 edges, from ``gnn_full_graph_batch``,
+     seed 0) with gcn-cora's coefficients, at D = 16 and 7 (its two
+     layers' widths): the kernel's ms per launch (CUDA events) beside the
+     plain version's, ``torch.sparse.mm`` of the same CSR (the yardstick),
+     the compulsory and the gathered byte bounds, and the hub row alone
+     (39,485 edges), split and on one warp.
+  13. GCN inference at full width: gcn-cora (d_hidden 16, d_out 7; random
+     weights from seed 0) on ``ogb_products``, ``full_graph_sm`` and
+     ``molecule`` (batches from the copied batch functions, seed 0), the
+     graph and its layout resident on the card (the layout's build timed),
+     one warm-up, then 10, 50 and 50 timed forwards (median and max seconds,
+     nodes/s, peak bytes) with exactly 2 ``segment_mm`` launches per
+     forward. Then each layer's launch at the path's own inputs is held
+     under the rule against the float64 plain version, the rerun layers
+     must give the timed logits bit for bit, the logits must lie within the
+     chained rule (the forward on absolute values) of the plain path's,
+     and the loss is printed beside the plain path's.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -227,7 +257,8 @@ def profile_paths() -> int:
     """``--profile``: the decompositions of the main paths (stages fused;
     one-shot fused and unfused), then gemma2-9b's full-width prefill
     (B = 1, S = 8192) and 8 decode steps (batch 4), then one xdeepfm
-    ``serve_bulk`` forward (B = 262,144, full width), under
+    ``serve_bulk`` forward (B = 262,144, full width), then 5 gcn-cora
+    forwards on ``ogb_products`` (2,449,029 nodes), under
     ``torch.profiler``, each after a warm-up run, printing the device-busy
     share of the host-clock time, the device ops launched and the kernels
     that take the device time. Not part of the default run."""
@@ -238,12 +269,13 @@ def profile_paths() -> int:
         return _fail("torch.cuda.is_available() is False", 2)
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.common import Timer
-    from repro_torch.config import RECSYS_SHAPES, get_arch
+    from repro_torch.config import GNN_SHAPES, RECSYS_SHAPES, get_arch
     from repro_torch.core import cluster, make_backend, tau_for
-    from repro_torch.data.pipeline import DataCursor, RecsysPipeline
+    from repro_torch.data.pipeline import (DataCursor, RecsysPipeline,
+                                           gnn_full_graph_batch)
     from repro_torch.graph import road_like
     from repro_torch.launch.steps import build_cell
-    from repro_torch.models import recsys
+    from repro_torch.models import gnn, recsys
     from repro_torch.models import transformer as tf
 
     dev = torch.device("cuda:0")
@@ -268,7 +300,7 @@ def profile_paths() -> int:
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and dev_us(e) > 0]
         busy = sum(dev_us(e) for e in events) / 1e6
-        top = sorted(events, key=dev_us, reverse=True)[:8]
+        top = sorted(events, key=dev_us, reverse=True)[:12]
         return out, {"seconds_profiled": t.seconds,
                      "seconds_unprofiled": t_plain.seconds,
                      "device_busy_seconds": busy,
@@ -324,6 +356,26 @@ def profile_paths() -> int:
     _, stats = profiled(lambda: cell.step_fn(params, batch))
     emit({"phase": "profile", "path": "recsys_serve_bulk",
           "batch": shape.batch, **stats})
+    del params, cell, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("gcn-cora")
+    shape = {s.name: s for s in GNN_SHAPES}["ogb_products"]
+    graph = gnn.resident_graph(gnn_full_graph_batch(cfg, shape, seed=0),
+                               device=dev)
+    params = gnn.init_gnn(cfg, shape.d_feat,
+                          torch.Generator(device=dev).manual_seed(0))
+    forwards = 5   # one forward is a 8 ms window; five make it 40 ms
+
+    def gnn_forwards():
+        for _ in range(forwards):
+            gnn.gnn_forward(params, graph, cfg)
+
+    _, stats = profiled(gnn_forwards)
+    emit({"phase": "profile", "path": "gnn_forward_ogb_products",
+          "nodes": shape.n_nodes, "edges": shape.n_edges,
+          "forwards": forwards, **stats})
     return 0
 
 
@@ -868,6 +920,343 @@ def recsys_phases(torch, dev) -> dict:
             "launches_by_path": launches_by_path}
 
 
+def segmm_bytes(n_rows: int, n_src: int, n_edges: int, d: int) -> tuple:
+    """Least bytes one ``segment_mm`` launch must move on a CSR of
+    ``n_rows`` rows and ``n_edges`` edges over ``x`` [n_src, d], float32:
+    compulsory (row_ptr, col, coeff and x read once, y written once) and
+    gathered (x read once per edge instead)."""
+    fixed = 8 * (n_rows + 1) + 8 * n_edges + 4 * d * n_rows
+    return fixed + 4 * d * n_src, fixed + 4 * d * n_edges
+
+
+def segmm_bound_ms(n_rows: int, n_src: int, n_edges: int, d: int) -> tuple:
+    """The compulsory and gathered bounds in ms: the larger of the bytes
+    over HBM and the 2 E D flops over the float32 peak (the bytes, by far)."""
+    compulsory, gathered = segmm_bytes(n_rows, n_src, n_edges, d)
+    t_ops = 2 * n_edges * d / F32_FLOPS_PER_S
+    return (1e3 * max(compulsory / HBM_BYTES_PER_S, t_ops),
+            1e3 * max(gathered / HBM_BYTES_PER_S, t_ops))
+
+
+def gnn_phases(torch, dev) -> dict:
+    """Phases 11-13; returns the segment_mm row of the kernel table."""
+    from repro_torch.common import Timer
+    from repro_torch.config import GNN_SHAPES, get_arch
+    from repro_torch.data.pipeline import (gnn_full_graph_batch,
+                                           gnn_molecule_batch)
+    from repro_torch.kernels.segment_mm import kernel as smod
+    from repro_torch.kernels.segment_mm.cases import (CASES, FAULT_CASE,
+                                                      case_inputs,
+                                                      chain_excess,
+                                                      chain_magnitude,
+                                                      drop_one_chunk,
+                                                      drop_one_edge,
+                                                      rule_excess)
+    from repro_torch.kernels.segment_mm.ops import (CHUNK, csr_layout,
+                                                    segment_mm_csr)
+    from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+    from repro_torch.models import gnn
+
+    # float32 products in full float32 (the default, set here explicitly:
+    # the GCN's x @ W reads it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    max_err = excess_worst = 0.0
+
+    def held(out, x, col, row, coeff, n, what, exact=None):
+        """``out`` against the plain version in float64 (``exact``, computed
+        here if not given) on the same CSR edges, under the rule; the
+        largest |error| and the excess."""
+        if exact is None:
+            exact = segment_mm_ref(x.double(), col, row, coeff.double(), n)
+        err = float((out.double() - exact).abs().max()) if out.numel() else 0.0
+        ex = rule_excess(out, exact, x, col, row, coeff, n)
+        if not (ex <= 1.0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"segment_mm {what}: kernel vs float64 plain "
+                                 f"error {ex} times the float32 rule's")
+        return err, ex
+
+    # -- phase 11: segment_mm vs plain (float64), the shared cases ----------
+    for name in CASES:
+        x, src, dst, coeff, n = case_inputs(name)
+        x, src, dst, coeff = (torch.from_numpy(a).to(dev)
+                              for a in (x, src, dst, coeff))
+        for chunk in (CHUNK, 7):
+            layout = csr_layout(src, dst, n, chunk=chunk)
+            cs = coeff[layout.perm]
+            out = segment_mm_csr(x, layout, cs)
+            again = segment_mm_csr(x, layout, cs)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"segment_mm {name}: two launches "
+                                     f"differ")
+            err, ex = held(out, x, layout.col, layout.row, cs, n,
+                           f"{name} chunk {chunk}")
+            max_err, excess_worst = max(max_err, err), max(excess_worst, ex)
+            deg = layout.in_degree()
+            emit({"phase": "segmm_vs_plain", "case": name, "chunk": chunk,
+                  "shape": [n, int(src.numel()), int(x.shape[1])],
+                  "longest_row": int(deg.max()) if n else 0,
+                  "long_rows": int(layout.long_rows.numel()),
+                  "max_abs_err": err, "excess": ex, "bit_identical": True})
+    # the rule must reject a dropped edge and a dropped chunk of the hub
+    x, src, dst, coeff, n = case_inputs(FAULT_CASE)
+    x, src, dst, coeff = (torch.from_numpy(a).to(dev)
+                          for a in (x, src, dst, coeff))
+    exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
+    fault = {f.__name__: rule_excess(f(x, src, dst, coeff, n), exact, x, src,
+                                     dst, coeff, n)
+             for f in (drop_one_edge, drop_one_chunk)}
+    if min(fault.values()) <= 1.0:
+        raise AssertionError(f"segment_mm: the float32 rule passed a planted "
+                             f"fault: {fault}")
+    layout = csr_layout(src, dst, n)
+    cs = coeff[layout.perm]
+    emit({"phase": "segmm_planted_fault", "case": FAULT_CASE, **fault,
+          "sound_excess": rule_excess(segment_mm_csr(x, layout, cs), exact,
+                                      x, src, dst, coeff, n)})
+    # what the kernel does not take raises, before any launch
+    bad = {"float64": (x.double(), layout.row_ptr, layout.col, cs),
+           "int32 row_ptr": (x, layout.row_ptr.int(), layout.col, cs),
+           "D 257": (torch.zeros(n, 257, device=dev), layout.row_ptr,
+                     layout.col, cs),
+           "strided x": (x.t().contiguous().t(), layout.row_ptr, layout.col,
+                         cs),
+           "coeff on the CPU": (x, layout.row_ptr, layout.col, cs.cpu()),
+           "short coeff": (x, layout.row_ptr, layout.col, cs[:-1])}
+    before = smod.segment_mm_cuda.launches
+    for what, args in bad.items():
+        try:
+            smod.segment_mm_cuda(*args, layout.long_rows, CHUNK)
+        except ValueError:
+            continue
+        raise AssertionError(f"segment_mm_cuda took bad inputs: {what}")
+    if smod.segment_mm_cuda.launches != before:
+        raise AssertionError("segment_mm_cuda launched on bad inputs")
+    emit({"phase": "segmm_bad_inputs", "raised": list(bad)})
+    del x, src, dst, coeff, exact, layout, cs, out, again
+
+    # -- the ogb_products graph, resident on the card -------------------------
+    cfg = get_arch("gcn-cora")
+    shapes = {s.name: s for s in GNN_SHAPES}
+
+    def resident(shape_name):
+        """The shape's batch from the copied batch functions (seed 0), on
+        the card, with its layout built there once; host and layout
+        seconds."""
+        shape = shapes[shape_name]
+        with Timer() as t_host:
+            if shape.kind == "batched_graphs":
+                batch = gnn_molecule_batch(cfg, shape, seed=0,
+                                           d_feat=shape.d_feat)
+            else:
+                batch = gnn_full_graph_batch(cfg, shape, seed=0,
+                                             n_classes=cfg.d_out)
+        graph = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        del batch
+        torch.cuda.synchronize()
+        with Timer() as t_layout:
+            graph["layout"] = csr_layout(graph["src"], graph["dst"],
+                                         graph["x"].shape[0])
+            torch.cuda.synchronize()
+        return graph, {"host_batch_seconds": t_host.seconds,
+                       "layout_seconds": t_layout.seconds}
+
+    ogb, ogb_setup = resident("ogb_products")
+    layout = ogb["layout"]
+    n, e = ogb["x"].shape[0], layout.col.numel()
+    deg = layout.in_degree()
+    emit({"phase": "gnn_graph", "shape": "ogb_products", "nodes": n,
+          "edges": e, "max_in_degree": int(deg.max()),
+          "long_rows": int(layout.long_rows.numel()),
+          "edges_in_long_rows": int(deg[layout.long_rows.long()].sum()),
+          "empty_rows": int((deg == 0).sum()), **ogb_setup})
+
+    # -- phase 12: segment_mm timed at ogb_products, D = 16 and 7 ------------
+    _, coeff, _ = gnn.gcn_norm(layout, cfg.norm)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    hub = int(torch.argmax(deg))
+    lo, hi = int(layout.row_ptr[hub]), int(layout.row_ptr[hub + 1])
+    hub_ptr = torch.tensor([0, hi - lo], dtype=torch.int64, device=dev)
+    hub_col = layout.col[lo:hi].contiguous()
+    hub_coeff = coeff[lo:hi].contiguous()
+    col64 = layout.col.to(torch.int64)
+    timed = {}
+    for d in (cfg.d_hidden, cfg.d_out):
+        x = torch.randn(n, d, generator=gen, device=dev)
+        out = segment_mm_csr(x, layout, coeff)
+        exact = segment_mm_ref(x.double(), layout.col, layout.row,
+                               coeff.double(), n)
+        err, ex = held(out, x, layout.col, layout.row, coeff, n,
+                       f"ogb_products D={d}", exact)
+        max_err, excess_worst = max(max_err, err), max(excess_worst, ex)
+        csr = torch.sparse_csr_tensor(layout.row_ptr, col64, coeff,
+                                      size=(n, n))
+        lib_ex = rule_excess(torch.sparse.mm(csr, x), exact, x, layout.col,
+                             layout.row, coeff, n)
+        del exact
+        compulsory, gathered = segmm_bound_ms(n, n, e, d)
+        bytes_c, bytes_g = segmm_bytes(n, n, e, d)
+        row = {"phase": "segmm_timed", "shape": "ogb_products", "d": d,
+               "nodes": n, "edges": e, "max_abs_err": err, "excess": ex,
+               "ms": time_ms(torch, lambda: segment_mm_csr(x, layout, coeff),
+                             20),
+               "plain_ms": time_ms(torch, lambda: segment_mm_csr(
+                   x, layout, coeff, impl="ref"), 5),
+               "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, x),
+                                     5),
+               "library_excess": lib_ex,
+               "bound_ms": compulsory, "bound_by": "bytes",
+               "gathered_bound_ms": gathered,
+               "bytes_compulsory": bytes_c, "bytes_gathered": bytes_g}
+        # the hub row alone (a one-row graph over the same x): split across
+        # a block's warps as the kernel splits it, and one warp over it all
+        split = smod.segment_mm_cuda(x, hub_ptr, hub_col, hub_coeff,
+                                     torch.zeros(1, dtype=torch.int32,
+                                                 device=dev), CHUNK)
+        one_warp = smod.segment_mm_cuda(x, hub_ptr, hub_col, hub_coeff,
+                                        torch.zeros(0, dtype=torch.int32,
+                                                    device=dev), hi - lo)
+        if not torch.equal(split[0], out[hub]):
+            raise AssertionError("segment_mm: the hub alone differs from the "
+                                 "hub in the graph")
+        zeros = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
+        _, one_ex = held(one_warp, x, hub_col, zeros, hub_coeff, 1,
+                         "hub, one warp")
+        row.update({
+            "hub_edges": hi - lo,
+            "hub_ms": time_ms(torch, lambda: smod.segment_mm_cuda(
+                x, hub_ptr, hub_col, hub_coeff, torch.zeros(
+                    1, dtype=torch.int32, device=dev), CHUNK), 20),
+            "hub_one_warp_ms": time_ms(torch, lambda: smod.segment_mm_cuda(
+                x, hub_ptr, hub_col, hub_coeff, torch.zeros(
+                    0, dtype=torch.int32, device=dev), hi - lo), 20),
+            "hub_one_warp_excess": one_ex})
+        row["gbytes_s_compulsory"] = bytes_c / row["ms"] / 1e6
+        row["bound_share"] = compulsory / row["ms"]
+        timed[d] = row
+        emit(row)
+        del x, out, csr, split, one_warp
+        torch.cuda.empty_cache()
+    del col64, hub_col, hub_coeff, coeff
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 13: gcn-cora inference at full width ---------------------------
+    # ogb_products first, on the graph already resident, which is then
+    # freed: the smaller shapes' peaks are their own
+    n_timed = {"ogb_products": 10, "full_graph_sm": 50, "molecule": 50}
+    launches_by_path = {}
+    for shape_name, n_calls in n_timed.items():
+        if shape_name == "ogb_products":
+            graph, setup, ogb = ogb, ogb_setup, None
+        else:
+            graph, setup = resident(shape_name)
+        layout = graph["layout"]
+        n_nodes, d_in = graph["x"].shape
+        params = gnn.init_gnn(cfg, d_in, torch.Generator(
+            device=dev).manual_seed(0))
+        gnn.gnn_forward(params, graph, cfg)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        smod.segment_mm_cuda.launches = 0
+        secs = []
+        for _ in range(n_calls):
+            with Timer() as t:
+                logits = gnn.gnn_forward(params, graph, cfg)
+                torch.cuda.synchronize()
+            secs.append(t.seconds)
+        launches = smod.segment_mm_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the same forward back to back on CUDA events: the device's time
+        # per forward with the host's launch gaps, beside the host clock's
+        event_ms = time_ms(torch, lambda: gnn.gnn_forward(params, graph, cfg),
+                           n_calls, warmup=1)
+        if launches != cfg.n_layers * n_calls:
+            raise AssertionError(f"gnn {shape_name}: {launches} segment_mm "
+                                 f"launches in {n_calls} forwards, not "
+                                 f"{cfg.n_layers} per forward")
+        launches_by_path[shape_name] = launches
+        if tuple(logits.shape) != (n_nodes, cfg.d_out) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"gnn {shape_name}: logits malformed or not "
+                                 f"finite")
+        # each launch at the path's own inputs, against float64 plain
+        with Timer() as t_check:
+            _, coeff, self_coeff = gnn.gcn_norm(layout, cfg.norm)
+            x, layer_ex = graph["x"], []
+            for i, lp in enumerate(params["layers"]):
+                h = x @ lp["w"]
+                err, ex = held(segment_mm_csr(h, layout, coeff), h,
+                               layout.col, layout.row, coeff, n_nodes,
+                               f"{shape_name} layer {i}")
+                max_err, excess_worst = max(max_err, err), max(excess_worst,
+                                                               ex)
+                layer_ex.append(ex)
+                x = gnn.gcn_layer(x, lp, layout, coeff, self_coeff,
+                                  relu=i < cfg.n_layers - 1)
+                del h
+            if not torch.equal(x, logits):
+                raise AssertionError(f"gnn {shape_name}: the layers rerun "
+                                     f"differ from the timed forward")
+            plain = gnn.gnn_forward(params, graph, cfg, impl="ref")
+            mag = chain_magnitude(params, graph["x"], layout.col, layout.row,
+                                  coeff, self_coeff)
+            chain = chain_excess(logits, plain, mag, [d_in, cfg.d_hidden],
+                                 int(layout.in_degree().max()))
+            if chain > 1.0:
+                raise AssertionError(f"gnn {shape_name}: logits {chain} times "
+                                     f"the chained rule from the plain path")
+            loss_fn = (gnn.graph_regression_loss
+                       if shape_name == "molecule"
+                       else gnn.node_classification_loss)
+            loss = float(loss_fn(params, graph, cfg))
+            plain_loss = float(loss_fn(params, graph, cfg, impl="ref"))
+            del x, plain, mag, coeff, self_coeff
+        if not math.isfinite(loss):
+            raise AssertionError(f"gnn {shape_name}: loss {loss}")
+        emit({"phase": "gnn_forward", "arch": cfg.name, "shape": shape_name,
+              "nodes": n_nodes, "edges": int(layout.col.numel()),
+              "d_feat": d_in, **setup, "forwards": n_calls,
+              "seconds_median": float(np.median(secs)),
+              "seconds_max": max(secs), "seconds_min": min(secs),
+              "nodes_s": n_nodes / float(np.median(secs)),
+              "event_ms_per_forward": event_ms,
+              "segmm_launches": launches,
+              "segmm_launches_per_forward": launches // n_calls,
+              "peak_bytes": peak, "layer_excess": layer_ex,
+              "logits_chain_excess": chain, "loss": loss,
+              "plain_loss": plain_loss, "loss_diff": abs(loss - plain_loss),
+              "logits0": logits[0].tolist(),
+              "check_seconds": t_check.seconds})
+        del graph, logits, params, layout
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t16, t7 = timed[cfg.d_hidden], timed[cfg.d_out]
+    return {"name": "segment_mm", "route": "cuda",
+            "source": "src/repro_torch/kernels/segment_mm/csrc/segment_mm.cu",
+            "replaces": "src/repro/kernels/segment_mm/kernel.py:30",
+            "launches": sum(launches_by_path.values()),
+            "max_abs_err": max_err, "float32_rule_excess": excess_worst,
+            "shape": f"ogb_products ({t16['nodes']} nodes, {t16['edges']} "
+                     f"edges), D {t16['d']} (gcn-cora layer 1)",
+            "ms": t16["ms"], "plain_ms": t16["plain_ms"],
+            "bound_ms": t16["bound_ms"], "bound_by": "bytes",
+            "gathered_bound_ms": t16["gathered_bound_ms"],
+            "library_ms": t16["library_ms"],
+            "library_call": "torch.sparse.mm of a CSR tensor (crow = row_ptr, "
+                            "col, values = sorted coeff), float32",
+            "hub_ms": t16["hub_ms"], "hub_one_warp_ms": t16["hub_one_warp_ms"],
+            "hub_edges": t16["hub_edges"],
+            "d7_ms": t7["ms"], "d7_plain_ms": t7["plain_ms"],
+            "d7_bound_ms": t7["bound_ms"],
+            "d7_gathered_bound_ms": t7["gathered_bound_ms"],
+            "d7_library_ms": t7["library_ms"], "d7_hub_ms": t7["hub_ms"],
+            "d7_hub_one_warp_ms": t7["hub_one_warp_ms"],
+            "launches_by_path": launches_by_path}
+
+
 def main() -> int:
     import torch
 
@@ -898,6 +1287,7 @@ def main() -> int:
                                                     edge_relax_plain)
     from repro_torch.kernels.cin import kernel as cmod
     from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.segment_mm import kernel as smod
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -910,7 +1300,8 @@ def main() -> int:
     builds = ((kmod.NAME, kmod.SOURCES, kmod.load_library),
               (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library),
               (fmod.NAME, fmod.SOURCES, fmod.load_library),
-              (cmod.NAME, cmod.SOURCES, cmod.load_library))
+              (cmod.NAME, cmod.SOURCES, cmod.load_library),
+              (smod.NAME, smod.SOURCES, smod.load_library))
 
     def timed_load(load):
         with Timer() as tb:
@@ -1305,6 +1696,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cin_row = recsys_phases(torch, dev)
 
+    # -- phases 11-13: segment_mm and gcn-cora inference ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    segmm_row = gnn_phases(torch, dev)
+
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -1329,7 +1725,7 @@ def main() -> int:
         "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
         "launches_by_path": {"stages_fused": launches_stages_fused,
                              "oneshot_fused": launches_oneshot_fused},
-    }, flash_row, cin_row]})
+    }, flash_row, cin_row, segmm_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Copies of the JAX package's ``config/base.py`` dataclasses that the
-ported paths read: ``ShapeSpec`` (its recsys fields), ``ArchConfig``,
-``TransformerConfig`` (with ``head_dim`` and ``param_count``),
-``RecsysConfig`` (with ``param_count`` as the reference has it: it leaves
-out the ``linear`` table) and the recsys shape set ``RECSYS_SHAPES``. The
-MoE and GNN configs and the LM and GNN shape sets wait for their slices.
+ported paths read: ``ShapeSpec`` (its GNN and recsys fields),
+``ArchConfig``, ``TransformerConfig`` (with ``head_dim`` and
+``param_count``), ``GNNConfig`` (with the reference's rough
+``param_count``), ``RecsysConfig`` (with ``param_count`` as the reference
+has it: it leaves out the ``linear`` table) and the GNN and recsys shape
+sets ``GNN_SHAPES`` and ``RECSYS_SHAPES``. The MoE configs and the LM
+shape set wait for their slices.
 
 Configs are plain frozen dataclasses: hashable, serialisable with
 ``dataclasses.asdict`` and overridable with ``dataclasses.replace``.
@@ -17,15 +19,24 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ShapeSpec:
     """One input-shape cell for an architecture: the reference's
-    ``ShapeSpec`` with the fields the recsys shapes set (its LM and GNN
-    fields wait for their slices).
+    ``ShapeSpec`` with the fields the GNN and recsys shapes set (its LM
+    fields wait for their slice).
 
-    ``kind`` selects the step: "recsys_train" / "recsys_serve" /
-    "retrieval".
+    ``kind`` selects the regime: "full_graph" / "minibatch" /
+    "batched_graphs" (GNN) or "recsys_train" / "recsys_serve" /
+    "retrieval" (recsys).
     """
 
     name: str
     kind: str
+    # GNN fields
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    n_graphs: int = 0
+    # recsys fields
     batch: int = 0
     n_candidates: int = 0
 
@@ -81,6 +92,30 @@ class TransformerConfig(ArchConfig):
 
 
 @dataclass(frozen=True)
+class GNNConfig(ArchConfig):
+    family: str = "gnn"
+    kind: str = "gcn"                # gcn | gatedgcn | meshgraphnet | equiformer_v2
+    n_layers: int = 2
+    d_hidden: int = 16
+    d_in: int = 0                    # input feature dim (0 -> shape-provided)
+    d_out: int = 7                   # output classes / targets
+    aggregator: str = "mean"         # mean | sum | max | gated
+    norm: str = "sym"                # sym | none (GCN adjacency normalization)
+    mlp_layers: int = 2              # meshgraphnet per-block MLP depth
+    d_edge: int = 0                  # edge feature dim (0 -> none)
+    # equiformer-v2 fields
+    l_max: int = 6
+    m_max: int = 2
+    n_heads: int = 8
+    dtype: str = "float32"
+    residual: bool = False
+
+    def param_count(self) -> int:
+        d = self.d_hidden
+        return self.n_layers * (3 * d * d + 2 * d)  # rough; exact per model
+
+
+@dataclass(frozen=True)
 class RecsysConfig(ArchConfig):
     family: str = "recsys"
     kind: str = "xdeepfm"
@@ -109,6 +144,21 @@ class RecsysConfig(ArchConfig):
             prev = w
         return emb + cin + mlp + prev + sum(self.cin_layers) + 1
 
+
+GNN_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="full_graph_sm", kind="full_graph", n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeSpec(
+        name="minibatch_lg",
+        kind="minibatch",
+        n_nodes=232_965,
+        n_edges=114_615_892,
+        batch_nodes=1024,
+        fanout=(15, 10),
+        d_feat=602,
+    ),
+    ShapeSpec(name="ogb_products", kind="full_graph", n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    ShapeSpec(name="molecule", kind="batched_graphs", n_nodes=30, n_edges=64, n_graphs=128, d_feat=32),
+)
 
 RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec(name="train_batch", kind="recsys_train", batch=65536),

@@ -15,6 +15,7 @@ _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # arch-id -> module under repro_torch.configs that registers it (the ported
 # arches only; the reference registers more)
 _ARCH_MODULES = {
+    "gcn-cora": "gcn_cora",
     "gemma2-9b": "gemma2_9b",
     "xdeepfm": "xdeepfm",
 }

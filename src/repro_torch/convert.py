@@ -3,10 +3,11 @@
 ``from_reference`` turns the JAX package's ``EdgeList`` arrays and
 ``EngineState`` planes, given as numpy, into the port's ``EdgeList`` and
 ``EngineState`` on a device, so both packages can start from the same
-mid-decomposition state. ``transformer_params_from_reference`` and
-``recsys_params_from_reference`` turn the reference's transformer and
-xDeepFM parameter trees, given as numpy, into the port's parameter dicts,
-so both packages can run the same weights.
+mid-decomposition state. ``transformer_params_from_reference``,
+``recsys_params_from_reference`` and ``gnn_params_from_reference`` turn the
+reference's transformer, xDeepFM and GCN parameter trees, given as numpy,
+into the port's parameter dicts, so both packages can run the same
+weights.
 """
 from __future__ import annotations
 
@@ -114,3 +115,36 @@ def recsys_params_from_reference(params_np: Dict[str, Any], cfg,
                 for i, lp in enumerate(params_np["mlp"])],
         "bias": conv(params_np["bias"], (), "bias"),
     }
+
+
+def gnn_params_from_reference(params_np: Dict[str, Any], cfg,
+                              device="cuda") -> Dict[str, Any]:
+    """The reference's GCN parameter tree (``layers``, a list of ``{w,
+    b}``), as numpy, turned into the port's dict on ``device`` with the same
+    names, shapes and values. ``cfg`` is the port's ``GNNConfig``; the
+    input width is the first ``w``'s rows, and every array must be float32
+    and of the shape ``cfg`` gives it. Only gcn is ported."""
+    if cfg.kind != "gcn":
+        raise NotImplementedError(f"gnn_params_from_reference: GNN kind "
+                                  f"{cfg.kind!r} is not ported; the port "
+                                  f"runs gcn")
+    dev = resolve_device(device)
+    layers = params_np["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"gnn_params_from_reference: {len(layers)} layers "
+                         f"in the tree, {cfg.n_layers} in the config")
+    d_in = np.shape(layers[0]["w"])[0]
+    dims = [d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.d_out]
+
+    def conv(a, shape, name):
+        t = _tensor_from_numpy(a, dev)
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"gnn_params_from_reference: {name} is "
+                             f"{t.dtype} {tuple(t.shape)}, expected float32 "
+                             f"{tuple(shape)}")
+        return t
+
+    return {"layers": [
+        {"w": conv(lp["w"], (dims[i], dims[i + 1]), f"layers[{i}].w"),
+         "b": conv(lp["b"], (dims[i + 1],), f"layers[{i}].b")}
+        for i, lp in enumerate(layers)]}

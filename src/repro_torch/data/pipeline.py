@@ -1,12 +1,14 @@
-"""Synthetic, seeded recsys batches: copies of the JAX package's
-``data/pipeline.py`` ``DataCursor``, ``_seed_for`` and ``RecsysPipeline``.
+"""Synthetic, seeded recsys and GNN batches: copies of the JAX package's
+``data/pipeline.py`` ``DataCursor``, ``_seed_for``, ``RecsysPipeline``,
+``gnn_full_graph_batch`` and ``gnn_molecule_batch``.
 
 They are numpy only, and for the same seed and cursor give the same arrays
 as the reference: deterministic per-(shard, step) seeding, so a restored
 job replays the exact stream from its data cursor, and Zipf-ish ids (80% of
 lookups in the first 1% of each field's rows) that exercise the
-embedding-bag gather as real traffic does. ``LMTokenPipeline`` and the GNN
-batches wait for their slices.
+embedding-bag gather as real traffic does. The GNN batches give the same
+arrays as the reference's for the same seed. ``LMTokenPipeline`` waits for
+its slice.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Dict
 
 import numpy as np
 
-from repro_torch.config.base import RecsysConfig, ShapeSpec
+from repro_torch.config.base import GNNConfig, RecsysConfig, ShapeSpec
 
 
 @dataclass
@@ -52,3 +54,42 @@ class RecsysPipeline:
         dense = r.standard_normal((B, self.cfg.n_dense)).astype(np.float32)
         labels = r.integers(0, 2, B).astype(np.int32)
         return {"ids": ids, "id_mask": mask, "dense": dense, "labels": labels}
+
+
+def gnn_full_graph_batch(cfg: GNNConfig, shape: ShapeSpec, seed: int = 0,
+                         n_classes: int = 7) -> Dict[str, np.ndarray]:
+    """Synthetic full-graph batch at the shape's (n_nodes, n_edges) scale.
+    RMAT-ish degree skew, features/labels/positions as the arch needs."""
+    r = np.random.default_rng(seed)
+    n, e = shape.n_nodes, shape.n_edges
+    # power-ish degree: endpoints = floor(n * u^2)
+    src = (n * r.random(e) ** 2).astype(np.int32) % n
+    dst = (n * r.random(e) ** 2).astype(np.int32) % n
+    x = r.standard_normal((n, shape.d_feat)).astype(np.float32)
+    return {
+        "x": x,
+        "src": src,
+        "dst": dst,
+        "labels": r.integers(0, n_classes, n).astype(np.int32),
+        "pos": r.standard_normal((n, 3)).astype(np.float32),
+    }
+
+
+def gnn_molecule_batch(cfg: GNNConfig, shape: ShapeSpec, seed: int = 0,
+                       d_feat: int = 32) -> Dict[str, np.ndarray]:
+    """`n_graphs` disjoint molecules flattened into one padded graph."""
+    r = np.random.default_rng(seed)
+    g, n, e = shape.n_graphs, shape.n_nodes, shape.n_edges
+    N, E = g * n, g * e
+    offs = np.repeat(np.arange(g, dtype=np.int32) * n, e)
+    src = (r.integers(0, n, E).astype(np.int32) + offs)
+    dst = (r.integers(0, n, E).astype(np.int32) + offs)
+    return {
+        "x": r.standard_normal((N, d_feat)).astype(np.float32),
+        "src": src,
+        "dst": dst,
+        "pos": r.standard_normal((N, 3)).astype(np.float32),
+        "graph_id": np.repeat(np.arange(g, dtype=np.int32), n),
+        "targets": r.standard_normal((g, 1)).astype(np.float32),
+        "labels": np.zeros(N, np.int32),
+    }

@@ -16,8 +16,11 @@ shardings.
 Retrieval scores one query against ``n_candidates`` with the full model:
 ``n_sparse // 3`` user fields broadcast over the candidates, the rest item
 fields. Every other family and kind (``recsys_train`` too) raises
-``NotImplementedError`` naming the ported kinds; an arch the port does not
-register raises the registry's ``KeyError``.
+``NotImplementedError`` naming the ported kinds and the family and kind
+asked for; an arch the port does not register raises the registry's
+``KeyError``. The GNN family has no cell here: the reference's GNN cell is
+a training step, which waits for the training slice (GNN inference runs
+through ``models/gnn.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
-from repro_torch.config.base import RECSYS_SHAPES, RecsysConfig
+from repro_torch.config.base import GNN_SHAPES, RECSYS_SHAPES, RecsysConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.models import recsys as recsys_mod
 
@@ -59,12 +62,17 @@ class Cell:
 def build_cell(arch: str, shape_name: str, smoke: bool = False,
                device="cuda") -> Cell:
     cfg = get_arch(arch, smoke=smoke)
-    shape = {s.name: s for s in RECSYS_SHAPES}.get(shape_name)
+    shape = {s.name: s for s in RECSYS_SHAPES + GNN_SHAPES}.get(shape_name)
     if cfg.family != "recsys" or shape is None \
             or shape.kind not in PORTED_KINDS:
+        kind = shape.kind if shape is not None else "unknown"
+        why = (": the reference's GNN cell is a training step, which waits "
+               "for the training slice; GNN inference runs through "
+               "models/gnn.py" if cfg.family == "gnn" else "")
         raise NotImplementedError(
             f"{arch} x {shape_name} is not ported; the port builds the "
-            f"recsys family's {' and '.join(PORTED_KINDS)} shapes")
+            f"recsys family's {' and '.join(PORTED_KINDS)} shapes, and this "
+            f"is the {cfg.family} family's {kind} kind{why}")
     dev = resolve_device(device)
     bag = max(cfg.multi_hot, 1)
     i32, f32 = torch.int32, torch.float32

@@ -1,2 +1,2 @@
-"""Models of the port: the dense decoder-only transformer (LM slice) and
-xDeepFM serving (recsys slice)."""
+"""Models of the port: the dense decoder-only transformer (LM slice),
+xDeepFM serving (recsys slice) and GCN inference (GNN slice)."""

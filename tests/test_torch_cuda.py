@@ -3,8 +3,10 @@ kernel and megakernel against their plain PyTorch versions, the pipeline
 on the kernel backend against the plain backend, the fused grow path
 against the unfused one in both decomposition modes, the flash
 attention kernel against its plain version, alone and inside the
-transformer's prefill and decode, and the CIN kernel against its plain
-version, alone, in a stack and inside xDeepFM's forward and retrieval.
+transformer's prefill and decode, the CIN kernel against its plain
+version, alone, in a stack and inside xDeepFM's forward and retrieval,
+and the segment_mm kernel against its plain version in float64, alone and
+inside the GCN forward (two launches per forward).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -17,7 +19,7 @@ import torch
 import dataclasses
 
 from repro_torch.common import GraphEngineConfig
-from repro_torch.config import get_arch
+from repro_torch.config import GNN_SHAPES, get_arch
 from repro_torch.core import ClusterQuotientEstimator, open_session
 from repro_torch.graph import road_like, social_like
 from repro_torch.graph.structures import EdgeList
@@ -38,8 +40,21 @@ from repro_torch.kernels.flash_attention.cases import (bf16_excess,
                                                        case_kwargs)
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.segment_mm import kernel as smod
+from repro_torch.kernels.segment_mm.cases import CASES as SEGMM_CASES
+from repro_torch.kernels.segment_mm.cases import FAULT_CASE as SEGMM_FAULT
+from repro_torch.kernels.segment_mm.cases import (chain_excess,
+                                                  chain_magnitude,
+                                                  drop_one_chunk,
+                                                  drop_one_edge, rule_excess)
+from repro_torch.kernels.segment_mm.cases import \
+    case_inputs as segmm_case_inputs
+from repro_torch.kernels.segment_mm.ops import (csr_layout, segment_mm,
+                                                segment_mm_csr)
+from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+from repro_torch.data.pipeline import gnn_full_graph_batch
 from repro_torch.launch.steps import build_cell
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
@@ -373,3 +388,95 @@ def test_recsys_cells_through_the_kernel_on_card(cuda_device):
     assert cmod.cin_layer_cuda.launches == len(cfg.cin_layers)
     torch.testing.assert_close(scores, cell.step_fn(params, q, cin_impl="ref"),
                                rtol=0, atol=1e-6)
+
+
+def _segmm_case(name, dev):
+    x, src, dst, coeff, n = segmm_case_inputs(name)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(src).to(dev),
+            torch.from_numpy(dst).to(dev), torch.from_numpy(coeff).to(dev), n)
+
+
+@pytest.mark.parametrize("chunk", [1024, 7])
+@pytest.mark.parametrize("name", sorted(SEGMM_CASES))
+def test_segment_mm_matches_plain(cuda_device, name, chunk):
+    """The float32 rule of ``kernels/segment_mm/cases.py`` against the plain
+    version in float64; one launch per call; two launches bit-identical; at
+    chunk 7 nearly every row is split across a block's warps."""
+    x, src, dst, coeff, n = _segmm_case(name, cuda_device)
+    layout = csr_layout(src, dst, n, chunk=chunk)
+    cs = coeff[layout.perm]
+    before = smod.segment_mm_cuda.launches
+    out = segment_mm_csr(x, layout, cs)
+    again = segment_mm_csr(x, layout, cs)
+    torch.cuda.synchronize()
+    assert smod.segment_mm_cuda.launches == before + 2
+    assert out.shape == (n, x.shape[1]) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
+    assert rule_excess(out, exact, x, src, dst, coeff, n) <= 1.0
+    if chunk == 1024:
+        flat = segment_mm(x, src, dst, coeff, n)
+        assert smod.segment_mm_cuda.launches == before + 3
+        assert torch.equal(flat, out)
+
+
+def test_segment_mm_rule_rejects_the_planted_faults_on_card(cuda_device):
+    x, src, dst, coeff, n = _segmm_case(SEGMM_FAULT, cuda_device)
+    exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
+    assert rule_excess(segment_mm(x, src, dst, coeff, n), exact, x, src,
+                       dst, coeff, n) <= 1.0
+    for fault in (drop_one_edge, drop_one_chunk):
+        assert rule_excess(fault(x, src, dst, coeff, n), exact, x, src, dst,
+                           coeff, n) > 1.0
+
+
+def test_segment_mm_layout_and_bad_inputs_on_card(cuda_device):
+    """The layout built on the card is the CPU's, edge for edge; what the
+    kernel does not take raises."""
+    x, src, dst, coeff, n = _segmm_case("hub-40000", cuda_device)
+    dev_l = csr_layout(src, dst, n)
+    cpu_l = csr_layout(src.cpu(), dst.cpu(), n)
+    for f in ("row_ptr", "col", "row", "perm", "long_rows"):
+        assert torch.equal(getattr(dev_l, f).cpu(), getattr(cpu_l, f)), f
+    rp, col, lr, cs = dev_l.row_ptr, dev_l.col, dev_l.long_rows, \
+        coeff[dev_l.perm]
+    with pytest.raises(ValueError, match="float32"):
+        smod.segment_mm_cuda(x.double(), rp, col, cs, lr, 1024)
+    with pytest.raises(ValueError, match="D <="):
+        smod.segment_mm_cuda(torch.zeros(n, 300, device=cuda_device), rp,
+                             col, cs, lr, 1024)
+    with pytest.raises(ValueError, match="contiguous"):
+        smod.segment_mm_cuda(x.t().contiguous().t(), rp, col, cs, lr, 1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        smod.segment_mm_cuda(x, rp.cpu(), col, cs, lr, 1024)
+    empty = smod.segment_mm_cuda(x, rp[:1], col, cs, lr[:0], 1024)
+    assert empty.shape == (0, x.shape[1])
+
+
+def test_gcn_forward_through_the_kernel_on_card(cuda_device):
+    """gcn-cora at full widths on ``full_graph_sm``: two launches per
+    forward, bit-identical forwards, the logits within the chained rule of
+    the plain path's."""
+    cfg = get_arch("gcn-cora")
+    shape = {s.name: s for s in GNN_SHAPES}["full_graph_sm"]
+    graph = gnn.resident_graph(gnn_full_graph_batch(cfg, shape, seed=0),
+                               device=cuda_device)
+    params = gnn.init_gnn(cfg, shape.d_feat, torch.Generator(
+        device=cuda_device).manual_seed(0))
+    smod.segment_mm_cuda.launches = 0
+    got = gnn.gnn_forward(params, graph, cfg)
+    again = gnn.gnn_forward(params, graph, cfg)
+    torch.cuda.synchronize()
+    assert smod.segment_mm_cuda.launches == 4
+    assert torch.equal(got, again)
+    want = gnn.gnn_forward(params, graph, cfg, impl="ref")
+    assert smod.segment_mm_cuda.launches == 4
+    layout = graph["layout"]
+    _, coeff, self_coeff = gnn.gcn_norm(layout, cfg.norm)
+    mag = chain_magnitude(params, graph["x"], layout.col, layout.row, coeff,
+                          self_coeff)
+    assert chain_excess(got, want, mag, [shape.d_feat, cfg.d_hidden],
+                        int(layout.in_degree().max())) <= 1.0
+    loss = gnn.node_classification_loss(params, graph, cfg)
+    assert smod.segment_mm_cuda.launches == 6 and torch.isfinite(loss)

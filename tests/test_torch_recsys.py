@@ -271,14 +271,19 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
 @pytest.mark.parametrize("arch,shape", [("xdeepfm", "train_batch"),
                                         ("gemma2-9b", "prefill_32k"),
                                         ("gcn-cora", "full_graph_sm"),
-                                        ("xdeepfm", "no_such_shape")])
+                                        ("xdeepfm", "no_such_shape"),
+                                        ("gatedgcn", "full_graph_sm")])
 def test_build_cell_raises_for_what_is_not_ported(arch, shape):
     """A family or kind the port lacks raises NotImplementedError naming
-    the ported kinds; an arch the port does not register (gcn-cora) raises
-    the registry's KeyError."""
-    want, match = ((KeyError, "'gcn-cora' is not ported") if arch == "gcn-cora"
+    the ported kinds and the family and kind asked for (gcn-cora is
+    registered, but the GNN cell is a training step); an arch the port does
+    not register (gatedgcn) raises the registry's KeyError."""
+    want, match = ((KeyError, "'gatedgcn' is not ported") if arch == "gatedgcn"
                    else (NotImplementedError,
                          f"{arch} x {shape} is not ported; the port builds "
                          f"the recsys family's recsys_serve and retrieval"))
-    with pytest.raises(want, match=match):
+    with pytest.raises(want, match=match) as err:
         build_cell(arch, shape, smoke=True, device="cpu")
+    if arch == "gcn-cora":
+        assert "the gnn family's full_graph kind" in str(err.value)
+        assert "training step" in str(err.value)

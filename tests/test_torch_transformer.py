@@ -89,7 +89,7 @@ def test_configs_and_registry_match_the_reference():
     assert cfg.param_count() == 9_241_404_928 == \
         ref_get_arch("gemma2-9b").param_count()
     assert cfg.head_dim == 256
-    assert list_archs() == ("gemma2-9b", "xdeepfm")
+    assert list_archs() == ("gcn-cora", "gemma2-9b", "xdeepfm")
     with pytest.raises(KeyError, match="gemma2-9b"):
         get_arch("mixtral-8x7b")
 
