@@ -3,8 +3,9 @@
 
   python3 chip_smoke.py
 
-Builds the five hand-written CUDA kernels from the checkout's sources (one
-``nvcc`` per kernel, started together), then:
+Builds the five hand-written CUDA kernel libraries from the checkout's
+sources (one ``nvcc`` per library, started together; flash attention's is
+linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
 
   1. kernel vs plain: ``edge_relax`` on random graphs (n = 1, 257, 10,000,
      1,000,000), an RMAT graph (hub skew), weights up to 7 and 2^30 - 1,
@@ -33,17 +34,20 @@ Builds the five hand-written CUDA kernels from the checkout's sources (one
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
-  4. flash attention vs plain: ``flash_attention_cuda`` against
+  4. flash attention vs plain: ``flash_attention_cuda`` (the
+     warp-specialised ``wgmma`` kernel, K and V staged by TMA) against
      ``attention_ref`` in bf16 on the card, over the cases of
-     ``kernels/flash_attention/cases.py`` (GQA groups 1 and 2, causal on
-     and off, window 0 and 16, softcap 0 and 50, ``kv_len < Skv`` scalar
-     and per row, ``q_offset > 0``, ragged lengths, fully masked rows,
-     D = 16, 64, 128 and 256, B > 1), each element within that module's
-     bf16 rule; at gemma2-9b's full-width prefill shapes (global and local
-     layers) the same rule, which must also reject a planted fault there
-     (a kv tile dropped); timed there beside the plain version and, as the
-     yardstick, ``scaled_dot_product_attention`` on its flash backend at
-     the causal variant without softcap or window.
+     ``kernels/flash_attention/cases.py`` (GQA groups 1, 2 and 4, causal
+     on and off, windows of 16 and 100, softcap 0 and 50, ``kv_len < Skv``
+     scalar, per row and inside the ring's last stage, ``q_offset > 0``,
+     ragged lengths at the 128-row and 64-key tile edges, fully masked
+     rows, D = 16, 32, 64, 128 and 256, B > 1), each element within that
+     module's bf16 rule; at gemma2-9b's full-width prefill shapes (global
+     and local layers) the same rule, which must also reject a planted
+     fault there (a kv tile the kernel visits dropped); timed there beside
+     the plain version, with ptxas's registers and spills and TFLOP/s,
+     and, as the yardstick, ``scaled_dot_product_attention`` on its flash
+     backend at the causal variant without softcap or window.
   5. LM prefill at full width: gemma2-9b (9,241,404,928 parameters, random
      weights from seed 0), B = 1, S = 8192, through ``prefill_step``:
      exactly 42 flash attention launches (one per layer), finite logits,
@@ -52,16 +56,20 @@ Builds the five hand-written CUDA kernels from the checkout's sources (one
   6. LM serving at full width: the port's serve launcher
      (``repro_torch.launch.serve``), gemma2-9b, batch 4, prompt 32, 16
      generated tokens.
-  7. CIN vs plain: ``cin_layer_cuda`` against ``cin_layer_ref`` in float32
-     on the card, over the cases of ``kernels/cin/cases.py`` (B = 1, 7,
-     25, 37 and 512; m = 6 and 39; H = 6 to 200; H2 = 16 and 200; D = 8
-     and 10; ragged last blocks), each within that module's rule
-     (``|o - r| <= 2^-16 A``, A the layer on absolute values), which must
-     reject a planted fault (one h slice of W dropped) at full width.
+  7. CIN vs plain: ``cin_layer_cuda`` (3xTF32 ``wgmma``) against
+     ``cin_layer_ref`` in float32 on the card, over the cases of
+     ``kernels/cin/cases.py`` (B = 1, 7, 25, 37 and 512; m = 6 and 39;
+     H = 6 to 200; H2 = 16 and 200; D = 8 and 10; ragged last tiles), each
+     within that module's rule (``|o - r| <= 2^-16 A``, A the layer on
+     absolute values), which must reject a planted fault (one h slice of W
+     dropped) at full width; the same cases through the plain emulation of
+     3xTF32 and of one TF32 pass (``emulated_layer``), read under the rule.
   8. CIN timed: xdeepfm's layer-1 (H = 39) and layer-2/3 (H = 200) shapes
-     at B = 512, 16,384 and 262,144, beside the operations bound, the plain
-     version and one ``torch.einsum`` call (the plain and library calls
-     only where Z fits, B <= 16,384; float32, TF32 off).
+     at B = 512, 16,384 and 262,144, beside two operations bounds (3xTF32
+     on the tensor cores, the kernel's arithmetic; float32 FMA, the
+     replaced kernel's), ptxas's registers and spills, the plain version
+     and one ``torch.einsum`` call (the plain and library calls only where
+     Z fits, B <= 16,384; float32, TF32 off).
   9. xDeepFM serving at full width: ``xdeepfm`` (39 fields, vocab
      1,000,000 per field, embed dim 10, CIN 200-200-200, DNN 400-400;
      432,747,202 parameter elements, random weights from seed 0), batches
@@ -131,6 +139,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (same)
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (same)
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 
@@ -142,6 +151,25 @@ def _fail(msg: str, code: int) -> int:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_entry(name: str, sources, flags, entry: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
+    first kernel of library ``name`` whose mangled name holds ``entry``."""
+    from repro_torch.kernels import _build
+
+    log = _build.library_path(name, sources, flags).with_suffix(".log")
+    found, out = False, {}
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            found = entry in ln
+        elif found and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out["stack_bytes"], out["spill_stores"], out["spill_loads"] = nums[:3]
+        elif found and "Used" in ln and "registers" in ln:
+            out["registers"] = int(ln.split("Used")[1].split()[0])
+            break
+    return out
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -468,10 +496,12 @@ def lm_phases(torch, dev) -> dict:
               "rel_l2": rel_l2(torch, out, ref), "equal_within": True})
 
     # timed at the full-width prefill's shapes: gemma2-9b, B = 1, S = 8192.
-    # The rule must also reject a planted fault there: query tiles from row
-    # 4,096 on skip the first kv tile they would visit (a global row loses
-    # keys 0-63 of its 4,097 to 8,192; a local row, up to 63 of its 4,096,
-    # in the tile the window's edge cuts)
+    # The rule must also reject a planted fault there: the kernel's 128-row
+    # query tiles from row 4,096 on skip the first 64-key tile they would
+    # visit (a global row loses keys 0-63 of its 4,097 to 8,192; a local
+    # row, up to 63 of its 4,096, in the tile the window's edge cuts)
+    flash_ptxas = ptxas_entry(fmod.NAME, fmod.SOURCES, fmod.EXTRA_FLAGS,
+                              "flash_fwd_wgmmaILi256E")
     cfg = get_arch("gemma2-9b")
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = D ** -0.5
@@ -516,7 +546,8 @@ def lm_phases(torch, dev) -> dict:
                    q, k, v, **kw), 20),
                "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v,
                                                                 **kw), 3),
-               "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9}
+               "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+               "ptxas": flash_ptxas}
         row["tflop_s"] = flops / row["ms"] / 1e9
         row["bound_share"] = bound / row["ms"]
         timed[layer] = row
@@ -531,11 +562,14 @@ def lm_phases(torch, dev) -> dict:
                                                        scale=scale), 20)
     same_variant_ms = time_ms(torch, lambda: fmod.flash_attention_cuda(
         q, k, v, causal=True, scale=scale), 20)
+    gflop = timed["global"]["gflop"]
     emit({"phase": "flash_yardstick", "variant": "causal, no softcap, "
           "no window", "library": "scaled_dot_product_attention",
           "backend": "SDPBackend.FLASH_ATTENTION (forced)",
           "library_ms": sdpa_ms, "kernel_ms": same_variant_ms,
-          "bound_ms": timed["global"]["bound_ms"]})
+          "library_tflop_s": gflop / sdpa_ms, "kernel_tflop_s": gflop /
+          same_variant_ms, "kernel_vs_library": sdpa_ms / same_variant_ms,
+          "bound_ms": timed["global"]["bound_ms"], "ptxas": flash_ptxas})
     del q, k, v, kk, vv
 
     # -- phase 5: LM prefill at full width ------------------------------------
@@ -620,6 +654,7 @@ def lm_phases(torch, dev) -> dict:
             "library_variant": "scaled_dot_product_attention (flash "
                                "backend), causal, no softcap, no window",
             "ms_at_library_variant": same_variant_ms,
+            "tflop_s": g["tflop_s"], "ptxas": flash_ptxas,
             "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
             "local_bound_ms": loc["bound_ms"],
             "launches_by_path": {"lm_prefill": prefill_launches,
@@ -633,14 +668,20 @@ XDEEPFM_PARAM_COUNT = 393_747_201  # RecsysConfig.param_count(): the
 
 
 def cin_bound_ms(B, m, H, H2, D) -> tuple:
-    """Least time for one CIN layer on these shapes: 2 H2 H m D flops per
-    batch row over the float32 FMA peak, or x0, xk and W read once and out
-    written once over HBM; the larger, and which of the two bounds it."""
+    """Least time for one CIN layer on these shapes, two ways: the kernel's
+    arithmetic, 3xTF32, three tensor-core passes of 2 H2 H m D flops per
+    batch row over the TF32 peak; and float32 FMA outside the tensor cores
+    (the arithmetic of the kernel it replaced), the flops once over the
+    float32 peak. Each the larger of its operations and the bytes (x0, xk
+    and W read once, out written once) over HBM. Returns (3xTF32 bound ms,
+    what bounds it, the layer's flops, FMA bound ms)."""
     flops = 2 * B * H2 * H * m * D
     nbytes = 4 * (B * m * D + B * H * D + H2 * H * m + B * H2 * D)
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_fma = flops / F32_FLOPS_PER_S
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes", flops,
+            1e3 * max(t_fma, t_bytes))
 
 
 def recsys_phases(torch, dev) -> dict:
@@ -651,8 +692,8 @@ def recsys_phases(torch, dev) -> dict:
     from repro_torch.kernels.cin import kernel as cmod
     from repro_torch.kernels.cin.cases import (CASES, FAULT_CASE,
                                                PLAIN_CHUNK, case_inputs,
-                                               excess, layer_excess,
-                                               planted_fault,
+                                               emulated_layer, excess,
+                                               layer_excess, planted_fault,
                                                pooled_magnitude)
     from repro_torch.kernels.cin.ops import cin
     from repro_torch.kernels.cin.ref import cin_layer_ref
@@ -678,6 +719,19 @@ def recsys_phases(torch, dev) -> dict:
                                  f"times the float32 rule's")
         emit({"phase": "cin_vs_plain", "case": name, "shape": list(case),
               "max_abs_err": err, "excess": ex, "equal_within": True})
+    # the kernel's arithmetic, emulated in plain PyTorch on the same cases:
+    # 3xTF32 (what the kernel does) and one TF32 pass (what it does not)
+    emul = {}
+    for name, case in CASES.items():
+        x0, xk, w = (torch.from_numpy(a).to(dev) for a in case_inputs(case))
+        ref = cin_layer_ref(x0, xk, w)
+        emul[name] = [layer_excess(emulated_layer(x0, xk, w, passes=n), ref,
+                                   x0, xk, w) for n in (3, 1)]
+    emit({"phase": "cin_tf32_emulation", "rule": "|o - r| <= 2^-16 A",
+          "excess_3xtf32": {n: e[0] for n, e in emul.items()},
+          "excess_1xtf32": {n: e[1] for n, e in emul.items()},
+          "worst_3xtf32": max(e[0] for e in emul.values()),
+          "worst_1xtf32": max(e[1] for e in emul.values())})
     # the rule must reject a dropped h slice at full width (B = 512, H = 200)
     x0, xk, w = (torch.from_numpy(a).to(dev)
                  for a in case_inputs(FAULT_CASE))
@@ -696,6 +750,9 @@ def recsys_phases(torch, dev) -> dict:
     del x0, xk, w, ref, bad, out
 
     # -- phase 8: CIN timed at xdeepfm's layer shapes --------------------------
+    # registers and spills of the main kernel at H2 = 200 (NI = 200)
+    cin_ptxas = ptxas_entry(cmod.NAME, cmod.SOURCES, (),
+                            "cin_layer_wgmmaILi200E")
     cfg = get_arch("xdeepfm")
     m, D, H2 = cfg.n_sparse, cfg.embed_dim, cfg.cin_layers[0]
     gen = torch.Generator(device=dev)
@@ -717,13 +774,15 @@ def recsys_phases(torch, dev) -> dict:
                                      f"times the float32 rule's")
             cin_excess = max(cin_excess, ex)
             del out, ref
-            bound, by, flops = cin_bound_ms(B, m, H, H2, D)
+            bound, by, flops, fma_bound = cin_bound_ms(B, m, H, H2, D)
             row = {"phase": "cin_timed", "layer": layer,
                    "shape": [B, m, H, H2, D], "excess": ex,
                    "ms": time_ms(torch, lambda: cmod.cin_layer_cuda(
                        x0, xk, w), 20 if B <= PLAIN_CHUNK else 3, warmup=1),
-                   "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
-                   "plain_ms": None, "library_ms": None}
+                   "bound_ms": bound, "bound_by": by,
+                   "fma_bound_ms": fma_bound, "gflop": flops / 1e9,
+                   "plain_ms": None, "library_ms": None,
+                   "ptxas": cin_ptxas}
             if B <= PLAIN_CHUNK:   # where Z fits
                 row["plain_ms"] = time_ms(
                     torch, lambda: cin_layer_ref(x0, xk, w), 5, warmup=1)
@@ -731,6 +790,7 @@ def recsys_phases(torch, dev) -> dict:
                     torch, lambda: torch.einsum("bhd,bmd,nhm->bnd", xk, x0,
                                                 w), 5, warmup=1)
             row["tflop_s"] = flops / row["ms"] / 1e9
+            row["tensor_tflop_s"] = 3 * row["tflop_s"]   # three TF32 passes
             row["bound_share"] = bound / row["ms"]
             timed[(layer, B)] = row
             emit(row)
@@ -904,7 +964,10 @@ def recsys_phases(torch, dev) -> dict:
                      "D 10)",
             "ms": p99_l2["ms"], "plain_ms": p99_l2["plain_ms"],
             "bound_ms": p99_l2["bound_ms"], "bound_by": p99_l2["bound_by"],
+            "bound_arithmetic": "3xTF32 on the tensor cores (495 TFLOP/s)",
+            "fma_bound_ms": p99_l2["fma_bound_ms"],
             "library_ms": p99_l2["library_ms"],
+            "tflop_s": p99_l2["tflop_s"], "ptxas": cin_ptxas,
             "library_call": "torch.einsum('bhd,bmd,nhm->bnd', xk, x0, w), "
                             "float32, TF32 off",
             "layer1_ms": p99_l1["ms"], "layer1_bound_ms": p99_l1["bound_ms"],
@@ -915,6 +978,8 @@ def recsys_phases(torch, dev) -> dict:
             "b16384_bound_ms": mid_l2["bound_ms"],
             "serve_bulk_ms": bulk_l2["ms"],
             "serve_bulk_bound_ms": bulk_l2["bound_ms"],
+            "serve_bulk_fma_bound_ms": bulk_l2["fma_bound_ms"],
+            "serve_bulk_tflop_s": bulk_l2["tflop_s"],
             "serve_bulk_layer1_ms": bulk_l1["ms"],
             "serve_bulk_layer1_bound_ms": bulk_l1["bound_ms"],
             "launches_by_path": launches_by_path}
@@ -1297,11 +1362,11 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
 
     # -- build: one nvcc per kernel, all started together ---------------------
-    builds = ((kmod.NAME, kmod.SOURCES, kmod.load_library),
-              (kmod.MEGA_NAME, kmod.MEGA_SOURCES, kmod.load_mega_library),
-              (fmod.NAME, fmod.SOURCES, fmod.load_library),
-              (cmod.NAME, cmod.SOURCES, cmod.load_library),
-              (smod.NAME, smod.SOURCES, smod.load_library))
+    builds = ((kmod.NAME, kmod.SOURCES, (), kmod.load_library),
+              (kmod.MEGA_NAME, kmod.MEGA_SOURCES, (), kmod.load_mega_library),
+              (fmod.NAME, fmod.SOURCES, fmod.EXTRA_FLAGS, fmod.load_library),
+              (cmod.NAME, cmod.SOURCES, (), cmod.load_library),
+              (smod.NAME, smod.SOURCES, (), smod.load_library))
 
     def timed_load(load):
         with Timer() as tb:
@@ -1309,9 +1374,9 @@ def main() -> int:
         return tb.seconds
 
     with ThreadPoolExecutor(len(builds)) as pool:
-        seconds = list(pool.map(timed_load, [b[2] for b in builds]))
-    for (name, sources, _), secs in zip(builds, seconds):
-        log = _build.library_path(name, sources).with_suffix(".log")
+        seconds = list(pool.map(timed_load, [b[3] for b in builds]))
+    for (name, sources, flags, _), secs in zip(builds, seconds):
+        log = _build.library_path(name, sources, flags).with_suffix(".log")
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln] if log.exists() else []
         emit({"phase": "build", "kernel": name, "seconds": secs,

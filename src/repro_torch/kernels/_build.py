@@ -3,10 +3,15 @@
 Each kernel's sources are compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/kernels/`` at the
 repository root (``.gitignore`` lists ``build/``), and loaded with
-``ctypes``. The library name carries a hash of the sources, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing is built
-when a module is imported: :func:`load` runs inside the wrapper that
-launches the kernel (or in an explicit warm-up such as ``chip_smoke.py``).
+``ctypes``. The library name carries a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. A
+library may add flags of its own after its sources: ``-lcuda`` for one that
+encodes TMA tensor maps with the driver API, ``-I<dir>`` for headers such as
+CUTLASS's (``/usr/local/cutlass/include`` where the toolkit has them); an
+include directory that does not exist raises, naming it, before anything is
+built. Nothing is built when a module is imported: :func:`load` runs inside
+the wrapper that launches the kernel (or in an explicit warm-up such as
+``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -45,26 +50,51 @@ def source_paths(rel_sources: Sequence[str]) -> list:
     return [_PKG / s for s in rel_sources]
 
 
-def library_path(name: str, rel_sources: Sequence[str]) -> Path:
+def library_path(name: str, rel_sources: Sequence[str],
+                 extra_flags: Sequence[str] = ()) -> Path:
     h = hashlib.sha256()
     for p in source_paths(rel_sources):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, rel_sources: Sequence[str]) -> Path:
+def include_dirs(extra_flags: Sequence[str]) -> list:
+    """The directories that ``-I<dir>`` or ``-I <dir>`` name."""
+    dirs = []
+    for i, f in enumerate(extra_flags):
+        if f == "-I" and i + 1 < len(extra_flags):
+            dirs.append(extra_flags[i + 1])
+        elif f.startswith("-I") and len(f) > 2:
+            dirs.append(f[2:])
+    return dirs
+
+
+def command(nvcc: str, rel_sources: Sequence[str],
+            extra_flags: Sequence[str], out: Path) -> list:
+    """The ``nvcc`` command line of one library. The library's own flags
+    come after its sources, so that a ``-l`` library resolves their
+    symbols."""
+    return [nvcc, *NVCC_FLAGS, "-o", str(out),
+            *[str(p) for p in source_paths(rel_sources)], *extra_flags]
+
+
+def build(name: str, rel_sources: Sequence[str],
+          extra_flags: Sequence[str] = ()) -> Path:
     """Compile ``rel_sources`` (paths relative to ``repro_torch/kernels``)
-    unless the hashed library exists; returns its path. ptxas's register
-    and spill report is written beside it as ``.log``."""
-    lib = library_path(name, rel_sources)
+    with ``extra_flags`` unless the hashed library exists; returns its
+    path. ptxas's register and spill report is written beside it as
+    ``.log``."""
+    for d in include_dirs(extra_flags):
+        if not os.path.isdir(d):
+            raise RuntimeError(f"{name}: include directory {d} not found")
+    lib = library_path(name, rel_sources, extra_flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in source_paths(rel_sources)]]
+    cmd = command(nvcc_path(), rel_sources, extra_flags, tmp)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -75,8 +105,10 @@ def build(name: str, rel_sources: Sequence[str]) -> Path:
     return lib
 
 
-def load(name: str, rel_sources: Sequence[str]) -> ctypes.CDLL:
+def load(name: str, rel_sources: Sequence[str],
+         extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build if needed and ``ctypes``-load the kernel library (cached)."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name, rel_sources)))
+        _LOADED[name] = ctypes.CDLL(str(build(name, rel_sources,
+                                              extra_flags)))
     return _LOADED[name]

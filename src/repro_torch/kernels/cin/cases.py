@@ -24,6 +24,16 @@ error by ``|W| |x0|``. So for ``cin()``'s pooled features the allowance is
 the same chain run on absolute values, ``A_1 = cin_layer_ref(|x0|, |x0|,
 |W_1|)``, ``A_k = cin_layer_ref(|x0|, A_{k-1}, |W_k|)``, each summed over D
 (``pooled_magnitude``).
+
+The kernel computes on the tensor cores in 3xTF32: each operand ``x`` is
+split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` (10 explicit
+mantissa bits, rounded to nearest) and ``hi hi + hi lo + lo hi`` is summed
+in float32. ``emulated_layer`` repeats that arithmetic in plain PyTorch, so
+that the rule's margin under it can be read without the card: the dropped
+``lo lo`` and the rounding of ``lo`` leave about ``2^-21`` of each term's
+size, 1/32 of ``c``. One pass (``hi hi`` alone) leaves about ``2^-11`` of
+each term, which over K = 7,800 terms of random signs is some ``2^-17.5 A``
+typically and comes too near ``c A`` at the largest element.
 """
 from __future__ import annotations
 
@@ -110,6 +120,33 @@ def pooled_magnitude(x0: torch.Tensor,
         ak = cin_layer_ref(a0, ak, w.abs())
         pooled.append(ak.sum(dim=-1))
     return torch.cat(pooled, dim=-1)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as the kernel's ``cvt.rna.tf32.f32``
+    does (to nearest, ties away from zero): half the weight of the 13
+    dropped mantissa bits is added to the magnitude bits, which are then
+    cut by an int32 mask."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def emulated_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
+                   passes: int = 3) -> torch.Tensor:
+    """The layer in the kernel's arithmetic: ``z = xk * x0`` in float32 (the
+    reference's product), ``z`` and ``W`` split into TF32 ``hi`` and ``lo``,
+    and ``hi hi + hi lo + lo hi`` (``passes=3``, 3xTF32) or ``hi hi`` alone
+    (``passes=1``), each product summed in float32."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    z = torch.einsum("bhd,bmd->bhmd", xk, x0)
+    zh, wh = tf32_round(z), tf32_round(w)
+    out = torch.einsum("bhmd,nhm->bnd", zh, wh)
+    if passes == 3:
+        zl, wl = tf32_round(z - zh), tf32_round(w - wh)
+        out = (out + torch.einsum("bhmd,nhm->bnd", zh, wl)
+               + torch.einsum("bhmd,nhm->bnd", zl, wh))
+    return out
 
 
 def planted_fault(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,

@@ -3,10 +3,12 @@
 ``cin_layer_cuda`` (``csrc/cin.cu``) replaces the Pallas kernel
 ``repro/kernels/cin/kernel.py`` (``_cin_kernel``): one CIN layer
 ``out[b, n, d] = sum_{h, m} W[n, h, m] xk[b, h, d] x0[b, m, d]`` in float32,
-without the outer product ever reaching device memory. The library is
-built with ``nvcc`` for ``sm_90a`` at first use (``kernels/_build.py``).
-The wrapper checks shapes, dtype, strides and device, allocates the
-output, launches on PyTorch's current stream without synchronising,
+on the tensor cores in 3xTF32 (``wgmma``), without the outer product ever
+reaching device memory. The library is built with ``nvcc`` for ``sm_90a``
+at first use (``kernels/_build.py``). The wrapper checks shapes, dtype,
+strides and device, allocates the output and the scratch the C entry asks
+for (W split into its TF32 parts; partial outputs when K is split to fill
+the card), launches on PyTorch's current stream without synchronising,
 raises when the launch is refused (the C entry returns the CUDA error),
 and adds one to ``.launches``. It takes float32 in the reference's
 layouts only: no caller passes another type, so there is no bf16 path.
@@ -22,8 +24,8 @@ from repro_torch.kernels import _build
 
 NAME = "cin"
 SOURCES = ("cin/csrc/cin.cu",)
-MAX_FIELDS = 128       # m: the staged x0 slice and W chunk fit 227 KB
-MAX_EMBED_DIM = 128    # D: one batch row's columns fit a block's 128
+MAX_FIELDS = 128       # m: the staged x0 rows and 3 W stages fit 227 KB
+MAX_EMBED_DIM = 128    # D: the wrapper's limit since the first kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,8 +36,11 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declare its C entry."""
     lib = _build.load(NAME, SOURCES)
     fn = lib.cin_layer_launch
-    fn.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P]
     fn.restype = ctypes.c_int
+    ws = lib.cin_layer_workspace
+    ws.argtypes = [ctypes.c_longlong] + [_I] * 4 + [_P]
+    ws.restype = ctypes.c_int
     return lib
 
 
@@ -72,10 +77,18 @@ def cin_layer_cuda(x0: torch.Tensor, xk: torch.Tensor,
     out = torch.empty((B, H2, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    fn = load_library().cin_layer_launch
+    lib = load_library()
+    sizes = (ctypes.c_longlong * 2)()
+    err = lib.cin_layer_workspace(B, m, H, H2, D, sizes)
+    if err != 0:
+        raise RuntimeError(f"{who}: workspace query failed with CUDA error "
+                           f"{err}")
+    ws = torch.empty(sizes[0], dtype=torch.float32, device=dev)
+    part = torch.empty(sizes[1], dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(x0.data_ptr(), xk.data_ptr(), w.data_ptr(), out.data_ptr(), B,
-             m, H, H2, D, stream)
+    err = lib.cin_layer_launch(x0.data_ptr(), xk.data_ptr(), w.data_ptr(),
+                               out.data_ptr(), ws.data_ptr(),
+                               part.data_ptr(), B, m, H, H2, D, stream)
     if err != 0:
         raise RuntimeError(f"{who}: launch failed with CUDA error {err}")
     cin_layer_cuda.launches += 1

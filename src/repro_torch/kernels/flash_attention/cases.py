@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import KV_TILE, Q_TILE
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # name -> (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset,
@@ -53,6 +54,20 @@ CASES = {
                             None, 1.0),
     "gemma2-local-S1000-w300": (2, 16, 8, 1000, 1000, 256, True, 300, 50.0,
                                 None, None, 1.0),
+    # the tensor-core kernel's tile edges (128 query rows per block, 64 keys
+    # per kv tile, a ring of 2 stages): a second block of 1 row and of 72
+    # rows, Skv past the last full kv tile
+    "sq129-skv193-offset64": (1, 4, 2, 129, 193, 64, True, 0, 0.0, None, 64,
+                              1.0),
+    "sq200-skv300-bidirectional": (2, 4, 2, 200, 300, 128, False, 0, 0.0,
+                                   None, None, 1.0),
+    # a window of 100 keys cuts two kv tiles on every row
+    "d256-gqa2-window100": (1, 4, 2, 300, 300, 256, True, 100, 50.0, None,
+                            None, 1.0),
+    # kv_len 250 ends inside kv tile 3 (keys 192-255), the ring's last stage
+    "kv_len-in-last-stage": (2, 4, 2, 64, 256, 128, True, 0, 0.0, 250, 190,
+                             1.0),
+    "d32-gqa4": (2, 8, 2, 150, 150, 32, True, 0, 0.0, None, None, 1.0),
 }
 
 BF16_ELEMENT_ULPS = 2.0 ** -7   # of the element's own |r|
@@ -89,19 +104,22 @@ def bf16_excess(out: torch.Tensor, ref: torch.Tensor,
 
 def planted_fault(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   from_row: int, window: int = 0, softcap: float = 0.0,
-                  scale: Optional[float] = None,
-                  tile: int = 64) -> torch.Tensor:
+                  scale: Optional[float] = None, q_tile: int = Q_TILE,
+                  kv_tile: int = KV_TILE) -> torch.Tensor:
     """Causal attention as a kernel with an off-by-one in its kv loop's start
-    would compute it: each ``tile``-row query tile at or past ``from_row``
-    skips the first key tile it would visit (on a windowed layer, the tile
-    the window's edge cuts). Every other row is the plain version's."""
+    would compute it: each ``q_tile``-row query tile at or past ``from_row``
+    skips the first ``kv_tile``-key tile it would visit (on a windowed
+    layer, the tile the window's edge cuts). Every other row is the plain
+    version's. The defaults are the tensor-core kernel's tiles, so the
+    dropped tile is one the kernel visits."""
     out = attention_ref(q, k, v, causal=True, window=window, softcap=softcap,
                         scale=scale)
-    for q0 in range(from_row - from_row % tile, q.shape[2], tile):
-        first = max(0, q0 - window + 1) // tile * tile if window > 0 else 0
-        start = first + tile
-        out[:, :, q0:q0 + tile] = attention_ref(
-            q[:, :, q0:q0 + tile], k[:, :, start:], v[:, :, start:],
+    for q0 in range(from_row - from_row % q_tile, q.shape[2], q_tile):
+        first = (max(0, q0 - window + 1) // kv_tile * kv_tile if window > 0
+                 else 0)
+        start = first + kv_tile
+        out[:, :, q0:q0 + q_tile] = attention_ref(
+            q[:, :, q0:q0 + q_tile], k[:, :, start:], v[:, :, start:],
             causal=True, window=window, softcap=softcap, scale=scale,
             q_offset=q0 - start)
     return out

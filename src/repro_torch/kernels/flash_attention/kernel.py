@@ -2,10 +2,12 @@
 
 ``flash_attention_cuda`` (``csrc/flash_attention.cu``) replaces the Pallas
 kernel ``repro/kernels/flash_attention/kernel.py`` (``_flash_kernel``):
-bf16 inputs take the tensor-core kernel, at a head dim of 16, 32, 64, 128
-or 256; float32 inputs (the tests' precision) the warp-per-row kernel, at
-any head dim that is a multiple of 8 up to 256. The library is built with
-``nvcc`` for ``sm_90a`` at first use (``kernels/_build.py``). The wrapper
+bf16 inputs take the warp-specialised ``wgmma`` kernel (K and V staged by
+TMA), at a head dim of 16, 32, 64, 128 or 256; float32 inputs (the tests'
+precision) the warp-per-row kernel, at any head dim that is a multiple of 8
+up to 256. The library is built with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/_build.py``), linked with the driver library for the TMA tensor
+maps it encodes on each launch. The wrapper
 checks device, dtype, shapes, strides and alignment, allocates the output,
 launches on PyTorch's current stream without synchronising, raises when
 the launch is refused (the C entry returns the CUDA error), and adds one
@@ -29,8 +31,11 @@ from repro_torch.kernels.flash_attention.ref import IntLike
 
 NAME = "flash_attention"
 SOURCES = ("flash_attention/csrc/flash_attention.cu",)
+EXTRA_FLAGS = ("-lcuda",)   # cuTensorMapEncodeTiled
 MAX_HEAD_DIM = 256
 BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core instantiations
+Q_TILE = 128    # query rows per block of the tensor-core kernel
+KV_TILE = 64    # keys per kv tile (one stage of its ring)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +45,7 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declare its C entry."""
-    lib = _build.load(NAME, SOURCES)
+    lib = _build.load(NAME, SOURCES, EXTRA_FLAGS)
     fn = lib.flash_attention_launch
     fn.argtypes = ([_P] * 5 + [_I, _P] + [_I] * 6 + [_P] + [_I, _I]
                    + [ctypes.c_float, ctypes.c_float, _I, _P])
@@ -102,7 +107,7 @@ def flash_attention_cuda(
         if t.stride(3) != 1:
             raise ValueError(f"{who}: {name} must be contiguous in its last "
                              f"dim")
-        # the tensor-core kernel moves rows in 16-byte pieces
+        # TMA wants a 16-byte aligned base and 16-byte multiples as strides
         if t.data_ptr() % 16 or any(
                 st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
             raise ValueError(f"{who}: {name} must be 16-byte aligned with "

@@ -39,9 +39,10 @@ from repro.kernels.cin.ops import cin as ref_cin  # noqa: E402
 from repro.kernels.cin.ops import cin_layer as ref_cin_layer  # noqa: E402
 from repro_torch.kernels.cin import kernel as cmod  # noqa: E402
 from repro_torch.kernels.cin.cases import (CASES, FAULT_CASE,  # noqa: E402
-                                           case_inputs, excess,
-                                           layer_excess, planted_fault,
-                                           pooled_magnitude)
+                                           case_inputs, emulated_layer,
+                                           excess, layer_excess,
+                                           planted_fault, pooled_magnitude,
+                                           tf32_round)
 from repro_torch.kernels.cin.ops import cin, cin_layer  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_layer_ref, cin_ref  # noqa: E402
 
@@ -101,6 +102,37 @@ def test_rule_rejects_a_dropped_h_slice():
     # chunking the allowance changes nothing
     assert layer_excess(bad, ref, tx0, txk, tw, chunk=100) == layer_excess(
         bad, ref, tx0, txk, tw)
+
+
+def test_tf32_round_keeps_ten_mantissa_bits_ties_away():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 explicit mantissa bits,
+    to nearest, ties away from zero, for either sign."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, 1.5,
+                      -(1 + ulp / 2), 2.0 ** -130, 0.0], dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1.0, 1 + ulp, 1.5, -(1 + ulp), 2.0 ** -130, 0.0]
+    assert tf32_round(x).tolist() == want
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        1000).astype(np.float32))
+    t = tf32_round(r)
+    assert torch.equal(t.view(torch.int32) & 0x1FFF,
+                       torch.zeros(1000, dtype=torch.int32))
+    assert float(((t - r).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_3xtf32_emulation_within_a_tenth_of_the_rule(name):
+    """The kernel's arithmetic (3xTF32: hi hi + hi lo + lo hi, each operand
+    split into TF32 hi and lo) emulated in plain PyTorch reads at most 0.1
+    of the float32 rule against the plain layer on every case; one TF32
+    pass is not held to anything here (``chip_smoke.py`` reports it)."""
+    tx0, txk, tw = _torch(*case_inputs(CASES[name]))
+    ref = cin_layer_ref(tx0, txk, tw)
+    got = emulated_layer(tx0, txk, tw)
+    assert got.shape == ref.shape
+    assert layer_excess(got, ref, tx0, txk, tw) <= 0.1
+    with pytest.raises(ValueError, match="passes"):
+        emulated_layer(tx0, txk, tw, passes=2)
 
 
 def test_excess_counts_zero_allowance():

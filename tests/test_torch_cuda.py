@@ -4,7 +4,8 @@ on the kernel backend against the plain backend, the fused grow path
 against the unfused one in both decomposition modes, the flash
 attention kernel against its plain version, alone and inside the
 transformer's prefill and decode, the CIN kernel against its plain
-version, alone, in a stack and inside xDeepFM's forward and retrieval,
+version, alone (two launches bit for bit equal), in a stack and inside
+xDeepFM's forward and retrieval,
 and the segment_mm kernel against its plain version in float64, alone and
 inside the GCN forward (two launches per forward).
 This file imports no JAX, so it runs where only the port is installed:
@@ -316,6 +317,21 @@ def test_cin_rule_rejects_a_planted_fault_on_card(cuda_device):
                         w) <= 1.0
     assert layer_excess(planted_fault(x0, xk, w, h=H // 2), ref, x0, xk,
                         w) > 100.0
+
+
+@pytest.mark.parametrize("B", [512, 4096])
+def test_cin_two_launches_bit_identical(cuda_device, B):
+    """xdeepfm's layer 2/3 (m 39, H 200, H2 200, D 10): at B = 512 the
+    kernel splits K into parts summed in a fixed order (40 row tiles for
+    the card's SMs), at B = 4,096 it does not; either way two launches give
+    the same bits, within the rule."""
+    x0, xk, w = (torch.from_numpy(a).to(cuda_device)
+                 for a in case_inputs((B, 39, 200, 200, 10), seed=1))
+    a = cmod.cin_layer_cuda(x0, xk, w)
+    b = cmod.cin_layer_cuda(x0, xk, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert layer_excess(a, cin_layer_ref(x0, xk, w), x0, xk, w) <= 1.0
 
 
 def test_cin_stack_and_bad_inputs(cuda_device):

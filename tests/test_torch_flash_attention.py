@@ -158,12 +158,13 @@ def test_bf16_rule_accepts_another_sound_computation():
 
 def test_bf16_rule_rejects_a_dropped_kv_tile():
     """A kernel that skips the first kv tile its window's edge cuts, on the
-    query tiles of the second half, fails the rule; before that row it is
-    the plain version's."""
+    query tiles of the second half (the tensor-core kernel's tiles: 128
+    query rows, 64 keys), fails the rule; before that row it is the plain
+    version's."""
     q, k, v = _rule_inputs()
     ref = attention_ref(q, k, v, **RULE_KW)
     bad = planted_fault(q, k, v, from_row=256, window=RULE_KW["window"],
-                        softcap=RULE_KW["softcap"], tile=64)
+                        softcap=RULE_KW["softcap"])
     assert torch.equal(bad[:, :, :256], ref[:, :, :256])
     assert bf16_excess(bad, ref) > 4.0
     assert torch.equal(planted_fault(q, k, v, from_row=512, window=128,
