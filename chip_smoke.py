@@ -8,15 +8,21 @@ sources (one ``nvcc`` per library, started together; flash attention's is
 linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
 
   1. kernel vs plain: ``edge_relax`` on random graphs (n = 1, 257, 10,000,
-     1,000,000), an RMAT graph (hub skew), weights up to 7 and 2^30 - 1,
-     random Δ, covered nodes with negative offsets and INF/BIG sentinels,
-     and at the main path's shapes (the n = 1,890,815 road graph). Every
-     comparison is exact equality (all planes are int32).
+     1,000,000), stars with a 100,000-edge in-row, out-row or both, rows of
+     exactly the long-row threshold (1,024 in-edges) and one past it, an
+     RMAT graph (hub skew; timed, and its 39,514-edge hub row timed alone),
+     weights up to 7 and 2^30 - 1, random Δ, covered nodes with negative
+     offsets and INF/BIG sentinels, and at the main path's shapes (the n =
+     1,890,815 road graph). Every comparison is exact equality (all planes
+     are int32).
   1b. megakernel vs plain: the same graphs with a frozen mask and a random
-     frontier, K = 1, 8, 64, both variants, a ``half_target`` met inside a
-     launch and a ``num_it`` cap; exact equality of the four planes AND the
-     whole stats array. Timed at the main path's shapes (the road graph
-     with the one-shot start planes) and on RMAT.
+     frontier (half the rows: superstep 0 runs over every row; 5%: from a
+     marked list), K = 1, 8, 64, both variants, a ``half_target`` met inside
+     a launch and a ``num_it`` cap, and on the stars with only the hub's
+     feeder on the frontier (the hub changes, then its out-list); exact
+     equality of the four planes AND the whole stats array. Timed at the
+     main path's shapes (the road graph with the one-shot start planes) and
+     on RMAT.
   2. the main path at the size of the DIMACS CAL road graph:
      ``road_like(1_890_815)`` through ``open_session(backend="kernel",
      tau=16)`` + ``ClusterQuotientEstimator``; the kernel's launch count
@@ -209,6 +215,51 @@ def random_planes(n: int, wmax: int, seed: int, covered_frac=0.3,
     return d, c, p, rw0, rc, rp
 
 
+def star_edges(hub_in: bool, hub_out: bool, leaves: int = 100_000):
+    """Node 0 a hub of ``leaves`` in-edges (from nodes 2..) and/or out-edges
+    (to nodes 2..), fed by node 1: (src, dst, w, n) as int32 arrays."""
+    leaf = np.arange(2, leaves + 2, dtype=np.int32)
+    src, dst = [np.array([1], np.int32)], [np.array([0], np.int32)]
+    if hub_in:
+        src.append(leaf)
+        dst.append(np.zeros(leaves, np.int32))
+    if hub_out:
+        src.append(np.zeros(leaves, np.int32))
+        dst.append(leaf)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    w = np.random.default_rng(leaves).integers(1, 9, src.shape[0])
+    return src, dst, w.astype(np.int32), leaves + 2
+
+
+def star_planes(n: int):
+    """Node 1 live at d 0 (so node 0 changes in the first superstep), every
+    seventh leaf live, every eleventh a relay, the rest at INF."""
+    r = np.random.default_rng(1)
+    d = np.full(n, INF, np.int32)
+    d[1] = 0
+    d[2::7] = r.integers(0, 40, d[2::7].shape[0])
+    c = np.where(d < INF, np.arange(n), INF).astype(np.int32)
+    rw0 = np.full(n, BIG, np.int32)
+    rw0[3::11] = -r.integers(0, 5, rw0[3::11].shape[0])
+    rc = np.where(rw0 < BIG, 7, INF).astype(np.int32)
+    rp = np.where(rw0 < BIG, 3, INF).astype(np.int32)
+    return d, c, d.copy(), rw0, rc, rp
+
+
+def degree_rows(degrees, seed: int):
+    """Row i with exactly degrees[i] in-edges, and node i with as many
+    out-edges, from and to a 50-node tail: (src, dst, w, n)."""
+    r = np.random.default_rng(seed)
+    k = len(degrees)
+    n = k + 50
+    rows = np.repeat(np.arange(k), degrees).astype(np.int32)
+    src = np.concatenate([r.integers(k, n, rows.shape[0]), rows])
+    dst = np.concatenate([rows, r.integers(k, n, rows.shape[0])])
+    w = r.integers(1, 20, src.shape[0])
+    return (src.astype(np.int32), dst.astype(np.int32), w.astype(np.int32),
+            n)
+
+
 def relax_bytes(torch, g, planes, delta) -> int:
     """Least bytes this superstep must move on these inputs: the CSR
     (row_ptr, src, w) and d, rw0 read once; c, pathw read once for the
@@ -230,19 +281,18 @@ def relax_bytes(torch, g, planes, delta) -> int:
 def mega_bytes(torch, g, planes, relay, frozen, front, delta,
                n_changed: int, n_marks: int) -> int:
     """Least bytes one fused superstep must move on these inputs, counted as
-    ``relax_bytes`` counts: every row reads its frozen and dirty bytes and
-    writes its front byte; a row that runs (not frozen, some source on the
-    frontier) reads its two row_ptr entries, src and w of each in-edge, d
-    and rw0 of its sources (once per source), c/pathw or rc/rp of the
-    admissible ones, and its own d; a changed row writes d, c, pathw, reads
-    its two out_ptr entries and its out-edges' destinations, and writes
-    their dirty bytes. Skipped rows move only their flag bytes."""
+    ``relax_bytes`` counts: a row with a source on the frontier has its
+    frozen byte read (whether it runs); a row that runs (not frozen)
+    reads its two row_ptr entries, src and w of each in-edge, d and rw0 of
+    its sources (once per source), c/pathw or rc/rp of the admissible ones,
+    and its own d; a changed row writes d, c, pathw, reads its two out_ptr
+    entries and its out-edges' destinations (the ``n_marks`` out-edges of
+    the changed rows). Rows that do not run move nothing."""
     n = g.n_nodes
     src, dst = g.src.to(torch.int64), g.dst.to(torch.int64)
-    live = ~frozen
     hits = torch.zeros(n, dtype=torch.int32, device=src.device).index_add_(
-        0, dst, front.to(torch.int32)[src])
-    runs = live & (hits > 0)
+        0, dst, front.to(torch.int32)[src]) > 0
+    runs = ~frozen & hits
     e_run = runs[dst]
     s_run = src[e_run]
     ds, r0, w = planes[0][s_run], relay[0][s_run], g.w[e_run]
@@ -252,17 +302,21 @@ def mega_bytes(torch, g, planes, relay, frozen, front, delta,
     n_src = int(torch.unique(s_run).numel())
     n_live = int(torch.unique(s_run[live_ok & ~relay_ok]).numel())
     n_relay = int(torch.unique(s_run[relay_ok]).numel())
-    return (3 * n + 12 * int(runs.sum()) + 8 * int(e_run.sum())
+    return (int(hits.sum()) + 12 * int(runs.sum()) + 8 * int(e_run.sum())
             + 8 * n_src + 8 * n_live + 8 * n_relay
-            + 20 * n_changed + 5 * n_marks)
+            + 20 * n_changed + 4 * n_marks)
 
 
 def mega_launch_bytes(torch, mk, g, planes, relay, frozen, front, params,
                       k: int) -> int:
-    """``mega_bytes`` summed over the supersteps one launch of ``k``
-    executes on these inputs (stepped one superstep at a time with the
-    plain version, under the same stop rule)."""
-    total = 0
+    """Least bytes one launch of ``k`` fused supersteps must move on these
+    inputs: d, c, pathw and the frontier of every row read once and
+    written once (26n: the outputs are new tensors), and ``mega_bytes``
+    for each superstep the launch executes (stepped one superstep at a time
+    with the plain version, under the same stop rule)."""
+    total = 26 * g.n_nodes
+    out_ptr, _ = g.out_csr()
+    out_deg = (out_ptr[1:] - out_ptr[:-1]).to(torch.int64)
     for j in range(k):
         p = params._replace(steps_base=params.steps_base + j)
         d, c, pw, f, st = mk.fused_grow_supersteps_plain(
@@ -270,8 +324,6 @@ def mega_launch_bytes(torch, mk, g, planes, relay, frozen, front, params,
         if int(st[1, mk.COL_EXECUTED]) == 0:
             break
         n_changed = int(st[0, mk.COL_CHANGED])
-        out_ptr, _ = g.out_csr()
-        out_deg = (out_ptr[1:] - out_ptr[:-1]).to(torch.int64)
         marks = int(out_deg[f.bool()].sum())
         total += mega_bytes(torch, g, planes, relay, frozen, front,
                             params.delta, n_changed, marks)
@@ -1420,13 +1472,41 @@ def main() -> int:
             compare(f"random n={n} wmax={wmax}", g,
                     random_planes(n, wmax, seed=n + wmax), delta,
                     iters=20 if n == 1_000_000 and wmax == 7 else 0)
+    # hubs: a 100,000-edge in-row (one block), out-row, both; rows of
+    # exactly the long-row threshold and one past it
+    for hub in ("in", "out", "both"):
+        src, dst, w, n = star_edges(hub != "out", hub != "in")
+        compare(f"star {hub} 100000", build_relax_graph(src, dst, w, n, dev),
+                star_planes(n), 64)
+    t = kmod.LONG_ROW
+    src, dst, w, n = degree_rows([t, t + 1, t - 1, t + 1, t, 2 * t + 3, 1, 0],
+                                 seed=5)
+    for delta in (1, 40, BIG):
+        compare(f"rows of {t} and {t + 1} edges", build_relax_graph(
+            src, dst, w, n, dev), random_planes(n, 20, seed=6), delta)
     social = social_like(20, seed=0)
     g = build_relax_graph(social.src, social.dst, social.weight,
                           social.n_nodes, dev)
     wmax = int(social.weight.max())
-    compare("rmat social_like(20)", g,
-            random_planes(social.n_nodes, wmax, seed=1),
-            int(rng.integers(1, 2 * wmax)), iters=10)
+    rmat_planes = random_planes(social.n_nodes, wmax, seed=1)
+    rmat_delta = int(rng.integers(1, 2 * wmax))
+    rmat_relax_row = compare("rmat social_like(20)", g, rmat_planes,
+                             rmat_delta, iters=10)
+    # its hub row alone: the longest in-row's edges on a graph of the hub
+    # and its sources only (renumbered), so that the packing pass covers
+    # those nodes and not all 1,048,576
+    hub = int(g.long_rows[0])
+    lo, hi = int(g.row_ptr[hub]), int(g.row_ptr[hub + 1])
+    hub_src = g.src[lo:hi].to(torch.int64)
+    nodes = torch.unique(torch.cat([hub_src, hub_src.new_tensor([hub])]))
+    sub_src = torch.searchsorted(nodes, hub_src).to(torch.int32)
+    sub_dst = torch.searchsorted(nodes, g.dst[lo:hi].to(torch.int64)).to(
+        torch.int32)
+    keep = nodes.cpu().numpy()
+    compare(f"rmat hub row alone ({hi - lo} edges, {keep.shape[0]} nodes)",
+            build_relax_graph(sub_src, sub_dst, g.w[lo:hi], keep.shape[0],
+                              dev),
+            tuple(x[keep] for x in rmat_planes), rmat_delta, iters=50)
     del g, social
 
     # -- phase 1b: megakernel vs plain ----------------------------------------
@@ -1490,6 +1570,13 @@ def main() -> int:
         compare_mega(f"{name} num_it cap", g, (d, c, p), (rw0, rc, rp),
                      frozen, front, mk.MegaParams(delta, 0, 4 * n, 4 * n - 3,
                                                   0), 8)
+        # a frontier of 5% of the rows: superstep 0 from a marked list (the
+        # half-full frontier above runs it over every row)
+        sparse = torch.from_numpy(
+            (r.random(n) < 0.05).astype(np.uint8)).to(dev)
+        compare_mega(f"{name} sparse frontier K=8", g, (d, c, p),
+                     (rw0, rc, rp), frozen, sparse,
+                     mk.MegaParams(delta, 0, 4 * n, 0, 0), 8)
 
     for n in (1, 257, 10_000, 1_000_000):
         for wmax in (7, 2**30 - 1):
@@ -1502,6 +1589,24 @@ def main() -> int:
             mega_cases(f"random n={n} wmax={wmax}", g,
                        random_planes(n, wmax, seed=n + wmax), delta,
                        seed=n + wmax)
+    for hub in ("in", "out", "both"):
+        src, dst, w, n = star_edges(hub != "out", hub != "in")
+        g = build_relax_graph(src, dst, w, n, dev)
+        planes_np = star_planes(n)
+        mega_cases(f"star {hub} 100000", g, planes_np, 64, seed=7)
+        # only node 1 on the frontier: node 0 changes in superstep 0, and
+        # its out-list (a block's) in superstep 1
+        tp = [torch.from_numpy(x).to(dev) for x in planes_np]
+        only1 = torch.zeros(n, dtype=torch.uint8, device=dev)
+        only1[1] = 1
+        for k in (1, 2, 8):
+            compare_mega(f"star {hub} 100000, front {{1}} K={k}", g, tp[:3],
+                         tp[3:], tp[3] < BIG, only1,
+                         mk.MegaParams(64, 0, 4 * n, 0, 0), k)
+    src, dst, w, n = degree_rows([t, t + 1, t - 1, t + 1, t, 2 * t + 3, 1, 0],
+                                 seed=5)
+    mega_cases(f"rows of {t} and {t + 1} edges", build_relax_graph(
+        src, dst, w, n, dev), random_planes(n, 20, seed=6), 40, seed=8)
     social = social_like(20, seed=0)
     g = build_relax_graph(social.src, social.dst, social.weight,
                           social.n_nodes, dev)
@@ -1774,6 +1879,9 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+        "rmat_ms": rmat_relax_row["ms"],
+        "rmat_plain_ms": rmat_relax_row["plain_ms"],
+        "rmat_bound_ms": rmat_relax_row["bound_ms"],
         "launches_by_path": {"stages_unfused": launches,
                              "oneshot_unfused": launches_oneshot_unfused},
     }, {
@@ -1788,6 +1896,7 @@ def main() -> int:
         "supersteps_per_launch": mega_row["executed"],
         "ms_per_superstep": mega_row["ms_per_superstep"],
         "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
+        "rmat_bound_ms": rmat_row["bound_ms"],
         "launches_by_path": {"stages_fused": launches_stages_fused,
                              "oneshot_fused": launches_oneshot_fused},
     }, flash_row, cin_row, segmm_row]})

@@ -3,8 +3,9 @@
 Each kernel's sources are compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/kernels/`` at the
 repository root (``.gitignore`` lists ``build/``), and loaded with
-``ctypes``. The library name carries a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is. A
+``ctypes``. The library name carries a hash of the sources, the headers
+(``*.cuh``) beside them, and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. A
 library may add flags of its own after its sources: ``-lcuda`` for one that
 encodes TMA tensor maps with the driver API, ``-I<dir>`` for headers such as
 CUTLASS's (``/usr/local/cutlass/include`` where the toolkit has them); an
@@ -50,10 +51,16 @@ def source_paths(rel_sources: Sequence[str]) -> list:
     return [_PKG / s for s in rel_sources]
 
 
+def header_paths(rel_sources: Sequence[str]) -> list:
+    """The ``*.cuh`` headers in the sources' directories, sorted."""
+    dirs = sorted({p.parent for p in source_paths(rel_sources)})
+    return [h for d in dirs for h in sorted(d.glob("*.cuh"))]
+
+
 def library_path(name: str, rel_sources: Sequence[str],
                  extra_flags: Sequence[str] = ()) -> Path:
     h = hashlib.sha256()
-    for p in source_paths(rel_sources):
+    for p in (*source_paths(rel_sources), *header_paths(rel_sources)):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join((*NVCC_FLAGS, *extra_flags)).encode())

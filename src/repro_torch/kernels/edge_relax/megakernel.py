@@ -15,10 +15,10 @@ cooperative CUDA kernel (``csrc/megakernel.cu``) runs up to K supersteps:
     sources changed skip its scan (sound: its candidates were merged
     already). The port's skip unit is the ROW (the TPU kernel's was an edge
     block); frozen rows are skipped too. Skipped rows are counted in
-    ``COL_DEAD``. The kernel finds the rows to run by marking the
-    out-neighbours of changed rows through the graph's out-edge CSR
-    (``RelaxGraph.out_csr``); the plain version finds the same rows from
-    ``front[src]``;
+    ``COL_DEAD``. The kernel lists the rows to run on a device worklist,
+    marking the out-neighbours of changed rows through the graph's
+    out-edge CSR (``RelaxGraph.out_csr``), so a superstep scans only those
+    rows; the plain version finds the same rows from ``front[src]``;
   * one stats row per executed superstep and a summary row at index K,
     read by the host once per launch.
 
@@ -150,8 +150,8 @@ def fused_grow_supersteps(
     tensors, the plain version for CPU tensors. Returns
     ``(d, c, p, front, stats)``; ``stats[k_fused]`` is the summary row."""
     if g.row_ptr.is_cuda:
-        return megakernel_cuda(planes, relay, frozen, front, g.row_ptr,
-                               g.src, g.w, *g.out_csr(), params, k_fused)
+        return megakernel_cuda(planes, relay, frozen, front, g, params,
+                               k_fused)
     return fused_grow_supersteps_plain(planes, relay, frozen, front, g,
                                        params, k_fused)
 

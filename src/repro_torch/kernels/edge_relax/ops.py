@@ -4,8 +4,13 @@
 (``ops.py:53``): instead of dst-sorted [n_blocks, 512] edge blocks padded
 per node tile (built by a per-tile host loop), it is a destination-sorted
 CSR ordered by (dst, src), built with two stable device sorts and a
-bincount — no padding edges, no mask, no Python loop over tiles. The
-megakernel also reads the transpose, an out-edge CSR built on first use.
+bincount — no padding edges, no mask, no Python loop over tiles. Beside
+the CSR it lists the long rows (more than ``LONG_ROW`` in-edges, longest
+first), each of which the kernels scan with a whole block: the list is
+derived from ``row_ptr`` when the layout is made, so it always matches the
+CSR, and costs one read of its length back to the host, once per graph
+(the kernels' grid and buffers are sized by it). The megakernel also reads
+the transpose, an out-edge CSR built on first use.
 
 ``edge_relax`` launches the CUDA kernel for CUDA tensors and runs the plain
 PyTorch version (``ref.py``) for CPU tensors. There is no fallback: a CUDA
@@ -19,21 +24,37 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.edge_relax.kernel import edge_relax_cuda
+from repro_torch.kernels.edge_relax.kernel import LONG_ROW, edge_relax_cuda
 from repro_torch.kernels.edge_relax.ref import edge_relax_ref
+
+
+def long_rows_of(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The rows of a CSR with more than ``LONG_ROW`` edges, int32, longest
+    first (ties by row id), so their blocks start first. ``nonzero`` reads
+    the count back to the host once."""
+    deg = row_ptr[1:] - row_ptr[:-1]
+    rows = torch.nonzero(deg > LONG_ROW).flatten()
+    order = torch.sort(deg[rows], descending=True, stable=True).indices
+    return rows[order].to(torch.int32).contiguous()
 
 
 @dataclass
 class RelaxGraph:
-    """Destination-sorted CSR (edges ordered by (dst, src)) on one device."""
+    """Destination-sorted CSR (edges ordered by (dst, src)) on one device,
+    with its long rows (derived, not passed: ``dataclasses.replace``
+    derives them again)."""
 
     n_nodes: int
     row_ptr: torch.Tensor   # int32 [n+1]
     src: torch.Tensor       # int32 [E]
     dst: torch.Tensor       # int32 [E] (row of each edge)
     w: torch.Tensor         # int32 [E]
+    long_rows: torch.Tensor = field(init=False)  # int32 [L]: > LONG_ROW
     _out: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
-        default=None, repr=False)
+        default=None, init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        self.long_rows = long_rows_of(self.row_ptr)
 
     @property
     def n_edges(self) -> int:
@@ -42,7 +63,8 @@ class RelaxGraph:
     def out_csr(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The same edges as an out-edge CSR, ``(out_ptr int32 [n+1],
         out_dst int32 [E])`` ordered by (src, dst); built on first use (the
-        megakernel marks the out-neighbours of changed rows through it) and
+        megakernel marks the out-neighbours of changed rows through it, a
+        row of more than ``LONG_ROW`` out-edges with a whole block) and
         kept."""
         if self._out is None:
             order = torch.sort(self.src, stable=True).indices
@@ -60,7 +82,8 @@ def build_relax_graph(src: Union[np.ndarray, torch.Tensor],
                       w: Union[np.ndarray, torch.Tensor],
                       n_nodes: int,
                       device: Union[str, torch.device]) -> RelaxGraph:
-    """Sort the edges by (dst, src) on ``device`` and build ``row_ptr``."""
+    """Sort the edges by (dst, src) on ``device``, build ``row_ptr`` and
+    list the rows with more than ``LONG_ROW`` in-edges."""
     dev = torch.device(device)
     src_t = torch.as_tensor(src, dtype=torch.int32).to(dev)
     dst_t = torch.as_tensor(dst, dtype=torch.int32).to(dev)
@@ -96,5 +119,5 @@ def edge_relax(planes: Sequence[torch.Tensor], g: RelaxGraph,
     per-node (d_min, c_min, p_min). CUDA tensors launch the kernel; CPU
     tensors take the plain version."""
     if g.row_ptr.is_cuda:
-        return edge_relax_cuda(planes, g.row_ptr, g.src, g.w, int(delta))
+        return edge_relax_cuda(planes, g, int(delta))
     return edge_relax_plain(planes, g, delta)

@@ -4,7 +4,7 @@ flags after its sources (flash attention links the driver library for its
 TMA tensor maps); include directories named by ``-I`` are checked before
 anything is built, and a missing one (CUTLASS's headers where a library
 asks for them) raises with its path; the hashed library name follows the
-flags as well as the sources."""
+flags and the headers beside the sources as well as the sources."""
 import pytest
 
 from repro_torch.kernels import _build
@@ -55,3 +55,24 @@ def test_library_name_follows_the_flags():
                                     fmod.EXTRA_FLAGS)
     assert a != _build.library_path(fmod.NAME, fmod.SOURCES)
     assert a.name.startswith("flash_attention-") and a.suffix == ".so"
+
+
+def test_library_name_follows_the_headers_beside_the_sources(tmp_path,
+                                                             monkeypatch):
+    """A library is keyed by the ``*.cuh`` headers in its sources'
+    directory too (``edge_relax.cu`` and ``megakernel.cu`` share
+    ``relax_scan.cuh``): editing a header renames, so rebuilds, both."""
+    csrc = tmp_path / "k" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "a.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    assert _build.header_paths(("k/csrc/a.cu",)) == [csrc / "h.cuh"]
+    before = _build.library_path("k", ("k/csrc/a.cu",))
+    (csrc / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k", ("k/csrc/a.cu",)) != before
+    monkeypatch.undo()
+    from repro_torch.kernels.edge_relax import kernel as kmod
+    for sources in (kmod.SOURCES, kmod.MEGA_SOURCES):
+        assert [p.name for p in _build.header_paths(sources)] == [
+            "relax_scan.cuh"]

@@ -1,5 +1,7 @@
 """Tests of the port that need the card: the hand-written CUDA edge-relax
-kernel and megakernel against their plain PyTorch versions, the pipeline
+kernel and megakernel against their plain PyTorch versions (hubs of
+100,000 in- and out-edges, rows at and past the long-row threshold, RMAT
+graphs, edge cases; two launches bit for bit equal), the pipeline
 on the kernel backend against the plain backend, the fused grow path
 against the unfused one in both decomposition modes, the flash
 attention kernel against its plain version, alone and inside the
@@ -125,6 +127,13 @@ def test_kernel_rejects_bad_inputs(cuda_device):
         edge_relax(planes[:5] + [planes[5].to(torch.int64)], g, 4)
     with pytest.raises(ValueError, match="delta"):
         edge_relax(planes, g, 0)
+    bad = dataclasses.replace(g)
+    bad.long_rows = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        kmod.edge_relax_cuda(planes, bad, 4)
+    bad.long_rows = g.long_rows.to(torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        kmod.edge_relax_cuda(planes, bad, 4)
 
 
 @pytest.mark.parametrize("make", [lambda: road_like(3000, seed=1),
@@ -206,6 +215,242 @@ def test_fused_decomposition_equals_unfused_on_card(cuda_device, mode):
         np.testing.assert_array_equal(getattr(res[0].decomposition, f),
                                       getattr(res[8].decomposition, f))
     assert res[0].phi_approx == res[8].phi_approx
+
+
+def _hold_relax(g, tp, delta):
+    """edge_relax on the card, launched twice: exactly one launch each,
+    both bit-identical, and equal to the plain version."""
+    outs = []
+    for _ in range(2):
+        before = kmod.edge_relax_cuda.launches
+        outs.append(edge_relax(tp, g, delta))
+        torch.cuda.synchronize()
+        assert kmod.edge_relax_cuda.launches == before + 1
+    for a, b, c in zip(*outs, edge_relax_plain(tp, g, delta)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    return outs[0]
+
+
+def _hold_mega(g, planes, relay, frozen, front, params, k):
+    """The megakernel launched twice: bit-identical, and every output (the
+    planes, the frontier and the whole stats array) equal to the plain
+    version's."""
+    outs = []
+    for _ in range(2):
+        before = kmod.megakernel_cuda.launches
+        outs.append(mk.fused_grow_supersteps(planes, relay, frozen, front, g,
+                                             params, k))
+        torch.cuda.synchronize()
+        assert kmod.megakernel_cuda.launches == before + 1
+    want = mk.fused_grow_supersteps_plain(planes, relay, frozen, front, g,
+                                          params, k)
+    for a, b, c in zip(*outs, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    return outs[0]
+
+
+def _star(hub_in: bool, hub_out: bool, leaves: int = 100_000):
+    """Node 0 a hub of ``leaves`` in-edges (from nodes 2..) and/or
+    out-edges (to nodes 2..); node 1 feeds it, so node 0 changes in the
+    first superstep (a live source at d 0) and then relaxes its out-list."""
+    leaf = np.arange(2, leaves + 2, dtype=np.int32)
+    src, dst = [np.array([1], np.int32)], [np.array([0], np.int32)]
+    if hub_in:
+        src.append(leaf)
+        dst.append(np.zeros(leaves, np.int32))
+    if hub_out:
+        src.append(np.zeros(leaves, np.int32))
+        dst.append(leaf)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    w = np.random.default_rng(leaves).integers(1, 9, src.shape[0]).astype(
+        np.int32)
+    return EdgeList(leaves + 2, src, dst, w)
+
+
+def _star_state(e, dev, front_all: bool):
+    n = e.n_nodes
+    r = np.random.default_rng(1)
+    d = np.full(n, INF, np.int32)
+    d[1] = 0
+    d[2::7] = r.integers(0, 40, d[2::7].shape[0])   # some live leaves
+    c = np.where(d < INF, np.arange(n, dtype=np.int32), INF).astype(np.int32)
+    p = d.copy()
+    rw0 = np.full(n, BIG, np.int32)
+    rw0[3::11] = -r.integers(0, 5, rw0[3::11].shape[0])   # some relays
+    rc = np.where(rw0 < BIG, 7, INF).astype(np.int32)
+    rp = np.where(rw0 < BIG, 3, INF).astype(np.int32)
+    to = lambda x: torch.from_numpy(x).to(dev)   # noqa: E731
+    frozen = to(rw0 < BIG) | to(r.random(n) < 0.01)
+    frozen[0] = False
+    front = (torch.ones(n, dtype=torch.uint8, device=dev) if front_all
+             else to((np.arange(n) == 1).astype(np.uint8)))
+    return (to(d), to(c), to(p)), (to(rw0), to(rc), to(rp)), frozen, front
+
+
+@pytest.mark.parametrize("front_all", [False, True])
+@pytest.mark.parametrize("hub", ["in", "out", "both"])
+def test_kernels_on_a_100k_edge_hub(cuda_device, hub, front_all):
+    """A star: node 0 with 100,000 in-edges (scanned by a whole block),
+    100,000 out-edges (marked by a whole block when it changes), or both;
+    both kernels at K = 1, 8 and 64 against their plain versions."""
+    e = _star(hub in ("in", "both"), hub in ("out", "both"))
+    g = build_relax_graph(e.src, e.dst, e.weight, e.n_nodes, cuda_device)
+    assert g.long_rows.tolist() == ([0] if hub != "out" else [])
+    out_ptr = g.out_csr()[0]
+    assert int(out_ptr[1] - out_ptr[0]) == (100_000 if hub != "in" else 0)
+    planes, relay, frozen, front = _star_state(e, cuda_device, front_all)
+    _hold_relax(g, [*planes, *relay], 64)
+    reached0 = int(((~frozen) & (planes[0] < 64)).sum())
+    for k in (1, 8, 64):
+        for stop in (0, 1):
+            out = _hold_mega(g, planes, relay, frozen, front,
+                             mk.MegaParams(64, reached0 + 500 if stop else 0,
+                                           4 * e.n_nodes, 0, stop), k)
+            assert int(out[0][0]) < INF            # the hub changed
+    if hub != "in":   # its out-list relaxed in the second superstep
+        out = _hold_mega(g, planes, relay, frozen, front,
+                         mk.MegaParams(64, 0, 100, 0, 0), 2)
+        assert int(out[4][1, mk.COL_CHANGED]) > 10_000
+
+
+def _rows_of_degree(degrees, seed):
+    """Row i has exactly degrees[i] in-edges and node i as many
+    out-edges, from and to random nodes of a 50-node tail."""
+    r = np.random.default_rng(seed)
+    n = len(degrees) + 50
+    dst = np.repeat(np.arange(len(degrees)), degrees).astype(np.int32)
+    src = r.integers(len(degrees), n, dst.shape[0]).astype(np.int32)
+    src2 = np.repeat(np.arange(len(degrees)), degrees).astype(np.int32)
+    dst2 = r.integers(len(degrees), n, src2.shape[0]).astype(np.int32)
+    src, dst = np.concatenate([src, src2]), np.concatenate([dst, dst2])
+    w = r.integers(1, 20, src.shape[0]).astype(np.int32)
+    return EdgeList(n, src, dst, w)
+
+
+def test_rows_at_the_threshold_and_one_past(cuda_device):
+    """Rows of exactly ``LONG_ROW`` in- (and out-) edges take the short
+    path, rows of ``LONG_ROW + 1`` the block path; both kernels equal their
+    plain versions."""
+    t = kmod.LONG_ROW
+    e = _rows_of_degree([t, t + 1, t - 1, t + 1, t, 2 * t + 3, 1, 0], seed=t)
+    g = build_relax_graph(e.src, e.dst, e.weight, e.n_nodes, cuda_device)
+    in_deg = (g.row_ptr[1:] - g.row_ptr[:-1]).cpu()
+    assert sorted(g.long_rows.tolist()) == torch.nonzero(
+        in_deg > t).flatten().tolist()
+    assert 1 in g.long_rows.tolist() and 0 not in g.long_rows.tolist()
+    planes, relay, frozen, front = _fused_inputs(e, cuda_device, 9)[1:5]
+    for delta in (1, 40, BIG):
+        _hold_relax(g, [*planes, *relay], delta)
+    for k in (1, 8):
+        _hold_mega(g, planes, relay, frozen, front,
+                   mk.MegaParams(40, 0, 1000, 0, 0), k)
+
+
+@pytest.mark.parametrize("front_frac", [0.5, 0.05])
+def test_kernels_when_most_rows_are_hubs(cuda_device, front_frac):
+    """1,500 rows of 1,030 out-edges each to random rows (so in-degrees
+    straddle the threshold): every row that changes is an out-hub, so the
+    megakernel's list of changed hubs fills to most of n in one superstep,
+    and about half the rows are scanned by a block. A frontier of half the
+    rows runs superstep 0 over every row; one of 5% lists its rows, each an
+    out-hub marked by a block."""
+    n, deg = 1500, 1030
+    r = np.random.default_rng(8)
+    src = np.repeat(np.arange(n, dtype=np.int32), deg)
+    dst = r.integers(0, n, n * deg).astype(np.int32)
+    e = EdgeList(n, src, dst, r.integers(1, 50, n * deg).astype(np.int32))
+    g, planes, relay, frozen, front, _ = _fused_inputs(e, cuda_device, 8)
+    in_deg = (g.row_ptr[1:] - g.row_ptr[:-1]).cpu()
+    assert 0.2 * n < g.long_rows.numel() < 0.8 * n
+    assert (in_deg <= kmod.LONG_ROW).any()
+    front = torch.from_numpy((np.random.default_rng(9).random(n)
+                              < front_frac).astype(np.uint8)).to(cuda_device)
+    _hold_relax(g, [*planes, *relay], 200)
+    for k in (1, 8, 64):
+        out = _hold_mega(g, planes, relay, frozen, front,
+                         mk.MegaParams(200, 0, 1000, 0, 0), k)
+    assert int(out[4][0, mk.COL_CHANGED]) > n // 2
+
+
+@pytest.mark.parametrize("front_frac", [0.5, 0.05])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("variant", ["stop", "complete"])
+@pytest.mark.parametrize("scale", [14, 16])
+def test_kernels_on_rmat(cuda_device, scale, variant, k, front_frac):
+    """RMAT ``social_like(14)`` and ``(16)`` (skewed in- and out-degrees:
+    15 and 117 rows past the threshold each way), with a frontier of half
+    the rows (the megakernel's superstep 0 runs over every row) and of 5%
+    (from a marked list), both kernels twice each against their plain
+    versions, stats included."""
+    e = social_like(scale, seed=scale)
+    g, planes, relay, frozen, front, wmax = _fused_inputs(e, cuda_device,
+                                                          scale)
+    front = torch.from_numpy((np.random.default_rng(scale).random(
+        e.n_nodes) < front_frac).astype(np.uint8)).to(cuda_device)
+    delta = min(2 * wmax, BIG)
+    if k == 1 and front_frac == 0.5:
+        _hold_relax(g, [*planes, *relay], delta)
+    reached0 = int(((~frozen) & (planes[0] < delta)).sum())
+    stop = int(variant == "stop")
+    _hold_mega(g, planes, relay, frozen, front,
+               mk.MegaParams(delta, reached0 + e.n_nodes // 20 if stop else 0,
+                             4 * e.n_nodes, 0, stop), k)
+
+
+@pytest.mark.parametrize("case", ["n1", "edgeless", "empty_front",
+                                  "frozen_all", "cap"])
+def test_megakernel_edge_cases(cuda_device, case):
+    """n = 1; an edgeless graph (the frontier empties at superstep 0); an
+    all-zero carried frontier; every row frozen; a num_it cap that leaves
+    no superstep to run (the carried frontier comes back as it was)."""
+    n = 1 if case == "n1" else 1000
+    if case in ("n1", "edgeless"):
+        e = EdgeList(n, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                     np.zeros(0, np.int32))
+    else:
+        e = _random_graph(n, 50, 3)
+    g = build_relax_graph(e.src, e.dst, e.weight, n, cuda_device)
+    d, c, p, rw0, rc, rp = (torch.from_numpy(x).to(cuda_device)
+                            for x in _planes(n, 50, 4))
+    planes, relay = (d, c, p), (rw0, rc, rp)
+    frozen = rw0 < BIG
+    front = torch.ones(n, dtype=torch.uint8, device=cuda_device)
+    if case == "empty_front":
+        front = torch.zeros_like(front)
+    if case == "frozen_all":
+        frozen = torch.ones_like(frozen)
+    steps_base = 100 if case == "cap" else 0
+    for k in (1, 8):
+        out = _hold_mega(g, planes, relay, frozen, front,
+                         mk.MegaParams(60, 0, 100, steps_base, 0), k)
+        if case == "cap":
+            assert int(out[4][k, mk.COL_EXECUTED]) == 0
+            assert torch.equal(out[3], front)
+
+
+def test_megakernel_rejects_bad_inputs(cuda_device):
+    e = _random_graph(300, 50, 2)
+    g, planes, relay, frozen, front, _ = _fused_inputs(e, cuda_device, 2)
+    args = lambda **kw: dict(dict(   # noqa: E731
+        planes=planes, relay=relay, frozen=frozen, front=front, g=g,
+        params=(60, 0, 10, 0, 0), k_fused=8), **kw)
+    bad = dataclasses.replace(g)
+    before = kmod.megakernel_cuda.launches
+    with pytest.raises(ValueError, match="k_fused"):
+        kmod.megakernel_cuda(**args(k_fused=0))
+    with pytest.raises(ValueError, match="bool"):
+        kmod.megakernel_cuda(**args(frozen=frozen.to(torch.uint8)))
+    bad.long_rows = g.long_rows.to(torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        kmod.megakernel_cuda(**args(g=bad))
+    bad.long_rows = torch.zeros(301, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        kmod.megakernel_cuda(**args(g=bad))
+    with pytest.raises(ValueError, match="delta"):
+        kmod.megakernel_cuda(**args(params=(0, 0, 10, 0, 0)))
+    with pytest.raises(ValueError, match="int32 counts"):
+        kmod.megakernel_cuda(**args(k_fused=2**31 // 300))
+    assert kmod.megakernel_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

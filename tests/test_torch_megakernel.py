@@ -228,8 +228,8 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     before anything is built (the dispatcher never sends them there)."""
     edges, s, g, relay, frozen, front, delta = _fused_inputs()
     with pytest.raises(ValueError, match="must be on"):
-        megakernel_cuda((s.d, s.c, s.pathw), relay, frozen, front, g.row_ptr,
-                        g.src, g.w, *g.out_csr(), (delta, 0, 10, 0, 0), 8)
+        megakernel_cuda((s.d, s.c, s.pathw), relay, frozen, front, g,
+                        (delta, 0, 10, 0, 0), 8)
 
 
 @pytest.mark.parametrize("graph", ["road", "rmat", "isolated"])
