@@ -98,20 +98,29 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      ``kernels/segment_mm/cases.py`` (the reference's sweep (N, E, D) =
      (100, 500, 32), (600, 2500, 64), (50, 2000, 128), (257, 513, 16);
      D = 1, 4, 7, 8 and 256; E = 0; N = 1; duplicates and self-loops;
-     empty rows; a row at and one just past the chunk length; 40,000- and
-     5,000-edge hubs), each at the default chunk (1,024) and at chunk 7
-     (nearly every row split), each element within that module's rule
-     (``|o - r| <= 16 u sqrt(K) A``, A the sum on absolute values, K the
-     row's length), two launches bit-identical; both planted faults (an
-     edge dropped from a row of average length, a chunk of the hub
-     dropped) must read > 1; bad inputs raise before any launch.
+     empty rows; rows of 1,024, 1,025, TILE and TILE + 1 edges; 40,000-
+     and 5,000-edge hubs), each at the default piece size (``TILE`` merged
+     items) and at 32 (nearly every row crosses a piece boundary), each
+     element within that module's rule (``|o - r| <= 16 u sqrt(K) A``, A
+     the sum on absolute values, K the row's length), two launches
+     bit-identical; both planted faults (an edge dropped from a row of
+     average length, 1,024 of the hub's edges dropped) must read > 1; bad
+     inputs (a misaligned or column-strided x among them) raise before any
+     launch.
   12. segment_mm timed: on the reference's ``ogb_products`` graph
      (2,449,029 nodes, 61,859,140 edges, from ``gnn_full_graph_batch``,
      seed 0) with gcn-cora's coefficients, at D = 16 and 7 (its two
-     layers' widths): the kernel's ms per launch (CUDA events) beside the
+     layers' widths): the kernel's ms per launch (CUDA events; the fix-up
+     launch included) at the default piece size and at 1,024, beside the
      plain version's, ``torch.sparse.mm`` of the same CSR (the yardstick),
-     the compulsory and the gathered byte bounds, and the hub row alone
-     (39,485 edges), split and on one warp.
+     the compulsory byte bound, the gathered bound at 4 D bytes an edge
+     and counted in 32-byte sectors from x's stride and alignment, and a
+     static L2 estimate (the rows read most that fit 40 and 50 MiB read
+     once, every other gather its sectors; not a bound); at D = 7 also x
+     as the ``[:, :7]`` view of an ``[N, 8]`` tensor (rows padded to 32
+     bytes) and gcn-cora's layer 2 (``x @ W`` and the aggregation) both
+     ways; the hub row alone (39,485 edges) under the rule, two launches
+     bit-equal.
   13. GCN inference at full width: gcn-cora (d_hidden 16, d_out 7; random
      weights from seed 0) on ``ogb_products``, ``full_graph_sm`` and
      ``molecule`` (batches from the copied batch functions, seed 0), the
@@ -136,8 +145,10 @@ import gc
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -157,6 +168,25 @@ def _fail(msg: str, code: int) -> int:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_entries(log: str) -> list:
+    """Each entry function of an ``nvcc -Xptxas -v`` log (its mangled
+    name) with its registers and spill bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = \
+                nums[:3]
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def ptxas_entry(name: str, sources, flags, entry: str) -> dict:
@@ -1037,6 +1067,43 @@ def recsys_phases(torch, dev) -> dict:
             "launches_by_path": launches_by_path}
 
 
+L2_SHARES = (40 * 2**20, 50 * 2**20)   # L2 bytes an estimate lets x keep
+
+
+def segmm_sectors(torch, x, col) -> tuple:
+    """32-byte sectors each row of ``x`` spans, from its address (x's base
+    alignment, row stride and width), and how often the gathers read it
+    (``bincount(col)``): the sector count of every gather is
+    ``(sectors * counts).sum()``."""
+    start = (x.data_ptr() % 32 + 4 * x.stride(0) * torch.arange(
+        x.shape[0], dtype=torch.int64, device=x.device))
+    sectors = (start + 4 * x.shape[1] - 1) // 32 - start // 32 + 1
+    return sectors, torch.bincount(col.long(), minlength=x.shape[0])
+
+
+def segmm_sector_bound_ms(torch, x, col, n_rows: int) -> tuple:
+    """The gathered bound counted in 32-byte sectors: the fixed bytes of
+    ``segmm_bytes`` (row_ptr, col, coeff, y) plus every gather's sectors,
+    over HBM; and a static estimate, not a bound, for each L2 share of
+    ``L2_SHARES``: the rows read most (by ``bincount(col)``) that fit the
+    share are read from HBM once, every other gather pays its sectors."""
+    n_edges, d = col.numel(), x.shape[1]
+    fixed = 8 * (n_rows + 1) + 8 * n_edges + 4 * d * n_rows
+    sectors, counts = segmm_sectors(torch, x, col)
+    row_bytes = 32 * sectors
+    gathered = fixed + int((row_bytes * counts).sum())
+    order = torch.argsort(counts, descending=True)
+    rb, cnt = row_bytes[order], counts[order]
+    fits = torch.cumsum(rb, 0)
+    est = {}
+    for share in L2_SHARES:
+        keep = fits <= share
+        b = (fixed + int(rb[keep & (cnt > 0)].sum())
+             + int((rb * cnt)[~keep].sum()))
+        est[f"{share // 2**20}MiB"] = 1e3 * b / HBM_BYTES_PER_S
+    return 1e3 * gathered / HBM_BYTES_PER_S, gathered, est
+
+
 def segmm_bytes(n_rows: int, n_src: int, n_edges: int, d: int) -> tuple:
     """Least bytes one ``segment_mm`` launch must move on a CSR of
     ``n_rows`` rows and ``n_edges`` edges over ``x`` [n_src, d], float32:
@@ -1055,6 +1122,55 @@ def segmm_bound_ms(n_rows: int, n_src: int, n_edges: int, d: int) -> tuple:
             1e3 * max(gathered / HBM_BYTES_PER_S, t_ops))
 
 
+def segmm_launch(torch, smod, x, layout, coeff, vec: int,
+                 fixup: bool = True) -> int:
+    """One call of the C entry ``segment_mm_launch`` past the wrapper (no
+    checks, no launch count): the CUDA error it returns. ``vec`` as given;
+    ``fixup=False`` passes no crossing rows, so only the piece kernel runs
+    (the crossing rows of y are left unwritten)."""
+    n, d = layout.n_nodes, x.shape[1]
+    y = torch.empty(n, d, device=x.device)
+    n_pieces = -(-(n + layout.col.numel()) // layout.tile)
+    carry = torch.empty(2 * n_pieces * (-(-d // 4) * 4), device=x.device)
+    cross = layout.crossing_rows
+    return smod.load_library().segment_mm_launch(
+        layout.row_ptr.data_ptr(), layout.col.data_ptr(), coeff.data_ptr(),
+        x.data_ptr(), cross.data_ptr(), y.data_ptr(), carry.data_ptr(), n,
+        layout.col.numel(), x.stride(0), cross.numel() if fixup else 0,
+        layout.tile, d, vec, torch.cuda.current_stream().cuda_stream)
+
+
+def segmm_split(torch, smod, x, layout, coeff, iters: int) -> dict:
+    """Where one launch's time goes at a layer's inputs: CUDA events over
+    ``iters`` back-to-back calls of the wrapper (checks, piece kernel and
+    fix-up), of the C entry with the fix-up and of the C entry with the
+    piece kernel alone, and the host's time to issue each call (no sync
+    inside the loop): where a call's events equal its issue time, the
+    host, not the card, sets the pace."""
+    from repro_torch.common import Timer
+    from repro_torch.kernels.segment_mm.ops import segment_mm_csr
+    vec = int(smod._reads_whole_chunks(x))
+
+    def entry(fixup):
+        if segmm_launch(torch, smod, x, layout, coeff, vec, fixup=fixup):
+            raise RuntimeError("segment_mm_launch failed")
+
+    out = {"d": x.shape[1], "crossing_rows": int(layout.crossing_rows.numel())}
+    for name, fn in (("wrapper", lambda: segment_mm_csr(x, layout, coeff)),
+                     ("entry", lambda: entry(True)),
+                     ("pieces", lambda: entry(False))):
+        out[f"{name}_ms"] = time_ms(torch, fn, iters)
+        torch.cuda.synchronize()
+        with Timer() as t:
+            for _ in range(iters):
+                fn()
+        out[f"{name}_issue_ms"] = 1e3 * t.seconds / iters
+        torch.cuda.synchronize()
+    out["fixup_ms"] = out["entry_ms"] - out["pieces_ms"]
+    out["checks_ms"] = out["wrapper_ms"] - out["entry_ms"]
+    return out
+
+
 def gnn_phases(torch, dev) -> dict:
     """Phases 11-13; returns the segment_mm row of the kernel table."""
     from repro_torch.common import Timer
@@ -1069,7 +1185,8 @@ def gnn_phases(torch, dev) -> dict:
                                                       drop_one_chunk,
                                                       drop_one_edge,
                                                       rule_excess)
-    from repro_torch.kernels.segment_mm.ops import (CHUNK, csr_layout,
+    from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout,
+                                                    csr_layout,
                                                     segment_mm_csr)
     from repro_torch.kernels.segment_mm.ref import segment_mm_ref
     from repro_torch.models import gnn
@@ -1097,8 +1214,8 @@ def gnn_phases(torch, dev) -> dict:
         x, src, dst, coeff, n = case_inputs(name)
         x, src, dst, coeff = (torch.from_numpy(a).to(dev)
                               for a in (x, src, dst, coeff))
-        for chunk in (CHUNK, 7):
-            layout = csr_layout(src, dst, n, chunk=chunk)
+        for tile in (TILE, 32):
+            layout = csr_layout(src, dst, n, tile=tile)
             cs = coeff[layout.perm]
             out = segment_mm_csr(x, layout, cs)
             again = segment_mm_csr(x, layout, cs)
@@ -1107,13 +1224,13 @@ def gnn_phases(torch, dev) -> dict:
                 raise AssertionError(f"segment_mm {name}: two launches "
                                      f"differ")
             err, ex = held(out, x, layout.col, layout.row, cs, n,
-                           f"{name} chunk {chunk}")
+                           f"{name} tile {tile}")
             max_err, excess_worst = max(max_err, err), max(excess_worst, ex)
             deg = layout.in_degree()
-            emit({"phase": "segmm_vs_plain", "case": name, "chunk": chunk,
+            emit({"phase": "segmm_vs_plain", "case": name, "tile": tile,
                   "shape": [n, int(src.numel()), int(x.shape[1])],
                   "longest_row": int(deg.max()) if n else 0,
-                  "long_rows": int(layout.long_rows.numel()),
+                  "crossing_rows": int(layout.crossing_rows.numel()),
                   "max_abs_err": err, "excess": ex, "bit_identical": True})
     # the rule must reject a dropped edge and a dropped chunk of the hub
     x, src, dst, coeff, n = case_inputs(FAULT_CASE)
@@ -1132,25 +1249,50 @@ def gnn_phases(torch, dev) -> dict:
           "sound_excess": rule_excess(segment_mm_csr(x, layout, cs), exact,
                                       x, src, dst, coeff, n)})
     # what the kernel does not take raises, before any launch
-    bad = {"float64": (x.double(), layout.row_ptr, layout.col, cs),
-           "int32 row_ptr": (x, layout.row_ptr.int(), layout.col, cs),
-           "D 257": (torch.zeros(n, 257, device=dev), layout.row_ptr,
-                     layout.col, cs),
-           "strided x": (x.t().contiguous().t(), layout.row_ptr, layout.col,
-                         cs),
-           "coeff on the CPU": (x, layout.row_ptr, layout.col, cs.cpu()),
-           "short coeff": (x, layout.row_ptr, layout.col, cs[:-1])}
+    fields = {f.name: getattr(layout, f.name)
+              for f in dataclasses.fields(layout)}
+    bad = {"float64": lambda: smod.segment_mm_cuda(x.double(), layout, cs),
+           "int32 row_ptr": lambda: smod.segment_mm_cuda(
+               x, dataclasses.replace(layout, row_ptr=layout.row_ptr.int()),
+               cs),
+           "D 257": lambda: smod.segment_mm_cuda(
+               torch.zeros(n, 257, device=dev), layout, cs),
+           "column-strided x": lambda: smod.segment_mm_cuda(
+               x.t().contiguous().t(), layout, cs),
+           "layout tile past TILE": lambda: dataclasses.replace(
+               layout, tile=TILE + 1),
+           "tile past TILE": lambda: smod.segment_mm_cuda(
+               x, types.SimpleNamespace(**{**fields, "tile": TILE + 1}), cs),
+           "coeff on the CPU": lambda: smod.segment_mm_cuda(x, layout,
+                                                            cs.cpu()),
+           "short coeff": lambda: smod.segment_mm_cuda(x, layout, cs[:-1])}
     before = smod.segment_mm_cuda.launches
-    for what, args in bad.items():
+    for what, call in bad.items():
         try:
-            smod.segment_mm_cuda(*args, layout.long_rows, CHUNK)
+            call()
         except ValueError:
             continue
         raise AssertionError(f"segment_mm_cuda took bad inputs: {what}")
     if smod.segment_mm_cuda.launches != before:
         raise AssertionError("segment_mm_cuda launched on bad inputs")
-    emit({"phase": "segmm_bad_inputs", "raised": list(bad)})
-    del x, src, dst, coeff, exact, layout, cs, out, again
+    # a base that is not 16-byte aligned is read a float at a time; the C
+    # entry refuses 16-byte reads from it
+    buf = torch.full((x.numel() + 1,), float("nan"), device=dev)
+    skew = buf[1:].view(x.shape)
+    skew.copy_(x)
+    skew_out = segment_mm_csr(skew, layout, cs)
+    if not torch.equal(skew_out, segment_mm_csr(skew, layout, cs)):
+        raise AssertionError("segment_mm: two launches on a misaligned x "
+                             "differ")
+    _, skew_ex = held(skew_out, x, layout.col, layout.row, cs, n,
+                      "misaligned x")
+    if segmm_launch(torch, smod, skew, layout, cs, vec=1) == 0:
+        raise AssertionError("segment_mm_launch took 16-byte reads from a "
+                             "misaligned x")
+    emit({"phase": "segmm_bad_inputs", "raised": list(bad),
+          "misaligned_x_excess": skew_ex, "misaligned_vec_refused": True})
+    del x, src, dst, coeff, exact, layout, cs, out, again, buf, skew
+    del skew_out
 
     # -- the ogb_products graph, resident on the card -------------------------
     cfg = get_arch("gcn-cora")
@@ -1184,8 +1326,10 @@ def gnn_phases(torch, dev) -> dict:
     deg = layout.in_degree()
     emit({"phase": "gnn_graph", "shape": "ogb_products", "nodes": n,
           "edges": e, "max_in_degree": int(deg.max()),
-          "long_rows": int(layout.long_rows.numel()),
-          "edges_in_long_rows": int(deg[layout.long_rows.long()].sum()),
+          "tile": layout.tile, "pieces": -(-(n + e) // layout.tile),
+          "crossing_rows": int(layout.crossing_rows.numel()),
+          "edges_in_crossing_rows": int(
+              deg[layout.crossing_rows.long()].sum()),
           "empty_rows": int((deg == 0).sum()), **ogb_setup})
 
     # -- phase 12: segment_mm timed at ogb_products, D = 16 and 7 ------------
@@ -1195,10 +1339,20 @@ def gnn_phases(torch, dev) -> dict:
     hub = int(torch.argmax(deg))
     lo, hi = int(layout.row_ptr[hub]), int(layout.row_ptr[hub + 1])
     hub_ptr = torch.tensor([0, hi - lo], dtype=torch.int64, device=dev)
-    hub_col = layout.col[lo:hi].contiguous()
+    hub_l = CsrLayout(1, hub_ptr, layout.col[lo:hi].contiguous(),
+                      torch.zeros(hi - lo, dtype=torch.int32, device=dev),
+                      torch.arange(hi - lo, device=dev))
     hub_coeff = coeff[lo:hi].contiguous()
+    layout_1024 = dataclasses.replace(layout, tile=1024)
     col64 = layout.col.to(torch.int64)
     timed = {}
+
+    def sector_fields(x, prefix=""):
+        ms, nbytes, est = segmm_sector_bound_ms(torch, x, layout.col, n)
+        return {f"{prefix}sector_bound_ms": ms,
+                f"{prefix}bytes_sectors": nbytes,
+                f"{prefix}l2_estimate_ms": est}
+
     for d in (cfg.d_hidden, cfg.d_out):
         x = torch.randn(n, d, generator=gen, device=dev)
         out = segment_mm_csr(x, layout, coeff)
@@ -1211,13 +1365,15 @@ def gnn_phases(torch, dev) -> dict:
                                       size=(n, n))
         lib_ex = rule_excess(torch.sparse.mm(csr, x), exact, x, layout.col,
                              layout.row, coeff, n)
-        del exact
         compulsory, gathered = segmm_bound_ms(n, n, e, d)
         bytes_c, bytes_g = segmm_bytes(n, n, e, d)
         row = {"phase": "segmm_timed", "shape": "ogb_products", "d": d,
-               "nodes": n, "edges": e, "max_abs_err": err, "excess": ex,
+               "nodes": n, "edges": e, "tile": layout.tile,
+               "max_abs_err": err, "excess": ex,
                "ms": time_ms(torch, lambda: segment_mm_csr(x, layout, coeff),
                              20),
+               "tile_1024_ms": time_ms(torch, lambda: segment_mm_csr(
+                   x, layout_1024, coeff), 20),
                "plain_ms": time_ms(torch, lambda: segment_mm_csr(
                    x, layout, coeff, impl="ref"), 5),
                "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, x),
@@ -1225,37 +1381,62 @@ def gnn_phases(torch, dev) -> dict:
                "library_excess": lib_ex,
                "bound_ms": compulsory, "bound_by": "bytes",
                "gathered_bound_ms": gathered,
-               "bytes_compulsory": bytes_c, "bytes_gathered": bytes_g}
-        # the hub row alone (a one-row graph over the same x): split across
-        # a block's warps as the kernel splits it, and one warp over it all
-        split = smod.segment_mm_cuda(x, hub_ptr, hub_col, hub_coeff,
-                                     torch.zeros(1, dtype=torch.int32,
-                                                 device=dev), CHUNK)
-        one_warp = smod.segment_mm_cuda(x, hub_ptr, hub_col, hub_coeff,
-                                        torch.zeros(0, dtype=torch.int32,
-                                                    device=dev), hi - lo)
-        if not torch.equal(split[0], out[hub]):
-            raise AssertionError("segment_mm: the hub alone differs from the "
-                                 "hub in the graph")
-        zeros = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
-        _, one_ex = held(one_warp, x, hub_col, zeros, hub_coeff, 1,
-                         "hub, one warp")
+               "bytes_compulsory": bytes_c, "bytes_gathered": bytes_g,
+               **sector_fields(x),
+               "l2_estimate_note": "static estimate, not a bound: the "
+                                   "rows read most that fit the L2 share "
+                                   "read once, every other gather its "
+                                   "sectors"}
+        if d % 8:
+            # the same rows padded to a multiple of 32 bytes, as a view
+            wide = torch.zeros(n, -(-d // 8) * 8, device=dev)
+            wide[:, :d] = x
+            xs = wide[:, :d]
+            strided = segment_mm_csr(xs, layout, coeff)
+            s_err, s_ex = held(strided, x, layout.col, layout.row, coeff, n,
+                               f"ogb_products D={d} in {wide.shape[1]}",
+                               exact)
+            if not torch.equal(strided, segment_mm_csr(xs, layout, coeff)):
+                raise AssertionError("segment_mm: two strided launches "
+                                     "differ")
+            row.update({"strided_row_floats": wide.shape[1],
+                        "strided_ms": time_ms(torch, lambda: segment_mm_csr(
+                            xs, layout, coeff), 20),
+                        "strided_excess": s_ex,
+                        **sector_fields(xs, "strided_")})
+            del wide, xs, strided
+        del exact
+        # the hub row alone (a one-row graph over the same x): the rule
+        # against float64, two launches bit-equal
+        alone = segment_mm_csr(x, hub_l, hub_coeff)
+        if not torch.equal(alone, segment_mm_csr(x, hub_l, hub_coeff)):
+            raise AssertionError("segment_mm: two launches on the hub alone "
+                                 "differ")
+        _, hub_ex = held(alone, x, hub_l.col, hub_l.row, hub_coeff, 1,
+                         "hub alone")
         row.update({
-            "hub_edges": hi - lo,
-            "hub_ms": time_ms(torch, lambda: smod.segment_mm_cuda(
-                x, hub_ptr, hub_col, hub_coeff, torch.zeros(
-                    1, dtype=torch.int32, device=dev), CHUNK), 20),
-            "hub_one_warp_ms": time_ms(torch, lambda: smod.segment_mm_cuda(
-                x, hub_ptr, hub_col, hub_coeff, torch.zeros(
-                    0, dtype=torch.int32, device=dev), hi - lo), 20),
-            "hub_one_warp_excess": one_ex})
+            "hub_edges": hi - lo, "hub_excess": hub_ex,
+            "hub_ms": time_ms(torch, lambda: segment_mm_csr(
+                x, hub_l, hub_coeff), 20)})
         row["gbytes_s_compulsory"] = bytes_c / row["ms"] / 1e6
         row["bound_share"] = compulsory / row["ms"]
         timed[d] = row
         emit(row)
-        del x, out, csr, split, one_warp
+        del x, out, csr, alone
         torch.cuda.empty_cache()
-    del col64, hub_col, hub_coeff, coeff
+    # gcn-cora's layer 2 as a whole (x @ W, then the aggregation), with h
+    # [N, 7] contiguous and as the [:, :7] view of an [N, 8] h from W with a
+    # zero eighth column
+    h1 = torch.relu(torch.randn(n, cfg.d_hidden, generator=gen, device=dev))
+    w = torch.randn(cfg.d_hidden, cfg.d_out, generator=gen, device=dev)
+    w8 = torch.nn.functional.pad(w, (0, -cfg.d_out % 8))
+    layer2 = {"phase": "segmm_layer2", "shape": "ogb_products",
+              "contiguous_ms": time_ms(torch, lambda: segment_mm_csr(
+                  h1 @ w, layout, coeff), 20),
+              "padded_ms": time_ms(torch, lambda: segment_mm_csr(
+                  (h1 @ w8)[:, :cfg.d_out], layout, coeff), 20)}
+    emit(layer2)
+    del col64, hub_l, hub_coeff, coeff, h1, w, w8, layout_1024
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1301,7 +1482,7 @@ def gnn_phases(torch, dev) -> dict:
         # each launch at the path's own inputs, against float64 plain
         with Timer() as t_check:
             _, coeff, self_coeff = gnn.gcn_norm(layout, cfg.norm)
-            x, layer_ex = graph["x"], []
+            x, layer_ex, split = graph["x"], [], []
             for i, lp in enumerate(params["layers"]):
                 h = x @ lp["w"]
                 err, ex = held(segment_mm_csr(h, layout, coeff), h,
@@ -1310,6 +1491,8 @@ def gnn_phases(torch, dev) -> dict:
                 max_err, excess_worst = max(max_err, err), max(excess_worst,
                                                                ex)
                 layer_ex.append(ex)
+                split.append(segmm_split(torch, smod, h, layout, coeff,
+                                         n_calls))
                 x = gnn.gcn_layer(x, lp, layout, coeff, self_coeff,
                                   relu=i < cfg.n_layers - 1)
                 del h
@@ -1342,6 +1525,7 @@ def gnn_phases(torch, dev) -> dict:
               "segmm_launches": launches,
               "segmm_launches_per_forward": launches // n_calls,
               "peak_bytes": peak, "layer_excess": layer_ex,
+              "segmm_split": split,
               "logits_chain_excess": chain, "loss": loss,
               "plain_loss": plain_loss, "loss_diff": abs(loss - plain_loss),
               "logits0": logits[0].tolist(),
@@ -1364,13 +1548,16 @@ def gnn_phases(torch, dev) -> dict:
             "library_ms": t16["library_ms"],
             "library_call": "torch.sparse.mm of a CSR tensor (crow = row_ptr, "
                             "col, values = sorted coeff), float32",
-            "hub_ms": t16["hub_ms"], "hub_one_warp_ms": t16["hub_one_warp_ms"],
-            "hub_edges": t16["hub_edges"],
+            "tile": t16["tile"], "tile_1024_ms": t16["tile_1024_ms"],
+            "hub_ms": t16["hub_ms"], "hub_edges": t16["hub_edges"],
             "d7_ms": t7["ms"], "d7_plain_ms": t7["plain_ms"],
             "d7_bound_ms": t7["bound_ms"],
             "d7_gathered_bound_ms": t7["gathered_bound_ms"],
             "d7_library_ms": t7["library_ms"], "d7_hub_ms": t7["hub_ms"],
-            "d7_hub_one_warp_ms": t7["hub_one_warp_ms"],
+            "d7_tile_1024_ms": t7["tile_1024_ms"],
+            "d7_in_8_ms": t7["strided_ms"],
+            "layer2_contiguous_ms": layer2["contiguous_ms"],
+            "layer2_padded_ms": layer2["padded_ms"],
             "launches_by_path": launches_by_path}
 
 
@@ -1429,10 +1616,9 @@ def main() -> int:
         seconds = list(pool.map(timed_load, [b[3] for b in builds]))
     for (name, sources, flags, _), secs in zip(builds, seconds):
         log = _build.library_path(name, sources, flags).with_suffix(".log")
-        ptxas = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] if log.exists() else []
         emit({"phase": "build", "kernel": name, "seconds": secs,
-              "ptxas": ptxas})
+              "ptxas": ptxas_entries(log.read_text()) if log.exists()
+              else []})
 
     # -- phase 1: kernel vs plain --------------------------------------------
     max_err = 0

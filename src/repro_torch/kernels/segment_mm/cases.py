@@ -40,7 +40,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.segment_mm.ops import CHUNK, csr_layout
+from repro_torch.kernels.segment_mm.ops import TILE, csr_layout
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 
 U = 2.0 ** -24
@@ -48,8 +48,11 @@ RULE_C = 16.0
 
 # name -> (kind, N, E, D). "sweep" cases are the reference's own sweep
 # (tests/test_kernels.py: uniform endpoints, rng seeded n + d); D = 16 and
-# 7 are gcn-cora's widths; D = 128 and 256 take 4 and 8 feature chunks
-# per lane. "hub" rows have more than CHUNK in-edges and are split.
+# 7 are gcn-cora's widths; D = 128 and 256 take 2 float4 chunks or 4 and
+# 8 float chunks per lane. Rows of 1,024 and 1,025 in-edges sat at and past
+# the old kernel's long-row threshold; rows of TILE and TILE + 1 in-edges
+# fill a piece of TILE items and overflow it (with its end, each row spans
+# two pieces or more); "hub" rows span many pieces.
 CASES: Dict[str, Tuple[str, int, int, int]] = {
     "sweep-100-500-32": ("sweep", 100, 500, 32),
     "sweep-600-2500-64": ("sweep", 600, 2500, 64),
@@ -64,16 +67,20 @@ CASES: Dict[str, Tuple[str, int, int, int]] = {
     "one-node": ("uniform", 1, 9, 16),
     "duplicates-self-loops": ("duplicates", 64, 2000, 16),
     "empty-rows": ("empty_rows", 1000, 500, 7),
-    "row-at-chunk": ("one_long_row", 50, CHUNK, 16),
-    "row-past-chunk": ("one_long_row", 50, CHUNK + 1, 16),
+    "row-at-chunk": ("one_long_row", 50, 1024, 16),
+    "row-past-chunk": ("one_long_row", 50, 1025, 16),
+    "row-at-tile": ("one_long_row", 50, TILE, 16),
+    "row-past-tile": ("one_long_row", 50, TILE + 1, 7),
     "hub-40000": ("one_long_row", 2000, 40_000, 16),
     "hub-40000-d7": ("one_long_row", 2000, 40_000, 7),
     "hub-5000-d128": ("one_long_row", 300, 5_000, 128),
 }
 
 # the case the planted faults are read on: a 40,000-edge hub beside rows
-# of a few edges each
+# of a few edges each; a lost partial of 1,024 of the hub's edges (half a
+# piece) is the chunk fault
 FAULT_CASE = "hub-40000"
+FAULT_CHUNK = 1024
 
 
 def case_inputs(name: str, seed: int = 0) -> Tuple[np.ndarray, np.ndarray,
@@ -188,11 +195,11 @@ def drop_one_edge(x, src, dst, coeff, n_nodes: int) -> torch.Tensor:
 
 
 def drop_one_chunk(x, src, dst, coeff, n_nodes: int,
-                   chunk: int = CHUNK) -> torch.Tensor:
-    """The plain version as a kernel that loses one chunk of a split row
-    would compute it: the middle chunk of ``chunk`` edges of the longest
-    row (in the layout's (dst, src) order)."""
-    layout = csr_layout(src, dst, n_nodes, chunk=chunk)
+                   chunk: int = FAULT_CHUNK) -> torch.Tensor:
+    """The plain version as a kernel that loses one piece's partial of a
+    long row would compute it: the middle chunk of ``chunk`` edges of the
+    longest row (in the layout's (dst, src) order)."""
+    layout = csr_layout(src, dst, n_nodes)
     k = layout.in_degree()
     r = int(torch.argmax(k))
     n_chunks = -(-int(k[r]) // chunk)

@@ -8,8 +8,9 @@ attention kernel against its plain version, alone and inside the
 transformer's prefill and decode, the CIN kernel against its plain
 version, alone (two launches bit for bit equal), in a stack and inside
 xDeepFM's forward and retrieval,
-and the segment_mm kernel against its plain version in float64, alone and
-inside the GCN forward (two launches per forward).
+and the segment_mm kernel against its plain version in float64, alone (at
+the default piece size and at 32 items, with rows padded to 32 bytes, on
+a 39,485-edge hub) and inside the GCN forward (two launches per forward).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import dataclasses
+import types
 
 from repro_torch.common import GraphEngineConfig
 from repro_torch.config import GNN_SHAPES, get_arch
@@ -52,8 +54,8 @@ from repro_torch.kernels.segment_mm.cases import (chain_excess,
                                                   drop_one_edge, rule_excess)
 from repro_torch.kernels.segment_mm.cases import \
     case_inputs as segmm_case_inputs
-from repro_torch.kernels.segment_mm.ops import (csr_layout, segment_mm,
-                                                segment_mm_csr)
+from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout, csr_layout,
+                                                segment_mm, segment_mm_csr)
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 from repro_torch.data.pipeline import gnn_full_graph_batch
 from repro_torch.launch.steps import build_cell
@@ -657,14 +659,15 @@ def _segmm_case(name, dev):
             torch.from_numpy(dst).to(dev), torch.from_numpy(coeff).to(dev), n)
 
 
-@pytest.mark.parametrize("chunk", [1024, 7])
+@pytest.mark.parametrize("tile", [TILE, 32])
 @pytest.mark.parametrize("name", sorted(SEGMM_CASES))
-def test_segment_mm_matches_plain(cuda_device, name, chunk):
+def test_segment_mm_matches_plain(cuda_device, name, tile):
     """The float32 rule of ``kernels/segment_mm/cases.py`` against the plain
-    version in float64; one launch per call; two launches bit-identical; at
-    chunk 7 nearly every row is split across a block's warps."""
+    version in float64; one launch per call (the fix-up included); two
+    launches bit-identical; at tile 32 nearly every row crosses a piece
+    boundary and is summed from the carries."""
     x, src, dst, coeff, n = _segmm_case(name, cuda_device)
-    layout = csr_layout(src, dst, n, chunk=chunk)
+    layout = csr_layout(src, dst, n, tile=tile)
     cs = coeff[layout.perm]
     before = smod.segment_mm_cuda.launches
     out = segment_mm_csr(x, layout, cs)
@@ -676,7 +679,7 @@ def test_segment_mm_matches_plain(cuda_device, name, chunk):
     assert torch.equal(out, again)
     exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
     assert rule_excess(out, exact, x, src, dst, coeff, n) <= 1.0
-    if chunk == 1024:
+    if tile == TILE:
         flat = segment_mm(x, src, dst, coeff, n)
         assert smod.segment_mm_cuda.launches == before + 3
         assert torch.equal(flat, out)
@@ -693,26 +696,108 @@ def test_segment_mm_rule_rejects_the_planted_faults_on_card(cuda_device):
 
 
 def test_segment_mm_layout_and_bad_inputs_on_card(cuda_device):
-    """The layout built on the card is the CPU's, edge for edge; what the
-    kernel does not take raises."""
+    """The layout built on the card is the CPU's, edge for edge, and so are
+    its crossing rows at both tiles; what the kernel does not take
+    raises."""
     x, src, dst, coeff, n = _segmm_case("hub-40000", cuda_device)
-    dev_l = csr_layout(src, dst, n)
-    cpu_l = csr_layout(src.cpu(), dst.cpu(), n)
-    for f in ("row_ptr", "col", "row", "perm", "long_rows"):
-        assert torch.equal(getattr(dev_l, f).cpu(), getattr(cpu_l, f)), f
-    rp, col, lr, cs = dev_l.row_ptr, dev_l.col, dev_l.long_rows, \
-        coeff[dev_l.perm]
+    for tile in (TILE, 32):
+        dev_l = csr_layout(src, dst, n, tile=tile)
+        cpu_l = csr_layout(src.cpu(), dst.cpu(), n, tile=tile)
+        for f in ("row_ptr", "col", "row", "perm", "crossing_rows"):
+            assert torch.equal(getattr(dev_l, f).cpu(), getattr(cpu_l, f)), f
+    layout = csr_layout(src, dst, n)
+    cs = coeff[layout.perm]
     with pytest.raises(ValueError, match="float32"):
-        smod.segment_mm_cuda(x.double(), rp, col, cs, lr, 1024)
+        smod.segment_mm_cuda(x.double(), layout, cs)
     with pytest.raises(ValueError, match="D <="):
-        smod.segment_mm_cuda(torch.zeros(n, 300, device=cuda_device), rp,
-                             col, cs, lr, 1024)
-    with pytest.raises(ValueError, match="contiguous"):
-        smod.segment_mm_cuda(x.t().contiguous().t(), rp, col, cs, lr, 1024)
+        smod.segment_mm_cuda(torch.zeros(n, 300, device=cuda_device), layout,
+                             cs)
+    with pytest.raises(ValueError, match="unit column stride"):
+        smod.segment_mm_cuda(x.t().contiguous().t(), layout, cs)
     with pytest.raises(ValueError, match="CUDA"):
-        smod.segment_mm_cuda(x, rp.cpu(), col, cs, lr, 1024)
-    empty = smod.segment_mm_cuda(x, rp[:1], col, cs, lr[:0], 1024)
-    assert empty.shape == (0, x.shape[1])
+        smod.segment_mm_cuda(x, dataclasses.replace(
+            layout, row_ptr=layout.row_ptr.cpu()), cs)
+    with pytest.raises(ValueError, match="tile"):
+        dataclasses.replace(layout, tile=TILE + 1)
+    fields = {f.name: getattr(layout, f.name)
+              for f in dataclasses.fields(layout)}
+    with pytest.raises(ValueError, match="tile"):
+        smod.segment_mm_cuda(x, types.SimpleNamespace(
+            **{**fields, "tile": TILE + 1}), cs)
+    empty = csr_layout(src[:0], dst[:0], 0)
+    assert smod.segment_mm_cuda(x, empty, cs[:0]).shape == (0, x.shape[1])
+
+
+def test_segment_mm_strided_rows_and_a_misaligned_base(cuda_device):
+    """x as a ``[:, :7]`` view of an ``[N, 8]`` tensor (rows padded to 32
+    bytes, read in 16-byte chunks, the padding NaN), and a contiguous x
+    whose base is not 16-byte aligned (read a float at a time), within the
+    rule of float64, two launches bit-equal; the C entry refuses 16-byte
+    reads from a misaligned base before any launch."""
+    x, src, dst, coeff, n = _segmm_case("uniform-d7", cuda_device)
+    padded = torch.zeros(n, 8, device=cuda_device)
+    padded[:, :7] = x
+    padded[:, 7] = float("nan")       # never read into a written output
+    for tile in (TILE, 32):
+        layout = csr_layout(src, dst, n, tile=tile)
+        cs = coeff[layout.perm]
+        got = segment_mm_csr(padded[:, :7], layout, cs)
+        again = segment_mm_csr(padded[:, :7], layout, cs)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.isfinite(got).all()
+        exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
+        assert rule_excess(got, exact, x, src, dst, coeff, n) <= 1.0
+        assert torch.equal(got, again)
+        buf = torch.full((n * 8 + 1,), float("nan"), device=cuda_device)
+        buf[1:n * 7 + 1] = x.flatten()
+        skew = buf[1:n * 7 + 1].view(n, 7)
+        assert skew.data_ptr() % 16 and not smod._reads_whole_chunks(skew)
+        got = segment_mm_csr(skew, layout, cs)
+        torch.cuda.synchronize()
+        assert rule_excess(got, exact, x, src, dst, coeff, n) <= 1.0
+        assert torch.equal(got, segment_mm_csr(skew, layout, cs))
+    # 16-byte reads (vec = 1) from a misaligned base: cudaErrorInvalidValue
+    xs = buf[1:n * 8 + 1].view(n, 8)
+    y = torch.empty(n, 8, device=cuda_device)
+    carry = torch.empty(2 * (n + cs.numel()) * 8, device=cuda_device)
+    err = smod.load_library().segment_mm_launch(
+        layout.row_ptr.data_ptr(), layout.col.data_ptr(), cs.data_ptr(),
+        xs.data_ptr(), layout.crossing_rows.data_ptr(), y.data_ptr(),
+        carry.data_ptr(), n, cs.numel(), 8, layout.crossing_rows.numel(),
+        layout.tile, 8, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1
+
+
+@pytest.mark.parametrize("d", [7, 16])
+def test_segment_mm_on_a_39485_edge_hub(cuda_device, d):
+    """One row of 39,485 in-edges (ogb_products' largest) beside rows of a
+    few edges, and the hub alone as a one-row graph: the rule against
+    float64, two launches bit-equal."""
+    r = np.random.default_rng(d)
+    n, k = 5000, 39_485
+    dst = np.concatenate([np.zeros(k, np.int64), r.integers(1, n, 4 * n)])
+    src = r.integers(0, n, len(dst))
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(
+        cuda_device)
+    coeff = torch.from_numpy(r.standard_normal(len(dst)).astype(
+        np.float32)).to(cuda_device)
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+                for a in (src, dst))
+    layout = csr_layout(src, dst, n)
+    assert 0 in layout.crossing_rows.tolist()
+    cs = coeff[layout.perm]
+    out = segment_mm_csr(x, layout, cs)
+    assert torch.equal(out, segment_mm_csr(x, layout, cs))
+    exact = segment_mm_ref(x.double(), src, dst, coeff.double(), n)
+    assert rule_excess(out, exact, x, src, dst, coeff, n) <= 1.0
+    ptr = torch.tensor([0, k], dtype=torch.int64, device=cuda_device)
+    hub = CsrLayout(1, ptr, layout.col[:k].contiguous(),
+                    torch.zeros(k, dtype=torch.int32, device=cuda_device),
+                    torch.arange(k, device=cuda_device))
+    alone = segment_mm_csr(x, hub, cs[:k].contiguous())
+    assert torch.equal(alone, segment_mm_csr(x, hub, cs[:k].contiguous()))
+    assert rule_excess(alone, exact[:1], x, hub.col, hub.row,
+                       cs[:k].contiguous(), 1) <= 1.0
 
 
 def test_gcn_forward_through_the_kernel_on_card(cuda_device):
