@@ -37,9 +37,34 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
   2c. one-shot at full size: ``road_like(1_890_815)``, the session default
      tau (130), ``mode="oneshot"``, ``deterministic=True``, fused (8) and
      unfused; byte-identical planes and equal Phi.
+  2d. the quotient cascade at full size: on phase 2's kernel session,
+     ``CascadeEstimator(levels=0)`` must equal phase 2's flat estimate
+     field for field (host-clock seconds aside); ``levels=2``
+     (``tau_solve`` 1,024) prints each level's clusters, supersteps,
+     reads and seconds, must take no more solve supersteps than the flat
+     estimate, and must give the same Phi and level lists on phase 2's
+     plain session. Then a new fused session at the default tau (130)
+     cascades up to 6 levels (the count printed) with its Phi, level
+     table, solve seconds and peak bytes; its flat solve is not run.
+  2e. CLUSTER2 at full size: ``ClusterQuotientEstimator(use_cluster2=
+     True)`` on phase 2's kernel session and phase 2b's fused one; final
+     planes byte-identical and Phi equal; k, radius, stages, supersteps,
+     launches and seconds printed. At ``road_like(65_536)`` the kernel
+     backend must equal the plain one.
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
+  3b. the paper's competitor (Table 3's estimators on one kernel session
+     per graph, tau 16): ``ClusterQuotientEstimator``,
+     ``CascadeEstimator(levels=2, tau_solve=32)``,
+     ``DeltaSteppingEstimator(seed=7)`` (Bellman-Ford) and the same with
+     Δ = the mean weight, on ``road_like(262_144)`` (cut from 1,890,815:
+     Bellman-Ford's supersteps grow linearly with n on this family) and
+     RMAT ``social_like(20)``. Bellman-Ford's and Δ-stepping's distance
+     planes from the same source must be equal element for element, and
+     the SSSP lower bound at most either cluster estimate's Phi; each
+     prints supersteps, host reads, ms per superstep, seconds and the
+     round ratio (Bellman-Ford's supersteps over CLUSTER's growing steps).
   4. flash attention vs plain: ``flash_attention_cuda`` (the
      warp-specialised ``wgmma`` kernel, K and V staged by TMA) against
      ``attention_ref`` in bf16 on the card, over the cases of
@@ -159,6 +184,10 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (same)
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
+CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
+SSSP_ROAD_NODES = 262_144       # the competitor's road graph (see phase 3b)
+ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
+                   "growing_steps", "n_stages", "delta_end", "connected")
 
 
 def _fail(msg: str, code: int) -> int:
@@ -1576,7 +1605,8 @@ def main() -> int:
     from scipy.sparse.csgraph import shortest_path
 
     from repro_torch.common import GraphEngineConfig, Timer
-    from repro_torch.core import (ClusterQuotientEstimator, IntervalEstimator,
+    from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
+                                  DeltaSteppingEstimator, IntervalEstimator,
                                   open_session, tau_for)
     from repro_torch.core import state as st
     from repro_torch.core.cluster import cluster
@@ -1814,17 +1844,14 @@ def main() -> int:
     emit({"phase": "graph", "family": "road_like", "n": edges.n_nodes,
           "edges": edges.n_edges, "seconds": t.seconds})
 
-    def run_main(backend: str, cfg=None, tau=16, phase="main_path"):
-        cfg = cfg or GraphEngineConfig()
-        fused = backend == "kernel" and cfg.fuse_supersteps > 0
+    def drive(session, estimator, fused: bool, what: str):
+        """One query with both kernel counts set to 0 just before it and
+        read just after; the wrappers' count must be the backend's."""
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
         kmod.edge_relax_cuda.launches = 0
         kmod.megakernel_cuda.launches = 0
         with Timer() as tt:
-            session = open_session(edges, cfg, backend=backend, tau=tau,
-                                   device=dev)
-            res = session.estimate(ClusterQuotientEstimator())
+            res = session.estimate(estimator)
             torch.cuda.synchronize()
         relax_launches = kmod.edge_relax_cuda.launches
         mega_launches = kmod.megakernel_cuda.launches
@@ -1833,9 +1860,25 @@ def main() -> int:
         pm = res.pipeline
         if launches != pm.kernel_launches or other != 0:
             raise AssertionError(
-                f"{phase} {backend}: wrappers counted edge_relax "
-                f"{relax_launches}, megakernel {mega_launches}; the backend "
+                f"{what}: wrappers counted edge_relax {relax_launches}, "
+                f"megakernel {mega_launches}; the backend "
                 f"{pm.kernel_launches}")
+        return res, launches, tt.seconds
+
+    kept = {}   # sessions later phases query again, by (phase, backend)
+
+    def run_main(backend: str, cfg=None, tau=16, phase="main_path",
+                 keep=False):
+        cfg = cfg or GraphEngineConfig()
+        fused = backend == "kernel" and cfg.fuse_supersteps > 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with Timer() as to:
+            session = open_session(edges, cfg, backend=backend, tau=tau,
+                                   device=dev)
+        res, launches, query_s = drive(session, ClusterQuotientEstimator(),
+                                       fused, f"{phase} {backend}")
+        pm = res.pipeline
         row = {"phase": phase, "backend": backend,
                "mode": session.cfg.mode, "fuse": cfg.fuse_supersteps,
                "n": edges.n_nodes,
@@ -1854,7 +1897,7 @@ def main() -> int:
                "host_syncs": pm.total_host_syncs,
                "decompose_syncs": pm.decompose_syncs,
                "solve_syncs": pm.solve_syncs,
-               "seconds": tt.seconds,
+               "seconds": to.seconds + query_s,
                "decompose_seconds": pm.decompose_seconds,
                "quotient_seconds": pm.quotient_seconds,
                "solve_seconds": pm.solve_seconds,
@@ -1868,15 +1911,18 @@ def main() -> int:
             row["uncovered_at_stop"] = m.uncovered_at_stop
         emit(row)
         graph = session.backend.graph if backend == "kernel" else None
-        session.close()
+        if keep:
+            kept[phase, backend] = session
+        else:
+            session.close()
         return res, row, launches, graph
 
-    res_k, row_k, launches, road_graph = run_main("kernel")
+    res_k, row_k, launches, road_graph = run_main("kernel", keep=True)
     if launches <= 0:
         raise AssertionError("main path ran without launching edge_relax")
     if launches < row_k["supersteps"]:
         raise AssertionError("fewer kernel launches than supersteps")
-    res_s, row_s, launches_s, _ = run_main("single")
+    res_s, row_s, launches_s, _ = run_main("single", keep=True)
     if launches_s != 0:
         raise AssertionError("the plain backend launched the kernel")
     dk, ds = res_k.decomposition, res_s.decomposition
@@ -1901,10 +1947,61 @@ def main() -> int:
                 and a.growing_steps == b.growing_steps
                 and a.n_clusters == b.n_clusters)
 
+    def same_estimate(a, b) -> bool:
+        """Every field of two estimates equal, the pipeline's counters
+        included; only the host-clock seconds may differ."""
+        pa, pb = (dataclasses.asdict(x.pipeline) for x in (a, b))
+        timeless = [k for k in pa if not k.endswith("seconds")]
+        return (all(getattr(a, f) == getattr(b, f) for f in ESTIMATE_FIELDS)
+                and np.array_equal(a.quotient_ecc, b.quotient_ecc)
+                and all(pa[k] == pb[k] for k in timeless))
+
+    def cascade_row(res, phase, backend, fuse, tau, tau_solve, n_launch,
+                    secs):
+        pm = res.pipeline
+        return {"phase": phase, "backend": backend, "fuse": fuse,
+                "n": edges.n_nodes, "tau": tau, "tau_solve": tau_solve,
+                "levels_run": pm.cascade_levels,
+                "phi_approx": res.phi_approx, "radius": res.radius,
+                "clusters": res.n_clusters,
+                "level_table": [
+                    {"level": i + 1, "clusters": k, "supersteps": st_,
+                     "reads": r, "seconds": sec} for i, (k, st_, r, sec)
+                    in enumerate(zip(pm.level_clusters, pm.level_supersteps,
+                                     pm.level_syncs, pm.level_seconds))],
+                "final_clusters": (pm.level_clusters[-1]
+                                   if pm.level_clusters else res.n_clusters),
+                "supersteps": res.growing_steps,
+                "solve_supersteps": pm.solve_supersteps,
+                "solve_dtype": "int64" if pm.solve_int64 else "int32",
+                "kernel_launches": n_launch,
+                "host_syncs": pm.total_host_syncs,
+                "decompose_seconds": pm.decompose_seconds,
+                "quotient_seconds": pm.quotient_seconds,
+                "solve_seconds": pm.solve_seconds, "seconds": secs,
+                "connected": res.connected}
+
+    def cluster2_row(res, g, tau, fuse, n_launch, secs, backend="kernel"):
+        pm = res.pipeline
+        return {"phase": "cluster2", "backend": backend, "fuse": fuse,
+                "n": g.n_nodes, "tau": tau, "phi_approx": res.phi_approx,
+                "clusters": res.n_clusters, "radius": res.radius,
+                "delta": res.delta_end, "stages": res.n_stages,
+                "supersteps": res.growing_steps,
+                "solve_supersteps": pm.solve_supersteps,
+                "kernel_launches": n_launch,
+                "kernel": ("megakernel" if fuse else "edge_relax"
+                           if backend == "kernel" else None),
+                "host_syncs": pm.total_host_syncs,
+                "decompose_seconds": pm.decompose_seconds,
+                "solve_seconds": pm.solve_seconds, "seconds": secs}
+
+    launches_c2 = {}
+
     # -- phase 2b: the same query through the fused megakernel ---------------
     res_f, row_f, launches_stages_fused, _ = run_main(
         "kernel", GraphEngineConfig(fuse_supersteps=8),
-        phase="main_path_fused")
+        phase="main_path_fused", keep=True)
     if launches_stages_fused <= 0:
         raise AssertionError("fused main path ran without the megakernel")
     if row_f["kernel_supersteps"] != row_f["supersteps"]:
@@ -1977,6 +2074,96 @@ def main() -> int:
           "clusters": oneshot[8][0].n_clusters,
           "supersteps": oneshot[8][0].growing_steps})
 
+    # -- phase 2d: the quotient cascade at full size --------------------------
+    sess_k = kept["main_path", "kernel"]
+    sess_s = kept["main_path", "single"]
+    casc0, launches_casc0, secs = drive(sess_k, CascadeEstimator(levels=0),
+                                        False, "cascade levels=0")
+    if not (same_estimate(casc0, res_k) and same_decomposition(casc0, res_k)):
+        raise AssertionError("cascade levels=0 differs from the flat estimate")
+    emit({"phase": "cascade", "n": edges.n_nodes, "tau": 16, "levels": 0,
+          "equal_to_flat": True, "phi_approx": casc0.phi_approx,
+          "kernel_launches": launches_casc0, "seconds": secs})
+    casc = {}
+    for backend, sess in (("kernel", sess_k), ("single", sess_s)):
+        res, n_launch, secs = drive(sess, CascadeEstimator(levels=2), False,
+                                    f"cascade levels=2 {backend}")
+        casc[backend] = res
+        emit(cascade_row(res, "cascade", backend, 0, sess.tau,
+                         sess.tau_solve, n_launch, secs))
+        if backend == "kernel":
+            launches_casc16 = n_launch
+    ck, cs = casc["kernel"], casc["single"]
+    if launches_casc16 <= 0 or launches_casc0 <= 0:
+        raise AssertionError("the cascade ran level 0 without edge_relax")
+    if ck.pipeline.solve_supersteps > row_k["solve_supersteps"]:
+        raise AssertionError(
+            f"cascade solve {ck.pipeline.solve_supersteps} supersteps > "
+            f"flat {row_k['solve_supersteps']}")
+    if (ck.phi_approx, ck.pipeline.level_clusters,
+            ck.pipeline.level_supersteps) != (
+            cs.phi_approx, cs.pipeline.level_clusters,
+            cs.pipeline.level_supersteps):
+        raise AssertionError("cascade: kernel and plain backends differ")
+    if not ck.phi_approx >= ck.phi_quotient >= 0 or not ck.connected:
+        raise AssertionError("cascade estimate malformed")
+    emit({"phase": "cascade_parity", "phi_approx": ck.phi_approx,
+          "level_clusters": ck.pipeline.level_clusters,
+          "flat_solve_supersteps": row_k["solve_supersteps"],
+          "cascade_solve_supersteps": ck.pipeline.solve_supersteps})
+    del casc0, casc, ck, cs
+    # at the session default tau, fused; the flat solve is not run here
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess130 = open_session(edges, GraphEngineConfig(fuse_supersteps=8),
+                           device=dev)
+    res, launches_casc130, secs = drive(
+        sess130, CascadeEstimator(levels=CASCADE_MAX_LEVELS), True,
+        "cascade tau 130 fused")
+    if launches_casc130 <= 0:
+        raise AssertionError("the fused cascade ran without the megakernel")
+    row = cascade_row(res, "cascade", "kernel", 8, sess130.tau,
+                      sess130.tau_solve, launches_casc130, secs)
+    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    row["under_tau_solve"] = (row["final_clusters"] <= sess130.tau_solve)
+    emit(row)
+    if row["peak_bytes"] >= 80e9:
+        raise AssertionError("the tau-130 cascade needed 80 GB")
+    sess130.close()
+    del res, sess130
+
+    # -- phase 2e: CLUSTER2 at full size, unfused and fused -------------------
+    c2 = {}
+    for fuse, sess in ((0, sess_k), (8, kept["main_path_fused", "kernel"])):
+        res, n_launch, secs = drive(
+            sess, ClusterQuotientEstimator(use_cluster2=True), fuse > 0,
+            f"cluster2 fuse={fuse}")
+        if n_launch <= 0:
+            raise AssertionError(f"cluster2 fuse={fuse} launched no kernel")
+        c2[fuse] = res
+        launches_c2[fuse] = n_launch
+        emit(cluster2_row(res, edges, sess.tau, fuse, n_launch, secs))
+    if not same_decomposition(c2[0], c2[8]):
+        raise AssertionError("cluster2: fused and unfused runs differ")
+    emit({"phase": "cluster2_parity", "byte_identical": True,
+          "phi_approx": c2[0].phi_approx, "clusters": c2[0].n_clusters})
+    for key in list(kept):
+        kept.pop(key).close()
+    del c2, sess_k, sess_s
+    e = road_like(65_536, seed=0)
+    small = {}
+    for backend in ("kernel", "single"):
+        sess = open_session(e, backend=backend, device=dev)
+        small[backend], n_launch, secs = drive(
+            sess, ClusterQuotientEstimator(use_cluster2=True), False,
+            f"cluster2 65536 {backend}")
+        emit(cluster2_row(small[backend], e, sess.tau, 0, n_launch, secs,
+                          backend=backend))
+        sess.close()
+    if not same_decomposition(small["kernel"], small["single"]):
+        raise AssertionError("cluster2 at n=65536: kernel and plain differ")
+    del small, e
+
     # the kernel at the main path's shapes: the road graph's CSR with
     # engine-like planes and the run's final Δ
     main_row = compare("main path road_like(1890815)", road_graph,
@@ -2041,6 +2228,62 @@ def main() -> int:
                                      f"[{iv.lower}, {iv.upper}]")
         emit(row)
 
+    # -- phase 3b: the paper's competitor on the same session (Table 3) -------
+    # Bellman-Ford's supersteps grow linearly with n on road_like, so the
+    # road graph is cut to 262,144 nodes; RMAT social_like(20) at its size
+    sssp_launches = {}
+    for name, e in ((f"road_like({SSSP_ROAD_NODES})",
+                     road_like(SSSP_ROAD_NODES, seed=0)),
+                    ("rmat social_like(20)", social_like(20, seed=0))):
+        sess = open_session(e, tau=16, device=dev)
+        ests = {}
+        for key, est in (
+                ("cluster", ClusterQuotientEstimator()),
+                ("cascade", CascadeEstimator(levels=2, tau_solve=32)),
+                ("bellman_ford", DeltaSteppingEstimator(seed=7)),
+                ("delta_stepping", DeltaSteppingEstimator(
+                    seed=7, delta=max(int(e.weight.mean()), 1)))):
+            res, n_launch, secs = drive(sess, est, False, f"sssp {name} {key}")
+            ests[key] = res
+            pm = res.pipeline
+            row = {"phase": "sssp", "graph": name, "n": e.n_nodes,
+                   "edges": e.n_edges, "estimator": key, "tau": sess.tau,
+                   "lower": res.lower, "upper": res.upper,
+                   "phi_approx": res.phi_approx,
+                   "supersteps": res.growing_steps,
+                   "host_syncs": pm.total_host_syncs,
+                   "kernel_launches": n_launch, "seconds": secs,
+                   "connected": res.connected}
+            if key in ("bellman_ford", "delta_stepping"):
+                row.update(delta=res.delta_end,
+                           ms_per_superstep=secs * 1e3 / max(
+                               res.growing_steps, 1))
+            else:
+                sssp_launches[f"{name} {key}"] = n_launch
+                if n_launch <= 0:
+                    raise AssertionError(f"sssp {name} {key}: no launch")
+                row.update(clusters=res.n_clusters,
+                           solve_supersteps=pm.solve_supersteps,
+                           level_clusters=pm.level_clusters)
+            emit(row)
+        bf, dstep = ests["bellman_ford"], ests["delta_stepping"]
+        if not np.array_equal(bf.dist, dstep.dist):
+            raise AssertionError(f"sssp {name}: Bellman-Ford and "
+                                 "Δ-stepping distances differ")
+        for key in ("cluster", "cascade"):
+            if not bf.lower <= ests[key].phi_approx:
+                raise AssertionError(f"sssp {name}: lower {bf.lower} > "
+                                     f"{key} {ests[key].phi_approx}")
+        emit({"phase": "sssp_parity", "graph": name, "equal_planes": True,
+              "sssp_lower": bf.lower, "sssp_upper": bf.upper,
+              "bf_supersteps": bf.growing_steps,
+              "delta_stepping_supersteps": dstep.growing_steps,
+              "cluster_growing_steps": ests["cluster"].growing_steps,
+              "round_ratio": bf.growing_steps
+              / max(ests["cluster"].growing_steps, 1)})
+        sess.close()
+        del ests, bf, dstep, e
+
     # -- phases 4-6: flash attention and the LM at full width -----------------
     del res_k, res_s, res_f, oneshot, dk, ds, fc, mask, start, b
     gc.collect()
@@ -2069,7 +2312,11 @@ def main() -> int:
         "rmat_plain_ms": rmat_relax_row["plain_ms"],
         "rmat_bound_ms": rmat_relax_row["bound_ms"],
         "launches_by_path": {"stages_unfused": launches,
-                             "oneshot_unfused": launches_oneshot_unfused},
+                             "oneshot_unfused": launches_oneshot_unfused,
+                             "cascade_tau16": launches_casc16,
+                             "cluster2_unfused": launches_c2[0],
+                             **{f"sssp {k}": v
+                                for k, v in sssp_launches.items()}},
     }, {
         "name": "megakernel", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/megakernel.cu",
@@ -2084,7 +2331,9 @@ def main() -> int:
         "rmat_ms": rmat_row["ms"], "rmat_plain_ms": rmat_row["plain_ms"],
         "rmat_bound_ms": rmat_row["bound_ms"],
         "launches_by_path": {"stages_fused": launches_stages_fused,
-                             "oneshot_fused": launches_oneshot_fused},
+                             "oneshot_fused": launches_oneshot_fused,
+                             "cascade_tau130_fused": launches_casc130,
+                             "cluster2_fused": launches_c2[8]},
     }, flash_row, cin_row, segmm_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -85,3 +85,5 @@ class GraphEngineConfig:
     mode: str = "stages"         # stages | oneshot | auto (core/engine.py;
                                  # "auto" resolves to "stages": no autotuner)
     deterministic: bool = False  # oneshot: hash-derived centers and shifts
+    use_cluster2: bool = False   # paper Algorithm 2 instead of CLUSTER
+                                 # (staged only; core/cluster.cluster2)

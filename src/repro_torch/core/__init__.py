@@ -5,7 +5,7 @@ from repro_torch.core.backend import (
     SingleDeviceBackend,
     make_backend,
 )
-from repro_torch.core.cluster import cluster
+from repro_torch.core.cluster import cluster, cluster2
 from repro_torch.core.engine import (
     DECOMPOSITION_MODES,
     ENGINE_MODES,
@@ -17,31 +17,46 @@ from repro_torch.core.engine import (
     default_uniform_fn,
     resolve_engine_mode,
     run_cluster,
+    run_cluster2,
     run_oneshot,
 )
 from repro_torch.core.estimators import (
+    CascadeEstimator,
     ClusterQuotientEstimator,
+    DeltaSteppingEstimator,
     DiameterEstimate,
+    DiameterEstimator,
     DiameterInterval,
     IntervalEstimator,
     LowerBoundEstimator,
     PipelineMetrics,
 )
 from repro_torch.core.session import (
+    DEFAULT_TAU_SOLVE,
     GraphSession,
     SessionMetrics,
     open_session,
     tau_for,
 )
-from repro_torch.core.sssp import farthest_point_lower_bound
+from repro_torch.core.sssp import (
+    bellman_ford,
+    delta_stepping,
+    diameter_2approx_sssp,
+    farthest_point_lower_bound,
+    multi_source_bellman_ford,
+)
 
 __all__ = [
-    "ClusterQuotientEstimator", "DECOMPOSITION_MODES", "Decomposition",
-    "DecompositionMode", "DiameterEstimate", "DiameterInterval",
-    "ENGINE_MODES", "EngineMetrics", "GraphSession", "IntervalEstimator",
-    "KernelBackend", "LowerBoundEstimator", "PipelineMetrics", "RelaxBackend",
-    "SessionMetrics", "SingleDeviceBackend", "check_engine_mode", "cluster",
-    "default_oneshot_uniform_fn", "default_uniform_fn", "farthest_point_lower_bound", "make_backend",
-    "open_session", "resolve_engine_mode", "run_cluster", "run_oneshot",
+    "CascadeEstimator", "ClusterQuotientEstimator", "DECOMPOSITION_MODES",
+    "DEFAULT_TAU_SOLVE", "Decomposition", "DecompositionMode",
+    "DeltaSteppingEstimator", "DiameterEstimate", "DiameterEstimator",
+    "DiameterInterval", "ENGINE_MODES", "EngineMetrics", "GraphSession",
+    "IntervalEstimator", "KernelBackend", "LowerBoundEstimator",
+    "PipelineMetrics", "RelaxBackend", "SessionMetrics",
+    "SingleDeviceBackend", "bellman_ford", "check_engine_mode", "cluster",
+    "cluster2", "default_oneshot_uniform_fn", "default_uniform_fn",
+    "delta_stepping", "diameter_2approx_sssp", "farthest_point_lower_bound",
+    "make_backend", "multi_source_bellman_ford", "open_session",
+    "resolve_engine_mode", "run_cluster", "run_cluster2", "run_oneshot",
     "tau_for",
 ]

@@ -74,6 +74,19 @@ class SingleDeviceBackend:
         self.transfers = 0
         self.launches = 0   # the plain superstep launches no kernel of ours
 
+    @classmethod
+    def from_device(cls, n_nodes: int, src: torch.Tensor, dst: torch.Tensor,
+                    weight: torch.Tensor) -> "SingleDeviceBackend":
+        """Wrap edge arrays already resident on a device (int32; padding
+        slots inert): a cascade level re-enters the engine on its quotient
+        without a host round-trip (``core/quotient.QuotientLevel``)."""
+        be = cls.__new__(cls)
+        be.device = src.device
+        be.n_nodes = be.n_pad = n_nodes
+        be.src, be.dst, be.weight = src, dst, weight
+        be.transfers = be.launches = 0
+        return be
+
     def init_state(self) -> EngineState:
         self.transfers += 1
         return init_state(self.n_pad, self.device)

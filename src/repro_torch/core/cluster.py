@@ -1,6 +1,7 @@
-"""CLUSTER(G, tau) — paper Algorithm 1 — as a thin wrapper over the engine
-(``core/engine.py``) and a backend (``core/backend.py``); the port of the
-JAX package's ``core/cluster.py`` (stages and one-shot modes).
+"""CLUSTER(G, tau) and CLUSTER2(G, tau) — paper Algorithms 1 and 2 — as
+thin wrappers over the engine (``core/engine.py``) and a backend
+(``core/backend.py``); the port of the JAX package's ``core/cluster.py``
+(stages and one-shot modes, and CLUSTER2, which is staged only).
 
 The returned radius is the max over nodes of the realized path weight from
 the assigned center: an exact upper bound on the clustering radius in G.
@@ -11,10 +12,11 @@ from typing import Optional, Union
 
 from repro_torch.core.backend import RelaxBackend, make_backend
 from repro_torch.core.engine import (Decomposition, UniformFn, run_cluster,
-                                    resolve_engine_mode, run_oneshot)
+                                    run_cluster2, resolve_engine_mode,
+                                    run_oneshot)
 from repro_torch.graph.structures import EdgeList
 
-__all__ = ["Decomposition", "cluster", "_initial_delta"]
+__all__ = ["Decomposition", "cluster", "cluster2", "_initial_delta"]
 
 
 def _initial_delta(edges: EdgeList, mode: str) -> int:
@@ -69,3 +71,41 @@ def cluster(
         threshold_const=threshold_const,
         uniform_fn=uniform_fn,
     )
+
+
+def cluster2(
+    edges: EdgeList,
+    tau: int,
+    gamma: float = 2.0,
+    seed: int = 0,
+    delta_init: str = "avg",
+    base: Optional[Decomposition] = None,
+    backend: Union[str, RelaxBackend] = "kernel",
+    device="cuda",
+    uniform_fn: Optional[UniformFn] = None,
+) -> Decomposition:
+    """Paper Algorithm 2. Runs CLUSTER (``base``, unless given) for
+    R_CL(tau), then re-clusters from scratch with the fixed budget
+    Δ = max(2 R_CL(tau), 2), the center probability doubling each stage
+    and the last stage taking every node left, each stage grown to
+    quiescence (``engine.run_cluster2``, seeded ``seed + 1``).
+
+    ``uniform_fn`` is the base CLUSTER's center draw. When the base run
+    happens here, the returned metrics count its host reads and kernel
+    launches too: they are part of what the decomposition costs.
+    """
+    be = make_backend(edges, backend, device=device)
+    own_base = base is None
+    if own_base:
+        base = cluster(edges, tau, gamma=gamma, seed=seed,
+                       delta_init=delta_init, backend=be,
+                       uniform_fn=uniform_fn)
+    delta = max(2 * base.radius, 2)
+    dec = run_cluster2(edges, be, tau, delta=delta, seed=seed + 1)
+    if own_base:
+        m, b = dec.metrics, base.metrics
+        m.host_syncs += b.host_syncs + b.finalize_syncs
+        m.kernel_launches += b.kernel_launches
+        m.kernel_supersteps += b.kernel_supersteps
+        m.dma_stall_blocks += b.dma_stall_blocks
+    return dec

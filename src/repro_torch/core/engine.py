@@ -227,7 +227,7 @@ def _finalize(state: EngineState, n: int, delta_end: int, n_stages: int,
 
 
 def run_cluster(
-    edges: EdgeList,
+    edges: Optional[EdgeList],
     backend: RelaxBackend,
     tau: int,
     *,
@@ -242,8 +242,15 @@ def run_cluster(
     max_delta: Optional[int] = None,
     uniform_fn: Optional[UniformFn] = None,
 ) -> Decomposition:
-    """Paper Algorithm 1 on the backend's device-resident planes."""
-    n = edges.n_nodes
+    """Paper Algorithm 1 on the backend's device-resident planes.
+
+    ``edges`` may be None when the graph exists only as the backend's
+    device arrays (a cascade level): ``max_delta`` (the Δ-doubling ceiling,
+    otherwise the host weight sum + 1) must then be given, and the node
+    count comes from ``backend.n_nodes``."""
+    if edges is None and max_delta is None:
+        raise ValueError("run_cluster(edges=None) needs an explicit max_delta")
+    n = backend.n_nodes if edges is None else edges.n_nodes
     metrics = EngineMetrics()
     if n == 0:
         return _empty_decomposition(0, metrics)
@@ -306,6 +313,89 @@ def run_cluster(
 
 
 # ---------------------------------------------------------------------------
+# CLUSTER2 (paper Algorithm 2)
+# ---------------------------------------------------------------------------
+
+
+def default_cluster2_uniform_fn(seed: int, device) -> UniformFn:
+    """The reference's CLUSTER2 draw, bit for bit: stage ``i`` draws
+    ``uniform(fold_in(PRNGKey(seed), i), n)`` (one ``fold_in``, not the
+    stage engine's ``(stage, t)`` pair; CLUSTER2 never redraws, so ``t``
+    is unused)."""
+    root = prng.prng_key(seed)
+
+    def draw(stage: int, t: int, n: int) -> torch.Tensor:
+        return prng.uniform(prng.fold_in(root, stage), n, device)
+
+    return draw
+
+
+def run_cluster2(
+    edges: EdgeList,
+    backend: RelaxBackend,
+    tau: int,
+    *,
+    delta: int,
+    seed: int = 0,
+) -> Decomposition:
+    """Paper Algorithm 2's re-clustering pass with the fixed budget
+    ``delta`` (= 2 R_CL(tau), see ``cluster.cluster2``).
+
+    Stage ``i = 1 .. ceil(log2 n) + 1`` draws centers among the uncovered
+    nodes with ``p = min(1, 2^i / n)`` (computed in Python floats and
+    compared as float32; the last stage takes p = 1), grows them with the
+    ``complete`` variant to quiescence (``num_it = 4n``) and covers what
+    lies within ``delta``. Each stage opens with ONE packed read of
+    (uncovered, centers drawn): the loop ends when nothing is uncovered,
+    and a barren stage runs no grow.
+    """
+    n = edges.n_nodes
+    metrics = EngineMetrics()
+    if n == 0:
+        return _empty_decomposition(0, metrics)
+    num_it = 4 * n
+    dev = backend.device
+    uniform_fn = default_cluster2_uniform_fn(seed, dev)
+    transfers0 = backend.transfers
+    launches0 = backend.launches
+    state = backend.init_state()
+    stages = int(math.ceil(math.log2(max(n, 2)))) + 1
+    total_steps = stage_count = 0
+    u_dev = torch.tensor(n, dtype=torch.int64, device=dev)
+
+    for i in range(1, stages + 1):
+        p = 1.0 if i == stages else min(1.0, (2.0 ** i) / n)
+        mask = _sample_centers(uniform_fn, i, 0,
+                               torch.tensor(p, dtype=torch.float32,
+                                            device=dev), state, n)
+        u_host, n_new = map(int, guard.fetch(
+            torch.stack([u_dev, mask.sum()]),
+            reason="cluster2 stage open: packed (uncovered, centers drawn)"))
+        metrics.host_syncs += 1
+        if u_host == 0:
+            break
+        steps = 0
+        if n_new > 0:
+            state = reset_in_stage(promote_centers(state, mask))
+            state, gs = _grow(backend, state, delta, 0, num_it, "complete",
+                              metrics)
+            state = cover(state, delta)
+            u_dev = uncovered_count(state)
+            steps = gs.steps
+            stage_count += 1
+        metrics.stages += 1
+        metrics.centers_drawn += n_new
+        total_steps += steps
+        log.info("cluster2 stage %d: p=%.3g centers+%d steps=%d "
+                 "uncovered_before=%d", i, p, n_new, steps, u_host)
+
+    metrics.growing_steps = total_steps
+    metrics.state_transfers = backend.transfers - transfers0
+    metrics.kernel_launches = backend.launches - launches0
+    return _finalize(state, n, int(delta), stage_count, total_steps, metrics)
+
+
+# ---------------------------------------------------------------------------
 # one-shot mode
 # ---------------------------------------------------------------------------
 
@@ -354,13 +444,15 @@ class OneshotBudget(NamedTuple):
     shift_scale: float  # a float32 value
 
 
-def oneshot_budget(edges: EdgeList, tau: int, gamma: float = 2.0,
+def oneshot_budget(edges: Optional[EdgeList], tau: int, gamma: float = 2.0,
                    max_steps_per_phase: int = 0,
-                   max_delta: Optional[int] = None) -> OneshotBudget:
+                   max_delta: Optional[int] = None, *,
+                   n_nodes: Optional[int] = None) -> OneshotBudget:
     """The one-shot scalars of the reference's ``run_oneshot``: center
     probability ``gamma * tau * log n / n``, ``num_it = 4n``, Δ, and the
-    shift range and scale."""
-    n = edges.n_nodes
+    shift range and scale. With ``edges=None`` (a cascade level) the node
+    count is ``n_nodes`` and ``max_delta`` must be given."""
+    n = edges.n_nodes if edges is not None else n_nodes
     logn = max(math.log(max(n, 2)), 1.0)
     k_target = max(gamma * tau * logn, 1.0)
     if max_delta is None:
@@ -382,7 +474,7 @@ def oneshot_budget(edges: EdgeList, tau: int, gamma: float = 2.0,
 
 
 def run_oneshot(
-    edges: EdgeList,
+    edges: Optional[EdgeList],
     backend: RelaxBackend,
     tau: int,
     *,
@@ -408,13 +500,18 @@ def run_oneshot(
     ``pathw`` accumulates the realized path weight from the owning center
     (centers start at 0), so ``final_pathw`` stays a distance certificate;
     nodes no shifted wave reaches within Δ become singletons.
+
+    As in ``run_cluster``, ``edges`` may be None for a graph resident only
+    as the backend's device arrays; ``max_delta`` must then be given.
     """
-    n = edges.n_nodes
+    if edges is None and max_delta is None:
+        raise ValueError("run_oneshot(edges=None) needs an explicit max_delta")
+    n = backend.n_nodes if edges is None else edges.n_nodes
     metrics = EngineMetrics()
     if n == 0:
         return _empty_decomposition(0, metrics)
     p, num_it, max_delta, shift_max, shift_scale = oneshot_budget(
-        edges, tau, gamma, max_steps_per_phase, max_delta)
+        edges, tau, gamma, max_steps_per_phase, max_delta, n_nodes=n)
     dev = backend.device
     transfers0 = backend.transfers
     launches0 = backend.launches

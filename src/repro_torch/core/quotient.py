@@ -18,13 +18,19 @@ conservative). Parallel edges keep the minimum.
     fits, int64 otherwise; one packed (diameter, connected, steps, ecc)
     read.
 
-``build_quotient_numpy`` and ``quotient_diameter`` (scipy) are the host
+Cascade levels re-enter the engine on a quotient: ``quotient_as_edgelist``
+rewrites a ``DeviceQuotient`` in the engine's int32 edge layout on the
+device (``QuotientLevel``), and ``build_quotient_from_level`` takes the
+next quotient of a level's decomposition.
+
+``build_quotient_numpy``, ``quotient_diameter`` (scipy) and
+``quotient_diameter_minplus`` (int64 min-plus squaring) are the host
 oracles.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +41,17 @@ from repro_torch.core.chunked import DEFAULT_CHUNK
 from repro_torch.core.engine import Decomposition
 from repro_torch.core.sssp import INF32, batched_bf_loop
 from repro_torch.graph.segment_ops import segment_min_triple
-from repro_torch.graph.structures import EdgeList
+from repro_torch.graph.structures import MAX_WEIGHT, EdgeList, weight_scale_for
 
 # Unreached sentinel for the int64 solve; guarded adds stay < 2^63.
 INF64 = 2**62
 # k is padded to a multiple of this (and m to a multiple of 8x), as the
 # reference does for its compile buckets; kept so the padded shapes match.
 K_BUCKET = 16
+# cascade levels slice the quotient edge arrays to a multiple of this, as
+# the reference does for its compile buckets, so a level graph is the same
+# array (inert self-loops included) that the reference decomposes
+LEVEL_EDGE_BUCKET = 256
 
 
 @dataclass
@@ -193,6 +203,82 @@ def build_quotient_device(edges: EdgeList, dec: Decomposition,
     return _quotient_kernel(src, dst, w, fc, fp, n=n)
 
 
+# ---------------------------------------------------------------------------
+# cascade levels: re-enter the engine on the quotient itself
+# ---------------------------------------------------------------------------
+
+
+class QuotientLevel(NamedTuple):
+    """A ``DeviceQuotient`` in the engine's edge layout: flat int32 device
+    arrays over ``n_nodes = k`` compact cluster labels, padding slots
+    rewritten as inert self-loops (0 -> 0, w = 1).
+
+    Quotient weights are int64 sums and the engine's planes int32, so
+    weights are rescaled by ``scale`` with ceiling division (conservative:
+    ``scale * dist_rescaled >= dist_true`` for every pair, so upper bounds
+    survive the cascade); ``scale`` is 1 whenever the level fits int32.
+    """
+
+    n_nodes: int           # k (host)
+    n_edges: int           # real quotient edge count m (host)
+    src: torch.Tensor      # int32 [e_pad]
+    dst: torch.Tensor      # int32 [e_pad]
+    weight: torch.Tensor   # int32 [e_pad], ceil(w / scale); 1 on padding
+    scale: int             # original units = scale * level units
+    weight_sum: int        # upper bound on sum(weight) in level units
+
+    def to_edgelist(self) -> EdgeList:
+        """Host copy of the first ``n_edges`` slots (the coalesced quotient
+        edges), for tests and oracles."""
+        m = self.n_edges
+        return EdgeList(self.n_nodes, self.src[:m].cpu().numpy(),
+                        self.dst[:m].cpu().numpy(),
+                        self.weight[:m].cpu().numpy())
+
+
+def _level_edges_kernel(src, dst, w, scale: int):
+    """Valid slots keep their endpoints with the ceil-rescaled int32
+    weight; invalid slots (weight >= INF64, the empty-segment int64 max
+    among them) become inert self-loops."""
+    valid = w < INF64
+    w32 = torch.where(valid, torch.div(w + (scale - 1), scale,
+                                       rounding_mode="floor"), 1)
+    w32 = torch.clamp(w32, 1, int(MAX_WEIGHT)).to(torch.int32)
+    s = torch.where(valid, src, 0).to(torch.int32)
+    t = torch.where(valid, dst, 0).to(torch.int32)
+    return s, t, w32
+
+
+def quotient_as_edgelist(
+    dq: DeviceQuotient, k: int, m: int, max_weight: int, weight_sum: int = 0,
+    *, edge_bucket: int = LEVEL_EDGE_BUCKET,
+) -> QuotientLevel:
+    """``DeviceQuotient`` -> the engine's edge layout, on the device (the
+    ``(k, m, max_weight, weight_sum)`` counters must already be read).
+
+    The arrays are sliced to ``e_pad``, a multiple of ``edge_bucket`` capped
+    at the quotient's length E. ``weight_sum`` (level units) is the
+    ceil-sum bound ``sum(ceil(w / s)) <= sum(w) / s + m``.
+    """
+    scale = weight_scale_for(max_weight)
+    E = int(dq.src.shape[0])
+    e_pad = min(next_multiple(max(m, 1), edge_bucket), max(E, 1))
+    src, dst, w32 = _level_edges_kernel(dq.src[:e_pad], dq.dst[:e_pad],
+                                        dq.weight[:e_pad], scale)
+    return QuotientLevel(n_nodes=k, n_edges=m, src=src, dst=dst, weight=w32,
+                         scale=scale, weight_sum=int(weight_sum) // scale + m)
+
+
+def build_quotient_from_level(level: QuotientLevel,
+                              dec: Decomposition) -> DeviceQuotient:
+    """The next cascade level: the quotient pass over a level's device edge
+    arrays and its decomposition's planes. Padding self-loops are never
+    cross edges. No host read."""
+    fc, fp = _decomposition_planes(dec, level.n_nodes, level.src.device)
+    return _quotient_kernel(level.src, level.dst, level.weight, fc, fp,
+                            n=level.n_nodes)
+
+
 def _solve_kernel(qsrc, qdst, qw, k: int, *, k_pad: int,
                   chunk: int = DEFAULT_CHUNK):
     """Exact APSP on the quotient via Bellman-Ford from all ``k_pad``
@@ -269,3 +355,33 @@ def quotient_diameter(q: QuotientGraph) -> Tuple[int, bool]:
     finite = np.isfinite(dist)
     diam = float(dist[finite].max()) if finite.any() else 0.0
     return int(diam), bool(finite.all())
+
+
+def quotient_diameter_minplus(q: QuotientGraph) -> Tuple[int, bool]:
+    """Exact diameter by int64 min-plus squaring (a test oracle beside
+    scipy's; no float rounding of weights above 2^24). Returns (diameter,
+    connected)."""
+    k = q.n_clusters
+    if k <= 1:
+        return 0, True
+    m = np.full((k, k), INF64, dtype=np.int64)
+    np.minimum.at(m, (q.src, q.dst), q.weight.astype(np.int64))
+    np.minimum.at(m, (q.dst, q.src), q.weight.astype(np.int64))
+    np.fill_diagonal(m, 0)
+    d = torch.from_numpy(m)
+    for _ in range(int(np.ceil(np.log2(max(k - 1, 1)))) or 1):
+        d = _minplus_square(d)
+    arr = d.numpy()
+    finite = arr < INF64
+    return int(arr[finite].max()), bool(finite.all())
+
+
+def _minplus_square(d: torch.Tensor) -> torch.Tensor:
+    """One guarded int64 min-plus squaring step (INF64 marks unreachable
+    pairs; the guard keeps INF64 + INF64 from overflowing)."""
+    a = d[:, :, None]
+    b = d[None, :, :]
+    ok = (a < INF64) & (b < INF64)
+    cand = torch.where(ok, torch.where(ok, a, 0) + torch.where(ok, b, 0),
+                       INF64)
+    return torch.amin(cand, dim=1)

@@ -2,6 +2,9 @@
 the JAX package's ``core/session.py`` (without stores, spill, dynamic
 updates or autotune).
 
+``tau_solve`` is the cascade's solve budget: ``CascadeEstimator`` keeps
+decomposing the quotient while it has more clusters than this.
+
 ``open_session(edges, ...)`` uploads the edges and builds the backend once
 on the session's device; every estimator query afterwards runs against
 the resident buffers. ``SessionMetrics`` counts the expensive open-path
@@ -24,6 +27,9 @@ from repro_torch.core.engine import UniformFn, resolve_engine_mode
 from repro_torch.graph.structures import EdgeList
 
 log = get_logger("repro_torch.session")
+
+# the cascade's default quotient-solve budget (clusters), as the reference's
+DEFAULT_TAU_SOLVE = 1024
 
 
 def tau_for(n_nodes: int, fraction: float = 1e-3, minimum: int = 4) -> int:
@@ -55,6 +61,7 @@ class GraphSession:
         cfg: Optional[GraphEngineConfig] = None,
         *,
         tau: Optional[int] = None,
+        tau_solve: Optional[int] = None,
         backend: Union[str, RelaxBackend, None] = None,
         device="cuda",
         metrics: Optional[SessionMetrics] = None,
@@ -62,6 +69,8 @@ class GraphSession:
     ):
         if tau is not None and tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
+        if tau_solve is not None and tau_solve < 2:
+            raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
         self.cfg = cfg or GraphEngineConfig()
         # unknown modes raise here, before any device work; "auto" resolves
         # to "stages" (the port has no autotuning record)
@@ -88,6 +97,8 @@ class GraphSession:
         self._n_edges = edges.n_edges
         self.tau = tau if tau is not None else tau_for(edges.n_nodes,
                                                        self.cfg.tau_fraction)
+        self.tau_solve = (tau_solve if tau_solve is not None
+                          else DEFAULT_TAU_SOLVE)
         # center-draw override (tests inject the reference's uniforms)
         self.uniform_fn = uniform_fn
         self._max_weight: Optional[int] = None
@@ -172,6 +183,7 @@ def open_session(
     cfg: Optional[GraphEngineConfig] = None,
     *,
     tau: Optional[int] = None,
+    tau_solve: Optional[int] = None,
     backend: Union[str, RelaxBackend, None] = None,
     device="cuda",
     metrics: Optional[SessionMetrics] = None,
@@ -179,6 +191,8 @@ def open_session(
 ) -> GraphSession:
     """Open a graph once for many queries on ``device`` (default CUDA; it
     raises when no GPU is present). ``backend`` is "single", "kernel"
-    (default, from ``cfg.backend``) or a prebuilt backend."""
-    return GraphSession(edges, cfg, tau=tau, backend=backend, device=device,
-                        metrics=metrics, uniform_fn=uniform_fn)
+    (default, from ``cfg.backend``) or a prebuilt backend; ``tau_solve``
+    (>= 2, default ``DEFAULT_TAU_SOLVE``) is the cascade's solve budget."""
+    return GraphSession(edges, cfg, tau=tau, tau_solve=tau_solve,
+                        backend=backend, device=device, metrics=metrics,
+                        uniform_fn=uniform_fn)

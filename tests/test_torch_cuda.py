@@ -10,7 +10,9 @@ version, alone (two launches bit for bit equal), in a stack and inside
 xDeepFM's forward and retrieval,
 and the segment_mm kernel against its plain version in float64, alone (at
 the default piece size and at 32 items, with rows padded to 32 bytes, on
-a 39,485-edge hub) and inside the GCN forward (two launches per forward).
+a 39,485-edge hub) and inside the GCN forward (two launches per forward);
+CLUSTER2 and the quotient cascade on the kernel backend against the plain
+backend.
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -25,7 +27,8 @@ import types
 
 from repro_torch.common import GraphEngineConfig
 from repro_torch.config import GNN_SHAPES, get_arch
-from repro_torch.core import ClusterQuotientEstimator, open_session
+from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
+                              open_session)
 from repro_torch.graph import road_like, social_like
 from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.cin import kernel as cmod
@@ -153,6 +156,50 @@ def test_pipeline_kernel_equals_single_on_card(cuda_device, make):
     np.testing.assert_array_equal(rk.decomposition.final_pathw,
                                   rs.decomposition.final_pathw)
     assert rk.phi_approx == rs.phi_approx and rk.connected
+
+
+@pytest.mark.parametrize("fuse", [0, 8])
+def test_cluster2_kernel_equals_single_on_card(cuda_device, fuse):
+    """CLUSTER2 on RMAT social_like(14): every grow of the base CLUSTER and
+    of the complete-variant stages (num_it = 4n) through edge_relax or the
+    megakernel, byte-identical to the plain backend on the card."""
+    e = social_like(14, seed=0)
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    est = ClusterQuotientEstimator(use_cluster2=True)
+    rk = est.estimate(open_session(e, GraphEngineConfig(fuse_supersteps=fuse),
+                                   tau=4, device=cuda_device))
+    counted = (kmod.megakernel_cuda.launches if fuse
+               else kmod.edge_relax_cuda.launches)
+    assert counted == rk.pipeline.kernel_launches > 0
+    rs = est.estimate(open_session(e, backend="single", tau=4,
+                                   device=cuda_device))
+    for f in ("final_c", "final_pathw"):
+        np.testing.assert_array_equal(getattr(rk.decomposition, f),
+                                      getattr(rs.decomposition, f))
+    assert (rk.phi_approx, rk.growing_steps) == (rs.phi_approx,
+                                                 rs.growing_steps)
+
+
+@pytest.mark.parametrize("level_mode", ["stages", "oneshot"])
+def test_cascade_kernel_equals_single_on_card(cuda_device, level_mode):
+    """The cascade on RMAT social_like(14): level 0 through edge_relax,
+    the levels on the plain backend over the card's level arrays; the same
+    Phi, level lists and solve as the plain backend."""
+    e = social_like(14, seed=0)
+    est = CascadeEstimator(levels=2, tau_solve=32, level_mode=level_mode)
+    cfg = GraphEngineConfig(deterministic=True)
+    kmod.edge_relax_cuda.launches = 0
+    rk = est.estimate(open_session(e, cfg, device=cuda_device))
+    assert kmod.edge_relax_cuda.launches == rk.pipeline.kernel_launches > 0
+    rs = est.estimate(open_session(e, cfg, backend="single",
+                                   device=cuda_device))
+    pk, ps = rk.pipeline, rs.pipeline
+    assert pk.cascade_levels >= 1
+    assert (rk.phi_approx, pk.level_clusters, pk.level_supersteps,
+            pk.solve_supersteps) == (rs.phi_approx, ps.level_clusters,
+                                     ps.level_supersteps, ps.solve_supersteps)
+    np.testing.assert_array_equal(rk.quotient_ecc, rs.quotient_ecc)
 
 
 def _fused_inputs(e, dev, seed):
