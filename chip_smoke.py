@@ -51,6 +51,28 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      planes byte-identical and Phi equal; k, radius, stages, supersteps,
      launches and seconds printed. At ``road_like(65_536)`` the kernel
      backend must equal the plain one.
+  2f. host read: the median host time of one ``guard.fetch`` of a 4-byte
+     tensor right after a launch (200 reads after 20 warm-ups), the
+     autotuner's ``_HOST_SYNC_S``.
+  2g. graph serving at full size: the port's ``serve_graph_diameter``
+     (``launch/serve.py --mode graph-diameter``) on ``road_like(1_890_815,
+     seed=0)`` (phase 2's graph) and ``seed=1``, one ``SessionPool`` with
+     one shared ``e_pad``, 3 rounds of ``CascadeEstimator(levels=2)`` at
+     tau 16, ``tau_solve`` 1,024, unfused kernel backend: per query the
+     seconds, Phi, k and host reads; cold and warm means, queries per
+     second, the amortization ratio, ``SessionMetrics``, the measured
+     transfers. Rounds 1-2 must build no backend and upload no edges,
+     every round of a session must give the same estimate, and the seed-0
+     graph's pooled estimate must equal phase 2d's tau-16 ``levels=2``
+     estimate on the unpadded graph field for field.
+  2h. autotuned serving: the same two graphs through ``--autotune auto
+     --engine-mode auto``, 2 queries each (the record's cascade, fused by
+     its ``fuse``): the records' fields, the stats pass's seconds and
+     reads, the query seconds, ``predicted_superstep_s`` beside the
+     measured seconds per level-0 superstep; tau, tau_solve, levels,
+     delta_init, signature and mode must equal ``derive_tuning`` of
+     ``compute_graph_stats`` on the host mirror (the padded edges on the
+     CPU), and fuse must be 8.
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
@@ -178,10 +200,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (same)
-F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (same)
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:   # the card's rates, defined once in the port
+    from repro_torch.runtime.roofline import (BF16_FLOPS_PER_S,
+                                              F32_FLOPS_PER_S,
+                                              HBM_BYTES_PER_S,
+                                              TF32_FLOPS_PER_S)
+except ImportError:   # not a checkout of the repository: main() refuses
+    pass
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
@@ -323,7 +350,9 @@ def relax_bytes(torch, g, planes, delta) -> int:
     """Least bytes this superstep must move on these inputs: the CSR
     (row_ptr, src, w) and d, rw0 read once; c, pathw read once for the
     sources of admissible live edges and rc, rp for those of admissible
-    relay edges; three output planes written once."""
+    relay edges; three output planes written once. With every source
+    admissible this is ``roofline.relax_pass_bytes(n, e)``, the upper form
+    the autotuner prices a superstep by."""
     d, rw0 = planes[0], planes[3]
     src = g.src.to(torch.int64)
     ds, r0 = d[src], rw0[src]
@@ -406,7 +435,6 @@ def profile_paths() -> int:
 
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is False", 2)
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.common import Timer
     from repro_torch.config import GNN_SHAPES, RECSYS_SHAPES, get_arch
     from repro_torch.core import cluster, make_backend, tau_for
@@ -1596,18 +1624,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is False; this script "
                      "measures the CUDA port and has no CPU mode", 2)
-    root = pathlib.Path(__file__).resolve().parent
-    if not (root / "src" / "repro_torch" / "kernels").is_dir():
+    if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         return _fail(f"no src/repro_torch beside {__file__}; run it from a "
                      "checkout of the repository", 3)
-    sys.path.insert(0, str(root / "src"))
 
     from scipy.sparse.csgraph import shortest_path
 
+    from repro_torch import guard
     from repro_torch.common import GraphEngineConfig, Timer
     from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
                                   DeltaSteppingEstimator, IntervalEstimator,
                                   open_session, tau_for)
+    from repro_torch.core import autotune as at
+    from repro_torch.core.session import _pad_edges
+    from repro_torch.launch import serve
     from repro_torch.core import state as st
     from repro_torch.core.cluster import cluster
     from repro_torch.core.engine import (hashed_uniforms, oneshot_budget,
@@ -2111,7 +2141,8 @@ def main() -> int:
           "level_clusters": ck.pipeline.level_clusters,
           "flat_solve_supersteps": row_k["solve_supersteps"],
           "cascade_solve_supersteps": ck.pipeline.solve_supersteps})
-    del casc0, casc, ck, cs
+    casc16 = ck   # phase 2g's pooled seed-0 estimate must equal it
+    del casc0, casc, cs
     # at the session default tau, fused; the flat solve is not run here
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2163,6 +2194,116 @@ def main() -> int:
     if not same_decomposition(small["kernel"], small["single"]):
         raise AssertionError("cluster2 at n=65536: kernel and plain differ")
     del small, e
+
+    # -- phase 2f: one host read after a launch ------------------------------
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    reads = []
+    for i in range(220):
+        torch.cuda.synchronize()
+        with Timer() as tr:
+            guard.fetch(one + i, reason="chip_smoke: host read")
+        reads.append(tr.seconds)
+    reads = np.sort(np.asarray(reads[20:]))
+    host_read_s = float(np.median(reads))
+    emit({"phase": "host_read", "reads": reads.shape[0],
+          "median_s": host_read_s, "p10_s": float(reads[19]),
+          "p90_s": float(reads[179]), "min_s": float(reads[0]),
+          "autotune_host_sync_s": at._HOST_SYNC_S})
+
+    # -- phase 2g: graph serving at full size ---------------------------------
+    serve_graphs = [edges, road_like(CAL_NODES, seed=1)]
+    torch.cuda.synchronize()
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    served = serve.serve_graph_diameter(serve.parse_args([
+        "--mode", "graph-diameter", "--batch", "2", "--graph-n",
+        str(CAL_NODES), "--queries", "3", "--tau", "16", "--levels", "2",
+        "--tau-solve", "1024", "--backend", "kernel", "--device", "cuda"]),
+        graphs=serve_graphs)
+    launches_serve = kmod.edge_relax_cuda.launches
+    results = served.pop("results")
+    emit({"phase": "graph_serve", "kernel_launches": launches_serve,
+          **served})
+    if served["failures"]:
+        raise AssertionError(f"graph_serve: {served['failures']}")
+    if served["warm_backend_builds"] or served["warm_edge_uploads"]:
+        raise AssertionError("graph_serve: a warm round rebuilt or uploaded")
+    if launches_serve <= 0 or kmod.megakernel_cuda.launches != 0 or \
+            launches_serve != sum(r.pipeline.kernel_launches
+                                  for _, _, r in results):
+        raise AssertionError(f"graph_serve: {launches_serve} edge_relax "
+                             "launches counted, not the queries'")
+    by_graph = {}
+    for i, _, r in results:
+        by_graph.setdefault(i, []).append(r)
+    for i, rounds in by_graph.items():
+        if not all(same_estimate(r, rounds[0])
+                   and same_decomposition(r, rounds[0]) for r in rounds):
+            raise AssertionError(f"graph_serve: graph {i}'s rounds differ")
+    if not (same_estimate(by_graph[0][0], casc16)
+            and same_decomposition(by_graph[0][0], casc16)):
+        raise AssertionError("graph_serve: the pooled seed-0 estimate "
+                             "differs from phase cascade's")
+    emit({"phase": "graph_serve_parity", "equal_to_cascade_phase": True,
+          "phi_approx": casc16.phi_approx,
+          "rounds_equal": True})
+    del results, by_graph, casc16
+
+    # -- phase 2h: autotuned serving ------------------------------------------
+    e_pad = served["e_pad"]
+    mirror = []
+    for g in serve_graphs:
+        padded = _pad_edges(g, e_pad)
+        with Timer() as ts, guard.metered() as meter:
+            at.compute_graph_stats(padded, dev)
+        rec = at.derive_tuning(at.compute_graph_stats(padded, "cpu"),
+                               device="cpu")
+        mirror.append((rec, ts.seconds, meter.transfers))
+        if rec.levels <= 0:
+            raise AssertionError("graph_autotune: the record asks for the "
+                                 "flat solve, which does not fit at tau "
+                                 f"{rec.tau}")
+        del padded
+    at.clear_cache()
+    torch.cuda.synchronize()
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    tuned = serve.serve_graph_diameter(serve.parse_args([
+        "--mode", "graph-diameter", "--batch", "2", "--graph-n",
+        str(CAL_NODES), "--queries", "2", "--autotune", "auto",
+        "--engine-mode", "auto", "--backend", "kernel", "--device",
+        "cuda"]), graphs=serve_graphs)
+    launches_tuned = kmod.megakernel_cuda.launches
+    results = tuned.pop("results")
+    per_step = []
+    for _, _, r in results:
+        pm = r.pipeline
+        steps0 = r.growing_steps - sum(pm.level_supersteps)
+        per_step.append(pm.decompose_seconds / max(steps0, 1))
+    emit({"phase": "graph_autotune", "kernel_launches": launches_tuned,
+          "stats_pass": [{"seconds": s_, "reads": n_}
+                         for _, s_, n_ in mirror],
+          "host_mirror": [dataclasses.asdict(r_) for r_, _, _ in mirror],
+          "seconds_per_level0_superstep": per_step,
+          "levels_run": [r.pipeline.cascade_levels for _, _, r in results],
+          **tuned})
+    if tuned["failures"]:
+        raise AssertionError(f"graph_autotune: {tuned['failures']}")
+    for rec, (ref, _, _) in zip(tuned["tuning"], mirror):
+        host = dataclasses.asdict(ref)
+        for f in ("signature", "tau", "tau_solve", "levels", "delta_init",
+                  "predicted_superstep_s", "mode"):
+            if rec[f] != host[f]:
+                raise AssertionError(f"graph_autotune: {f} {rec[f]} on the "
+                                     f"card, {host[f]} on the host")
+        if rec["fuse"] != mk.DEFAULT_K_FUSED:
+            raise AssertionError(f"graph_autotune: fuse {rec['fuse']}")
+    if launches_tuned <= 0 or kmod.edge_relax_cuda.launches != 0 or \
+            launches_tuned != sum(r.pipeline.kernel_launches
+                                  for _, _, r in results):
+        raise AssertionError(f"graph_autotune: {launches_tuned} megakernel "
+                             "launches counted, not the queries'")
+    del results, serve_graphs
 
     # the kernel at the main path's shapes: the road graph's CSR with
     # engine-like planes and the run's final Δ
@@ -2315,6 +2456,7 @@ def main() -> int:
                              "oneshot_unfused": launches_oneshot_unfused,
                              "cascade_tau16": launches_casc16,
                              "cluster2_unfused": launches_c2[0],
+                             "graph_serve": launches_serve,
                              **{f"sssp {k}": v
                                 for k, v in sssp_launches.items()}},
     }, {
@@ -2333,7 +2475,8 @@ def main() -> int:
         "launches_by_path": {"stages_fused": launches_stages_fused,
                              "oneshot_fused": launches_oneshot_fused,
                              "cascade_tau130_fused": launches_casc130,
-                             "cluster2_fused": launches_c2[8]},
+                             "cluster2_fused": launches_c2[8],
+                             "graph_autotune": launches_tuned},
     }, flash_row, cin_row, segmm_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -80,10 +80,13 @@ class GraphEngineConfig:
     max_steps_per_phase: int = 0  # 0 -> 2n/tau (paper's num_it)
     seed: int = 0
     backend: str = "kernel"      # single | kernel (core/backend.py)
+    autotune: str = "off"        # off | auto | record (core/autotune.py)
     fuse_supersteps: int = 0     # kernel backend: supersteps per megakernel
-                                 # launch (0 = unfused)
+                                 # launch (0 = unfused unless the autotuner
+                                 # engages)
     mode: str = "stages"         # stages | oneshot | auto (core/engine.py;
-                                 # "auto" resolves to "stages": no autotuner)
+                                 # "auto" defers to the autotuning record,
+                                 # "stages" without one)
     deterministic: bool = False  # oneshot: hash-derived centers and shifts
     use_cluster2: bool = False   # paper Algorithm 2 instead of CLUSTER
                                  # (staged only; core/cluster.cluster2)

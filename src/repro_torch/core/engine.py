@@ -75,12 +75,14 @@ def check_engine_mode(mode: str) -> None:
             f"unknown engine mode {mode!r} (expected one of {ENGINE_MODES})")
 
 
-def resolve_engine_mode(mode: str) -> str:
-    """Validate ``mode`` and resolve ``"auto"``. The port has no autotuning
-    record, so ``"auto"`` resolves to ``"stages"``, as the reference does
-    when its record is None."""
+def resolve_engine_mode(mode: str, tuning=None) -> str:
+    """Validate ``mode`` and resolve ``"auto"``: the autotuning record's
+    choice (``core/autotune.TuningRecord.mode``) when there is one, else
+    ``"stages"``."""
     check_engine_mode(mode)
-    return "stages" if mode == "auto" else mode
+    if mode == "auto":
+        return tuning.mode if tuning is not None else "stages"
+    return mode
 
 
 @dataclass

@@ -41,8 +41,10 @@ from repro_torch.core.engine import (Decomposition, resolve_engine_mode,
 from repro_torch.core.quotient import (
     build_quotient_device,
     build_quotient_from_level,
+    build_quotient_numpy,
     fetch_quotient_counters,
     quotient_as_edgelist,
+    quotient_diameter,
     solve_device_quotient,
 )
 from repro_torch.core.session import GraphSession, tau_for
@@ -248,8 +250,9 @@ def _resolve_query_cfg(session: GraphSession, est) -> Tuple[object, int]:
         ("mode", est.mode)) if v is not None}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    # bad names raise before any device work; "auto" -> "stages"
-    mode = resolve_engine_mode(cfg.mode)
+    # "auto" resolves against the session's autotuning record (if any);
+    # bad names raise before any device work
+    mode = resolve_engine_mode(cfg.mode, session.tuning)
     if mode != cfg.mode:
         cfg = dataclasses.replace(cfg, mode=mode)
     tau = est.tau if est.tau is not None else session.tau
@@ -313,12 +316,16 @@ class ClusterQuotientEstimator:
 
     ``tau``/``variant``/``seed``/``delta_init``/``use_cluster2``/``mode``
     override the session defaults per query (``deterministic`` comes from
-    the session's config).
+    the session's config). ``solver="device"`` (default) runs the quotient
+    and its solve on the device; ``solver="scipy"`` builds the quotient on
+    the host and solves it with scipy (the oracle path; no
+    ``quotient_ecc``).
     """
 
     name: ClassVar[str] = "cluster-quotient"
 
     tau: Optional[int] = None
+    solver: str = "device"           # device | scipy
     variant: Optional[str] = None
     seed: Optional[int] = None
     delta_init: Optional[str] = None
@@ -326,12 +333,20 @@ class ClusterQuotientEstimator:
     mode: Optional[str] = None       # stages | oneshot | auto
 
     def estimate(self, session: GraphSession) -> DiameterEstimate:
+        if self.solver not in ("device", "scipy"):
+            raise ValueError(f"solver must be 'device' or 'scipy', got "
+                             f"{self.solver!r}")
         cfg, tau = _resolve_query_cfg(session, self)
         pm = PipelineMetrics()
         with session.track_query(), Timer() as t:
             dec = _run_decomposition(session, cfg, tau, pm)
-            phi_q, ecc, connected, _ = _cascade_quotient_solve(
-                session.edges, dec, session.backend, pm)
+            if self.solver == "scipy":
+                phi_q, connected = quotient_diameter(
+                    build_quotient_numpy(session.edges, dec))
+                ecc = None
+            else:
+                phi_q, ecc, connected, _ = _cascade_quotient_solve(
+                    session.edges, dec, session.backend, pm)
         return _package_estimate(self.name, dec, phi_q, connected, pm, ecc,
                                  t.seconds)
 
@@ -373,7 +388,8 @@ class CascadeEstimator:
             raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
         cfg, tau = _resolve_query_cfg(session, self)
         level_mode = resolve_engine_mode(
-            self.level_mode if self.level_mode is not None else cfg.mode)
+            self.level_mode if self.level_mode is not None else cfg.mode,
+            session.tuning)
         pm = PipelineMetrics()
         with session.track_query(), Timer() as t:
             dec = _run_decomposition(session, cfg, tau, pm)

@@ -1,14 +1,24 @@
 """GraphSession: a resident-graph handle for query-many serving, the port of
-the JAX package's ``core/session.py`` (without stores, spill, dynamic
-updates or autotune).
-
-``tau_solve`` is the cascade's solve budget: ``CascadeEstimator`` keeps
-decomposing the quotient while it has more clusters than this.
+the JAX package's ``core/session.py`` (without stores, spill, checkpoints
+or dynamic updates).
 
 ``open_session(edges, ...)`` uploads the edges and builds the backend once
 on the session's device; every estimator query afterwards runs against
 the resident buffers. ``SessionMetrics`` counts the expensive open-path
 events (backend builds, edge uploads) so a warm query can be told apart.
+
+``tau_solve`` is the cascade's solve budget: ``CascadeEstimator`` keeps
+decomposing the quotient while it has more clusters than this.
+``autotune`` ("off" | "auto" | "record") derives tau, tau_solve, the
+cascade depth, delta_init, the fusion depth and the engine mode from one
+statistics pass over the edges (``core/autotune.py``), keeping every knob
+passed explicitly.
+
+``SessionPool`` serves many graphs: each graph's edge arrays are padded
+to a bucket multiple with inert self-loops (``_pad_edges``), and its
+symbolic ``delta_init`` is resolved from the real edges first, so a
+pooled estimate equals an unpooled one. All pooled sessions share one
+``SessionMetrics``.
 """
 from __future__ import annotations
 
@@ -16,11 +26,13 @@ import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from repro_torch.common import GraphEngineConfig, get_logger, resolve_device
+from repro_torch.common import (GraphEngineConfig, get_logger, next_multiple,
+                                resolve_device)
 from repro_torch.core.backend import RelaxBackend, make_backend
 from repro_torch.core.cluster import _initial_delta
 from repro_torch.core.engine import UniformFn, resolve_engine_mode
@@ -28,8 +40,12 @@ from repro_torch.graph.structures import EdgeList
 
 log = get_logger("repro_torch.session")
 
+EDGE_BUCKET = 256  # pooled sessions pad edge arrays to a multiple of this
+
 # the cascade's default quotient-solve budget (clusters), as the reference's
 DEFAULT_TAU_SOLVE = 1024
+
+AUTOTUNE_MODES = ("off", "auto", "record")
 
 
 def tau_for(n_nodes: int, fraction: float = 1e-3, minimum: int = 4) -> int:
@@ -41,7 +57,7 @@ def tau_for(n_nodes: int, fraction: float = 1e-3, minimum: int = 4) -> int:
 
 @dataclass
 class SessionMetrics:
-    """Open-vs-query cost accounting."""
+    """Open-vs-query cost accounting, shared across a pool's sessions."""
 
     sessions_opened: int = 0
     backend_builds: int = 0   # RelaxBackend constructions
@@ -53,7 +69,9 @@ class SessionMetrics:
 class GraphSession:
     """One resident graph: edges on the device, backend built, ready to
     query. ``estimate(estimator)`` runs any estimator against it; with no
-    argument it runs the paper pipeline (``ClusterQuotientEstimator``)."""
+    argument it runs the paper pipeline (``ClusterQuotientEstimator``), or
+    on an autotuned session whose record asks for a cascade,
+    ``CascadeEstimator(levels=tuning.levels)``."""
 
     def __init__(
         self,
@@ -66,27 +84,50 @@ class GraphSession:
         device="cuda",
         metrics: Optional[SessionMetrics] = None,
         uniform_fn: Optional[UniformFn] = None,
+        delta_stats: Optional[Dict[str, int]] = None,
+        autotune: Optional[str] = None,
     ):
         if tau is not None and tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
         if tau_solve is not None and tau_solve < 2:
             raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
         self.cfg = cfg or GraphEngineConfig()
-        # unknown modes raise here, before any device work; "auto" resolves
-        # to "stages" (the port has no autotuning record)
-        mode = resolve_engine_mode(self.cfg.mode)
-        if mode != self.cfg.mode:
-            self.cfg = dataclasses.replace(self.cfg, mode=mode)
-        self.metrics = metrics if metrics is not None else SessionMetrics()
-        self.metrics.sessions_opened += 1
+        tune = autotune if autotune is not None else self.cfg.autotune
+        if tune not in AUTOTUNE_MODES:
+            raise ValueError(
+                f"autotune must be off | auto | record, got {tune!r}")
         if backend is None:
             backend = self.cfg.backend
+        self.device = (resolve_device(device) if isinstance(backend, str)
+                       else backend.device)
+        # symbolic delta_init modes resolved over the REAL edges (set by
+        # SessionPool, so padding self-loops never skew "avg"/"min")
+        self._delta_stats = delta_stats
+
+        # -- autotuner: only symbolic/default knobs are tuned ---------------
+        self.tuning = None
+        if tune != "off" and edges.n_nodes > 0 and edges.n_edges > 0:
+            from repro_torch.core.autotune import get_tuning
+
+            kind = backend if isinstance(backend, str) else backend.kind
+            self.tuning = get_tuning(edges, backend=kind, device=self.device,
+                                     record=(tune == "record"))
+            if self.cfg.delta_init in ("avg", "min"):
+                self.cfg = dataclasses.replace(
+                    self.cfg, delta_init=str(self.tuning.delta_init))
+        # an explicit "stages"/"oneshot" always wins; "auto" defers to the
+        # record; unknown names raise here, before any device work
+        mode = resolve_engine_mode(self.cfg.mode, self.tuning)
+        if mode != self.cfg.mode:
+            self.cfg = dataclasses.replace(self.cfg, mode=mode)
+
+        self.metrics = metrics if metrics is not None else SessionMetrics()
+        self.metrics.sessions_opened += 1
         if isinstance(backend, str):
-            self.device = resolve_device(device)
+            fuse = self.cfg.fuse_supersteps or (
+                self.tuning.fuse if self.tuning is not None else 0)
             backend = make_backend(edges, backend, device=self.device,
-                                   fuse=self.cfg.fuse_supersteps)
-        else:
-            self.device = backend.device
+                                   fuse=fuse)
         # a prebuilt backend counts too: its construction and upload are
         # this session's open cost
         self.metrics.backend_builds += 1
@@ -95,10 +136,18 @@ class GraphSession:
         self._edges: Optional[EdgeList] = edges
         self._n_nodes = edges.n_nodes
         self._n_edges = edges.n_edges
-        self.tau = tau if tau is not None else tau_for(edges.n_nodes,
-                                                       self.cfg.tau_fraction)
-        self.tau_solve = (tau_solve if tau_solve is not None
-                          else DEFAULT_TAU_SOLVE)
+        if tau is not None:
+            self.tau = tau
+        elif self.tuning is not None:
+            self.tau = self.tuning.tau
+        else:
+            self.tau = tau_for(edges.n_nodes, self.cfg.tau_fraction)
+        if tau_solve is not None:
+            self.tau_solve = tau_solve
+        elif self.tuning is not None:
+            self.tau_solve = self.tuning.tau_solve
+        else:
+            self.tau_solve = DEFAULT_TAU_SOLVE
         # center-draw override (tests inject the reference's uniforms)
         self.uniform_fn = uniform_fn
         self._max_weight: Optional[int] = None
@@ -123,7 +172,8 @@ class GraphSession:
     @property
     def max_weight(self) -> int:
         """Largest edge weight (the SSSP estimators pick their dtype from
-        it), cached for the session's lifetime."""
+        it), cached for the session's lifetime; pooled padding carries
+        w = 1 and cannot change it."""
         self._check_open()
         if self._max_weight is None:
             self._max_weight = (int(self._edges.weight.max())
@@ -131,7 +181,11 @@ class GraphSession:
         return self._max_weight
 
     def resolve_delta_init(self, mode: str) -> int:
+        """A symbolic Delta_init ("avg" | "min" | numeric) for this graph;
+        a pooled session answers from its real (pre-padding) edges."""
         self._check_open()
+        if self._delta_stats is not None and mode in self._delta_stats:
+            return self._delta_stats[mode]
         return _initial_delta(self._edges, mode)
 
     def flat_device_edges(self) -> Tuple[torch.Tensor, torch.Tensor,
@@ -145,9 +199,13 @@ class GraphSession:
     def estimate(self, estimator=None):
         self._check_open()
         if estimator is None:
-            from repro_torch.core.estimators import ClusterQuotientEstimator
+            from repro_torch.core.estimators import (CascadeEstimator,
+                                                     ClusterQuotientEstimator)
 
-            estimator = ClusterQuotientEstimator()
+            if self.tuning is not None and self.tuning.levels > 0:
+                estimator = CascadeEstimator(levels=self.tuning.levels)
+            else:
+                estimator = ClusterQuotientEstimator()
         return estimator.estimate(self)
 
     @contextlib.contextmanager
@@ -188,11 +246,141 @@ def open_session(
     device="cuda",
     metrics: Optional[SessionMetrics] = None,
     uniform_fn: Optional[UniformFn] = None,
+    autotune: Optional[str] = None,
 ) -> GraphSession:
     """Open a graph once for many queries on ``device`` (default CUDA; it
     raises when no GPU is present). ``backend`` is "single", "kernel"
     (default, from ``cfg.backend``) or a prebuilt backend; ``tau_solve``
-    (>= 2, default ``DEFAULT_TAU_SOLVE``) is the cascade's solve budget."""
+    (>= 2, default ``DEFAULT_TAU_SOLVE``) is the cascade's solve budget;
+    ``autotune`` ("off" | "auto" | "record") overrides ``cfg.autotune``."""
     return GraphSession(edges, cfg, tau=tau, tau_solve=tau_solve,
                         backend=backend, device=device, metrics=metrics,
-                        uniform_fn=uniform_fn)
+                        uniform_fn=uniform_fn, autotune=autotune)
+
+
+# ---------------------------------------------------------------------------
+# bucketed padding (pooled serving)
+# ---------------------------------------------------------------------------
+
+
+def _pad_edges(edges: EdgeList, e_pad: int) -> EdgeList:
+    """Pad the edge arrays to ``e_pad`` with inert self-loops (0 -> 0,
+    w = 1).
+
+    A self-loop never wins a relaxation (d[0] + 1 > d[0]), is never a cross
+    edge of the quotient and never shortens an SSSP distance, so the
+    decomposition and every estimate equal the unpadded graph's. On the
+    kernel backend the loops join row 0 of the CSR, which past
+    ``LONG_ROW`` in-edges the kernels scan with a block.
+
+    A graph with NO nodes has no endpoint for a self-loop: the empty graph
+    stays unpadded.
+    """
+    e = edges.n_edges
+    if e_pad <= e or edges.n_nodes == 0:
+        return edges
+    pad = e_pad - e
+    z = np.zeros(pad, np.int32)
+    return EdgeList(
+        edges.n_nodes,
+        np.concatenate([edges.src, z]),
+        np.concatenate([edges.dst, z]),
+        np.concatenate([edges.weight, np.ones(pad, np.int32)]),
+    )
+
+
+class SessionPool:
+    """Bucketed sessions over many graphs on one device.
+
+    ``open(edges)`` pads the edge arrays to a bucket multiple (inert
+    self-loops) and resolves ``delta_init`` from the REAL edges first, so
+    estimates equal an unpooled session's. ``estimate_many(graphs)`` groups
+    the graphs by node count and pads each group to its largest edge
+    count. All sessions share one ``SessionMetrics``, so the pool can
+    answer "did any warm query rebuild a backend or re-upload edges?".
+    """
+
+    def __init__(self, cfg: Optional[GraphEngineConfig] = None,
+                 edge_bucket: int = EDGE_BUCKET,
+                 tau_solve: Optional[int] = None,
+                 device="cuda"):
+        if tau_solve is not None and tau_solve < 2:
+            raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
+        self.cfg = cfg or GraphEngineConfig()
+        self.edge_bucket = edge_bucket
+        self.tau_solve = tau_solve
+        self.device = resolve_device(device)
+        self.metrics = SessionMetrics()
+        self.sessions: List[GraphSession] = []
+        self._closed = False
+
+    def _check_open(self):
+        if self._closed:
+            raise RuntimeError("session pool is closed")
+
+    def _make_session(self, edges: EdgeList, tau: Optional[int],
+                      e_pad: Optional[int]) -> GraphSession:
+        # both symbolic modes AND the config's own delta_init resolved over
+        # the real weights, BEFORE padding (w = 1 loops would skew avg/min)
+        stats = {"avg": _initial_delta(edges, "avg"),
+                 "min": _initial_delta(edges, "min")}
+        delta0 = stats.get(self.cfg.delta_init)
+        if delta0 is None:
+            delta0 = _initial_delta(edges, self.cfg.delta_init)
+        gcfg = dataclasses.replace(self.cfg, delta_init=str(delta0))
+        e_pad = e_pad or next_multiple(max(edges.n_edges, 1), self.edge_bucket)
+        return GraphSession(_pad_edges(edges, e_pad), gcfg, tau=tau,
+                            tau_solve=self.tau_solve, device=self.device,
+                            metrics=self.metrics, delta_stats=stats)
+
+    def open(self, edges: EdgeList, *, tau: Optional[int] = None,
+             e_pad: Optional[int] = None) -> GraphSession:
+        """Open a RESIDENT session (tracked until ``pool.close()``)."""
+        self._check_open()
+        sess = self._make_session(edges, tau, e_pad)
+        self.sessions.append(sess)
+        return sess
+
+    def estimate_many(self, graphs: Sequence[EdgeList], estimator=None,
+                      tau: Optional[int] = None) -> List:
+        """Open and query every graph, grouped by node count, each group
+        padded to ONE bucketed edge size. Each session is closed right after
+        its query and never registered with the pool, so the device holds
+        one graph's buffers at a time; keep sessions resident with
+        ``pool.open()`` to serve repeat queries."""
+        self._check_open()
+        if tau is not None and tau < 1:
+            raise ValueError(f"tau must be >= 1, got {tau}")
+        results: List = [None] * len(graphs)
+        by_n: Dict[int, List[int]] = {}
+        for i, g in enumerate(graphs):
+            by_n.setdefault(g.n_nodes, []).append(i)
+        for n, idxs in by_n.items():
+            e_pad = next_multiple(
+                max(graphs[i].n_edges for i in idxs) or 1, self.edge_bucket)
+            group_tau = tau if tau is not None else tau_for(
+                n, self.cfg.tau_fraction)
+            for i in idxs:
+                sess = self._make_session(graphs[i], group_tau, e_pad)
+                try:
+                    results[i] = sess.estimate(estimator)
+                finally:
+                    sess.close()
+        return results
+
+    def close(self):
+        """Close every pooled session and retire the pool. Idempotent; a
+        later ``open``/``estimate_many`` (or a query on a pooled session)
+        raises ``RuntimeError``."""
+        if self._closed:
+            return
+        for s in self.sessions:
+            s.close()
+        self.sessions.clear()
+        self._closed = True
+
+    def __enter__(self) -> "SessionPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

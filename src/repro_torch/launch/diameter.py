@@ -4,7 +4,7 @@
       --n 200000 --tau 16 --backend kernel [--interval] [--device cuda] \
       [--engine-mode stages|oneshot|auto] [--deterministic] [--cluster2] \
       [--levels L --tau-solve T] [--delta-init avg|min|<int>] \
-      [--compare-sssp]
+      [--compare-sssp] [--autotune off|auto|record]
 
 Prints one JSON line: Phi_approx, the cluster count, quotient size,
 supersteps, host reads, kernel launches, seconds and (on CUDA) peak device
@@ -15,11 +15,16 @@ competitor (``DeltaSteppingEstimator``, Bellman-Ford from a random
 source) on the same session and adds ``sssp_lower``, ``sssp_upper``,
 ``sssp_supersteps`` and ``round_ratio`` (its supersteps over CLUSTER's
 growing steps). ``--interval`` adds the farthest-point lower bound and
-the certified ``[lower, upper]`` bracket.
+the certified ``[lower, upper]`` bracket. ``--autotune auto`` derives
+tau, tau_solve, the cascade depth, delta_init, the fusion depth and the
+engine mode from one statistics pass (``core/autotune.py``; explicit flags
+stay pinned) and adds the record as ``tuning``; a record with levels runs
+its cascade.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 
@@ -48,13 +53,14 @@ def build_graph(kind: str, n: int, seed: int):
     raise ValueError(kind)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.diameter")
+def add_query_arguments(ap: argparse.ArgumentParser) -> None:
+    """The flags this launcher shares with ``launch/serve.py --mode
+    graph-diameter``: the graph family, tau, the cascade, the autotuner,
+    the engine mode and the backend."""
     ap.add_argument("--graph", default="road",
                     choices=["road", "social", "mesh"],
                     help="road_like(n), social_like(log2 n) (RMAT) or a "
                          "sqrt(n) x sqrt(n) mesh with bimodal weights")
-    ap.add_argument("--n", type=int, default=10_000)
     ap.add_argument("--tau", type=int, default=None,
                     help="decomposition tau (>= 1); default tau_for(n)")
     ap.add_argument("--levels", type=int, default=0,
@@ -64,9 +70,41 @@ def main(argv=None) -> int:
                     help="cascade solve budget (>= 2): decompose the "
                          "quotient again while it has more clusters; "
                          "default DEFAULT_TAU_SOLVE")
+    ap.add_argument("--autotune", default="off",
+                    choices=["off", "auto", "record"],
+                    help="graph-statistics autotuner (core/autotune.py): "
+                         "derive tau/tau-solve/levels/delta-init/fusion/mode "
+                         "from one device stats pass; explicit flags stay "
+                         "pinned. 'record' persists the tuning cache to JSON")
+    # no argparse choices: an unknown name reaches check_engine_mode, so the
+    # CLI and the library raise the same ValueError
+    ap.add_argument("--engine-mode", default="stages",
+                    help="decomposition mode: 'stages' (paper stage loop, "
+                         "default), 'oneshot' (exponential-shift single "
+                         "fixpoint) or 'auto' (the autotuning record's "
+                         "choice; 'stages' without one)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="oneshot mode: hash-derived centers and shifts")
     ap.add_argument("--backend", default="kernel",
                     choices=["single", "kernel"])
     ap.add_argument("--device", default="cuda")
+
+
+def check_query_arguments(ap: argparse.ArgumentParser, args) -> None:
+    """Refuse bad shared flags before any graph or device work."""
+    if args.tau is not None and args.tau < 1:
+        ap.error(f"--tau must be >= 1, got {args.tau}")
+    if args.levels < 0:
+        ap.error(f"--levels must be >= 0, got {args.levels}")
+    if args.tau_solve is not None and args.tau_solve < 2:
+        ap.error(f"--tau-solve must be >= 2, got {args.tau_solve}")
+    check_engine_mode(args.engine_mode)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.diameter")
+    add_query_arguments(ap)
+    ap.add_argument("--n", type=int, default=10_000)
     ap.add_argument("--variant", default="stop", choices=["stop", "complete"])
     ap.add_argument("--delta-init", default="avg",
                     help="initial Δ: avg | min | <int>")
@@ -78,22 +116,8 @@ def main(argv=None) -> int:
                          "a random source) on the same session")
     ap.add_argument("--interval", action="store_true",
                     help="also run the farthest-point lower bound")
-    # no argparse choices: an unknown name reaches check_engine_mode, so the
-    # CLI and the library raise the same ValueError
-    ap.add_argument("--engine-mode", default="stages",
-                    help="decomposition mode: 'stages' (paper stage loop, "
-                         "default), 'oneshot' (exponential-shift single "
-                         "fixpoint) or 'auto' (resolves to 'stages')")
-    ap.add_argument("--deterministic", action="store_true",
-                    help="oneshot mode: hash-derived centers and shifts")
     args = ap.parse_args(argv)
-    if args.tau is not None and args.tau < 1:
-        ap.error(f"--tau must be >= 1, got {args.tau}")
-    if args.levels < 0:
-        ap.error(f"--levels must be >= 0, got {args.levels}")
-    if args.tau_solve is not None and args.tau_solve < 2:
-        ap.error(f"--tau-solve must be >= 2, got {args.tau_solve}")
-    check_engine_mode(args.engine_mode)   # before any graph or device work
+    check_query_arguments(ap, args)
 
     dev = resolve_device(args.device)
     edges = build_graph(args.graph, args.n, args.seed)
@@ -107,8 +131,13 @@ def main(argv=None) -> int:
                                 deterministic=args.deterministic)
         session = open_session(edges, cfg, tau=args.tau,
                                tau_solve=args.tau_solve,
-                               backend=args.backend, device=dev)
-        est = (CascadeEstimator(levels=args.levels) if args.levels > 0
+                               backend=args.backend, device=dev,
+                               autotune=args.autotune)
+        # --levels wins; else a record's cascade depth (the session default)
+        levels = args.levels
+        if levels == 0 and session.tuning is not None:
+            levels = session.tuning.levels
+        est = (CascadeEstimator(levels=levels) if levels > 0
                else ClusterQuotientEstimator())
         if args.interval:
             res = IntervalEstimator(
@@ -133,7 +162,9 @@ def main(argv=None) -> int:
         "host_syncs": pm.total_host_syncs,
         "kernel_launches": pm.kernel_launches, "seconds": t.seconds,
     }
-    if args.levels > 0:
+    if session.tuning is not None:
+        out["tuning"] = dataclasses.asdict(session.tuning)
+    if levels > 0:
         out.update(tau_solve=session.tau_solve,
                    cascade_levels=pm.cascade_levels,
                    level_clusters=pm.level_clusters,

@@ -1,5 +1,7 @@
-"""Batched LM serving driver: prefill and steady-state decode with a KV
-cache, the port of the JAX package's ``launch/serve.py --mode lm``.
+"""Serving launcher, the port of the JAX package's ``launch/serve.py``.
+
+``--mode lm`` (default): batched LM prefill and steady-state decode with a
+KV cache.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --batch 4 --prompt-len 32 --gen 16 [--smoke] [--temperature 0.7] \
@@ -10,46 +12,283 @@ prompt is streamed through ``decode_step`` one position at a time, so the
 prefill and the decode run the same step. Sampling is greedy, or draws
 from ``softmax(logits / temperature)`` with an explicit ``torch.Generator``.
 Prints the prefill and decode rates, ``ids[0, :8]``, and one JSON line of
-the run's numbers. ``--mode graph-diameter`` (the session pool and update
-traces) is a later slice of the port and is rejected.
+the run's numbers.
+
+``--mode graph-diameter``: diameter queries on resident graphs. Every
+graph is opened ONCE into a ``SessionPool`` (one shared edge-pad bucket);
+each session then serves ``--queries`` rounds of queries.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode graph-diameter \
+      --batch 8 --graph-n 2000 --queries 3 [--graph road|social|mesh] \
+      [--tau 12] [--estimator cluster|sssp|lower|interval|cascade] \
+      [--levels 2] [--tau-solve 64] [--autotune off|auto|record] \
+      [--engine-mode stages|oneshot|auto] [--deterministic] \
+      [--backend single|kernel] [--device cuda] \
+      [--check-amortization 2.0] [--sync-budget off|<int>]
+
+Contracts (exit 1 when one fails): from round 1 on no query builds a
+backend or uploads an edge array (``SessionMetrics``); every host read is
+a counted one (``guard.metered()`` equals the queries' summed
+``total_host_syncs``); ``--check-amortization`` (cold over steady query
+time) and ``--sync-budget`` (a query's host reads; an interval is judged
+by its worst member). Records are collected in the loop and written after
+it. Prints one JSON line of the run's numbers.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.common import Timer, get_logger, resolve_device
 from repro_torch.config.registry import get_arch
+from repro_torch.launch.diameter import (add_query_arguments, build_graph,
+                                         check_query_arguments)
 from repro_torch.models import transformer as tf_mod
 
 log = get_logger("repro_torch.serve")
 
 SEED = 0
 
+ESTIMATORS = ("cluster", "sssp", "lower", "interval", "cascade", "dynamic")
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--mode", default="lm")
+    ap.add_argument("--mode", default="lm", choices=["lm", "graph-diameter"])
     ap.add_argument("--arch", default="gemma2-9b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="LM: sequences; graph-diameter: graphs (seeds "
+                         "0..batch-1)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--device", default="cuda")
+    # graph-diameter mode (and --device for both modes)
+    add_query_arguments(ap)
+    ap.add_argument("--graph-n", type=int, default=2000)
+    ap.add_argument("--queries", type=int, default=2,
+                    help="diameter queries per resident session")
+    ap.add_argument("--estimator", default=None, choices=ESTIMATORS,
+                    help="default: the session's own (the paper pipeline, "
+                         "or under --autotune the record's cascade)")
+    ap.add_argument("--check-amortization", type=float, default=0.0,
+                    help="fail unless cold/steady query time reaches this "
+                         "ratio (0 = off)")
+    ap.add_argument("--sync-budget", default="off",
+                    help="per-query host-read ceiling: off | <int>")
     args = ap.parse_args(argv)
-    if args.mode != "lm":
-        ap.error(f"--mode {args.mode!r} is not ported yet: the port serves "
-                 f"--mode lm only (graph-diameter serving is a later slice)")
+    if args.mode == "graph-diameter":
+        _check_graph_args(ap, args)
+        return args
     for name in ("batch", "prompt_len", "gen"):
         if getattr(args, name) < 1:
             ap.error(f"--{name.replace('_', '-')} must be >= 1")
     if args.temperature < 0:
         ap.error("--temperature must be >= 0")
     return args
+
+
+def _check_graph_args(ap: argparse.ArgumentParser, args) -> None:
+    """Refuse what the port cannot serve, before any graph or device work."""
+    if args.estimator == "dynamic":
+        ap.error("--estimator dynamic needs dynamic updates "
+                 "(core/dynamic.py, the session's apply_updates), which the "
+                 "port does not have yet: ROADMAP.md section 1 item 8")
+    if args.sync_budget == "bench":
+        ap.error("--sync-budget bench reads BENCH_engine.json, which records "
+                 "the JAX package's host reads, not the port's (the port "
+                 "reads once per chunk of supersteps); pass off or <int>")
+    if args.sync_budget != "off":
+        try:
+            int(args.sync_budget)
+        except ValueError:
+            ap.error(f"--sync-budget must be off | <int> "
+                     f"(got {args.sync_budget!r})")
+    for name in ("batch", "queries", "graph_n"):
+        if getattr(args, name) < 1:
+            ap.error(f"--{name.replace('_', '-')} must be >= 1")
+    check_query_arguments(ap, args)
+
+
+def _make_estimator(name: Optional[str], levels: int = 0):
+    """The query's estimator; None leaves the choice to the session."""
+    from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
+                                  DeltaSteppingEstimator, IntervalEstimator,
+                                  LowerBoundEstimator)
+
+    if name is None:
+        return None
+    if name == "cascade":
+        # --levels 0 with an explicit --estimator cascade keeps the
+        # estimator's own default depth
+        return CascadeEstimator(levels=levels) if levels else CascadeEstimator()
+    return {"cluster": ClusterQuotientEstimator,
+            "sssp": DeltaSteppingEstimator,
+            "lower": LowerBoundEstimator,
+            "interval": IntervalEstimator}[name]()
+
+
+def _query_syncs(result) -> int:
+    """Host reads to judge against the per-query budget. A composite
+    (``DiameterInterval``) is judged by its WORST member: every estimator
+    of the panel must stay within the budget on its own."""
+    estimates = getattr(result, "estimates", None)
+    if estimates:
+        return max(_query_syncs(r) for r in estimates.values())
+    pm = getattr(result, "pipeline", None)
+    return pm.total_host_syncs if pm is not None else 0
+
+
+def _query_record(i: int, round_idx: int, res, syncs: int, dt: float):
+    rec = {"graph": i, "round": round_idx, "seconds": dt, "host_syncs": syncs,
+           "total_host_syncs": res.pipeline.total_host_syncs,
+           "connected": res.connected}
+    if hasattr(res, "estimates"):   # DiameterInterval
+        rec.update(lower=res.lower, upper=res.upper)
+    else:
+        rec.update(method=res.method, phi_approx=res.phi_approx,
+                   clusters=res.n_clusters, lower=res.lower, upper=res.upper)
+    return rec
+
+
+def serve_graph_diameter(args: argparse.Namespace,
+                         graphs: Optional[List] = None) -> Dict[str, Any]:
+    """Steady-state diameter serving on resident pooled sessions.
+
+    ``graphs`` (default: ``build_graph(args.graph, args.graph_n, seed)``
+    for seeds 0..batch-1) are opened once into one ``SessionPool`` with one
+    shared ``e_pad``; then ``args.queries`` rounds query every session.
+    Returns the run's numbers, the contract failures (``failures``) and the
+    estimates (``results``: (graph, round, estimate))."""
+    from repro_torch import guard
+    from repro_torch.common import GraphEngineConfig, next_multiple
+    from repro_torch.core import SessionPool
+
+    dev = resolve_device(args.device)
+    if graphs is None:
+        graphs = [build_graph(args.graph, args.graph_n, seed=s)
+                  for s in range(args.batch)]
+    cfg = GraphEngineConfig(backend=args.backend, autotune=args.autotune,
+                            mode=args.engine_mode,
+                            deterministic=args.deterministic)
+    # --levels alone activates the cascade; other estimators take no levels
+    est_name = args.estimator
+    if args.levels and est_name in (None, "cluster"):
+        est_name = "cascade"
+    elif args.levels and est_name != "cascade":
+        log.warning("--levels %d is ignored by --estimator %s", args.levels,
+                    est_name)
+    estimator = _make_estimator(est_name, levels=args.levels)
+    sync_budget = None if args.sync_budget == "off" else int(args.sync_budget)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    failures: List[str] = []
+    records: List[tuple] = []     # (graph, round, result, syncs, seconds)
+    cold: List[float] = []        # each session's first query
+    warm: List[float] = []
+    with SessionPool(cfg, tau_solve=args.tau_solve, device=dev) as pool:
+        # one edge-pad bucket across the whole batch
+        e_pad = next_multiple(max(g.n_edges for g in graphs) or 1,
+                              pool.edge_bucket)
+        with Timer() as t_open:
+            sessions = [pool.open(g, tau=args.tau, e_pad=e_pad)
+                        for g in graphs]
+        with guard.metered() as meter, Timer() as t_total:
+            for round_idx in range(args.queries):
+                if round_idx == 1:
+                    # from here on NOTHING may build a backend or upload
+                    builds0 = pool.metrics.backend_builds
+                    uploads0 = pool.metrics.edge_uploads
+                for i, sess in enumerate(sessions):
+                    with Timer() as tq:
+                        res = sess.estimate(estimator)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                    (cold if round_idx == 0 else warm).append(tq.seconds)
+                    records.append((i, round_idx, res, _query_syncs(res),
+                                    tq.seconds))
+        m = pool.metrics
+        out: Dict[str, Any] = {
+            "mode": "graph-diameter", "graph": args.graph,
+            "n": [g.n_nodes for g in graphs],
+            "edges": [g.n_edges for g in graphs], "e_pad": e_pad,
+            "batch": len(graphs), "queries": args.queries,
+            "estimator": est_name or "session default",
+            "backend": args.backend, "device": str(dev),
+            "autotune": args.autotune,
+            "engine_mode": [s.cfg.mode for s in sessions],
+            "tau": [s.tau for s in sessions],
+            "tau_solve": [s.tau_solve for s in sessions],
+            "tuning": [dataclasses.asdict(s.tuning) if s.tuning else None
+                       for s in sessions],
+            "open_seconds": t_open.seconds,
+        }
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+    if args.queries > 1:
+        rebuilds = m.backend_builds - builds0
+        reuploads = m.edge_uploads - uploads0
+        out.update(warm_backend_builds=rebuilds, warm_edge_uploads=reuploads)
+        if rebuilds or reuploads:
+            failures.append(f"warm queries must be resident: {rebuilds} "
+                            f"rebuilds, {reuploads} re-uploads")
+    counted = sum(r[2].pipeline.total_host_syncs for r in records)
+    if meter.transfers != counted:
+        failures.append(f"{meter.transfers} host reads measured, "
+                        f"{counted} counted by the queries")
+    worst_syncs = max(r[3] for r in records)
+    if sync_budget is not None and worst_syncs > sync_budget:
+        failures.append(f"host syncs {worst_syncs} exceed the budget "
+                        f"{sync_budget}")
+    t_cold = cold[0]
+    steady = (cold[1:] + warm) or [t_cold]
+    per_query = sum(steady) / len(steady)
+    amort = t_cold / max(per_query, 1e-9)
+    if args.check_amortization and amort < args.check_amortization:
+        failures.append(f"amortization {amort:.2f}x below required "
+                        f"{args.check_amortization:.2f}x")
+    out.update(
+        cold_seconds=cold, warm_seconds=warm,
+        cold_mean_seconds=sum(cold) / len(cold),
+        warm_mean_seconds=sum(warm) / len(warm) if warm else None,
+        steady_seconds_per_query=per_query,
+        queries_per_second=1.0 / max(per_query, 1e-9),
+        amortization=amort, total_seconds=t_total.seconds,
+        transfers=meter.transfers, counted_host_syncs=counted,
+        worst_query_syncs=worst_syncs, sync_budget=sync_budget,
+        session_metrics=dataclasses.asdict(m),
+        per_query=[_query_record(*r) for r in records],
+        failures=failures,
+        results=[(i, r, res) for i, r, res, _, _ in records])
+    return out
+
+
+def serve_graph_main(args: argparse.Namespace) -> int:
+    res = serve_graph_diameter(args)
+    res.pop("results")
+    for q in res["per_query"]:
+        log.info("graph[%d] q%d: %s host_syncs=%d %.3fs", q["graph"],
+                 q["round"], f"phi={q['phi_approx']} clusters={q['clusters']}"
+                 if "phi_approx" in q else
+                 f"diameter in [{q['lower']}, {q['upper']}]",
+                 q["host_syncs"], q["seconds"])
+    log.info("opened %d sessions; first query %.3fs, steady state %.3fs/query "
+             "(%.2f queries/s, %.2fx amortization); %d host reads measured",
+             res["batch"], res["cold_seconds"][0],
+             res["steady_seconds_per_query"], res["queries_per_second"],
+             res["amortization"], res["transfers"])
+    log.info("session metrics: %s", res["session_metrics"])
+    for f in res["failures"]:
+        log.error("FAIL: %s", f)
+    print(json.dumps(res))
+    return 1 if res["failures"] else 0
 
 
 def _sync(dev: torch.device) -> None:
@@ -116,6 +355,8 @@ def serve_lm(args: argparse.Namespace) -> Dict[str, Any]:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.mode == "graph-diameter":
+        return serve_graph_main(args)
     res = serve_lm(args)
     ids = res.pop("ids")
     log.info("prefill %.2fs (%.1f tok/s)  decode %.2fs (%.1f tok/s/seq)",

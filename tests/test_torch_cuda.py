@@ -12,7 +12,9 @@ and the segment_mm kernel against its plain version in float64, alone (at
 the default piece size and at 32 items, with rows padded to 32 bytes, on
 a 39,485-edge hub) and inside the GCN forward (two launches per forward);
 CLUSTER2 and the quotient cascade on the kernel backend against the plain
-backend.
+backend; pooled sessions (a padded row 0 past the long-row threshold)
+against unpooled ones, fused and not; an autotuned session (fuse 8 from
+its record) against the same session unfused.
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -28,7 +30,8 @@ import types
 from repro_torch.common import GraphEngineConfig
 from repro_torch.config import GNN_SHAPES, get_arch
 from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
-                              open_session)
+                              DeltaSteppingEstimator, KernelBackend,
+                              SessionPool, open_session)
 from repro_torch.graph import road_like, social_like
 from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.cin import kernel as cmod
@@ -200,6 +203,69 @@ def test_cascade_kernel_equals_single_on_card(cuda_device, level_mode):
             pk.solve_supersteps) == (rs.phi_approx, ps.level_clusters,
                                      ps.level_supersteps, ps.solve_supersteps)
     np.testing.assert_array_equal(rk.quotient_ecc, rs.quotient_ecc)
+
+
+@pytest.mark.parametrize("fuse", [0, 8])
+def test_pooled_equals_unpooled_on_card(cuda_device, fuse):
+    """Pooled sessions on road_like(65_536): the graph with 5,000 edges
+    fewer is padded by 5,000 self-loops at node 0, so row 0 is a long row
+    (a block's in edge_relax, a hub marked by a block in the megakernel);
+    every field equals the unpooled estimate, and the SSSP estimators read
+    the padded CSR to the same distances."""
+    a = road_like(65_536, seed=0)
+    keep = np.sort(np.random.default_rng(1).permutation(a.n_edges)
+                   [:a.n_edges - 5000])
+    b = EdgeList(a.n_nodes, a.src[keep], a.dst[keep], a.weight[keep])
+    cfg = GraphEngineConfig(fuse_supersteps=fuse)
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    with SessionPool(cfg, device=cuda_device) as pool:
+        pooled = pool.estimate_many([a, b], tau=16)
+        padded = pool.open(b, tau=16, e_pad=a.n_edges)
+        assert 0 in padded.backend.graph.long_rows.tolist()
+        sssp_padded = padded.estimate(DeltaSteppingEstimator(seed=3))
+    counted = (kmod.megakernel_cuda.launches if fuse
+               else kmod.edge_relax_cuda.launches)
+    assert counted >= sum(p.pipeline.kernel_launches for p in pooled) > 0
+    for g, p in zip((a, b), pooled):
+        solo = open_session(g, cfg, tau=16, device=cuda_device)
+        s = solo.estimate()
+        for f in ("phi_approx", "phi_quotient", "radius", "n_clusters",
+                  "growing_steps", "n_stages", "delta_end", "connected"):
+            assert getattr(p, f) == getattr(s, f), f
+        assert p.pipeline.kernel_launches == s.pipeline.kernel_launches
+        np.testing.assert_array_equal(p.decomposition.final_c,
+                                      s.decomposition.final_c)
+        np.testing.assert_array_equal(p.decomposition.final_pathw,
+                                      s.decomposition.final_pathw)
+        if g is b:
+            d = solo.estimate(DeltaSteppingEstimator(seed=3))
+            np.testing.assert_array_equal(d.dist, sssp_padded.dist)
+
+
+def test_autotuned_fused_session_equals_unfused_on_card(cuda_device):
+    """An autotuned session on the card takes fuse 8 from its record; the
+    same session with a prebuilt unfused backend (which pins fuse 0) gives
+    the same estimate through edge_relax."""
+    e = road_like(65_536, seed=2)
+    fused = open_session(e, device=cuda_device, autotune="auto")
+    assert fused.tuning.fuse == 8 and fused.backend.fuse == 8
+    unfused = open_session(e, backend=KernelBackend(e, cuda_device, fuse=0),
+                           autotune="auto")
+    assert unfused.tuning == fused.tuning and unfused.backend.fuse == 0
+    kmod.megakernel_cuda.launches = 0
+    rf = fused.estimate()
+    assert kmod.megakernel_cuda.launches == rf.pipeline.kernel_launches > 0
+    kmod.edge_relax_cuda.launches = 0
+    ru = unfused.estimate()
+    assert kmod.edge_relax_cuda.launches == ru.pipeline.kernel_launches > 0
+    assert rf.method == ru.method
+    for f in ("phi_approx", "radius", "n_clusters", "growing_steps",
+              "n_stages", "connected"):
+        assert getattr(rf, f) == getattr(ru, f), f
+    assert rf.pipeline.level_clusters == ru.pipeline.level_clusters
+    np.testing.assert_array_equal(rf.decomposition.final_c,
+                                  ru.decomposition.final_c)
 
 
 def _fused_inputs(e, dev, seed):

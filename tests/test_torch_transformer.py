@@ -235,9 +235,12 @@ def test_serve_cli_smoke_runs_end_to_end(capsys):
 
 
 def test_serve_cli_rejects_what_is_not_ported():
-    with pytest.raises(SystemExit) as e:
-        serve.parse_args(["--mode", "graph-diameter"])
-    assert e.value.code == 2
+    # graph-diameter serving is ported; its dynamic updates are not
+    for argv in (["--mode", "graph-diameter", "--estimator", "dynamic"],
+                 ["--mode", "recsys"]):
+        with pytest.raises(SystemExit) as e:
+            serve.parse_args(argv)
+        assert e.value.code == 2
     with pytest.raises(SystemExit):
         serve.parse_args(["--gen", "0"])
     if not torch.cuda.is_available():
