@@ -73,6 +73,26 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      delta_init, signature and mode must equal ``derive_tuning`` of
      ``compute_graph_stats`` on the host mirror (the padded edges on the
      CPU), and fuse must be 8.
+  2i. dynamic updates at full size: ``serve --mode graph-diameter
+     --estimator dynamic --update-trace 4 --update-mix mixed --queries 5``
+     on the same two graphs in one pool, tau 16, unfused kernel backend,
+     0.5% of the edges a batch (``temporal_trace``, made by two worker
+     processes while the phases before run, and its host seconds printed):
+     per batch and graph the ``UpdateReport`` and the
+     seconds of ``KernelBackend.rebind`` alone; the query seconds before
+     and after each batch; the amortized update supersteps against the
+     full decomposition's; the final bracket (the maintained upper bound:
+     one Bellman-Ford here would take about 470,000 supersteps);
+     ``DynamicMetrics``, peak bytes, ``edge_relax`` launches (equal to the
+     backends' counts). Warm rounds build and upload nothing; measured
+     reads equal the queries' and updates' counts.
+  2j. the dynamic path against its plain version: the seed-0 replay again
+     on a ``single`` session on the card, every ``UpdateReport`` field
+     but seconds, ``DynamicMetrics``, every estimate and the final bracket
+     equal; a ``delete``-mix trace of 4 batches on ``road_like(65_536)``,
+     fused (8), unfused and plain equal, two batches repaired and two
+     rebuilt (``rebuild_fraction`` 1, then 0); the same trace's brackets
+     on ``road_like(4_096)`` around scipy's exact diameter.
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
@@ -196,7 +216,8 @@ import re
 import subprocess
 import sys
 import types
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -215,6 +236,21 @@ CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
 SSSP_ROAD_NODES = 262_144       # the competitor's road graph (see phase 3b)
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
+
+
+def trace_job(n: int, seed: int, argv: list) -> tuple:
+    """In a worker process: ``road_like(n, seed)``'s update trace by
+    ``serve.update_traces``' rule (seed = the graph's index), and the host
+    seconds ``temporal_trace`` took."""
+    from repro_torch.common import Timer
+    from repro_torch.graph import road_like
+    from repro_torch.launch import serve
+
+    graph = road_like(n, seed=seed)
+    args = serve.parse_args(argv)
+    with Timer() as t:
+        trace = serve.update_traces([graph], args, seeds=[seed])[0]
+    return trace, t.seconds
 
 
 def _fail(msg: str, code: int) -> int:
@@ -1633,7 +1669,8 @@ def main() -> int:
     from repro_torch import guard
     from repro_torch.common import GraphEngineConfig, Timer
     from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
-                                  DeltaSteppingEstimator, IntervalEstimator,
+                                  DeltaSteppingEstimator,
+                                  DynamicQuotientEstimator, IntervalEstimator,
                                   open_session, tau_for)
     from repro_torch.core import autotune as at
     from repro_torch.core.session import _pad_edges
@@ -1873,6 +1910,17 @@ def main() -> int:
         edges = road_like(CAL_NODES, seed=0)
     emit({"phase": "graph", "family": "road_like", "n": edges.n_nodes,
           "edges": edges.n_edges, "seconds": t.seconds})
+    # phase 2i's update traces (host work) are made by two worker
+    # processes while the phases before it run
+    dyn_argv = ["--mode", "graph-diameter", "--graph-n", str(CAL_NODES),
+                "--queries", "5", "--tau", "16", "--estimator", "dynamic",
+                "--update-trace", "4", "--update-mix", "mixed",
+                "--update-events", str(edges.n_edges // 200),
+                "--bracket-rounds", "0", "--device", "cuda"]
+    trace_pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    trace_jobs = [trace_pool.submit(trace_job, CAL_NODES, s, dyn_argv)
+                  for s in (0, 1)]
 
     def drive(session, estimator, fused: bool, what: str):
         """One query with both kernel counts set to 0 just before it and
@@ -2303,7 +2351,147 @@ def main() -> int:
                                   for _, _, r in results):
         raise AssertionError(f"graph_autotune: {launches_tuned} megakernel "
                              "launches counted, not the queries'")
-    del results, serve_graphs
+    del results
+
+    # -- phase 2i: dynamic updates at full size -------------------------------
+    dyn_args = serve.parse_args(dyn_argv + ["--batch", "2",
+                                            "--backend", "kernel"])
+    traces, trace_seconds = zip(*(j.result() for j in trace_jobs))
+    trace_pool.shutdown()
+    torch.cuda.synchronize()
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    dyn = serve.serve_graph_diameter(dyn_args, graphs=serve_graphs,
+                                     traces=traces)
+    launches_dyn = kmod.edge_relax_cuda.launches
+    dyn_results = dyn.pop("results")
+    for u in dyn["updates"]:
+        emit({"phase": "graph_dynamic_batch", **u})
+    emit({"phase": "graph_dynamic", "kernel_launches": launches_dyn,
+          "trace_host_seconds": trace_seconds,
+          "rebind_seconds": [u["rebind_seconds"] for u in dyn["updates"]],
+          **{k: v for k, v in dyn.items() if k != "updates"}})
+    if dyn["failures"]:
+        raise AssertionError(f"graph_dynamic: {dyn['failures']}")
+    if dyn["warm_backend_builds"] or dyn["warm_edge_uploads"]:
+        raise AssertionError("graph_dynamic: a warm round rebuilt or "
+                             "uploaded")
+    if launches_dyn <= 0 or kmod.megakernel_cuda.launches != 0 or \
+            launches_dyn != sum(dyn["backend_launches"]):
+        raise AssertionError(f"graph_dynamic: {launches_dyn} edge_relax "
+                             "launches counted, not the backends'")
+    if dyn["update_batches"] != 8 or dyn["n"] != [CAL_NODES] * 2:
+        raise AssertionError("graph_dynamic: not 4 batches on each CAL-size "
+                             "graph")
+
+    # -- phase 2j: the dynamic path, kernel against plain --------------------
+    def timeless(rows):
+        return [{k: v for k, v in r.items() if not k.endswith("seconds")}
+                for r in rows]
+
+    plain_args = serve.parse_args(dyn_argv + ["--batch", "1",
+                                              "--backend", "single"])
+    plain = serve.serve_graph_diameter(plain_args, graphs=serve_graphs[:1],
+                                       traces=traces[:1], e_pad=dyn["e_pad"])
+    plain_results = plain.pop("results")
+    if plain["failures"]:
+        raise AssertionError(f"graph_dynamic_parity: {plain['failures']}")
+    if timeless([u for u in dyn["updates"] if u["graph"] == 0]) \
+            != timeless(plain["updates"]) \
+            or dyn["dynamic_metrics"][0] != plain["dynamic_metrics"][0] \
+            or timeless(dyn["final_brackets"][:1]) \
+            != timeless(plain["final_brackets"]):
+        raise AssertionError("graph_dynamic_parity: the kernel and plain "
+                             "replays of seed 0 differ")
+    for a, b in zip([r for i, _, r in dyn_results if i == 0],
+                    [r for _, _, r in plain_results]):
+        if not (same_estimate(a, b) and same_decomposition(a, b)):
+            raise AssertionError("graph_dynamic_parity: a seed-0 estimate "
+                                 "differs between kernel and plain")
+    del dyn_results, plain_results, traces
+
+    # a delete-mix trace at 65,536 nodes: repair for two batches, then
+    # rebuild (rebuild_fraction 0), fused, unfused and plain
+    small = road_like(65_536, seed=0)
+    del_args = serve.parse_args(["--mode", "graph-diameter",
+                                 "--update-trace", "4", "--update-mix",
+                                 "delete"])
+    small_trace = serve.update_traces([small], del_args)[0]
+    replays = {}
+    for name, backend, fuse in (("kernel", "kernel", 0),
+                                ("fused", "kernel", 8),
+                                ("single", "single", 0)):
+        torch.cuda.synchronize()
+        kmod.edge_relax_cuda.launches = 0
+        kmod.megakernel_cuda.launches = 0
+        sess = open_session(small, GraphEngineConfig(fuse_supersteps=fuse),
+                            backend=backend, tau=16, device=dev,
+                            rebuild_fraction=1.0)
+        ests = [sess.estimate(DynamicQuotientEstimator())]
+        reps = []
+        with Timer() as tr:
+            for b_idx, batch in enumerate(small_trace):
+                if b_idx == 2:
+                    sess.rebuild_fraction = 0.0
+                reps.append(sess.apply_updates(batch))
+                ests.append(sess.estimate())
+            torch.cuda.synchronize()
+        dm = dataclasses.asdict(sess.dynamic.metrics)
+        replays[name] = (reps, dm, ests, kmod.edge_relax_cuda.launches,
+                         kmod.megakernel_cuda.launches, tr.seconds)
+        sess.close()
+    base = replays["single"]
+    for name in ("kernel", "fused"):
+        reps, dm, ests = replays[name][:3]
+        same_dm = all(dm[k] == base[1][k] for k in dm
+                      if k != "engine_syncs" or name == "kernel")
+        if timeless([dataclasses.asdict(r) for r in reps]) \
+                != timeless([dataclasses.asdict(r) for r in base[0]]) \
+                or not same_dm or not all(
+                    same_estimate(a, b) and same_decomposition(a, b)
+                    for a, b in zip(ests, base[2])):
+            raise AssertionError(f"graph_dynamic_parity: {name} differs "
+                                 "from plain at n=65536")
+    actions = [r.action for r in base[0]]
+    if "repair" not in actions or "rebuild" not in actions:
+        raise AssertionError(f"graph_dynamic_parity: actions {actions}")
+    launches_dyn_small = replays["kernel"][3]
+    launches_dyn_fused = replays["fused"][4]
+    if launches_dyn_small <= 0 or launches_dyn_fused <= 0 \
+            or replays["kernel"][4] or replays["fused"][3]:
+        raise AssertionError("graph_dynamic_parity: a replay at n=65536 "
+                             "missed its kernel")
+
+    # the same trace's brackets on road_like(4_096) against scipy's exact
+    tiny = road_like(4_096, seed=0)
+    tiny_trace = serve.update_traces([tiny], del_args)[0]
+    sess = open_session(tiny, backend="kernel", device=dev)
+    brackets = []
+    for batch in tiny_trace:
+        sess.apply_updates(batch)
+        iv = sess.estimate(IntervalEstimator())
+        d = shortest_path(to_scipy_csr(sess.edges), method="D",
+                          directed=False)
+        exact = int(d[np.isfinite(d)].max())
+        if not iv.lower <= exact <= iv.upper:
+            raise AssertionError(f"graph_dynamic_parity: scipy exact {exact} "
+                                 f"outside [{iv.lower}, {iv.upper}]")
+        brackets.append([iv.lower, exact, iv.upper])
+    launches_dyn_tiny = sess.backend.launches
+    sess.close()
+    emit({"phase": "graph_dynamic_parity", "seed0_kernel_equals_plain": True,
+          "n65536_actions": actions,
+          "n65536_equal": ["kernel", "fused", "single"],
+          "n65536_seconds": {k: v[5] for k, v in replays.items()},
+          "n65536_supersteps": [r.supersteps for r in base[0]],
+          "n65536_dead_nodes": [r.dead_nodes for r in base[0]],
+          "n65536_launches": {"edge_relax": launches_dyn_small,
+                              "megakernel": launches_dyn_fused},
+          "n65536_engine_syncs": {k: v[1]["engine_syncs"]
+                                  for k, v in replays.items()},
+          "n4096_brackets": brackets,
+          "n4096_launches": launches_dyn_tiny})
+    del small, small_trace, replays, base, tiny, tiny_trace, serve_graphs
 
     # the kernel at the main path's shapes: the road graph's CSR with
     # engine-like planes and the run's final Δ
@@ -2457,6 +2645,10 @@ def main() -> int:
                              "cascade_tau16": launches_casc16,
                              "cluster2_unfused": launches_c2[0],
                              "graph_serve": launches_serve,
+                             "graph_dynamic": launches_dyn,
+                             "graph_dynamic_parity_65536":
+                                 launches_dyn_small,
+                             "graph_dynamic_parity_4096": launches_dyn_tiny,
                              **{f"sssp {k}": v
                                 for k, v in sssp_launches.items()}},
     }, {
@@ -2476,7 +2668,9 @@ def main() -> int:
                              "oneshot_fused": launches_oneshot_fused,
                              "cascade_tau130_fused": launches_casc130,
                              "cluster2_fused": launches_c2[8],
-                             "graph_autotune": launches_tuned},
+                             "graph_autotune": launches_tuned,
+                             "graph_dynamic_parity_65536_fused":
+                                 launches_dyn_fused},
     }, flash_row, cin_row, segmm_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

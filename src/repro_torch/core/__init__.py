@@ -41,11 +41,19 @@ from repro_torch.core.estimators import (
     DiameterEstimate,
     DiameterEstimator,
     DiameterInterval,
+    DynamicQuotientEstimator,
     IntervalEstimator,
     LowerBoundEstimator,
     PipelineMetrics,
 )
+from repro_torch.core.dynamic import (
+    DynamicMetrics,
+    DynamicState,
+    UpdateBatch,
+    UpdateReport,
+)
 from repro_torch.core.session import (
+    DEFAULT_REBUILD_FRACTION,
     DEFAULT_TAU_SOLVE,
     EDGE_BUCKET,
     GraphSession,
@@ -68,13 +76,16 @@ from repro_torch.core.sssp import (
 
 __all__ = [
     "AutotuneError", "CascadeEstimator", "ClusterQuotientEstimator",
-    "DECOMPOSITION_MODES", "DEFAULT_TAU_SOLVE", "Decomposition",
-    "DecompositionMode", "DeltaSteppingEstimator", "DiameterEstimate",
-    "DiameterEstimator", "DiameterInterval", "EDGE_BUCKET", "ENGINE_MODES",
+    "DECOMPOSITION_MODES", "DEFAULT_REBUILD_FRACTION", "DEFAULT_TAU_SOLVE",
+    "Decomposition", "DecompositionMode", "DeltaSteppingEstimator",
+    "DiameterEstimate", "DiameterEstimator", "DiameterInterval",
+    "DynamicMetrics", "DynamicQuotientEstimator", "DynamicState",
+    "EDGE_BUCKET", "ENGINE_MODES",
     "EngineMetrics", "GraphSession", "GraphStats", "IntervalEstimator",
     "KernelBackend", "LowerBoundEstimator", "PipelineMetrics",
     "RelaxBackend", "SessionMetrics", "SessionPool", "SingleDeviceBackend",
-    "TUNE_EVENTS", "TuningRecord", "approximate_diameter",
+    "TUNE_EVENTS", "TuningRecord", "UpdateBatch", "UpdateReport",
+    "approximate_diameter",
     "approximate_diameter_batch", "bellman_ford", "check_engine_mode",
     "clear_cache", "cluster", "cluster2", "compute_graph_stats",
     "default_oneshot_uniform_fn", "default_uniform_fn", "delta_stepping",

@@ -19,7 +19,7 @@ from typing import Protocol, Tuple, runtime_checkable
 
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch.common import Timer, resolve_device
 from repro_torch.core.chunked import DEFAULT_CHUNK
 from repro_torch.core.delta_growing import (GrowthStats, growth_loop,
                                             partial_growth)
@@ -58,6 +58,12 @@ class RelaxBackend(Protocol):
         them)."""
         ...
 
+    def rebind(self, src: torch.Tensor, dst: torch.Tensor,
+               weight: torch.Tensor) -> None:
+        """Point the backend at mutated edge arrays on its device (a
+        dynamic session's store, ``core/dynamic.py``); not a build."""
+        ...
+
 
 class SingleDeviceBackend:
     """Flat edge arrays + the plain PyTorch superstep."""
@@ -93,6 +99,11 @@ class SingleDeviceBackend:
 
     def flat_edges(self):
         return self.src, self.dst, self.weight
+
+    def rebind(self, src, dst, weight):
+        """Swap in the arrays, as the reference does (the superstep reads
+        the flat arrays, inert slots included)."""
+        self.src, self.dst, self.weight = src, dst, weight
 
     def grow(self, state, delta, half_target, num_it, variant,
              chunk=DEFAULT_CHUNK):
@@ -131,6 +142,7 @@ class KernelBackend:
                                        edges.n_nodes, self.device)
         self.transfers = 0
         self.launches = 0
+        self.rebind_seconds = 0.0   # host clock spent in rebind()
 
     def init_state(self) -> EngineState:
         self.transfers += 1
@@ -138,6 +150,18 @@ class KernelBackend:
 
     def flat_edges(self):
         return self.graph.src, self.graph.dst, self.graph.w
+
+    def rebind(self, src, dst, weight):
+        """Rebuild the CSR from a dynamic session's store arrays on the
+        device (two stable sorts, a new long-row list, the out-CSR again
+        on first use). The store's inert slots are sorted past the last
+        row (``build_relax_graph(inert_tail=True)``), so no kernel scans
+        them. The long-row list's length is one implicit host read, and
+        ``rebind_seconds`` includes the sorts it waits for."""
+        with Timer() as t:
+            self.graph = build_relax_graph(src, dst, weight, self.n_nodes,
+                                           self.device, inert_tail=True)
+        self.rebind_seconds += t.seconds
 
     def grow(self, state, delta, half_target, num_it, variant,
              chunk=DEFAULT_CHUNK):

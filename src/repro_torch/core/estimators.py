@@ -10,6 +10,10 @@ Table 3):
   * ``CascadeEstimator`` — the same, decomposing the quotient again while
     it has more than ``tau_solve`` clusters; ``levels=0`` is the flat
     pipeline field for field.
+  * ``DynamicQuotientEstimator`` — the same bound from the decomposition
+    a session maintains under ``apply_updates`` (``core/dynamic.py``),
+    with the quotient refreshed incrementally and the solve cached until
+    the next update.
   * ``DeltaSteppingEstimator`` — the paper's competitor: one SSSP from a
     random source gives ``ecc <= Phi <= 2 ecc``; ``delta=None`` is
     Bellman-Ford.
@@ -400,6 +404,31 @@ class CascadeEstimator:
                                  t.seconds, extra_steps=extra)
 
 
+@dataclass
+class DynamicQuotientEstimator:
+    """The query side of dynamic updates: ``Phi(G_C) + 2 R`` from the
+    decomposition the session MAINTAINS under ``apply_updates`` instead of
+    a new one per query. Only the quotient keys of clusters dirtied since
+    the last solve are recomputed, and the solve is cached until the next
+    update (a repeated query costs no device work). On a session that has
+    not been updated it enters dynamic mode (one full decomposition, as
+    the flat pipeline's first query). The bound is
+    ``ClusterQuotientEstimator``'s: certified upper when connected."""
+
+    name: ClassVar[str] = "dynamic-quotient"
+
+    def estimate(self, session: GraphSession) -> DiameterEstimate:
+        from repro_torch.core import dynamic
+
+        pm = PipelineMetrics()
+        with session.track_query(), Timer() as t:
+            st = dynamic.ensure_dynamic(session)
+            phi_q, ecc, connected = dynamic.solve_session_quotient(session,
+                                                                   pm)
+        return _package_estimate(self.name, st.dec, phi_q, connected, pm,
+                                 ecc, t.seconds)
+
+
 # ---------------------------------------------------------------------------
 # SSSP estimators (the competitor and the lower bound), on the session's
 # resident edge arrays
@@ -502,15 +531,18 @@ class LowerBoundEstimator:
 class IntervalEstimator:
     """Run a panel on ONE session and combine: lower = max of lower bounds,
     upper = min of upper bounds. Default panel: farthest-point + the
-    cluster-quotient pipeline."""
+    cluster-quotient pipeline, or on a session in dynamic mode the
+    maintained ``DynamicQuotientEstimator``."""
 
     name: ClassVar[str] = "interval"
 
     estimators: Tuple = ()
 
     def estimate(self, session: GraphSession) -> DiameterInterval:
-        panel = self.estimators or (LowerBoundEstimator(),
-                                    ClusterQuotientEstimator())
+        upper_est = (DynamicQuotientEstimator()
+                     if session.dynamic is not None
+                     else ClusterQuotientEstimator())
+        panel = self.estimators or (LowerBoundEstimator(), upper_est)
         with Timer() as t:
             results: Dict[str, DiameterEstimate] = {}
             for e in panel:

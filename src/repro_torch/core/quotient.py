@@ -204,6 +204,69 @@ def build_quotient_device(edges: EdgeList, dec: Decomposition,
 
 
 # ---------------------------------------------------------------------------
+# incremental refresh: recompute only the keys touching dirty clusters
+# ---------------------------------------------------------------------------
+
+
+def _merge_quotient_kernel(cs, cd, cw, fs, fd, fw, dirty_compact, *, n: int):
+    """Merge a cached quotient's CLEAN entries with fresh entries.
+
+    ``dirty_compact`` is a bool [n] mask over compact cluster labels. Every
+    cached entry touching a dirty cluster is dropped; the fresh entries
+    (``_quotient_kernel`` over the dirty-incident edges) cover all such
+    pairs, so the two sets are disjoint and one stable key sort restores
+    the sorted-key invariant. Returns (src, dst, w, n_edges, max_weight,
+    weight_sum), the counters as 0-dim int64 tensors."""
+    drop = (dirty_compact[torch.clamp(cs, 0, n - 1).to(torch.int64)]
+            | dirty_compact[torch.clamp(cd, 0, n - 1).to(torch.int64)])
+    keep = (cw < INF64) & ~drop
+    src = torch.cat([torch.where(keep, cs, n).to(torch.int32), fs])
+    dst = torch.cat([torch.where(keep, cd, n).to(torch.int32), fd])
+    w = torch.cat([torch.where(keep, cw, INF64), fw])
+    valid = w < INF64
+    key = torch.where(
+        valid, src.to(torch.int64) * (n + 1) + dst.to(torch.int64), INF64)
+    order = torch.sort(key, stable=True).indices
+    src, dst, w = src[order], dst[order], w[order]
+    valid = w < INF64
+    return (src, dst, w, valid.sum(),
+            torch.max(torch.where(valid, w, 0)),
+            torch.sum(torch.where(valid, w, 0)))
+
+
+def quotient_update_device(
+    cached: DeviceQuotient,
+    m_cached: int,
+    dirty_edges: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    final_c_dev: torch.Tensor,
+    final_pathw_dev: torch.Tensor,
+    dirty_center_ids: np.ndarray,
+    n: int,
+) -> DeviceQuotient:
+    """Incremental quotient refresh: only the (cluster, cluster) keys that
+    touch a dirty cluster are recomputed, by ``_quotient_kernel`` over
+    ``dirty_edges`` (the dirty-incident slice; its padding is inert
+    ``0 -> 0`` self-loops, never cross edges); the cached quotient gives
+    every clean pair. Sound only when the cluster set equals the cached
+    build's (the caller rebuilds the quotient when it changed)."""
+    fresh = _quotient_kernel(*dirty_edges, final_c_dev, final_pathw_dev, n=n)
+    dirty_node = np.zeros(n + 1, bool)
+    dirty_node[np.asarray(dirty_center_ids, np.int64)] = True
+    # centers[i] is the i-th cluster's center (n on padding slots)
+    dirty_compact = torch.from_numpy(dirty_node).to(
+        cached.centers.device)[cached.centers.to(torch.int64)]
+    m_pad = min(next_multiple(max(m_cached, 1), K_BUCKET * 8),
+                int(cached.src.shape[0]))
+    src, dst, w, n_q, wmax, wsum = _merge_quotient_kernel(
+        cached.src[:m_pad], cached.dst[:m_pad], cached.weight[:m_pad],
+        fresh.src, fresh.dst, fresh.weight, dirty_compact, n=n)
+    return DeviceQuotient(
+        centers=cached.centers, src=src, dst=dst, weight=w,
+        n_clusters=cached.n_clusters, n_edges=n_q, max_weight=wmax,
+        weight_sum=wsum)
+
+
+# ---------------------------------------------------------------------------
 # cascade levels: re-enter the engine on the quotient itself
 # ---------------------------------------------------------------------------
 

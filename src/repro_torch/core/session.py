@@ -1,6 +1,6 @@
 """GraphSession: a resident-graph handle for query-many serving, the port of
-the JAX package's ``core/session.py`` (without stores, spill, checkpoints
-or dynamic updates).
+the JAX package's ``core/session.py`` (without its store-backed sessions,
+spill or checkpoints).
 
 ``open_session(edges, ...)`` uploads the edges and builds the backend once
 on the session's device; every estimator query afterwards runs against
@@ -19,6 +19,13 @@ to a bucket multiple with inert self-loops (``_pad_edges``), and its
 symbolic ``delta_init`` is resolved from the real edges first, so a
 pooled estimate equals an unpooled one. All pooled sessions share one
 ``SessionMetrics``.
+
+Resident graphs are mutable: ``session.apply_updates(UpdateBatch)``
+absorbs insertions, reweights and deletions into an edge store on the
+device and repairs the maintained decomposition (``core/dynamic.py``);
+from then on ``estimate()`` defaults to ``DynamicQuotientEstimator``.
+``rebuild_fraction`` is the dead-node fraction above which a batch
+decomposes the graph again.
 """
 from __future__ import annotations
 
@@ -46,6 +53,10 @@ EDGE_BUCKET = 256  # pooled sessions pad edge arrays to a multiple of this
 DEFAULT_TAU_SOLVE = 1024
 
 AUTOTUNE_MODES = ("off", "auto", "record")
+
+# dynamic updates: a delete/increase batch whose dead nodes exceed this
+# fraction of n decomposes again instead of repairing (the reference's)
+DEFAULT_REBUILD_FRACTION = 0.25
 
 
 def tau_for(n_nodes: int, fraction: float = 1e-3, minimum: int = 4) -> int:
@@ -86,11 +97,15 @@ class GraphSession:
         uniform_fn: Optional[UniformFn] = None,
         delta_stats: Optional[Dict[str, int]] = None,
         autotune: Optional[str] = None,
+        rebuild_fraction: Optional[float] = None,
     ):
         if tau is not None and tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
         if tau_solve is not None and tau_solve < 2:
             raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
+        if rebuild_fraction is not None and not 0.0 <= rebuild_fraction <= 1.0:
+            raise ValueError(
+                f"rebuild_fraction must be in [0, 1], got {rebuild_fraction}")
         self.cfg = cfg or GraphEngineConfig()
         tune = autotune if autotune is not None else self.cfg.autotune
         if tune not in AUTOTUNE_MODES:
@@ -134,6 +149,7 @@ class GraphSession:
         self.metrics.edge_uploads += 1
         self.backend: Optional[RelaxBackend] = backend
         self._edges: Optional[EdgeList] = edges
+        self._edges_fn = None   # dynamic mode: the lazy host-mirror thunk
         self._n_nodes = edges.n_nodes
         self._n_edges = edges.n_edges
         if tau is not None:
@@ -151,6 +167,10 @@ class GraphSession:
         # center-draw override (tests inject the reference's uniforms)
         self.uniform_fn = uniform_fn
         self._max_weight: Optional[int] = None
+        self.rebuild_fraction = (rebuild_fraction
+                                 if rebuild_fraction is not None
+                                 else DEFAULT_REBUILD_FRACTION)
+        self._dynamic = None    # core.dynamic.DynamicState once updated
         self._closed = False
         log.debug("opened session: %d nodes, %d edges, tau=%d, backend=%s, "
                   "device=%s", edges.n_nodes, edges.n_edges, self.tau,
@@ -158,7 +178,11 @@ class GraphSession:
 
     @property
     def edges(self) -> EdgeList:
+        """Host edge mirror. In dynamic mode it is materialized from the
+        store's host buffers on access and kept until the next update."""
         self._check_open()
+        if self._edges is None and self._edges_fn is not None:
+            self._edges = self._edges_fn()
         return self._edges
 
     @property
@@ -176,7 +200,7 @@ class GraphSession:
         w = 1 and cannot change it."""
         self._check_open()
         if self._max_weight is None:
-            self._max_weight = (int(self._edges.weight.max())
+            self._max_weight = (int(self.edges.weight.max())
                                 if self._n_edges else 1)
         return self._max_weight
 
@@ -186,27 +210,52 @@ class GraphSession:
         self._check_open()
         if self._delta_stats is not None and mode in self._delta_stats:
             return self._delta_stats[mode]
-        return _initial_delta(self._edges, mode)
+        return _initial_delta(self.edges, mode)
 
     def flat_device_edges(self) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
         """Flat device ``(src, dst, weight)`` views of the backend's own
         buffers (the kernel backend's CSR is the same edge set in (dst, src)
-        order) — no re-upload."""
+        order), or in dynamic mode the store's arrays — no re-upload."""
         self._check_open()
+        if self._dynamic is not None:
+            store = self._dynamic.store
+            return store.src, store.dst, store.weight
         return self.backend.flat_edges()
 
     def estimate(self, estimator=None):
+        """Run ``estimator``; by default the paper pipeline, the record's
+        cascade on an autotuned session, or in dynamic mode the maintained
+        ``DynamicQuotientEstimator``."""
         self._check_open()
         if estimator is None:
             from repro_torch.core.estimators import (CascadeEstimator,
-                                                     ClusterQuotientEstimator)
+                                                     ClusterQuotientEstimator,
+                                                     DynamicQuotientEstimator)
 
-            if self.tuning is not None and self.tuning.levels > 0:
+            if self._dynamic is not None:
+                estimator = DynamicQuotientEstimator()
+            elif self.tuning is not None and self.tuning.levels > 0:
                 estimator = CascadeEstimator(levels=self.tuning.levels)
             else:
                 estimator = ClusterQuotientEstimator()
         return estimator.estimate(self)
+
+    @property
+    def dynamic(self):
+        """The session's ``DynamicState`` (None until the first
+        ``apply_updates`` or ``DynamicQuotientEstimator`` query)."""
+        return self._dynamic
+
+    def apply_updates(self, batch, **kw):
+        """Absorb an ``UpdateBatch`` into the resident graph in place and
+        repair the maintained decomposition (``core/dynamic.py``;
+        ``tighten_cap`` and ``regrow_cap`` bound its relaxes). Returns an
+        ``UpdateReport``."""
+        self._check_open()
+        from repro_torch.core.dynamic import apply_updates
+
+        return apply_updates(self, batch, **kw)
 
     @contextlib.contextmanager
     def track_query(self):
@@ -224,9 +273,12 @@ class GraphSession:
             raise RuntimeError("session is closed")
 
     def close(self):
-        """Drop the device buffers and the host edges. Idempotent."""
+        """Drop the device buffers, the dynamic state and the host edges.
+        Idempotent."""
         self.backend = None
+        self._dynamic = None
         self._edges = None
+        self._edges_fn = None
         self._closed = True
 
     def __enter__(self) -> "GraphSession":
@@ -247,15 +299,19 @@ def open_session(
     metrics: Optional[SessionMetrics] = None,
     uniform_fn: Optional[UniformFn] = None,
     autotune: Optional[str] = None,
+    rebuild_fraction: Optional[float] = None,
 ) -> GraphSession:
     """Open a graph once for many queries on ``device`` (default CUDA; it
     raises when no GPU is present). ``backend`` is "single", "kernel"
     (default, from ``cfg.backend``) or a prebuilt backend; ``tau_solve``
     (>= 2, default ``DEFAULT_TAU_SOLVE``) is the cascade's solve budget;
-    ``autotune`` ("off" | "auto" | "record") overrides ``cfg.autotune``."""
+    ``autotune`` ("off" | "auto" | "record") overrides ``cfg.autotune``;
+    ``rebuild_fraction`` (in [0, 1], default
+    ``DEFAULT_REBUILD_FRACTION``) is the dynamic updates' threshold."""
     return GraphSession(edges, cfg, tau=tau, tau_solve=tau_solve,
                         backend=backend, device=device, metrics=metrics,
-                        uniform_fn=uniform_fn, autotune=autotune)
+                        uniform_fn=uniform_fn, autotune=autotune,
+                        rebuild_fraction=rebuild_fraction)
 
 
 # ---------------------------------------------------------------------------
@@ -298,17 +354,20 @@ class SessionPool:
     the graphs by node count and pads each group to its largest edge
     count. All sessions share one ``SessionMetrics``, so the pool can
     answer "did any warm query rebuild a backend or re-upload edges?".
+    ``rebuild_fraction`` is passed to every session it opens.
     """
 
     def __init__(self, cfg: Optional[GraphEngineConfig] = None,
                  edge_bucket: int = EDGE_BUCKET,
                  tau_solve: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda",
+                 rebuild_fraction: Optional[float] = None):
         if tau_solve is not None and tau_solve < 2:
             raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
         self.cfg = cfg or GraphEngineConfig()
         self.edge_bucket = edge_bucket
         self.tau_solve = tau_solve
+        self.rebuild_fraction = rebuild_fraction
         self.device = resolve_device(device)
         self.metrics = SessionMetrics()
         self.sessions: List[GraphSession] = []
@@ -331,7 +390,8 @@ class SessionPool:
         e_pad = e_pad or next_multiple(max(edges.n_edges, 1), self.edge_bucket)
         return GraphSession(_pad_edges(edges, e_pad), gcfg, tau=tau,
                             tau_solve=self.tau_solve, device=self.device,
-                            metrics=self.metrics, delta_stats=stats)
+                            metrics=self.metrics, delta_stats=stats,
+                            rebuild_fraction=self.rebuild_fraction)
 
     def open(self, edges: EdgeList, *, tau: Optional[int] = None,
              e_pad: Optional[int] = None) -> GraphSession:

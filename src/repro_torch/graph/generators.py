@@ -5,9 +5,13 @@ arrays are identical for the same seed.
   * ``road_like`` / ``random_geometric`` — DIMACS road-network family
     (local edges, weights proportional to euclidean distance);
   * ``social_like`` / ``rmat`` — SNAP social family (RMAT power law);
-  * ``grid_mesh`` — the paper's square mesh for the Δ experiment.
+  * ``grid_mesh`` — the paper's square mesh for the Δ experiment;
+  * ``temporal_trace`` — seeded insert/reweight/delete batches over an
+    evolving copy of a graph (dynamic updates).
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 
@@ -123,3 +127,104 @@ def rmat(
 def social_like(n_log2: int = 14, edge_factor: int = 8, seed: int = 0,
                 **wkw) -> EdgeList:
     return rmat(n_log2, (1 << n_log2) * edge_factor, seed=seed, **wkw)
+
+
+def temporal_trace(
+    edges: EdgeList,
+    n_batches: int,
+    *,
+    events_per_batch: int = 64,
+    p_insert: float = 0.4,
+    p_reweight: float = 0.4,
+    p_delete: float = 0.2,
+    insert_mode: str = "local",
+    seed: int = 0,
+) -> List:
+    """Seeded update trace: ``n_batches`` batches of insert/reweight/delete
+    events over an evolving copy of ``edges``, simulated on the host so
+    every event is valid at its place in the stream (a key is mutated at
+    most once a batch) and symmetric (both directions). Weights are drawn
+    from the graph's own [min, max] range. ``insert_mode="local"`` joins
+    endpoints of two existing edges, ``"random"`` uniform pairs.
+
+    The reference's algorithm draw for draw: its key sets are built from
+    Python int pairs in the same order, so ``live`` iterates as the
+    reference's does. The reference also maps each key to its least
+    weight; nothing reads those values, so ``live`` holds None. Returns a
+    list of ``core.dynamic.UpdateBatch``.
+    """
+    from repro_torch.core.dynamic import UpdateBatch  # graph <- core cycle
+
+    if n_batches < 0:
+        raise ValueError(f"n_batches must be >= 0, got {n_batches}")
+    if insert_mode not in ("local", "random"):
+        raise ValueError(
+            f"insert_mode must be local|random, got {insert_mode!r}")
+    p_total = p_insert + p_reweight + p_delete
+    if p_total <= 0:
+        raise ValueError("at least one event probability must be positive")
+    n = edges.n_nodes
+    if n < 2:
+        raise ValueError("temporal_trace needs a graph with >= 2 nodes")
+    r = _rng(seed)
+    # deletes and reweights are emitted for both directions, so only pairs
+    # present in both are eligible
+    src, dst = edges.src, edges.dst
+    f, b = src < dst, src > dst
+    fwd = set(zip(src[f].tolist(), dst[f].tolist()))
+    bwd = set(zip(dst[b].tolist(), src[b].tolist()))
+    live = dict.fromkeys(fwd & bwd)
+    del fwd, bwd
+    w_lo = int(edges.weight.min()) if edges.n_edges else 1
+    w_hi = int(edges.weight.max()) if edges.n_edges else 1
+
+    def draw_w(k):
+        return r.integers(w_lo, w_hi + 1, size=k).astype(np.int64)
+
+    batches: List = []
+    for _ in range(n_batches):
+        keys = list(live)
+        mutated = set()
+        ins, rw, dl = [], [], []
+        kinds = r.choice(3, size=events_per_batch,
+                         p=np.array([p_insert, p_reweight, p_delete]) / p_total)
+        for kind in kinds:
+            if kind == 0:
+                for _try in range(32):
+                    if insert_mode == "local" and keys:
+                        a = keys[int(r.integers(len(keys)))]
+                        b = keys[int(r.integers(len(keys)))]
+                        u, v = a[int(r.integers(2))], b[int(r.integers(2))]
+                    else:
+                        u, v = map(int, r.integers(0, n, 2))
+                    u, v = (u, v) if u < v else (v, u)
+                    if u != v and (u, v) not in live and (u, v) not in mutated:
+                        w = int(draw_w(1)[0])
+                        live[(u, v)] = w
+                        mutated.add((u, v))
+                        ins.append((u, v, w))
+                        break
+            elif not keys:
+                continue
+            else:
+                for _try in range(32):
+                    k = keys[int(r.integers(len(keys)))]
+                    if k in mutated or k not in live:
+                        continue
+                    mutated.add(k)
+                    if kind == 1:
+                        w = int(draw_w(1)[0])
+                        live[k] = w
+                        rw.append((*k, w))
+                    else:
+                        del live[k]
+                        dl.append(k)
+                    break
+        batches.append(UpdateBatch.merge([
+            UpdateBatch.inserts([e[0] for e in ins], [e[1] for e in ins],
+                                [e[2] for e in ins]),
+            UpdateBatch.reweights([e[0] for e in rw], [e[1] for e in rw],
+                                  [e[2] for e in rw]),
+            UpdateBatch.deletes([e[0] for e in dl], [e[1] for e in dl]),
+        ]))
+    return batches

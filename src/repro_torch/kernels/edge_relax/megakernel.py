@@ -90,6 +90,7 @@ def fused_grow_supersteps_plain(
     live = ~frozen
     src = g.src.to(torch.int64)
     dst = g.dst.to(torch.int64)
+    in_rows = g.in_rows()
 
     def reached_count(dd):
         return torch.sum(live & (dd < delta))
@@ -111,7 +112,7 @@ def fused_grow_supersteps_plain(
     for j in range(k_fused):
         running = running & cond(changed, executed, reached)
         hits = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-            0, dst, front[src].to(torch.int32))
+            0, dst, (front[src] & in_rows).to(torch.int32))
         row_runs = live & (hits > 0)
         dm, cm, pm = edge_relax_plain((d, c, p, rw0, rc, rp), g, delta)
         if skip:

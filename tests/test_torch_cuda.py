@@ -14,7 +14,10 @@ a 39,485-edge hub) and inside the GCN forward (two launches per forward);
 CLUSTER2 and the quotient cascade on the kernel backend against the plain
 backend; pooled sessions (a padded row 0 past the long-row threshold)
 against unpooled ones, fused and not; an autotuned session (fuse 8 from
-its record) against the same session unfused.
+its record) against the same session unfused; dynamic updates on the
+kernel backend (``KernelBackend.rebind`` after a scatter and after a
+capacity growth, fused and not, and a confined regrow whose frozen set is
+every alive node) against the plain backend.
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -31,8 +34,10 @@ from repro_torch.common import GraphEngineConfig
 from repro_torch.config import GNN_SHAPES, get_arch
 from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
                               DeltaSteppingEstimator, KernelBackend,
-                              SessionPool, open_session)
-from repro_torch.graph import road_like, social_like
+                              SessionPool, SingleDeviceBackend, UpdateBatch,
+                              open_session)
+from repro_torch.core import dynamic
+from repro_torch.graph import road_like, social_like, temporal_trace
 from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.cin import kernel as cmod
 from repro_torch.kernels.cin.cases import CASES as CIN_CASES
@@ -939,3 +944,78 @@ def test_gcn_forward_through_the_kernel_on_card(cuda_device):
                         int(layout.in_degree().max())) <= 1.0
     loss = gnn.node_classification_loss(params, graph, cfg)
     assert smod.segment_mm_cuda.launches == 6 and torch.isfinite(loss)
+
+
+def _growth_batch(g, pairs: int, seed: int) -> UpdateBatch:
+    """Inserts of ``pairs`` new undirected keys: more directed slots than
+    the store's headroom holds, so the flush grows its capacity."""
+    rng = np.random.default_rng(seed)
+    have = set(zip(g.src.tolist(), g.dst.tolist()))
+    new = set()
+    while len(new) < pairs:
+        u, v = map(int, rng.integers(0, g.n_nodes, 2))
+        if u < v and (u, v) not in have:
+            new.add((u, v))
+    u, v = np.array(sorted(new), np.int32).T
+    return UpdateBatch.inserts(u, v, rng.integers(1, 50, len(u)))
+
+
+@pytest.mark.parametrize("fuse", [0, 8])
+def test_dynamic_rebind_after_scatter_and_growth_on_card(cuda_device, fuse):
+    """Two trace batches (in-place scatters), then inserts past the
+    headroom (a capacity growth and a whole upload): after each, the kernel
+    session's reports, planes and estimates equal the plain session's, and
+    the rebuilt CSR holds exactly the store's real edges."""
+    g = road_like(3000, seed=2)
+    batches = temporal_trace(g, 2, events_per_batch=60, seed=3)
+    batches.append(_growth_batch(g, g.n_edges // 3, seed=4))
+    sk = open_session(g, GraphEngineConfig(fuse_supersteps=fuse),
+                      backend="kernel", tau=8, device=cuda_device)
+    ss = open_session(g, backend="single", tau=8, device=cuda_device)
+    launches0 = sk.backend.launches
+    for b in batches:
+        rk, rs = sk.apply_updates(b), ss.apply_updates(b)
+        assert (dataclasses.replace(rk, seconds=0.0)
+                == dataclasses.replace(rs, seconds=0.0))
+        dk, ds = sk.dynamic.dec, ss.dynamic.dec
+        np.testing.assert_array_equal(dk.final_c, ds.final_c)
+        np.testing.assert_array_equal(dk.final_pathw, ds.final_pathw)
+        ek, es = sk.estimate(), ss.estimate()
+        assert (ek.phi_approx, ek.n_clusters) == (es.phi_approx, es.n_clusters)
+        store = sk.dynamic.store
+        graph = sk.backend.graph
+        assert int(graph.row_ptr[-1]) == store.n_edges
+        assert graph.n_edges == store.capacity
+    assert sk.dynamic.store.uploads == 2 and sk.dynamic.store.scatters == 2
+    assert sk.backend.launches > launches0
+    km, sm = (dataclasses.asdict(x.dynamic.metrics) for x in (sk, ss))
+    km.pop("engine_syncs"), sm.pop("engine_syncs")
+    assert km == sm
+
+
+@pytest.mark.parametrize("fuse", [0, 8])
+def test_confined_regrow_kernel_equals_plain_on_card(cuda_device, fuse):
+    """The repair's confined regrow: every alive node frozen, a tenth of
+    the nodes dead; the kernel over the store's CSR (inert tail) and the
+    plain superstep over the flat store give the same planes."""
+    g = road_like(3000, seed=5)
+    sess = open_session(g, backend="single", tau=8, device=cuda_device)
+    st = dynamic.ensure_dynamic(sess)
+    n, store, dec = g.n_nodes, st.store, st.dec
+    rng = np.random.default_rng(6)
+    alive = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    alive[torch.from_numpy(rng.choice(n, n // 10, replace=False)).to(
+        cuda_device)] = False
+    alive |= dec.final_c_dev == torch.arange(n, device=cuda_device)
+    state = dynamic._repair_state(dec.final_c_dev, dec.final_pathw_dev,
+                                  alive, n, confine=True)
+    kb = KernelBackend(g, device=cuda_device, fuse=fuse)
+    kb.rebind(store.src, store.dst, store.weight)
+    plain = SingleDeviceBackend.from_device(n, store.src, store.dst,
+                                            store.weight)
+    got, gs = kb.grow(state, 2**30, 0, 2**30, "complete")
+    want, ws = plain.grow(state, 2**30, 0, 2**30, "complete")
+    assert kb.launches > 0 and gs.steps == ws.steps > 0
+    for a, b in ((got.d, want.d), (got.c, want.c), (got.pathw, want.pathw)):
+        assert torch.equal(a, b)
+    assert torch.equal(got.pathw[alive], state.pathw[alive])

@@ -399,7 +399,7 @@ def test_serve_graph_diameter_contracts_fail(capsys):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--estimator", "dynamic"], "section 1 item 8"),
+    (["--update-trace", "-1"], "--update-trace must be >= 0"),
     (["--sync-budget", "bench"], "JAX package's host reads"),
     (["--sync-budget", "many"], "off | <int>"),
     (["--engine-mode", "fast"], None),
