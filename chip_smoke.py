@@ -93,6 +93,25 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      fused (8), unfused and plain equal, two batches repaired and two
      rebuilt (``rebuild_fraction`` 1, then 0); the same trace's brackets
      on ``road_like(4_096)`` around scipy's exact diameter.
+  2k. kill and resume at full size: the tau-16 ``CascadeEstimator(levels=2,
+     tau_solve=1024)`` query of phase 2d on a new kernel session, unfused
+     and fused (8), with a checkpoint directory armed: a real SIGTERM at
+     stage boundary 2 under a ``PreemptionGuard`` (entered only around
+     that query) must raise ``Preempted`` after a save; a new session with
+     ``resume=True`` must restore once and finish equal to phase 2d's
+     estimate (fields, final planes, eccentricities, level lists), leave
+     no step behind and count every read (``checkpoint_syncs`` apart).
+     Each stage's and each save's host seconds and each step's bytes are
+     printed. Then ``serve --mode graph-diameter`` on the same graph in a
+     subprocess with ``--preempt-after 2`` must exit 75, and its
+     ``--resume`` rerun must exit 0 with phase 2d's estimate.
+  2l. ``GraphStore``: ``launch/diameter.py --shards 4 --compress`` on the
+     same graph must give phase 2d's estimate (its geometry printed); a
+     session over a 4-shard ``GraphStore`` must too, ``spill()`` must
+     lower ``torch.cuda.memory_allocated``, and the next query must
+     unspill (one more build and upload) and give it again; then
+     ``examples/quickstart_torch.py`` on the card must print a
+     conservative Phi_approx.
   3. certified bracket: ``IntervalEstimator`` on ``road_like(65_536)``
      (lower <= upper) and on ``road_like(4_096)`` (lower <= scipy exact <=
      upper), stages and one-shot.
@@ -107,6 +126,22 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      the SSSP lower bound at most either cluster estimate's Phi; each
      prints supersteps, host reads, ms per superstep, seconds and the
      round ratio (Bellman-Ford's supersteps over CLUSTER's growing steps).
+  3c. the ``paper-graph`` arch at roads-USA scale: ``road_like(2^24,
+     seed=0)`` (100,663,284 directed edges, made by a worker process
+     started at the top of the script; its seconds printed) in
+     ``build_cell("paper-graph", "n16M", avg_degree=6)`` (12 masked edge
+     slots): its superstep on the kernel backend (one ``edge_relax``
+     launch) against the plain backend's, every plane equal, and the
+     kernel timed there beside the plain version and its byte bound; the
+     megakernel (fuse 8) from the same stage-0 planes against its plain
+     version, every output equal, at the query's first grow (Δ = the mean
+     weight, the stop variant) and at the cell's Δ in the complete variant
+     (timed beside its plain version and byte bound); then
+     the full config's query (tau ``tau_for(2^24)`` = 1,008, fused 8,
+     ``CascadeEstimator(levels=2, tau_solve=1024)``, a checkpoint at every
+     stage boundary): seconds, k, level clusters, supersteps, launches,
+     Phi, reads (measured = counted + ``checkpoint_syncs``), saves with
+     their seconds and bytes, each stage's seconds, peak bytes.
   4. flash attention vs plain: ``flash_attention_cuda`` (the
      warp-specialised ``wgmma`` kernel, K and V staged by TMA) against
      ``attention_ref`` in bf16 on the card, over the cases of
@@ -207,14 +242,19 @@ the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
 import pathlib
 import re
+import runpy
 import subprocess
 import sys
+import tempfile
 import types
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -234,6 +274,7 @@ INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
 SSSP_ROAD_NODES = 262_144       # the competitor's road graph (see phase 3b)
+PAPER_GRAPH_NODES = 1 << 24     # the paper-graph cell's roads-USA scale
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
 
@@ -251,6 +292,16 @@ def trace_job(n: int, seed: int, argv: list) -> tuple:
     with Timer() as t:
         trace = serve.update_traces([graph], args, seeds=[seed])[0]
     return trace, t.seconds
+
+
+def graph_job(n: int, seed: int) -> tuple:
+    """In a worker process: ``road_like(n, seed)`` and its host seconds."""
+    from repro_torch.common import Timer
+    from repro_torch.graph import road_like
+
+    with Timer() as t:
+        graph = road_like(n, seed=seed)
+    return graph, t.seconds
 
 
 def _fail(msg: str, code: int) -> int:
@@ -1679,7 +1730,14 @@ def main() -> int:
     from repro_torch.core.cluster import cluster
     from repro_torch.core.engine import (hashed_uniforms, oneshot_budget,
                                          oneshot_centers)
-    from repro_torch.graph import road_like, social_like, to_scipy_csr
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.config import get_arch
+    from repro_torch.graph import (GraphStore, road_like, social_like,
+                                   to_scipy_csr)
+    from repro_torch.launch import diameter as diameter_launcher
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.runtime.fault import (EXIT_PREEMPTED, Preempted,
+                                           PreemptionGuard)
     from repro_torch.kernels import _build
     from repro_torch.kernels.edge_relax import kernel as kmod
     from repro_torch.kernels.edge_relax import megakernel as mk
@@ -1689,6 +1747,12 @@ def main() -> int:
     from repro_torch.kernels.cin import kernel as cmod
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.kernels.segment_mm import kernel as smod
+
+    # phase 3c's 2^24-node graph is made by a worker process while the
+    # build and the phases before it run
+    paper_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    paper_job = paper_pool.submit(graph_job, PAPER_GRAPH_NODES, 0)
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -2295,7 +2359,7 @@ def main() -> int:
     emit({"phase": "graph_serve_parity", "equal_to_cascade_phase": True,
           "phi_approx": casc16.phi_approx,
           "rounds_equal": True})
-    del results, by_graph, casc16
+    del results, by_graph   # casc16 stays: phases 2k and 2l equal it
 
     # -- phase 2h: autotuned serving ------------------------------------------
     e_pad = served["e_pad"]
@@ -2493,6 +2557,205 @@ def main() -> int:
           "n4096_launches": launches_dyn_tiny})
     del small, small_trace, replays, base, tiny, tiny_trace, serve_graphs
 
+    # -- phase 2k: kill and resume at full size --------------------------------
+    def same_query(a, b) -> bool:
+        """The estimate's fields, final planes, quotient eccentricities and
+        cascade lists equal; the read counts may differ (a resumed run
+        reads less, a fused one otherwise)."""
+        pa, pb = a.pipeline, b.pipeline
+        return (all(getattr(a, f) == getattr(b, f) for f in ESTIMATE_FIELDS)
+                and np.array_equal(a.quotient_ecc, b.quotient_ecc)
+                and same_decomposition(a, b)
+                and (pa.level_clusters, pa.level_supersteps,
+                     pa.solve_supersteps) == (pb.level_clusters,
+                                              pb.level_supersteps,
+                                              pb.solve_supersteps))
+
+    casc_est = CascadeEstimator(levels=2, tau_solve=1024)
+    launches_resume = {}
+    for fuse in (0, 8):
+        cfg = GraphEngineConfig(fuse_supersteps=fuse)
+        with tempfile.TemporaryDirectory() as d:
+            pg = PreemptionGuard()
+            sess = open_session(edges, cfg, tau=16, device=dev,
+                                checkpoint_dir=d, guard=pg)
+            sess.checkpointer.preempt_after_stage = 2
+            torch.cuda.synchronize()
+            kmod.edge_relax_cuda.launches = 0
+            kmod.megakernel_cuda.launches = 0
+            killed_at = None
+            with Timer() as tk:
+                try:
+                    with pg:   # the guard only around the query it kills
+                        sess.estimate(casc_est)
+                except Preempted as p:
+                    killed_at = p.stage
+            killed = sess.checkpointer
+            killed_launches = (kmod.megakernel_cuda.launches if fuse
+                               else kmod.edge_relax_cuda.launches)
+            if killed_at != 2 or killed.saves < 1 or latest_step(d) != 2:
+                raise AssertionError(f"preempt_resume fuse={fuse}: the kill "
+                                     f"gave stage {killed_at}, "
+                                     f"{killed.saves} saves")
+            sess.close()
+            sess = open_session(edges, cfg, tau=16, device=dev,
+                                checkpoint_dir=d, resume=True,
+                                guard=PreemptionGuard())
+            with guard.metered() as meter:
+                res, n_launch, secs = drive(sess, casc_est, fuse > 0,
+                                            f"preempt_resume fuse={fuse}")
+            ck = sess.checkpointer
+            pm = res.pipeline
+            if ck.restores != 1:
+                raise AssertionError(f"preempt_resume fuse={fuse}: the "
+                                     "resume restored nothing")
+            if not same_query(res, casc16):
+                raise AssertionError(f"preempt_resume fuse={fuse}: the "
+                                     "resumed query differs from the "
+                                     "uninterrupted one")
+            if any(x.startswith("step_") for x in os.listdir(d)):
+                raise AssertionError("preempt_resume: steps left behind")
+            if meter.transfers != pm.total_host_syncs + pm.checkpoint_syncs:
+                raise AssertionError("preempt_resume: reads not counted")
+            if killed_launches <= 0 or n_launch <= 0:
+                raise AssertionError(f"preempt_resume fuse={fuse}: no launch")
+            launches_resume[fuse] = killed_launches + n_launch
+            emit({"phase": "preempt_resume", "fuse": fuse, "tau": 16,
+                  "n": edges.n_nodes, "killed_at_stage": killed_at,
+                  "killed_seconds": tk.seconds,
+                  "killed_launches": killed_launches,
+                  "saves_before_kill": killed.saves,
+                  "stage_seconds": killed.stage_seconds + ck.stage_seconds,
+                  "save_seconds": killed.save_seconds + ck.save_seconds,
+                  "save_bytes": killed.save_bytes + ck.save_bytes,
+                  "resumed_seconds": secs, "resumed_launches": n_launch,
+                  "restores": ck.restores, "saves_after_resume": ck.saves,
+                  "checkpoint_syncs": pm.checkpoint_syncs,
+                  "host_syncs": pm.total_host_syncs,
+                  "measured_reads": meter.transfers,
+                  "phi_approx": res.phi_approx,
+                  "clusters": res.n_clusters,
+                  "equal_to_uninterrupted": True})
+            sess.close()
+    # the serve launcher killed by a real SIGTERM in a subprocess, then
+    # resumed (the pooled CAL query of phase 2g's seed 0)
+    serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                 "--mode", "graph-diameter", "--batch", "1", "--graph-n",
+                 str(CAL_NODES), "--queries", "1", "--tau", "16", "--levels",
+                 "2", "--tau-solve", "1024", "--backend", "kernel",
+                 "--device", "cuda"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for what, extra in (("killed", ["--preempt-after", "2"]),
+                            ("resumed", ["--resume"])):
+            with Timer() as tr:
+                proc = subprocess.run(serve_cmd + ["--checkpoint-dir", d]
+                                      + extra, capture_output=True,
+                                      text=True, env=env, cwd=ROOT,
+                                      timeout=600)
+            runs[what] = (proc, tr.seconds)
+        killed, resumed = runs["killed"][0], runs["resumed"][0]
+        if killed.returncode != EXIT_PREEMPTED:
+            raise AssertionError(f"preempt_resume serve: the killed run "
+                                 f"exited {killed.returncode}: "
+                                 f"{killed.stderr[-2000:]}")
+        if resumed.returncode != 0:
+            raise AssertionError(f"preempt_resume serve: the resumed run "
+                                 f"exited {resumed.returncode}: "
+                                 f"{resumed.stderr[-2000:]}")
+        served = json.loads(resumed.stdout.strip().splitlines()[-1])
+        q = served["per_query"][0]
+        if (q["phi_approx"], q["clusters"]) != (casc16.phi_approx,
+                                                casc16.n_clusters) \
+                or served["checkpoint"][0]["restores"] != 1 \
+                or served["failures"]:
+            raise AssertionError("preempt_resume serve: the resumed "
+                                 f"estimate {q} differs")
+    emit({"phase": "preempt_resume_serve", "killed_exit": killed.returncode,
+          "resumed_exit": resumed.returncode,
+          "process_seconds": {k: v[1] for k, v in runs.items()},
+          "resumed": {k: served[k] for k in (
+              "checkpoint", "transfers", "counted_host_syncs",
+              "backend_launches", "cold_seconds")},
+          "phi_approx": q["phi_approx"], "clusters": q["clusters"],
+          "equal_to_uninterrupted": True})
+    del runs, served
+
+    # -- phase 2l: GraphStore, spill and the quickstart example ---------------
+    # the diameter launcher over 4 compressed shards, on phase 2's graph
+    # (its build_graph would make road_like(CAL_NODES, seed=0) again)
+    buf = io.StringIO()
+    real_build = diameter_launcher.build_graph
+    diameter_launcher.build_graph = lambda kind, n, seed: edges
+    torch.cuda.synchronize()
+    kmod.edge_relax_cuda.launches = 0
+    kmod.megakernel_cuda.launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = diameter_launcher.main([
+                "--n", str(CAL_NODES), "--tau", "16", "--levels", "2",
+                "--tau-solve", "1024", "--shards", "4", "--compress",
+                "--backend", "kernel", "--device", "cuda"])
+    finally:
+        diameter_launcher.build_graph = real_build
+    launches_store = kmod.edge_relax_cuda.launches
+    sharded = json.loads(buf.getvalue().strip().splitlines()[-1])
+    pc = casc16.pipeline
+    flat = {"phi_approx": casc16.phi_approx, "radius": casc16.radius,
+            "clusters": casc16.n_clusters, "stages": casc16.n_stages,
+            "supersteps": casc16.growing_steps,
+            "solve_supersteps": pc.solve_supersteps,
+            "level_clusters": pc.level_clusters,
+            "level_supersteps": pc.level_supersteps}
+    if rc != 0 or {k: sharded[k] for k in flat} != flat \
+            or launches_store != sharded["kernel_launches"] \
+            or launches_store <= 0:
+        raise AssertionError(f"graph_store: --shards 4 --compress gave "
+                             f"{sharded}, the flat run {flat}")
+    # a store-backed session: spill, then the next query unspills
+    store = GraphStore(edges, n_shards=4, device=dev)
+    sess = open_session(None, store=store, tau=16)
+    res, n1, secs1 = drive(sess, casc_est, False, "graph_store session")
+    del res
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_resident = torch.cuda.memory_allocated(dev)
+    m = sess.metrics
+    builds, uploads = m.backend_builds, m.edge_uploads
+    with Timer() as t_spill:
+        sess.spill()
+        gc.collect()
+        torch.cuda.synchronize()
+    mem_spilled = torch.cuda.memory_allocated(dev)
+    res, n2, secs2 = drive(sess, casc_est, False, "graph_store unspilled")
+    if not mem_spilled < mem_resident:
+        raise AssertionError("graph_store: spill freed no device memory")
+    if (m.backend_builds, m.edge_uploads) != (builds + 1, uploads + 1) \
+            or not same_query(res, casc16) or sess.spilled:
+        raise AssertionError("graph_store: the unspilled query differs")
+    launches_store += n1 + n2
+    sess.close()
+    del res, sess, store
+    # the quickstart example on the card
+    buf = io.StringIO()
+    quickstart = runpy.run_path(str(ROOT / "examples" /
+                                    "quickstart_torch.py"))
+    with contextlib.redirect_stdout(buf):
+        rc = quickstart["main"](["--device", "cuda"])
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or not lines or "conservative: True" not in lines[-1]:
+        raise AssertionError(f"quickstart_torch: {lines}")
+    emit({"phase": "graph_store", "n": edges.n_nodes, "tau": 16,
+          "launcher": sharded, "equal_to_flat": True,
+          "store_session_seconds": [secs1, secs2],
+          "memory_allocated_resident": mem_resident,
+          "memory_allocated_spilled": mem_spilled,
+          "spill_seconds": t_spill.seconds,
+          "builds_uploads_after_unspill": [m.backend_builds, m.edge_uploads],
+          "kernel_launches": launches_store, "quickstart": lines})
+    del casc16
+
     # the kernel at the main path's shapes: the road graph's CSR with
     # engine-like planes and the run's final Δ
     main_row = compare("main path road_like(1890815)", road_graph,
@@ -2613,6 +2876,119 @@ def main() -> int:
         sess.close()
         del ests, bf, dstep, e
 
+    # -- phase 3c: the paper-graph cell and a query at roads-USA scale --------
+    edges24, gen_seconds = paper_job.result()
+    paper_pool.shutdown()
+    emit({"phase": "graph", "family": "road_like", "n": edges24.n_nodes,
+          "edges": edges24.n_edges, "seconds": gen_seconds,
+          "made_by": "worker process"})
+    cell = build_cell("paper-graph", "n16M", avg_degree=6, device=dev)
+    inputs = cell.inputs(edges24)
+    masked = cell.n_edges - int(inputs["edge_mask"].sum())
+    torch.cuda.synchronize()
+    kmod.edge_relax_cuda.launches = 0
+    be_k = cell.backend(inputs, "kernel")
+    s0 = cell.state(be_k)
+    sk, gk = cell.step_fn(s0, be_k)
+    torch.cuda.synchronize()
+    launches_cell = kmod.edge_relax_cuda.launches
+    be_s = cell.backend(inputs, "single")
+    ss, gs_plain = cell.step_fn(cell.state(be_s), be_s)
+    fields = [f.name for f in dataclasses.fields(sk)]
+    if launches_cell != 1 or not all(torch.equal(getattr(sk, f),
+                                                 getattr(ss, f))
+                                     for f in fields) \
+            or (gk.steps, gk.reached) != (gs_plain.steps, gs_plain.reached):
+        raise AssertionError(f"paper_graph cell: {launches_cell} launches; "
+                             f"the kernel superstep ({gk}) differs from the "
+                             f"plain one ({gs_plain})")
+    del be_s, ss, sk
+    rw0, rc, rp, frozen24 = st.relay_planes(s0)
+    cell_row = compare("paper-graph n16M cell", be_k.graph,
+                       [x.cpu().numpy() for x in (s0.d, s0.c, s0.pathw, rw0,
+                                                  rc, rp)], 1 << 20,
+                       iters=20)
+    # the megakernel at this size, against its plain version from the
+    # same stage-0 planes: the query's first grow call (Δ = the mean
+    # weight, the stop variant, its half target and num_it, fuse 8) and
+    # a complete-variant call at the cell's Δ, whose frontier spans the
+    # graph for all 8 supersteps (timed)
+    n24 = cell.n_nodes
+    tau24 = tau_for(n24)
+    half24 = max((n24 + 1) // 2 - int(s0.is_center[:n24].sum()), 0)
+    front24 = torch.ones(s0.n, dtype=torch.uint8, device=dev)
+    mega24 = [compare_mega(
+        f"paper-graph n16M stage 0, {name}", be_k.graph,
+        (s0.d, s0.c, s0.pathw), (rw0, rc, rp), frozen24, front24,
+        mk.MegaParams(delta, half, max(2 * n24 // tau24, 8), 0, stop), 8,
+        iters=iters)
+        for name, delta, half, stop, iters in (
+            ("query's first grow", max(int(edges24.weight.mean()), 1),
+             half24, 1, 0),
+            ("complete", 1 << 20, 0, 0, 5))]
+    emit({"phase": "paper_graph_cell", "cell": cell.shape,
+          "n": cell.n_nodes, "edge_slots": cell.n_edges,
+          "real_edges": edges24.n_edges, "masked_edges": masked,
+          "planes_equal": True, "reached": gk.reached,
+          "kernel_launches": launches_cell, "ms": cell_row["ms"],
+          "plain_ms": cell_row["plain_ms"],
+          "bound_ms": cell_row["bound_ms"],
+          "megakernel_equal": True,
+          "megakernel_executed": [r["executed"] for r in mega24],
+          "megakernel_ms": mega24[1]["ms"],
+          "megakernel_plain_ms": mega24[1]["plain_ms"],
+          "megakernel_bound_ms": mega24[1]["bound_ms"]})
+    del be_k, inputs, s0, rw0, rc, rp, frozen24, front24, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the full config's query: tau_for(2^24), fused 8, the cascade, and a
+    # checkpoint at every stage boundary
+    cfg24 = dataclasses.replace(get_arch("paper-graph"), fuse_supersteps=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as d:
+        with Timer() as t_open:
+            sess24 = open_session(edges24, cfg24, tau_solve=1024, device=dev,
+                                  checkpoint_dir=d)
+        with guard.metered() as meter:
+            res24, launches24, secs24 = drive(
+                sess24, CascadeEstimator(levels=2, tau_solve=1024), True,
+                "paper_graph query")
+        ck = sess24.checkpointer
+        pm = res24.pipeline
+        left = [x for x in os.listdir(d) if x.startswith("step_")]
+    row24 = {"phase": "paper_graph", "n": edges24.n_nodes,
+             "edges": edges24.n_edges, "tau": sess24.tau,
+             "tau_solve": sess24.tau_solve, "fuse": 8,
+             "open_seconds": t_open.seconds, "query_seconds": secs24,
+             "phi_approx": res24.phi_approx, "radius": res24.radius,
+             "clusters": res24.n_clusters,
+             "level_clusters": pm.level_clusters,
+             "level_supersteps": pm.level_supersteps,
+             "stages": res24.n_stages, "supersteps": res24.growing_steps,
+             "solve_supersteps": pm.solve_supersteps,
+             "kernel_launches": launches24,
+             "host_syncs": pm.total_host_syncs,
+             "checkpoint_syncs": pm.checkpoint_syncs,
+             "measured_reads": meter.transfers, "saves": ck.saves,
+             "save_seconds": ck.save_seconds, "save_bytes": ck.save_bytes,
+             "stage_seconds": ck.stage_seconds,
+             "decompose_seconds": pm.decompose_seconds,
+             "quotient_seconds": pm.quotient_seconds,
+             "solve_seconds": pm.solve_seconds,
+             "peak_bytes": torch.cuda.max_memory_allocated(dev),
+             "connected": res24.connected}
+    emit(row24)
+    if sess24.tau != tau_for(PAPER_GRAPH_NODES) or launches24 <= 0 \
+            or meter.transfers != pm.total_host_syncs + pm.checkpoint_syncs \
+            or ck.saves < 1 or left or not res24.connected \
+            or not res24.phi_approx >= res24.phi_quotient >= 0:
+        raise AssertionError(f"paper_graph: {row24}")
+    sess24.close()
+    del sess24, res24, edges24
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- phases 4-6: flash attention and the LM at full width -----------------
     del res_k, res_s, res_f, oneshot, dk, ds, fc, mask, start, b
     gc.collect()
@@ -2649,8 +3025,14 @@ def main() -> int:
                              "graph_dynamic_parity_65536":
                                  launches_dyn_small,
                              "graph_dynamic_parity_4096": launches_dyn_tiny,
+                             "preempt_resume_unfused": launches_resume[0],
+                             "graph_store": launches_store,
+                             "paper_graph_cell": launches_cell,
                              **{f"sssp {k}": v
                                 for k, v in sssp_launches.items()}},
+        "paper_graph_cell_ms": cell_row["ms"],
+        "paper_graph_cell_plain_ms": cell_row["plain_ms"],
+        "paper_graph_cell_bound_ms": cell_row["bound_ms"],
     }, {
         "name": "megakernel", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/megakernel.cu",
@@ -2670,7 +3052,12 @@ def main() -> int:
                              "cluster2_fused": launches_c2[8],
                              "graph_autotune": launches_tuned,
                              "graph_dynamic_parity_65536_fused":
-                                 launches_dyn_fused},
+                                 launches_dyn_fused,
+                             "preempt_resume_fused": launches_resume[8],
+                             "paper_graph_query": launches24},
+        "paper_graph_ms": mega24[1]["ms"],
+        "paper_graph_plain_ms": mega24[1]["plain_ms"],
+        "paper_graph_bound_ms": mega24[1]["bound_ms"],
     }, flash_row, cin_row, segmm_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

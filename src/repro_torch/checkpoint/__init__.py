@@ -1,0 +1,4 @@
+"""Atomic checkpoints of trees of tensors and arrays."""
+from repro_torch.checkpoint.checkpoint import latest_step, restore, save
+
+__all__ = ["latest_step", "restore", "save"]

@@ -3,8 +3,11 @@ ported paths read: ``ShapeSpec`` (its GNN and recsys fields),
 ``ArchConfig``, ``TransformerConfig`` (with ``head_dim`` and
 ``param_count``), ``GNNConfig`` (with the reference's rough
 ``param_count``), ``RecsysConfig`` (with ``param_count`` as the reference
-has it: it leaves out the ``linear`` table) and the GNN and recsys shape
-sets ``GNN_SHAPES`` and ``RECSYS_SHAPES``. The MoE configs and the LM
+has it: it leaves out the ``linear`` table), ``GraphEngineConfig`` (the
+paper engine's, without the sharded and Pallas backends' knobs ``comm``,
+``relax_impl``, ``node_tile`` and ``edge_block``; its ``backend`` defaults
+to the port's ``kernel``) and the GNN and recsys shape sets
+``GNN_SHAPES`` and ``RECSYS_SHAPES``. The MoE configs and the LM
 shape set wait for their slices.
 
 Configs are plain frozen dataclasses: hashable, serialisable with
@@ -143,6 +146,31 @@ class RecsysConfig(ArchConfig):
             mlp += prev * w + w
             prev = w
         return emb + cin + mlp + prev + sum(self.cin_layers) + 1
+
+
+@dataclass(frozen=True)
+class GraphEngineConfig(ArchConfig):
+    """Config for the paper's decomposition/diameter engine."""
+
+    family: str = "graph"
+    tau_fraction: float = 1e-3   # tau ~ n * tau_fraction / log n
+    gamma: float = 2.0           # center-sampling constant
+    variant: str = "stop"        # stop | complete (paper Table 2)
+    delta_init: str = "avg"      # avg | min | <int>
+    max_stages: int = 64
+    max_steps_per_phase: int = 0  # 0 -> 2n/tau (paper's num_it)
+    use_cluster2: bool = False   # paper Algorithm 2 instead of CLUSTER
+                                 # (staged only; core/cluster.cluster2)
+    seed: int = 0
+    backend: str = "kernel"      # single | kernel (core/backend.py)
+    autotune: str = "off"        # off | auto | record (core/autotune.py)
+    fuse_supersteps: int = 0     # kernel backend: supersteps per megakernel
+                                 # launch (0 = unfused unless the autotuner
+                                 # engages)
+    mode: str = "stages"         # stages | oneshot | auto (core/engine.py;
+                                 # "auto" defers to the autotuning record,
+                                 # "stages" without one)
+    deterministic: bool = False  # oneshot: hash-derived centers and shifts
 
 
 GNN_SHAPES: Tuple[ShapeSpec, ...] = (

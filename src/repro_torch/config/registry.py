@@ -17,6 +17,7 @@ _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 _ARCH_MODULES = {
     "gcn-cora": "gcn_cora",
     "gemma2-9b": "gemma2_9b",
+    "paper-graph": "paper_graph",
     "xdeepfm": "xdeepfm",
 }
 

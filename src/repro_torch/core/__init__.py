@@ -26,6 +26,7 @@ from repro_torch.core.engine import (
     Decomposition,
     DecompositionMode,
     EngineMetrics,
+    StageCheckpointer,
     check_engine_mode,
     default_oneshot_uniform_fn,
     default_uniform_fn,
@@ -84,6 +85,7 @@ __all__ = [
     "EngineMetrics", "GraphSession", "GraphStats", "IntervalEstimator",
     "KernelBackend", "LowerBoundEstimator", "PipelineMetrics",
     "RelaxBackend", "SessionMetrics", "SessionPool", "SingleDeviceBackend",
+    "StageCheckpointer",
     "TUNE_EVENTS", "TuningRecord", "UpdateBatch", "UpdateReport",
     "approximate_diameter",
     "approximate_diameter_batch", "bellman_ford", "check_engine_mode",

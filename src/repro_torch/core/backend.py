@@ -12,6 +12,12 @@ port of the JAX package's ``core/backend.py`` (single and kernel kinds).
 Both share the candidate rule and the lexicographic (d, c, pathw)
 tuple-min, and ``growth_loop`` owns the stopping rule, so for a fixed seed
 they produce byte-identical decompositions.
+
+Either opens from an ``EdgeList`` or from an edge store
+(``graph/storage.EdgeStore`` / ``GraphStore``): then it runs over the
+store's resident tensors, inert slots included, and the kernel backend
+builds its CSR through ``rebind``, which sorts those slots past the last
+row.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.core.chunked import DEFAULT_CHUNK
 from repro_torch.core.delta_growing import (GrowthStats, growth_loop,
                                             partial_growth)
 from repro_torch.core.state import EngineState, init_state, relay_planes
+from repro_torch.graph.storage import EdgeStore
 from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.edge_relax.kernel import (edge_relax_cuda,
                                                    megakernel_cuda)
@@ -127,22 +134,44 @@ class KernelBackend:
     kind = "kernel"
 
     def __init__(self, edges: EdgeList, device="cuda", fuse: int = 0):
+        self._setup(edges.n_nodes, resolve_device(device), fuse)
+        self.graph = build_relax_graph(edges.src, edges.dst, edges.weight,
+                                       edges.n_nodes, self.device)
+
+    def _setup(self, n_nodes: int, device: torch.device, fuse: int) -> None:
         fuse = int(fuse)
         if fuse < 0:
             raise ValueError(f"fuse must be >= 0, got {fuse}")
-        if fuse and edges.n_nodes * (fuse + 1) >= 2**31:
+        if fuse and n_nodes * (fuse + 1) >= 2**31:
             raise ValueError(
-                f"fuse={fuse} at n={edges.n_nodes}: the megakernel's int32 "
+                f"fuse={fuse} at n={n_nodes}: the megakernel's int32 "
                 "counts need n * (fuse + 1) < 2^31")
-        self.device = resolve_device(device)
+        self.device = device
         self.fuse = fuse
-        self.n_nodes = edges.n_nodes
-        self.n_pad = edges.n_nodes
-        self.graph = build_relax_graph(edges.src, edges.dst, edges.weight,
-                                       edges.n_nodes, self.device)
+        self.n_nodes = n_nodes
+        self.n_pad = n_nodes
         self.transfers = 0
         self.launches = 0
         self.rebind_seconds = 0.0   # host clock spent in rebind()
+
+    @classmethod
+    def from_device(cls, n_nodes: int, src: torch.Tensor, dst: torch.Tensor,
+                    weight: torch.Tensor, fuse: int = 0) -> "KernelBackend":
+        """Over int32 edge arrays already on a device whose padding slots
+        are inert self-loops, the CSR built by :meth:`rebind` (the loops
+        sorted past the last row)."""
+        be = cls.__new__(cls)
+        be._setup(n_nodes, src.device, fuse)
+        be.rebind(src, dst, weight)
+        return be
+
+    @classmethod
+    def from_store(cls, store: EdgeStore, fuse: int = 0) -> "KernelBackend":
+        """Over an edge store's resident tensors (uploaded first if the
+        store was spilled)."""
+        store.ensure_device()
+        return cls.from_device(store.n_nodes, store.src, store.dst,
+                               store.weight, fuse)
 
     def init_state(self) -> EngineState:
         self.transfers += 1
@@ -188,16 +217,25 @@ class KernelBackend:
         return out
 
 
-def make_backend(edges: EdgeList, spec="kernel", *, device="cuda",
+def make_backend(edges, spec="kernel", *, device="cuda",
                  fuse: int = 0) -> RelaxBackend:
     """Resolve a backend from a kind name (or pass an instance through).
-    ``fuse`` applies to the kernel kind only (0 = unfused), as the
+    ``edges`` is an ``EdgeList`` or an edge store; over a store both kinds
+    bind its resident tensors on the store's device (``device`` is then
+    unused). ``fuse`` applies to the kernel kind only (0 = unfused), as the
     reference's applies to its pallas kind only."""
     if not isinstance(spec, str):
         return spec
-    if spec == "single":
+    if isinstance(edges, EdgeStore):
+        if spec == "single":
+            edges.ensure_device()
+            return SingleDeviceBackend.from_device(
+                edges.n_nodes, edges.src, edges.dst, edges.weight)
+        if spec == "kernel":
+            return KernelBackend.from_store(edges, fuse=fuse)
+    elif spec == "single":
         return SingleDeviceBackend(edges, device=device)
-    if spec == "kernel":
+    elif spec == "kernel":
         return KernelBackend(edges, device=device, fuse=fuse)
     raise ValueError(f"unknown backend {spec!r} (expected one of "
                      f"{BACKEND_KINDS})")

@@ -14,7 +14,10 @@ from repro_torch.core.backend import RelaxBackend, make_backend
 from repro_torch.core.engine import (Decomposition, UniformFn, run_cluster,
                                     run_cluster2, resolve_engine_mode,
                                     run_oneshot)
+from repro_torch.common import get_logger
 from repro_torch.graph.structures import EdgeList
+
+log = get_logger("repro_torch.cluster")
 
 __all__ = ["Decomposition", "cluster", "cluster2", "_initial_delta"]
 
@@ -46,6 +49,7 @@ def cluster(
     uniform_fn: Optional[UniformFn] = None,
     mode: str = "stages",
     deterministic: bool = False,
+    checkpointer=None,
 ) -> Decomposition:
     """Paper Algorithm 1. ``variant`` in {"stop", "complete"}; ``backend``
     is "single", "kernel" or a backend instance (which fixes the device).
@@ -54,10 +58,16 @@ def cluster(
     start shifts, one complete grow call) or "auto" (resolves to
     "stages"); unknown names raise before any device work.
     ``deterministic`` applies to oneshot only: hashed centers and shifts.
+    ``checkpointer`` (an ``engine.StageCheckpointer``) makes the stages
+    mode preemption-safe; one-shot mode has no stage boundary and ignores
+    it.
     """
     mode = resolve_engine_mode(mode)
     be = make_backend(edges, backend, device=device)
     if mode == "oneshot":
+        if checkpointer is not None:
+            log.info("oneshot mode has no stage boundaries; checkpointer "
+                     "ignored")
         return run_oneshot(
             edges, be, tau, gamma=gamma, seed=seed,
             deterministic=deterministic,
@@ -70,6 +80,7 @@ def cluster(
         max_steps_per_phase=max_steps_per_phase,
         threshold_const=threshold_const,
         uniform_fn=uniform_fn,
+        checkpointer=checkpointer,
     )
 
 

@@ -358,7 +358,7 @@ def _recertify(session, dec: Decomposition,
 def ensure_dynamic(session) -> DynamicState:
     """Switch a session into dynamic mode, once: build an ``EdgeStore``
     from the resident graph (pool padding self-loops become free
-    capacity), rebind the backend to it, decompose, and recertify the
+    capacity), or take a store-backed session's own store, rebind the backend to it, decompose, and recertify the
     decomposition through the witness forest.
 
     The reference builds a single-shard ``GraphStore`` here; with one
@@ -368,7 +368,13 @@ def ensure_dynamic(session) -> DynamicState:
     if st is not None:
         return st
     session._check_open()
-    store = EdgeStore(session.edges, device=session.device)
+    # a store-backed session keeps ITS store (its checkpoint seam stays
+    # live under updates)
+    store = session.store
+    if store is None:
+        store = EdgeStore(session.edges, device=session.device)
+    else:
+        store.ensure_device()
     session.backend.rebind(store.src, store.dst, store.weight)
     # the host mirror turns lazy (materialized from the store on access);
     # the edge count tracks the store (the build drops self-loops and

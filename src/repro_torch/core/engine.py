@@ -33,18 +33,29 @@ One-shot mode (MPVX exponential start times): the full center budget
 ``d = shift_max - shift_c``, and ONE ``complete`` grow call resolves the
 race, then ``cover(Δ)``. Its host reads are the grow call's (one per chunk,
 or one per fused launch) and the final read of the planes.
+
+A ``StageCheckpointer`` makes the stages mode preemption-safe: at every
+stage boundary it saves the planes, the root key and the stage scalars
+(``checkpoint/checkpoint.py``), and a resumed run restores them and
+finishes byte-identically. One-shot mode has no stage boundary and takes
+no checkpointer.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import os
+import re
+import shutil
+import signal as _signal
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import guard
-from repro_torch.common import get_logger
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.common import Timer, get_logger
 from repro_torch.core import prng
 from repro_torch.core.backend import RelaxBackend
 from repro_torch.core.state import (
@@ -58,6 +69,8 @@ from repro_torch.core.state import (
     uncovered_count,
 )
 from repro_torch.graph.structures import EdgeList
+from repro_torch.runtime.fault import Preempted, PreemptionGuard
+from repro_torch.runtime.telemetry import clock
 
 log = get_logger("repro_torch.engine")
 
@@ -103,6 +116,11 @@ class EngineMetrics:
     kernel_supersteps: int = 0  # supersteps run inside fused calls
     dma_stall_blocks: int = 0   # rows the fused calls skipped (frontier or
                                 # frozen); the reference counted edge blocks
+    # reads spent by stage-boundary checkpoint saves (the planes and the
+    # boundary's uncovered count). Outside host_syncs: the save cadence is
+    # a durability knob, not a round of the algorithm. Every read of a
+    # query is host_syncs + finalize_syncs + checkpoint_syncs.
+    checkpoint_syncs: int = 0
 
 
 @dataclass
@@ -136,7 +154,13 @@ def default_uniform_fn(seed: int, device) -> UniformFn:
     """The reference's stage center draw, bit for bit: redraw ``t`` of
     ``stage`` is ``uniform(fold_in(fold_in(PRNGKey(seed), stage), t), n)``
     (``jax.random``, reproduced on ``device`` by ``core/prng.py``)."""
-    root = prng.prng_key(seed)
+    return uniform_fn_from_key(prng.prng_key(seed), device)
+
+
+def uniform_fn_from_key(root: prng.Key, device) -> UniformFn:
+    """The stage center draw from a root key's two words (a checkpoint's
+    ``key`` leaf): ``uniform(fold_in(fold_in(root, stage), t), n)``."""
+    root = (int(root[0]), int(root[1]))
 
     def draw(stage: int, t: int, n: int) -> torch.Tensor:
         return prng.uniform(prng.fold_in(prng.fold_in(root, stage), t), n,
@@ -155,6 +179,148 @@ def default_oneshot_uniform_fn(seed: int, device) -> UniformFn:
         return prng.uniform(keys[t], n, device)
 
     return draw
+
+
+# ---------------------------------------------------------------------------
+# stage-boundary checkpoints
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StageCheckpointer:
+    """Stage-boundary checkpoint and restore for the stages mode.
+
+    At every stage boundary ``run_cluster`` hands this hook the
+    ``EngineState`` planes, the root key (the two uint32 words of
+    ``PRNGKey(seed)``), the stage scalars (``stage``, ``delta``,
+    ``uncovered``, ``total_steps``, ``n_stages``, ``seed``, ``n``, ``tau``,
+    ``variant``) and, with a ``store`` attached, its host buffers. Every
+    ``every``-th stage the tree goes through ``checkpoint.save`` (an atomic
+    rename, so a writer killed midway never corrupts the latest step).
+
+    The stage loop reads the uncovered count at the NEXT stage's opening
+    read, so at a boundary it is still a device scalar: a save reads it
+    (and the planes) inside its own ``guard.metered()`` region and books
+    those reads as ``EngineMetrics.checkpoint_syncs``; a boundary without a
+    save reads nothing.
+
+    Under an entered :class:`PreemptionGuard` whose signal fired, the save
+    is unconditional and :class:`Preempted` is raised AFTER it is durable.
+    A resume is byte-identical: the draws of stage ``s`` redraw ``t`` are
+    ``fold_in(fold_in(key, s), t)``, the state is all int32/bool, and the
+    saved key and stage counter regenerate exactly the remaining draws.
+
+    ``preempt_after_stage = k`` sends a REAL ``SIGTERM`` to this process
+    at boundary k (a test hook), so it needs an attached, entered guard.
+    """
+
+    ckpt_dir: str
+    guard: Optional[PreemptionGuard] = None
+    store: Optional[Any] = None      # graph.storage.EdgeStore / GraphStore
+    every: int = 1
+    keep: int = 3
+    resume: bool = False
+    preempt_after_stage: int = 0     # 0 = never; k = SIGTERM at boundary k
+    saves: int = 0
+    restores: int = 0
+    last_path: Optional[str] = None
+    # host clock of each stage (its opening read to its boundary) and of
+    # each save, and each saved step's bytes on disk
+    stage_seconds: List[float] = field(default_factory=list)
+    save_seconds: List[float] = field(default_factory=list)
+    save_bytes: List[int] = field(default_factory=list)
+    _fired: bool = field(default=False, repr=False)
+
+    def _tree(self, state, key) -> Dict[str, Any]:
+        tree: Dict[str, Any] = {"planes": state, "key": key}
+        if self.store is not None:
+            tree["store"] = self.store.state_dict()
+        return tree
+
+    def save(self, state, key, scalars: Dict[str, Any],
+             metrics: Optional[EngineMetrics] = None) -> str:
+        """Write one step; 0-d tensor scalars are read here, in one packed
+        read, inside the save's meter."""
+        with Timer() as t, guard.metered() as m:
+            lazy = [k for k, v in scalars.items()
+                    if isinstance(v, torch.Tensor)]
+            if lazy:
+                vals = guard.fetch(
+                    torch.stack([scalars[k].to(torch.int64) for k in lazy]),
+                    reason="checkpoint save: packed boundary scalars")
+                scalars = {**scalars, **dict(zip(lazy, vals.tolist()))}
+            extra: Dict[str, Any] = {"engine": {
+                k: int(v) if isinstance(v, (int, np.integer)) else v
+                for k, v in scalars.items()}}
+            if self.store is not None:
+                extra["store"] = self.store.extra_state()
+            path = ckpt.save(self.ckpt_dir, int(scalars["stage"]),
+                             self._tree(state, key), extra=extra,
+                             keep=self.keep)
+        if metrics is not None:
+            metrics.checkpoint_syncs += m.transfers
+        self.saves += 1
+        self.last_path = path
+        self.save_seconds.append(t.seconds)
+        self.save_bytes.append(sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+        return path
+
+    def at_stage_boundary(self, state, key, scalars: Dict[str, Any],
+                          metrics: Optional[EngineMetrics] = None,
+                          stage_seconds: Optional[float] = None) -> None:
+        """Called by ``run_cluster`` after each stage (``stage_seconds``:
+        its host clock). Saves on cadence; on an observed preemption saves
+        unconditionally and raises :class:`Preempted`."""
+        if stage_seconds is not None:
+            self.stage_seconds.append(stage_seconds)
+        stage = int(scalars["stage"])
+        if (self.preempt_after_stage and stage >= self.preempt_after_stage
+                and not self._fired):
+            if self.guard is None:
+                raise RuntimeError(
+                    "preempt_after_stage requires an attached (and entered) "
+                    "PreemptionGuard: a raw SIGTERM would kill the process")
+            self._fired = True
+            # a REAL signal: the guard's handler runs on delivery, before
+            # the check below
+            os.kill(os.getpid(), _signal.SIGTERM)
+        preempted = self.guard is not None and self.guard.should_stop
+        if preempted or (self.every and stage % self.every == 0):
+            self.save(state, key, scalars, metrics)
+        if preempted:
+            raise Preempted(stage, self.last_path,
+                            getattr(self.guard, "received", None))
+
+    def try_restore(self, like_state, like_key, backend=None):
+        """``(state, key, scalars)`` from the latest step, or None when the
+        directory holds none (a fresh start). The planes land on
+        ``like_state``'s device with its dtypes; an attached store is
+        restored in place, which uploads its edges anew, so ``backend``
+        (the one the run grows on) is rebound to the store's new arrays
+        and the old ones are freed."""
+        if ckpt.latest_step(self.ckpt_dir) is None:
+            return None
+        tree, extra = ckpt.restore(self.ckpt_dir,
+                                   self._tree(like_state, like_key))
+        if self.store is not None and "store" in tree:
+            self.store.load_state(tree["store"], extra.get("store", {}))
+            if backend is not None:
+                backend.rebind(self.store.src, self.store.dst,
+                               self.store.weight)
+        self.restores += 1
+        return tree["planes"], tree["key"], extra.get("engine", {})
+
+    def complete(self) -> None:
+        """The decomposition finished: remove the step directories (a later
+        query on the directory must not resume a finished run) and consume
+        the resume flag."""
+        self.resume = False
+        if os.path.isdir(self.ckpt_dir):
+            for d in os.listdir(self.ckpt_dir):
+                if re.fullmatch(r"step_\d+", d):
+                    shutil.rmtree(os.path.join(self.ckpt_dir, d),
+                                  ignore_errors=True)
 
 
 def _sample_centers(uniform_fn: UniformFn, stage: int, t: int, p,
@@ -243,13 +409,21 @@ def run_cluster(
     max_resamples: int = MAX_RESAMPLES,
     max_delta: Optional[int] = None,
     uniform_fn: Optional[UniformFn] = None,
+    checkpointer: Optional[StageCheckpointer] = None,
 ) -> Decomposition:
     """Paper Algorithm 1 on the backend's device-resident planes.
 
     ``edges`` may be None when the graph exists only as the backend's
     device arrays (a cascade level): ``max_delta`` (the Δ-doubling ceiling,
     otherwise the host weight sum + 1) must then be given, and the node
-    count comes from ``backend.n_nodes``."""
+    count comes from ``backend.n_nodes``.
+
+    ``checkpointer`` saves the state at stage boundaries; an observed
+    SIGTERM/SIGINT raises ``Preempted`` after a durable save, and with
+    ``checkpointer.resume`` the latest step is restored (a divergent seed,
+    n, tau or variant is refused) and the run finishes byte-identically.
+    On resume the draws come from the restored key unless ``uniform_fn``
+    was given."""
     if edges is None and max_delta is None:
         raise ValueError("run_cluster(edges=None) needs an explicit max_delta")
     n = backend.n_nodes if edges is None else edges.n_nodes
@@ -263,6 +437,7 @@ def run_cluster(
         max_delta = int(edges.weight.astype(np.int64).sum()) + 1
     max_delta = min(max(int(max_delta), 1), 2**30)
     dev = backend.device
+    injected = uniform_fn is not None
     if uniform_fn is None:
         uniform_fn = default_uniform_fn(seed, dev)
     p_scale = torch.tensor(gamma * tau * logn, dtype=torch.float32, device=dev)
@@ -270,11 +445,38 @@ def run_cluster(
     transfers0 = backend.transfers
     launches0 = backend.launches
     state = backend.init_state()
+    # the reference's PRNGKey(seed): the root every stage's draw folds from
+    key = np.asarray(prng.prng_key(seed), np.uint32)
     delta_host = int(delta0)
     u_dev = torch.tensor(n, dtype=torch.int64, device=dev)
     total_steps = n_stages = stage = 0
 
+    if checkpointer is not None and checkpointer.resume:
+        restored = checkpointer.try_restore(state, key, backend)
+        checkpointer.resume = False   # consumed either way
+        if restored is not None:
+            state, key, sc = restored
+            for want, got in (("seed", seed), ("n", n), ("tau", tau),
+                              ("variant", variant)):
+                if want in sc and sc[want] != got:
+                    raise ValueError(
+                        f"checkpoint {want}={sc[want]!r} does not match this "
+                        f"run's {want}={got!r}; refusing a divergent resume")
+            stage = int(sc["stage"])
+            delta_host = int(sc["delta"])
+            u_dev = torch.tensor(int(sc["uncovered"]), dtype=torch.int64,
+                                 device=dev)
+            total_steps = int(sc["total_steps"])
+            n_stages = int(sc["n_stages"])
+            metrics.stages = stage
+            if not injected:
+                uniform_fn = uniform_fn_from_key(key, dev)
+            log.info("resumed decomposition at stage %d (uncovered=%d, "
+                     "delta=%d) from %s", stage, int(sc["uncovered"]),
+                     delta_host, checkpointer.ckpt_dir)
+
     while stage < max_stages:
+        t_stage = clock()
         p = torch.clamp_max(p_scale / u_dev.to(torch.float32), 1.0)
         mask = _sample_centers(uniform_fn, stage, 0, p, state, n)
         # the stage's opening read: the uncovered count (the previous
@@ -307,7 +509,17 @@ def run_cluster(
         log.info("stage %d: centers+%d steps=%d grows=%d resamples=%d "
                  "uncovered_before=%d", stage, n_new, steps, grows,
                  resamples, u_host)
+        if checkpointer is not None:
+            # "uncovered" is still on the device: a save reads it
+            checkpointer.at_stage_boundary(
+                state, key,
+                {"stage": stage, "delta": delta_host, "uncovered": u_dev,
+                 "total_steps": total_steps, "n_stages": n_stages,
+                 "seed": seed, "n": n, "tau": tau, "variant": variant},
+                metrics, stage_seconds=clock() - t_stage)
 
+    if checkpointer is not None:
+        checkpointer.complete()
     metrics.growing_steps = total_steps
     metrics.state_transfers = backend.transfers - transfers0
     metrics.kernel_launches = backend.launches - launches0

@@ -62,6 +62,9 @@ class PipelineMetrics:
 
     decompose_syncs: int = 0   # stage opens, redraws and grow-chunk reads
     finalize_syncs: int = 0    # packed final-plane read (1 / decomposition)
+    checkpoint_syncs: int = 0  # reads of stage-boundary checkpoint saves;
+                               # NOT in total_host_syncs (a durability
+                               # knob, not a round of the algorithm)
     quotient_syncs: int = 0    # (k, m, max_w, w_sum) counter read
     solve_syncs: int = 0       # solve chunk reads + the packed result read
     solve_supersteps: int = 0  # device BF supersteps inside the solve
@@ -282,11 +285,13 @@ def _run_decomposition(session: GraphSession, cfg, tau: int,
                 max_steps_per_phase=cfg.max_steps_per_phase,
                 backend=session.backend, uniform_fn=session.uniform_fn,
                 mode=cfg.mode, deterministic=cfg.deterministic,
+                checkpointer=session.checkpointer,
             )
     pm.decompose_seconds += t.seconds
     m = dec.metrics
     pm.decompose_syncs = m.host_syncs
     pm.finalize_syncs = m.finalize_syncs
+    pm.checkpoint_syncs = m.checkpoint_syncs
     pm.kernel_launches = m.kernel_launches
     pm.kernel_supersteps = m.kernel_supersteps
     pm.dma_stall_blocks = m.dma_stall_blocks

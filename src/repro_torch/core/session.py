@@ -1,6 +1,5 @@
 """GraphSession: a resident-graph handle for query-many serving, the port of
-the JAX package's ``core/session.py`` (without its store-backed sessions,
-spill or checkpoints).
+the JAX package's ``core/session.py``.
 
 ``open_session(edges, ...)`` uploads the edges and builds the backend once
 on the session's device; every estimator query afterwards runs against
@@ -26,12 +25,24 @@ device and repairs the maintained decomposition (``core/dynamic.py``);
 from then on ``estimate()`` defaults to ``DynamicQuotientEstimator``.
 ``rebuild_fraction`` is the dead-node fraction above which a batch
 decomposes the graph again.
+
+A session may be backed by an edge store (``open_session(store=...)``,
+``graph/storage.EdgeStore`` or ``GraphStore``): the backend binds the
+store's resident tensors, ``spill()`` gives the device memory back while
+the host mirrors stay, and the next query unspills (one more backend
+build and edge upload). ``checkpoint_dir`` arms an
+``engine.StageCheckpointer`` that the cluster-quotient estimators hand
+to the stages decomposition (with the store's buffers in every step);
+``resume=True`` continues from its latest step, and ``guard`` (a
+``runtime.fault.PreemptionGuard``) turns a SIGTERM into a save and
+``Preempted``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -42,7 +53,9 @@ from repro_torch.common import (GraphEngineConfig, get_logger, next_multiple,
                                 resolve_device)
 from repro_torch.core.backend import RelaxBackend, make_backend
 from repro_torch.core.cluster import _initial_delta
-from repro_torch.core.engine import UniformFn, resolve_engine_mode
+from repro_torch.core.engine import (StageCheckpointer, UniformFn,
+                                     resolve_engine_mode)
+from repro_torch.graph.storage import EdgeStore, GraphStore
 from repro_torch.graph.structures import EdgeList
 
 log = get_logger("repro_torch.session")
@@ -86,7 +99,7 @@ class GraphSession:
 
     def __init__(
         self,
-        edges: EdgeList,
+        edges: Optional[EdgeList],
         cfg: Optional[GraphEngineConfig] = None,
         *,
         tau: Optional[int] = None,
@@ -98,7 +111,15 @@ class GraphSession:
         delta_stats: Optional[Dict[str, int]] = None,
         autotune: Optional[str] = None,
         rebuild_fraction: Optional[float] = None,
+        store: Optional[EdgeStore] = None,
+        checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
+        guard=None,
     ):
+        if edges is None:
+            if store is None:
+                raise ValueError("GraphSession needs edges or a store")
+            edges = store.edge_list()
         if tau is not None and tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
         if tau_solve is not None and tau_solve < 2:
@@ -113,8 +134,16 @@ class GraphSession:
                 f"autotune must be off | auto | record, got {tune!r}")
         if backend is None:
             backend = self.cfg.backend
-        self.device = (resolve_device(device) if isinstance(backend, str)
-                       else backend.device)
+        if not isinstance(backend, str):
+            self.device = backend.device
+        elif store is not None:
+            self.device = store.device
+        else:
+            self.device = resolve_device(device)
+        # the storage layer, when attached, is the source of truth: the
+        # backend binds its tensors and spill()/unspill() move residency
+        self.store: Optional[EdgeStore] = store
+        self._spilled = False
         # symbolic delta_init modes resolved over the REAL edges (set by
         # SessionPool, so padding self-loops never skew "avg"/"min")
         self._delta_stats = delta_stats
@@ -138,17 +167,20 @@ class GraphSession:
 
         self.metrics = metrics if metrics is not None else SessionMetrics()
         self.metrics.sessions_opened += 1
+        self._edges: Optional[EdgeList] = edges
         if isinstance(backend, str):
-            fuse = self.cfg.fuse_supersteps or (
+            self._backend_kind = backend
+            self._fuse = self.cfg.fuse_supersteps or (
                 self.tuning.fuse if self.tuning is not None else 0)
-            backend = make_backend(edges, backend, device=self.device,
-                                   fuse=fuse)
+            backend = self._build_backend()
+        else:
+            self._backend_kind = backend.kind
+            self._fuse = getattr(backend, "fuse", 0)
         # a prebuilt backend counts too: its construction and upload are
         # this session's open cost
         self.metrics.backend_builds += 1
         self.metrics.edge_uploads += 1
         self.backend: Optional[RelaxBackend] = backend
-        self._edges: Optional[EdgeList] = edges
         self._edges_fn = None   # dynamic mode: the lazy host-mirror thunk
         self._n_nodes = edges.n_nodes
         self._n_edges = edges.n_edges
@@ -172,9 +204,23 @@ class GraphSession:
                                  else DEFAULT_REBUILD_FRACTION)
         self._dynamic = None    # core.dynamic.DynamicState once updated
         self._closed = False
+        # preemption-safe decompositions: the cluster-quotient estimators
+        # hand this to the stages engine
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpointer: Optional[StageCheckpointer] = None
+        if checkpoint_dir is not None:
+            self.checkpointer = StageCheckpointer(
+                checkpoint_dir, guard=guard, store=store, resume=resume)
         log.debug("opened session: %d nodes, %d edges, tau=%d, backend=%s, "
                   "device=%s", edges.n_nodes, edges.n_edges, self.tau,
                   backend.kind, self.device)
+
+    def _build_backend(self) -> RelaxBackend:
+        """The backend over the store (when attached) or the host edges:
+        the open path's and ``unspill``'s."""
+        src = self.store if self.store is not None else self._edges
+        return make_backend(src, self._backend_kind, device=self.device,
+                            fuse=self._fuse)
 
     @property
     def edges(self) -> EdgeList:
@@ -268,13 +314,62 @@ class GraphSession:
         if m.backend_builds == b0 and m.edge_uploads == u0:
             m.warm_queries += 1
 
+    # -- spill seam -----------------------------------------------------------
+
+    @property
+    def spilled(self) -> bool:
+        return self._spilled
+
+    def spill(self):
+        """Drop this session's DEVICE buffers and keep the host mirrors: a
+        spilled session holds no device memory, and the next query
+        unspills it (a backend build and an edge upload, counted in
+        ``SessionMetrics``). Needs a store-backed session; refused in
+        dynamic mode, whose decomposition planes live on the device."""
+        if self._closed:
+            raise RuntimeError("session is closed")
+        if self.store is None:
+            raise RuntimeError(
+                "spill() requires a store-backed session "
+                "(open_session(..., store=EdgeStore/GraphStore))")
+        if self._dynamic is not None:
+            raise RuntimeError(
+                "cannot spill a session in dynamic mode: the maintained "
+                "decomposition planes are device-resident state")
+        if self._spilled:
+            return
+        # the host edge mirror must exist before the device arrays go
+        self._edges = self.store.edge_list()
+        self.store.drop_device()
+        self.backend = None
+        self._spilled = True
+        log.debug("session spilled (%d nodes, %d edges host-resident)",
+                  self._n_nodes, self._n_edges)
+
+    def unspill(self):
+        """Upload the store again and rebuild the backend after
+        :meth:`spill`; a no-op when resident."""
+        if not self._spilled:
+            return
+        self._spilled = False
+        self.store.ensure_device()
+        self.backend = self._build_backend()
+        self.metrics.backend_builds += 1
+        self.metrics.edge_uploads += 1
+
     def _check_open(self):
         if self._closed:
             raise RuntimeError("session is closed")
+        if self._spilled:
+            self.unspill()
 
     def close(self):
-        """Drop the device buffers, the dynamic state and the host edges.
-        Idempotent."""
+        """Drop the device buffers, the store, the checkpointer, the
+        dynamic state and the host edges. Idempotent."""
+        if self.store is not None:
+            self.store.drop_device()
+        self.store = None
+        self.checkpointer = None
         self.backend = None
         self._dynamic = None
         self._edges = None
@@ -289,7 +384,7 @@ class GraphSession:
 
 
 def open_session(
-    edges: EdgeList,
+    edges: Optional[EdgeList] = None,
     cfg: Optional[GraphEngineConfig] = None,
     *,
     tau: Optional[int] = None,
@@ -300,6 +395,10 @@ def open_session(
     uniform_fn: Optional[UniformFn] = None,
     autotune: Optional[str] = None,
     rebuild_fraction: Optional[float] = None,
+    store: Optional[EdgeStore] = None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    guard=None,
 ) -> GraphSession:
     """Open a graph once for many queries on ``device`` (default CUDA; it
     raises when no GPU is present). ``backend`` is "single", "kernel"
@@ -307,11 +406,20 @@ def open_session(
     (>= 2, default ``DEFAULT_TAU_SOLVE``) is the cascade's solve budget;
     ``autotune`` ("off" | "auto" | "record") overrides ``cfg.autotune``;
     ``rebuild_fraction`` (in [0, 1], default
-    ``DEFAULT_REBUILD_FRACTION``) is the dynamic updates' threshold."""
+    ``DEFAULT_REBUILD_FRACTION``) is the dynamic updates' threshold.
+
+    ``store`` (an ``EdgeStore``/``GraphStore``; ``edges`` may then be
+    omitted, and the store's device is the session's) backs the session
+    and enables ``spill()``/``unspill()``. ``checkpoint_dir`` (with an
+    optional ``guard``, a ``runtime.fault.PreemptionGuard``) makes stages
+    decompositions preemption-safe; ``resume=True`` continues from the
+    latest stage checkpoint there."""
     return GraphSession(edges, cfg, tau=tau, tau_solve=tau_solve,
                         backend=backend, device=device, metrics=metrics,
                         uniform_fn=uniform_fn, autotune=autotune,
-                        rebuild_fraction=rebuild_fraction)
+                        rebuild_fraction=rebuild_fraction, store=store,
+                        checkpoint_dir=checkpoint_dir, resume=resume,
+                        guard=guard)
 
 
 # ---------------------------------------------------------------------------
@@ -355,22 +463,40 @@ class SessionPool:
     count. All sessions share one ``SessionMetrics``, so the pool can
     answer "did any warm query rebuild a backend or re-upload edges?".
     ``rebuild_fraction`` is passed to every session it opens.
+
+    ``shards > 1`` backs every session with a ``GraphStore`` of that many
+    shards (its capacity floored at the group's padded edge count, so the
+    store's inert slots play ``_pad_edges``' part); ``checkpoint_dir``
+    gives session ``i`` (in opening order) the directory
+    ``<checkpoint_dir>/g<i>``, and ``resume`` and ``guard`` go to every
+    session's checkpointer.
     """
 
     def __init__(self, cfg: Optional[GraphEngineConfig] = None,
                  edge_bucket: int = EDGE_BUCKET,
                  tau_solve: Optional[int] = None,
                  device="cuda",
-                 rebuild_fraction: Optional[float] = None):
+                 rebuild_fraction: Optional[float] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 shards: int = 0,
+                 resume: bool = False,
+                 guard=None):
         if tau_solve is not None and tau_solve < 2:
             raise ValueError(f"tau_solve must be >= 2, got {tau_solve}")
+        if shards < 0:
+            raise ValueError(f"shards must be >= 0, got {shards}")
         self.cfg = cfg or GraphEngineConfig()
         self.edge_bucket = edge_bucket
         self.tau_solve = tau_solve
         self.rebuild_fraction = rebuild_fraction
         self.device = resolve_device(device)
+        self.checkpoint_dir = checkpoint_dir
+        self.shards = int(shards)
+        self.resume = resume
+        self.guard = guard
         self.metrics = SessionMetrics()
         self.sessions: List[GraphSession] = []
+        self._opened = 0
         self._closed = False
 
     def _check_open(self):
@@ -388,10 +514,22 @@ class SessionPool:
             delta0 = _initial_delta(edges, self.cfg.delta_init)
         gcfg = dataclasses.replace(self.cfg, delta_init=str(delta0))
         e_pad = e_pad or next_multiple(max(edges.n_edges, 1), self.edge_bucket)
-        return GraphSession(_pad_edges(edges, e_pad), gcfg, tau=tau,
-                            tau_solve=self.tau_solve, device=self.device,
-                            metrics=self.metrics, delta_stats=stats,
-                            rebuild_fraction=self.rebuild_fraction)
+        ckpt_dir = None
+        if self.checkpoint_dir is not None:
+            ckpt_dir = os.path.join(self.checkpoint_dir, f"g{self._opened}")
+        self._opened += 1
+        common = dict(tau=tau, tau_solve=self.tau_solve, metrics=self.metrics,
+                      delta_stats=stats,
+                      rebuild_fraction=self.rebuild_fraction,
+                      checkpoint_dir=ckpt_dir, resume=self.resume,
+                      guard=self.guard)
+        if self.shards > 1:
+            store = GraphStore(edges, n_shards=self.shards,
+                               min_capacity=e_pad, bucket=self.edge_bucket,
+                               device=self.device)
+            return GraphSession(None, gcfg, store=store, **common)
+        return GraphSession(_pad_edges(edges, e_pad), gcfg,
+                            device=self.device, **common)
 
     def open(self, edges: EdgeList, *, tau: Optional[int] = None,
              e_pad: Optional[int] = None) -> GraphSession:

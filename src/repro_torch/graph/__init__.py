@@ -1,5 +1,6 @@
 """Host graph layer: edge lists, seeded generators (an update trace among
-them), segment tuple-min, and the mutable edge store of dynamic graphs."""
+them), segment tuple-min, node partitions, and the edge stores (the
+mutable ``EdgeStore`` and the partition-aware ``GraphStore``)."""
 from repro_torch.graph.generators import (
     assign_weights,
     grid_mesh,
@@ -14,7 +15,19 @@ from repro_torch.graph.segment_ops import (
     segment_min_pair,
     segment_min_triple,
 )
-from repro_torch.graph.storage import EDGE_STORE_BUCKET, EdgeStore
+from repro_torch.graph.partition import (
+    apply_partition,
+    cluster_partition,
+    cut_fraction,
+    partition_for_backend,
+    range_partition,
+)
+from repro_torch.graph.storage import (
+    EDGE_STORE_BUCKET,
+    EdgeSlab,
+    EdgeStore,
+    GraphStore,
+)
 from repro_torch.graph.structures import (
     MAX_WEIGHT,
     EdgeList,
@@ -24,9 +37,10 @@ from repro_torch.graph.structures import (
 )
 
 __all__ = [
-    "EDGE_STORE_BUCKET", "EdgeList", "EdgeStore", "MAX_WEIGHT",
-    "assign_weights", "grid_mesh", "random_geometric", "rescale_weights",
-    "rmat", "road_like", "segment_min", "segment_min_pair",
-    "segment_min_triple", "social_like", "temporal_trace", "to_scipy_csr",
-    "weight_scale_for",
+    "EDGE_STORE_BUCKET", "EdgeList", "EdgeSlab", "EdgeStore", "GraphStore",
+    "MAX_WEIGHT", "apply_partition", "assign_weights", "cluster_partition",
+    "cut_fraction", "grid_mesh", "partition_for_backend",
+    "random_geometric", "range_partition", "rescale_weights", "rmat",
+    "road_like", "segment_min", "segment_min_pair", "segment_min_triple",
+    "social_like", "temporal_trace", "to_scipy_csr", "weight_scale_for",
 ]

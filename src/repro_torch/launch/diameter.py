@@ -4,7 +4,9 @@
       --n 200000 --tau 16 --backend kernel [--interval] [--device cuda] \
       [--engine-mode stages|oneshot|auto] [--deterministic] [--cluster2] \
       [--levels L --tau-solve T] [--delta-init avg|min|<int>] \
-      [--compare-sssp] [--autotune off|auto|record]
+      [--compare-sssp] [--autotune off|auto|record] \
+      [--shards 4] [--compress] [--partition range|cluster] \
+      [--checkpoint-dir DIR [--resume]]
 
 Prints one JSON line: Phi_approx, the cluster count, quotient size,
 supersteps, host reads, kernel launches, seconds and (on CUDA) peak device
@@ -20,22 +22,43 @@ tau, tau_solve, the cascade depth, delta_init, the fusion depth and the
 engine mode from one statistics pass (``core/autotune.py``; explicit flags
 stay pinned) and adds the record as ``tuning``; a record with levels runs
 its cascade.
+
+``--shards N`` (> 1) or ``--compress`` back the session with a
+``GraphStore`` (N shards, slabs held as exact ``pack_i32`` streams under
+``--compress``) and add its geometry to the JSON: shards, ``halo_k``, halo
+and full-plane bytes per superstep (what a sharded backend would move; the
+port has none yet), the host slabs' resident and raw bytes,
+decompressions, and the device bytes of the store's edge arrays. Both
+backends read those flat, uncompressed device arrays, so neither flag
+changes what the card holds or runs, and the estimate is the flat run's.
+``--partition cluster``
+relabels nodes for a sharded backend only, which the port does not have
+yet, so here it changes nothing (the log says so). ``--checkpoint-dir``
+saves the decomposition at every stage boundary under a
+``PreemptionGuard``; a SIGTERM saves, and the launcher exits with
+``EXIT_PREEMPTED`` (75); ``--resume`` finishes from the latest step.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 
 import torch
 
-from repro_torch.common import GraphEngineConfig, Timer, resolve_device
+from repro_torch.common import (GraphEngineConfig, Timer, get_logger,
+                                resolve_device)
 from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
                               DeltaSteppingEstimator, IntervalEstimator,
                               LowerBoundEstimator, check_engine_mode,
                               open_session)
-from repro_torch.graph import grid_mesh, road_like, social_like
+from repro_torch.graph import GraphStore, grid_mesh, road_like, social_like
+from repro_torch.runtime.fault import (EXIT_PREEMPTED, Preempted,
+                                       PreemptionGuard)
+
+log = get_logger("repro_torch.diameter")
 
 
 def build_graph(kind: str, n: int, seed: int):
@@ -116,11 +139,51 @@ def main(argv=None) -> int:
                          "a random source) on the same session")
     ap.add_argument("--interval", action="store_true",
                     help="also run the farthest-point lower bound")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="back the session with a GraphStore of this many "
+                         "shards (0 or 1: flat storage unless --compress)")
+    ap.add_argument("--compress", action="store_true",
+                    help="hold the GraphStore's slabs compressed (exact "
+                         "delta codec, unpacked on demand)")
+    ap.add_argument("--partition", default="range",
+                    choices=["range", "cluster"],
+                    help="node relabeling for a sharded backend (cluster = "
+                         "locality-aware from a pilot decomposition); the "
+                         "port has no sharded backend, so it changes "
+                         "nothing here")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the decomposition at every stage boundary "
+                         "(preemption-safe: a SIGTERM saves and exits 75)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest stage checkpoint in "
+                         "--checkpoint-dir")
     args = ap.parse_args(argv)
     check_query_arguments(ap, args)
+    if args.shards < 0:
+        ap.error(f"--shards must be >= 0, got {args.shards}")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
 
     dev = resolve_device(args.device)
     edges = build_graph(args.graph, args.n, args.seed)
+    store = None
+    if args.shards > 1 or args.compress:
+        store = GraphStore(edges, n_shards=max(args.shards, 1),
+                           compress=args.compress, device=dev)
+        log.info("GraphStore: %d shards, halo_k=%d; a sharded backend "
+                 "would move %d B/superstep of halo vs %d B/superstep of "
+                 "full planes; host slabs %d B (raw %d B); the %s backend "
+                 "reads the flat device arrays, %d B",
+                 store.n_shards, store.halo_k(),
+                 store.halo_bytes_per_superstep(),
+                 store.fullplane_bytes_per_superstep(),
+                 store.resident_bytes(), store.raw_bytes(), args.backend,
+                 store.device_bytes())
+    if args.partition == "cluster":
+        log.info("--partition cluster relabels nodes for a sharded backend "
+                 "only; the port has none, so the %s backend keeps the "
+                 "identity ordering", args.backend)
+    guard = PreemptionGuard() if args.checkpoint_dir else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with Timer() as t:
@@ -129,23 +192,33 @@ def main(argv=None) -> int:
                                 use_cluster2=args.cluster2, seed=args.seed,
                                 mode=args.engine_mode,
                                 deterministic=args.deterministic)
-        session = open_session(edges, cfg, tau=args.tau,
-                               tau_solve=args.tau_solve,
+        session = open_session(edges if store is None else None, cfg,
+                               tau=args.tau, tau_solve=args.tau_solve,
                                backend=args.backend, device=dev,
-                               autotune=args.autotune)
+                               autotune=args.autotune, store=store,
+                               checkpoint_dir=args.checkpoint_dir,
+                               resume=args.resume, guard=guard)
         # --levels wins; else a record's cascade depth (the session default)
         levels = args.levels
         if levels == 0 and session.tuning is not None:
             levels = session.tuning.levels
         est = (CascadeEstimator(levels=levels) if levels > 0
                else ClusterQuotientEstimator())
-        if args.interval:
-            res = IntervalEstimator(
-                (LowerBoundEstimator(seed=args.seed), est)).estimate(session)
-            upper = res.estimates[est.name]
-        else:
-            upper = est.estimate(session)
-            res = None
+        try:
+            with guard if guard is not None else contextlib.nullcontext():
+                if args.interval:
+                    res = IntervalEstimator(
+                        (LowerBoundEstimator(seed=args.seed), est)
+                    ).estimate(session)
+                    upper = res.estimates[est.name]
+                else:
+                    upper = est.estimate(session)
+                    res = None
+        except Preempted as p:
+            log.warning("preempted at stage %d; checkpoint durable at %s: "
+                        "rerun with --resume to finish byte-identically",
+                        p.stage, p.path)
+            return EXIT_PREEMPTED
         sssp = (session.estimate(DeltaSteppingEstimator(seed=args.seed))
                 if args.compare_sssp else None)
         if dev.type == "cuda":
@@ -160,8 +233,24 @@ def main(argv=None) -> int:
         "stages": upper.n_stages, "supersteps": upper.growing_steps,
         "solve_supersteps": pm.solve_supersteps,
         "host_syncs": pm.total_host_syncs,
+        "checkpoint_syncs": pm.checkpoint_syncs,
         "kernel_launches": pm.kernel_launches, "seconds": t.seconds,
     }
+    if store is not None:
+        out["store"] = {
+            "shards": store.n_shards, "compress": store.compress,
+            "halo_k": store.halo_k(),
+            "halo_bytes_per_superstep": store.halo_bytes_per_superstep(),
+            "fullplane_bytes_per_superstep":
+                store.fullplane_bytes_per_superstep(),
+            "host_slab_bytes": store.resident_bytes(),
+            "raw_bytes": store.raw_bytes(),
+            "decompressions": store.decompressions,
+            "device_edge_bytes": store.device_bytes()}
+    if session.checkpointer is not None:
+        ck = session.checkpointer
+        out["checkpoint"] = {"saves": ck.saves, "restores": ck.restores,
+                             "save_seconds": ck.save_seconds}
     if session.tuning is not None:
         out["tuning"] = dataclasses.asdict(session.tuning)
     if levels > 0:

@@ -26,7 +26,8 @@ each session then serves ``--queries`` rounds of queries.
       [--backend single|kernel] [--device cuda] \
       [--check-amortization 2.0] [--sync-budget off|<int>] \
       [--update-trace 4 [--update-events 0] [--update-mix mixed] \
-       [--check-update-cost 5] [--bracket-rounds 4]]
+       [--check-update-cost 5] [--bracket-rounds 4]] \
+      [--shards 4] [--checkpoint-dir DIR [--resume] [--preempt-after K]]
 
 With ``--update-trace N`` the run is a DYNAMIC replay: each session gets a
 seeded ``temporal_trace`` of N batches (``--update-events`` undirected
@@ -38,12 +39,21 @@ default estimator becomes ``dynamic`` (the maintained bound). The
 amortized update supersteps are reported against the last full
 decomposition's (``--check-update-cost C`` fails above 1/C of it).
 
+``--shards N`` (> 1) backs every session with an N-shard ``GraphStore``.
+``--checkpoint-dir D`` saves every stages decomposition at each stage
+boundary (session ``i`` under ``D/g<i>``) under one process-level
+``PreemptionGuard``: a SIGTERM saves and the run exits with
+``EXIT_PREEMPTED`` (75), and ``--resume`` finishes from the saved steps
+byte-identically. ``--preempt-after K`` (a test hook) sends a real SIGTERM
+at boundary K of the first session's first decomposition.
+
 Contracts (exit 1 when one fails): from round 1 on no query builds a
 backend or uploads an edge array (``SessionMetrics``; updates mutate the
 resident store, counted in ``DynamicMetrics``); every host read is a
 counted one (``guard.metered()`` equals the queries' summed
-``total_host_syncs`` plus the updates' ``update_syncs`` and
-``engine_syncs``); ``--check-amortization`` (cold over steady query time)
+``total_host_syncs`` and ``checkpoint_syncs`` plus the updates'
+``update_syncs`` and ``engine_syncs``); ``--check-amortization`` (cold
+over steady query time)
 and ``--sync-budget`` (a query's host reads; an interval is judged by its
 worst member). Records are collected in the loop and written after it.
 Prints one JSON line of the run's numbers.
@@ -51,6 +61,7 @@ Prints one JSON line of the run's numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 from typing import Any, Dict, List, Optional
@@ -62,6 +73,8 @@ from repro_torch.config.registry import get_arch
 from repro_torch.launch.diameter import (add_query_arguments, build_graph,
                                          check_query_arguments)
 from repro_torch.models import transformer as tf_mod
+from repro_torch.runtime.fault import (EXIT_PREEMPTED, Preempted,
+                                       PreemptionGuard)
 
 log = get_logger("repro_torch.serve")
 
@@ -112,6 +125,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bracket-rounds", type=int, default=4,
                     help="SSSP rounds of the final bracket's lower side "
                          "(0 = the maintained upper bound alone)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="back each session with a GraphStore of this many "
+                         "shards (0 = flat storage)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save every session's stages decomposition at "
+                         "each stage boundary (subdirectories g0, g1, ...)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue the decompositions from the latest "
+                         "steps in --checkpoint-dir")
+    ap.add_argument("--preempt-after", type=int, default=0,
+                    help="test hook: a real SIGTERM at this stage boundary "
+                         "of the first session's first decomposition "
+                         "(requires --checkpoint-dir)")
     args = ap.parse_args(argv)
     if args.mode == "graph-diameter":
         _check_graph_args(ap, args)
@@ -139,9 +165,13 @@ def _check_graph_args(ap: argparse.ArgumentParser, args) -> None:
     for name in ("batch", "queries", "graph_n"):
         if getattr(args, name) < 1:
             ap.error(f"--{name.replace('_', '-')} must be >= 1")
-    for name in ("update_trace", "update_events", "bracket_rounds"):
+    for name in ("update_trace", "update_events", "bracket_rounds", "shards",
+                 "preempt_after"):
         if getattr(args, name) < 0:
             ap.error(f"--{name.replace('_', '-')} must be >= 0")
+    for name in ("resume", "preempt_after"):
+        if getattr(args, name) and not args.checkpoint_dir:
+            ap.error(f"--{name.replace('_', '-')} requires --checkpoint-dir")
     check_query_arguments(ap, args)
 
 
@@ -242,7 +272,9 @@ def serve_graph_diameter(args: argparse.Namespace,
     replayed between the rounds and after them, and each session ends with
     a bracket. Returns the run's numbers, the contract failures
     (``failures``) and the estimates (``results``: (graph, round,
-    estimate))."""
+    estimate)). With ``args.checkpoint_dir`` the queries run under one
+    ``PreemptionGuard``, and a preemption raises ``Preempted`` (after its
+    save) out of this function."""
     from repro_torch import guard
     from repro_torch.common import GraphEngineConfig, next_multiple
     from repro_torch.core import SessionPool
@@ -284,14 +316,20 @@ def serve_graph_diameter(args: argparse.Namespace,
     brackets: List[tuple] = []    # (graph, interval, seconds)
     cold: List[float] = []        # each session's first query
     warm: List[float] = []
-    with SessionPool(cfg, tau_solve=args.tau_solve, device=dev) as pool:
+    pguard = PreemptionGuard() if args.checkpoint_dir else None
+    with SessionPool(cfg, tau_solve=args.tau_solve, device=dev,
+                     checkpoint_dir=args.checkpoint_dir, shards=args.shards,
+                     resume=args.resume, guard=pguard) as pool:
         # one edge-pad bucket across the whole batch
         e_pad = e_pad or next_multiple(max(g.n_edges for g in graphs) or 1,
                                        pool.edge_bucket)
         with Timer() as t_open:
             sessions = [pool.open(g, tau=args.tau, e_pad=e_pad)
                         for g in graphs]
-        with guard.metered() as meter, Timer() as t_total:
+        if args.preempt_after:
+            sessions[0].checkpointer.preempt_after_stage = args.preempt_after
+        with pguard if pguard is not None else contextlib.nullcontext(), \
+                guard.metered() as meter, Timer() as t_total:
             for round_idx in range(args.queries):
                 if round_idx == 1:
                     # from here on NOTHING may build a backend or upload
@@ -340,7 +378,14 @@ def serve_graph_diameter(args: argparse.Namespace,
                        for s in sessions],
             "open_seconds": t_open.seconds,
             "backend_launches": backend_launches,
+            "shards": args.shards,
         }
+        if args.checkpoint_dir:
+            out["checkpoint"] = [
+                {"saves": s.checkpointer.saves,
+                 "restores": s.checkpointer.restores,
+                 "save_seconds": s.checkpointer.save_seconds}
+                for s in sessions]
     if dev.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
@@ -351,8 +396,11 @@ def serve_graph_diameter(args: argparse.Namespace,
         if rebuilds or reuploads:
             failures.append(f"warm queries must be resident: {rebuilds} "
                             f"rebuilds, {reuploads} re-uploads")
-    counted = (sum(r[2].pipeline.total_host_syncs for r in records)
-               + sum(iv.pipeline.total_host_syncs for _, iv, _ in brackets)
+    # a checkpoint save's reads are counted apart from the algorithm's
+    counted = (sum(r[2].pipeline.total_host_syncs
+                   + r[2].pipeline.checkpoint_syncs for r in records)
+               + sum(iv.pipeline.total_host_syncs
+                     + iv.pipeline.checkpoint_syncs for _, iv, _ in brackets)
                + sum(d.update_syncs + d.engine_syncs for d in dyn))
     if meter.transfers != counted:
         failures.append(f"{meter.transfers} host reads measured, "
@@ -413,7 +461,13 @@ def serve_graph_diameter(args: argparse.Namespace,
 
 
 def serve_graph_main(args: argparse.Namespace) -> int:
-    res = serve_graph_diameter(args)
+    try:
+        res = serve_graph_diameter(args)
+    except Preempted as p:
+        log.warning("preempted at stage %d; checkpoint durable at %s: rerun "
+                    "with --resume to finish byte-identically", p.stage,
+                    p.path)
+        return EXIT_PREEMPTED
     res.pop("results")
     for u in res.get("updates", []):
         log.info("graph[%d] u%d: %s sweeps=%d dead=%d %.3fs", u["graph"],

@@ -1,7 +1,7 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
 of the JAX package's ``launch/steps.py`` ``build_cell`` for xDeepFM's two
-serving kinds (``_recsys_cell``), on one device, with no mesh and no
-shardings.
+serving kinds (``_recsys_cell``) and the paper engine's cell
+(``_engine_cell``), on one device, with no mesh and no shardings.
 
 ``build_cell(arch, shape_name, smoke=False, device="cuda")`` returns a
 ``Cell``:
@@ -12,6 +12,11 @@ shardings.
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
               item fields)
   device      where ``Cell.inputs`` puts the inputs
+
+The ``paper-graph`` arch's cell (``build_cell("paper-graph", "n16M")``,
+keyword arguments ``n_nodes`` = 2^24 and ``avg_degree`` = 5 as the
+reference's) is an ``EngineCell``: one Δ-growing superstep at roads-USA
+scale through a session backend (see ``_engine_cell``).
 
 Retrieval scores one query against ``n_candidates`` with the full model:
 ``n_sparse // 3`` user fields broadcast over the candidates, the rest item
@@ -25,15 +30,22 @@ through ``models/gnn.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.common import resolve_device
-from repro_torch.config.base import GNN_SHAPES, RECSYS_SHAPES, RecsysConfig
+from repro_torch.common import next_multiple, resolve_device
+from repro_torch.config.base import (GNN_SHAPES, RECSYS_SHAPES,
+                                     GraphEngineConfig, RecsysConfig)
 from repro_torch.config.registry import get_arch
+from repro_torch.core import state as st
+from repro_torch.core.backend import KernelBackend, SingleDeviceBackend
+from repro_torch.core.engine import default_uniform_fn
+from repro_torch.core.session import tau_for
+from repro_torch.graph.structures import EdgeList
 from repro_torch.models import recsys as recsys_mod
 
 # the recsys shape kinds build_cell ports
@@ -46,7 +58,7 @@ class Cell:
     shape: str
     step_fn: Callable
     arg_shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
-    cfg: RecsysConfig
+    cfg: Union[RecsysConfig, GraphEngineConfig]
     device: torch.device
     note: str = ""
 
@@ -59,9 +71,115 @@ class Cell:
                 for name, (_, dtype) in self.arg_shapes.items()}
 
 
+@dataclass
+class EngineCell(Cell):
+    """The paper engine's cell: ``n_nodes`` node planes and ``n_edges``
+    edge slots, the real edges first and masked ones after."""
+
+    n_nodes: int = 0
+    n_edges: int = 0
+
+    def inputs(self, edges: EdgeList) -> Dict[str, torch.Tensor]:
+        """``src``, ``dst``, ``weight`` (int32) and ``edge_mask`` (bool) on
+        the cell's device: ``edges`` padded with masked edges to the
+        cell's edge count. Raises when the node count differs or the graph
+        has more edges than the cell."""
+        if edges.n_nodes != self.n_nodes:
+            raise ValueError(f"the cell has {self.n_nodes} nodes, the graph "
+                             f"{edges.n_nodes}")
+        if edges.n_edges > self.n_edges:
+            raise ValueError(f"the graph has {edges.n_edges} edges, more "
+                             f"than the cell's {self.n_edges}")
+        pad = self.n_edges - edges.n_edges
+        cols = {"src": edges.src, "dst": edges.dst, "weight": edges.weight}
+        out = {name: torch.from_numpy(np.concatenate(
+                   [np.asarray(a, np.int32), np.zeros(pad, np.int32)])).to(
+                   self.device) for name, a in cols.items()}
+        out["edge_mask"] = torch.arange(self.n_edges, device=self.device) \
+            < edges.n_edges
+        return out
+
+    def backend(self, inputs: Dict[str, torch.Tensor], kind: str = "kernel"):
+        """A session backend over the inputs on their device: masked slots
+        become inert ``0 -> 0, w = 1`` self-loops (the pooled sessions'
+        padding); the kernel backend sorts them past its CSR's last row
+        (``KernelBackend.from_device``), the single one keeps the flat
+        arrays."""
+        m = inputs["edge_mask"]
+        src = torch.where(m, inputs["src"], 0).to(torch.int32)
+        dst = torch.where(m, inputs["dst"], 0).to(torch.int32)
+        w = torch.where(m, inputs["weight"], 1).to(torch.int32)
+        if kind == "kernel":
+            return KernelBackend.from_device(self.n_nodes, src, dst, w)
+        if kind == "single":
+            return SingleDeviceBackend.from_device(self.n_nodes, src, dst, w)
+        raise ValueError(f"unknown backend {kind!r} (single | kernel)")
+
+    def state(self, backend, seed: int = 0):
+        """The planes the superstep starts from, stage 0 of a
+        CLUSTER run with seed ``seed`` at ``tau_for(n)``: the centers
+        of ``uniform(fold_in(fold_in(PRNGKey(seed), 0), 0), n) < p`` with
+        ``p = gamma tau log n / n``, promoted, and everyone else
+        unreached."""
+        n = self.n_nodes
+        tau = tau_for(n, self.cfg.tau_fraction)
+        p = min(1.0, self.cfg.gamma * tau * max(math.log(max(n, 2)), 1.0) / n)
+        u = default_uniform_fn(seed, backend.device)(0, 0, n)
+        s0 = backend.init_state()
+        return st.reset_in_stage(st.promote_centers(s0, u < p))
+
+
+def _engine_cell(cfg: GraphEngineConfig, n_nodes: int = 1 << 24,
+                 avg_degree: int = 5, device="cuda") -> EngineCell:
+    """One Δ-growing superstep on a roads-USA-scale graph: ``n_nodes`` node
+    planes and ``n_nodes * avg_degree`` edge slots rounded up to a multiple
+    of 8, the reference's ``_engine_cell`` on one device.
+
+    The reference's sharded superstep takes seven node planes (six int32,
+    one bool) and ``(src, dst_local, weight, edge_mask)`` per device. The
+    port's step, ``superstep(state, backend, delta=2**20)``, takes the
+    eight planes of an ``EngineState`` (d, c, pathw, final_c, final_pathw,
+    offset: int32; covered, is_center: bool), from which the backend's
+    superstep forms the six int32 planes the relax reads (d, c, pathw and
+    the relay planes rw0, rc, rp) and the frozen mask; the edges are the
+    cell's ``inputs`` bound by ``EngineCell.backend``. It is one
+    ``backend.grow`` call of one superstep (``complete``, ``num_it`` 1,
+    chunks of 1): on the kernel backend one launch of the ``edge_relax``
+    kernel, on the single backend the plain superstep. Returns
+    ``(state, GrowthStats)``.
+    """
+    dev = resolve_device(device)
+    n = int(n_nodes)
+    e = next_multiple(n * int(avg_degree), 8)
+
+    def superstep(state, backend, delta: int = 1 << 20):
+        # chunk 1: the grow loop runs no gated superstep past the one
+        return backend.grow(state, delta, 0, 1, "complete", chunk=1)
+
+    arg_shapes = {"src": ((e,), torch.int32), "dst": ((e,), torch.int32),
+                  "weight": ((e,), torch.int32),
+                  "edge_mask": ((e,), torch.bool)}
+    return EngineCell("paper-graph", f"n{n >> 20}M", superstep, arg_shapes,
+                      cfg, dev, note="one Delta-growing superstep (1 MR "
+                      "round)", n_nodes=n, n_edges=e)
+
+
 def build_cell(arch: str, shape_name: str, smoke: bool = False,
-               device="cuda") -> Cell:
+               device="cuda", **engine_kw) -> Cell:
+    """The ``(arch, shape)`` cell on ``device``. For the ``paper-graph``
+    arch, ``shape_name`` is the cell's name (``n16M`` at the default
+    size) or ``""``, and ``engine_kw`` (``n_nodes``, ``avg_degree``) sizes
+    it."""
     cfg = get_arch(arch, smoke=smoke)
+    if isinstance(cfg, GraphEngineConfig):
+        cell = _engine_cell(cfg, device=device, **engine_kw)
+        if shape_name not in ("", cell.shape):
+            raise KeyError(f"{arch}'s cell at this size is {cell.shape!r}, "
+                           f"not {shape_name!r}")
+        return cell
+    if engine_kw:
+        raise TypeError(f"{arch} takes no engine-cell arguments "
+                        f"{sorted(engine_kw)}")
     shape = {s.name: s for s in RECSYS_SHAPES + GNN_SHAPES}.get(shape_name)
     if cfg.family != "recsys" or shape is None \
             or shape.kind not in PORTED_KINDS:

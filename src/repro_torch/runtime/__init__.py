@@ -1,1 +1,3 @@
-"""Runtime seams of the port (the clock)."""
+"""Runtime seams of the port: the clock (``telemetry``), fault handling
+(``fault``: ``PreemptionGuard``, ``Preempted``, ``retriable``) and the
+lossless int32 column codec (``compression``)."""

@@ -1,7 +1,8 @@
-"""The one sanctioned clock seam of the port.
+"""The sanctioned clock seams of the port.
 
 Every duration in ``repro_torch`` (``common.Timer``, the launcher, the smoke
-script's host timings) reads time through :func:`clock`, so the determinism
+script's host timings) reads time through :func:`clock`, and a checkpoint
+stamps its writing time through :func:`wall_time`, so the determinism
 lint can flag stray wall-clock reads inside the decomposition modules.
 """
 from __future__ import annotations
@@ -12,3 +13,9 @@ import time
 def clock() -> float:
     """Monotonic seconds (``time.perf_counter``)."""
     return time.perf_counter()
+
+
+def wall_time() -> float:
+    """Epoch seconds, for provenance only (a checkpoint's ``written_at``);
+    never read back into a computed result."""
+    return time.time()

@@ -17,7 +17,9 @@ against unpooled ones, fused and not; an autotuned session (fuse 8 from
 its record) against the same session unfused; dynamic updates on the
 kernel backend (``KernelBackend.rebind`` after a scatter and after a
 capacity growth, fused and not, and a confined regrow whose frozen set is
-every alive node) against the plain backend.
+every alive node) against the plain backend; a kill by SIGTERM and a
+resume onto the card (fused and not), an unspill onto the kernel backend,
+and the ``paper-graph`` cell's kernel superstep against the plain one.
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -1019,3 +1021,89 @@ def test_confined_regrow_kernel_equals_plain_on_card(cuda_device, fuse):
     for a, b in ((got.d, want.d), (got.c, want.c), (got.pathw, want.pathw)):
         assert torch.equal(a, b)
     assert torch.equal(got.pathw[alive], state.pathw[alive])
+
+
+@pytest.mark.parametrize("fuse", [0, 8])
+def test_kill_and_resume_on_card(cuda_device, fuse, tmp_path):
+    """A real SIGTERM at stage boundary 2 on the kernel backend (fused or
+    not), then a resume from the saved step onto the card: the estimate
+    and the final planes equal the uninterrupted run's and the plain
+    backend's."""
+    from repro_torch.graph import GraphStore
+    from repro_torch.runtime.fault import Preempted, PreemptionGuard
+
+    g = road_like(20_000, seed=6)
+    cfg = GraphEngineConfig(fuse_supersteps=fuse)
+    whole = open_session(g, cfg, tau=8, device=cuda_device).estimate(
+        CascadeEstimator(levels=2, tau_solve=64))
+    plain = open_session(g, tau=8, backend="single",
+                         device=cuda_device).estimate(
+        CascadeEstimator(levels=2, tau_solve=64))
+    pg = PreemptionGuard()
+    d = str(tmp_path)
+    sess = open_session(None, cfg, store=GraphStore(g, device=cuda_device),
+                        tau=8, checkpoint_dir=d, guard=pg)
+    sess.checkpointer.preempt_after_stage = 2
+    launches0 = sess.backend.launches
+    with pytest.raises(Preempted), pg:
+        sess.estimate(CascadeEstimator(levels=2, tau_solve=64))
+    assert sess.backend.launches > launches0
+    sess.close()
+    sess = open_session(None, cfg, store=GraphStore(g, device=cuda_device),
+                        tau=8, checkpoint_dir=d, resume=True)
+    got = sess.estimate(CascadeEstimator(levels=2, tau_solve=64))
+    assert sess.checkpointer.restores == 1
+    assert got.pipeline.kernel_launches > 0
+    for ref in (whole, plain):
+        assert (got.phi_approx, got.n_clusters, got.growing_steps,
+                got.n_stages) == (ref.phi_approx, ref.n_clusters,
+                                  ref.growing_steps, ref.n_stages)
+        np.testing.assert_array_equal(got.decomposition.final_c,
+                                      ref.decomposition.final_c)
+        np.testing.assert_array_equal(got.decomposition.final_pathw,
+                                      ref.decomposition.final_pathw)
+
+
+def test_unspill_onto_the_kernel_backend(cuda_device):
+    """Spill drops the store's device tensors and the CSR; the next query
+    builds the CSR again through ``rebind`` (the store's inert slots past
+    the last row) and gives the same estimate."""
+    from repro_torch.graph import GraphStore
+
+    g = road_like(20_000, seed=7)
+    store = GraphStore(g, n_shards=4, compress=True, device=cuda_device)
+    sess = open_session(None, store=store, tau=8)
+    first = sess.estimate(ClusterQuotientEstimator())
+    assert first.pipeline.kernel_launches > 0
+    sess.spill()
+    assert store.src is None and sess.backend is None
+    again = sess.estimate(ClusterQuotientEstimator())
+    graph = sess.backend.graph
+    assert graph.inert_tail and int(graph.row_ptr[-1]) == store.n_edges
+    assert graph.n_edges == store.capacity
+    assert (again.phi_approx, again.n_clusters) == (first.phi_approx,
+                                                   first.n_clusters)
+    np.testing.assert_array_equal(again.decomposition.final_c,
+                                  first.decomposition.final_c)
+    assert sess.metrics.backend_builds == 2 and sess.metrics.edge_uploads == 2
+
+
+def test_paper_graph_cell_superstep_on_card(cuda_device):
+    """The ``paper-graph`` cell at 2^20 nodes: one launch of the kernel
+    superstep, planes equal to the plain backend's superstep."""
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("paper-graph", "n1M", device=cuda_device,
+                      n_nodes=1 << 20, avg_degree=6)
+    g = road_like(1 << 20, seed=0)
+    inputs = cell.inputs(g)
+    assert cell.n_edges - int(inputs["edge_mask"].sum()) == 12
+    bk = cell.backend(inputs, "kernel")
+    launches0 = kmod.edge_relax_cuda.launches
+    sk, gk = cell.step_fn(cell.state(bk), bk)
+    assert kmod.edge_relax_cuda.launches == launches0 + 1
+    bs = cell.backend(inputs, "single")
+    ss, gs = cell.step_fn(cell.state(bs), bs)
+    for f in dataclasses.fields(sk):
+        assert torch.equal(getattr(sk, f.name), getattr(ss, f.name)), f.name
+    assert (gk.steps, gk.reached) == (gs.steps, gs.reached) and gk.steps == 1

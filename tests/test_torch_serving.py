@@ -6,11 +6,21 @@ with a group whose padding makes row 0 a long row), the SSSP estimators
 over the padded CSR, a per-query ``delta_init`` resolved from the real
 edges, the warm-query counters, close idempotence, the deprecated
 wrappers (``solver="scipy"`` too), and ``serve --mode graph-diameter``
-(every estimator, its contracts and refusals). Every compared value is an
-integer, so every comparison is exact."""
+(every estimator, its contracts and refusals). Store-backed sessions:
+``spill()`` and the auto-unspill (one more build and upload, the same
+estimate), the pool's ``shards`` and ``g<i>`` checkpoint directories
+against the reference's pool, the launchers' ``--shards``, ``--compress``,
+``--checkpoint-dir``, ``--resume`` and ``--preempt-after`` (a serve
+subprocess killed by a real SIGTERM exits 75, and its ``--resume`` rerun
+gives the uninterrupted estimate). Every compared value is an integer, so
+every comparison is exact."""
 import contextlib
 import dataclasses
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.experimental
@@ -44,10 +54,15 @@ from repro_torch.core import (EDGE_BUCKET, CascadeEstimator,  # noqa: E402
                               approximate_diameter_batch, open_session)
 from repro_torch.core import diameter as port_diameter  # noqa: E402
 from repro_torch.core.session import _pad_edges  # noqa: E402
+from repro_torch.graph import EdgeStore, GraphStore  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structures import EdgeList  # noqa: E402
 from repro_torch.kernels.edge_relax.kernel import LONG_ROW  # noqa: E402
+from repro_torch.launch import diameter as diameter_launcher  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.runtime.fault import EXIT_PREEMPTED  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 CPU = torch.device("cpu")
 FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
@@ -404,6 +419,9 @@ def test_serve_graph_diameter_contracts_fail(capsys):
     (["--sync-budget", "many"], "off | <int>"),
     (["--engine-mode", "fast"], None),
     (["--queries", "0"], "--queries"),
+    (["--resume"], "--resume requires --checkpoint-dir"),
+    (["--preempt-after", "2"], "--preempt-after requires --checkpoint-dir"),
+    (["--shards", "-1"], "--shards must be >= 0"),
 ])
 def test_serve_graph_diameter_refusals(capsys, flags, message):
     if message is None:
@@ -430,3 +448,182 @@ def test_serve_metered_transfers_equal_query_syncs():
                     CascadeEstimator(levels=1, tau_solve=8))]
             assert meter.transfers == sum(r.pipeline.total_host_syncs
                                           for r in res)
+
+
+
+# ---------------------------------------------------------------------------
+# store-backed sessions, spill, sharded pools and checkpoint flags
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend,fuse,store_kind", [
+    ("single", 0, "graph"), ("kernel", 0, "graph"), ("kernel", 8, "edge")])
+def test_spill_and_auto_unspill(backend, fuse, store_kind):
+    """A store-backed session equals the flat one; ``spill()`` drops the
+    backend and the store's device arrays; the next query unspills (one
+    more build, one more upload, the query not warm) and gives the same
+    estimate."""
+    g = gen.road_like(600, seed=4)
+    cfg = GraphEngineConfig(fuse_supersteps=fuse)
+    flat = open_session(g, cfg, tau=4, backend=backend, device=CPU).estimate(
+        CascadeEstimator(levels=1, tau_solve=8))
+    st = (GraphStore(g, n_shards=2, device=CPU) if store_kind == "graph"
+          else EdgeStore(g, device=CPU))
+    with open_session(None, cfg, store=st, tau=4, backend=backend) as sess:
+        est = CascadeEstimator(levels=1, tau_solve=8)
+        first = sess.estimate(est)
+        _same_as_ref(first, flat)
+        m = sess.metrics
+        builds, uploads, store_uploads = (m.backend_builds, m.edge_uploads,
+                                          st.uploads)
+        sess.spill()
+        sess.spill()   # idempotent
+        assert sess.spilled and sess.backend is None and st.src is None
+        again = sess.estimate(est)
+        assert not sess.spilled and st.src is not None
+        assert (m.backend_builds, m.edge_uploads, st.uploads) == (
+            builds + 1, uploads + 1, store_uploads + 1)
+        _same_estimate(again, first)
+        if backend == "kernel":
+            # the CSR came from the store through rebind: inert tail
+            assert sess.backend.graph.inert_tail
+    assert st.src is None   # close() released the device arrays
+
+
+def test_spill_refusals():
+    g = gen.road_like(200, seed=1)
+    with open_session(g, tau=4, device=CPU) as sess:
+        with pytest.raises(RuntimeError, match="store-backed"):
+            sess.spill()
+    with open_session(None, store=EdgeStore(g, device=CPU), tau=4) as sess:
+        sess.apply_updates(_one_insert(g))
+        with pytest.raises(RuntimeError, match="dynamic mode"):
+            sess.spill()
+    with pytest.raises(ValueError, match="edges or a store"):
+        open_session(None, device=CPU)
+    closed = open_session(None, store=EdgeStore(g, device=CPU), tau=4)
+    closed.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        closed.spill()
+
+
+def _one_insert(g):
+    from repro_torch.core import UpdateBatch
+
+    return UpdateBatch.inserts([0], [g.n_nodes - 1], [5])
+
+
+def test_pool_shards_and_checkpoint_dirs_match_reference(tmp_path):
+    """``shards=2``: every session is backed by a 2-shard GraphStore and
+    checkpoints under ``g<i>``; the estimates equal the reference's pool
+    with the same knobs and the port's flat pool."""
+    graphs = [gen.road_like(300, seed=s) for s in (1, 2)]
+    d, d_ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    ref_pool = RefPool(RefCfg(), checkpoint_dir=d_ref, shards=2)
+    pool = SessionPool(GraphEngineConfig(), device=CPU, checkpoint_dir=d,
+                       shards=2)
+    flat = SessionPool(GraphEngineConfig(), device=CPU)
+    try:
+        for i, g in enumerate(graphs):
+            sess = pool.open(g, tau=4)
+            assert isinstance(sess.store, GraphStore)
+            assert sess.store.n_shards == 2
+            assert sess.checkpoint_dir == os.path.join(d, f"g{i}")
+            assert sess.checkpointer.store is sess.store
+            with guard.metered() as meter:
+                est = sess.estimate()
+            pm = est.pipeline
+            assert pm.checkpoint_syncs > 0
+            assert meter.transfers == pm.total_host_syncs + \
+                pm.checkpoint_syncs
+            want = ref_pool.open(_ref(g), tau=4).estimate()
+            _same_as_ref(est, want)
+            _same_as_ref(est, flat.open(g, tau=4).estimate())
+            assert os.listdir(sess.checkpoint_dir) == []   # completed
+        with pytest.raises(ValueError, match="shards"):
+            SessionPool(device=CPU, shards=-1)
+    finally:
+        for p in (ref_pool, pool, flat):
+            p.close()
+
+
+def test_serve_shards_and_checkpoints_keep_reads_counted(capsys, tmp_path):
+    rc, flat = _serve(capsys, "--levels", "1", "--tau-solve", "8")
+    rc2, out = _serve(capsys, "--levels", "1", "--tau-solve", "8",
+                      "--shards", "2", "--checkpoint-dir", str(tmp_path))
+    assert rc == rc2 == 0 and not out["failures"]
+    assert out["shards"] == 2
+    assert out["transfers"] == out["counted_host_syncs"] > sum(
+        q["total_host_syncs"] for q in out["per_query"])
+    assert all(c["saves"] > 0 and c["restores"] == 0
+               for c in out["checkpoint"])
+    assert [q["phi_approx"] for q in out["per_query"]] == \
+        [q["phi_approx"] for q in flat["per_query"]]
+    assert sorted(os.listdir(tmp_path)) == ["g0", "g1"]
+
+
+def test_serve_preempt_then_resume_in_a_subprocess(tmp_path):
+    """A real SIGTERM at stage boundary 2 of the first session: the run
+    exits 75 with its step saved; ``--resume`` exits 0 with the estimate
+    of an uninterrupted run."""
+    argv = ["--mode", "graph-diameter", "--device", "cpu", "--batch", "1",
+            "--graph-n", "4096", "--queries", "1", "--tau", "4",
+            "--levels", "2", "--tau-solve", "64"]
+    # one intra-op thread, as this file's fixture sets for itself
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "OMP_NUM_THREADS": "1"}
+    ck = ["--checkpoint-dir", str(tmp_path)]
+
+    def run(*extra):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+             *extra], capture_output=True, text=True, env=env, cwd=REPO,
+            timeout=300)
+
+    killed = run(*ck, "--preempt-after", "2")
+    assert killed.returncode == EXIT_PREEMPTED, killed.stderr[-2000:]
+    assert sorted(os.listdir(tmp_path / "g0")) == ["step_00000001",
+                                                "step_00000002"]
+    resumed = run(*ck, "--resume")
+    assert resumed.returncode == 0, resumed.stderr[-2000:]
+    out = json.loads(resumed.stdout.strip().splitlines()[-1])
+    assert out["checkpoint"][0]["restores"] == 1
+    assert os.listdir(tmp_path / "g0") == []
+    whole = serve.serve_graph_diameter(serve.parse_args(argv))
+    assert [q["phi_approx"] for q in out["per_query"]] == \
+        [r.phi_approx for _, _, r in whole["results"]]
+    assert out["per_query"][0]["clusters"] == \
+        whole["results"][0][2].n_clusters
+
+
+def test_diameter_launcher_store_and_checkpoint_flags(capsys, tmp_path):
+    base = ["--n", "1500", "--tau", "4", "--device", "cpu", "--levels", "1",
+            "--tau-solve", "16"]
+
+    def launch(*extra):
+        assert diameter_launcher.main(base + list(extra)) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    flat = launch()
+    sharded = launch("--shards", "4", "--compress", "--partition", "cluster")
+    ckpt = launch("--checkpoint-dir", str(tmp_path))
+    keys = ("phi_approx", "radius", "clusters", "quotient_edges", "stages",
+            "supersteps", "solve_supersteps", "host_syncs", "level_clusters",
+            "level_supersteps")
+    for out in (sharded, ckpt):
+        assert {k: out[k] for k in keys} == {k: flat[k] for k in keys}
+    st = sharded["store"]
+    assert st["shards"] == 4 and st["compress"]
+    assert st["host_slab_bytes"] < st["raw_bytes"] <= \
+        st["device_edge_bytes"]
+    assert st["halo_bytes_per_superstep"] < \
+        st["fullplane_bytes_per_superstep"]
+    assert "store" not in flat and "checkpoint" not in flat
+    assert ckpt["checkpoint"]["saves"] == ckpt["stages"] > 0
+    assert ckpt["checkpoint_syncs"] == 9 * ckpt["checkpoint"]["saves"]
+    for flags, msg in ((["--resume"], "--resume requires --checkpoint-dir"),
+                       (["--shards", "-2"], "--shards must be >= 0")):
+        with pytest.raises(SystemExit) as exc:
+            diameter_launcher.main(base + flags)
+        assert exc.value.code == 2
+        assert msg in capsys.readouterr().err

@@ -1,10 +1,13 @@
-"""The port's mutable edge store and update traces against the JAX package:
+"""The port's edge stores and update traces against the JAX package:
 ``EdgeStore`` slot for slot (build with duplicates and self-loops, staged
 inserts, reweights and deletes, LIFO recycling, capacity growth, the
-device arrays after each flush, ``uploads`` and ``scatters``) and
-``temporal_trace`` batch for batch (every mix, both insert modes, a graph
-of 20,000 nodes). Every compared value is an integer, so every comparison
-is exact."""
+device arrays after each flush, ``uploads`` and ``scatters``, its state
+tree and ``from_state``, ``drop_device``), ``GraphStore`` at 1, 2 and 4
+shards with and without pilot centers and compression (slabs, halo index,
+``halo_k``, byte counts, ``perm``, state trees; mutation drops the layout;
+a mismatched geometry is refused), and ``temporal_trace`` batch for batch
+(every mix, both insert modes, a graph of 20,000 nodes). Every compared
+value is an integer, so every comparison is exact."""
 import contextlib
 import dataclasses
 
@@ -25,12 +28,28 @@ import torch  # noqa: E402
 
 from repro.graph import generators as ref_gen  # noqa: E402
 from repro.graph.storage import EdgeStore as RefStore  # noqa: E402
+from repro.graph.storage import GraphStore as RefGraphStore  # noqa: E402
 from repro.graph.structures import EdgeList as RefEdgeList  # noqa: E402
-from repro_torch.graph import EDGE_STORE_BUCKET, EdgeStore  # noqa: E402
+from repro_torch.graph import (  # noqa: E402
+    EDGE_STORE_BUCKET,
+    EdgeStore,
+    GraphStore,
+)
+from repro_torch.runtime.compression import PackedI32  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structures import EdgeList  # noqa: E402
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so that parallel test workers do not
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _pair(n, src, dst, w, **kw):
@@ -157,3 +176,148 @@ def test_temporal_trace_refusals():
     with pytest.raises(ValueError, match=">= 2 nodes"):
         gen.temporal_trace(EdgeList(1, [], [], []), 1)
     assert gen.temporal_trace(g, 0) == []
+
+
+# ---------------------------------------------------------------------------
+# the state seam and the partition-aware GraphStore
+# ---------------------------------------------------------------------------
+
+
+def _same_tree(port_tree, ref_tree):
+    assert list(port_tree) == list(ref_tree)
+    for k in ref_tree:
+        a, b = np.asarray(port_tree[k]), np.asarray(ref_tree[k])
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b)
+
+
+def test_edge_store_state_round_trip_matches_reference():
+    """The state tree (free list in order, full capacity) and extra equal
+    the reference's after mutations; ``from_state`` rebuilds the same
+    store on the device (one upload); ``drop_device`` / ``ensure_device``
+    give the memory back and upload again."""
+    g = ref_gen.random_geometric(150, seed=4)
+    ref, port = _pair(g.n_nodes, g.src, g.dst, g.weight, headroom=1.5,
+                      bucket=64)
+    for st in (ref, port):
+        st.delete_edge(int(g.src[0]), int(g.dst[0]))
+        st.set_edge(3, 77, 9)
+        st.flush()
+    _same_tree(port.state_dict(), ref.state_dict())
+    assert port.extra_state() == ref.extra_state()
+    p2 = EdgeStore.from_state(port.state_dict(), port.extra_state(),
+                              device=CPU)
+    r2 = RefStore.from_state(ref.state_dict(), ref.extra_state())
+    _same(r2, p2)
+    assert p2.device_bytes() == 3 * 4 * len(p2.h_src)
+    p2.drop_device()
+    assert p2.src is None and p2.dst is None and p2.weight is None
+    assert p2.device_bytes() == 0
+    p2.ensure_device()
+    assert p2.uploads == 2
+    assert p2.device_bytes() == 3 * 4 * len(p2.h_src)
+    np.testing.assert_array_equal(p2.src.numpy(), p2.h_src)
+    with pytest.raises(ValueError, match="n_nodes"):
+        p2.load_state(port.state_dict(), {**port.extra_state(),
+                                          "n_nodes": 3})
+
+
+def _graph_store_pair(n_shards, with_centers, compress, n=700):
+    r = ref_gen.random_geometric(n, avg_degree=4.0, seed=2)
+    centers = (np.random.default_rng(5).integers(0, 40, n)
+               if with_centers else None)
+    kw = dict(n_shards=n_shards, centers=centers, compress=compress)
+    return (RefGraphStore(r, **kw),
+            GraphStore(EdgeList(n, r.src, r.dst, r.weight), device=CPU, **kw))
+
+
+def _same_layout(ref, port):
+    for name in ("n_pad", "nodes_per_shard", "capacity", "n_edges"):
+        assert getattr(port, name) == getattr(ref, name), name
+    for name in ("perm", "inv_perm"):
+        a, b = getattr(port, name), getattr(ref, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert len(port.slabs()) == len(ref.slabs())
+    for ps, rs in zip(port.slabs(), ref.slabs()):
+        assert (ps.shard, ps.n_edges, ps.compressed, ps.nbytes) == (
+            rs.shard, rs.n_edges, rs.compressed, rs.nbytes)
+        for col in ("src", "dst", "weight"):
+            a, b = getattr(ps, col), getattr(rs, col)
+            if ps.compressed:
+                assert isinstance(a, PackedI32)
+                assert a.data.dtype == b.data.dtype
+                assert a.data.tobytes() == b.data.tobytes()
+                assert (a.n, a.first) == (b.n, b.first)
+            else:
+                np.testing.assert_array_equal(a, b)
+    assert sorted(port.halo_index()) == sorted(ref.halo_index())
+    for p in ref.halo_index():
+        np.testing.assert_array_equal(port.halo_index()[p],
+                                      ref.halo_index()[p])
+    for name in ("halo_k", "halo_rows", "halo_bytes_per_superstep",
+                 "fullplane_bytes_per_superstep", "resident_bytes",
+                 "raw_bytes"):
+        assert getattr(port, name)() == getattr(ref, name)(), name
+    for p in range(ref.n_shards):
+        for a, b in zip(port.slab(p), ref.slab(p)):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    assert port.decompressions == ref.decompressions
+    _same_tree(port.state_dict(), ref.state_dict())
+    assert port.extra_state() == ref.extra_state()
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("with_centers", [False, True])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_graph_store_matches_reference(n_shards, with_centers, compress):
+    ref, port = _graph_store_pair(n_shards, with_centers, compress)
+    _same_layout(ref, port)
+    # the device arrays are the relabeled host mirrors
+    np.testing.assert_array_equal(port.src.numpy(), np.asarray(ref.src))
+    # from_state rebuilds the same store, relabeling included
+    p2 = GraphStore.from_state(port.state_dict(), port.extra_state(),
+                               device=CPU)
+    r2 = RefGraphStore.from_state(ref.state_dict(), ref.extra_state())
+    _same_layout(r2, p2)
+
+
+def test_graph_store_mutation_invalidates_layout():
+    """A staged insert or delete drops the slabs, the halo index and
+    ``halo_k``; so does a flush that grew the capacity; the layout built
+    again equals the reference's after the same mutations."""
+    ref, port = _graph_store_pair(4, True, True)
+    _same_layout(ref, port)
+    far = [(u, (u + off) % 700) for off in range(348, 354) for u in range(700)]
+    for st in (ref, port):
+        st.set_edge(0, 500, 7)
+        assert st._slabs is None and st._halo is None and st._halo_k is None
+        st.flush()
+        st.slabs()
+        st.delete_edge(0, 500)
+        assert st._slabs is None
+        st.flush()
+        cap = st.capacity
+        for u, v in far:       # more inserts than free slots: a growth
+            if st.lookup(u, v) is None:
+                st.set_edge(u, v, 3)
+        assert st.capacity > cap
+        st.slabs()
+        assert st.flush() and st._slabs is None
+    _same_layout(ref, port)
+
+
+def test_graph_store_refuses_mismatched_geometry():
+    ref, port = _graph_store_pair(4, False, False)
+    two = GraphStore(port.edge_list(), n_shards=2, device=CPU)
+    with pytest.raises(ValueError, match="n_shards"):
+        two.load_state(port.state_dict(), port.extra_state())
+    with pytest.raises(ValueError, match="n_shards"):
+        RefGraphStore(ref.edge_list(), n_shards=2).load_state(
+            ref.state_dict(), ref.extra_state())
+    with pytest.raises(ValueError, match="n_shards"):
+        GraphStore(port.edge_list(), n_shards=0, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        port.sharded_graph()
