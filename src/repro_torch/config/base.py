@@ -1,14 +1,18 @@
 """Copies of the JAX package's ``config/base.py`` dataclasses that the
-ported paths read: ``ShapeSpec`` (its GNN and recsys fields),
-``ArchConfig``, ``TransformerConfig`` (with ``head_dim`` and
-``param_count``), ``GNNConfig`` (with the reference's rough
-``param_count``), ``RecsysConfig`` (with ``param_count`` as the reference
+ported paths read: ``ShapeSpec``, ``ArchConfig``, ``TransformerConfig``
+(with ``head_dim`` and ``param_count``), ``MoEConfig`` (with
+``param_count`` and ``active_param_count``), ``GNNConfig`` (with the
+reference's rough ``param_count``), ``RecsysConfig`` (with ``param_count`` as the reference
 has it: it leaves out the ``linear`` table), ``GraphEngineConfig`` (the
 paper engine's, without the sharded and Pallas backends' knobs ``comm``,
 ``relax_impl``, ``node_tile`` and ``edge_block``; its ``backend`` defaults
-to the port's ``kernel``) and the GNN and recsys shape sets
-``GNN_SHAPES`` and ``RECSYS_SHAPES``. The MoE configs and the LM
-shape set wait for their slices.
+to the port's ``kernel``), the shape sets ``LM_SHAPES``, ``GNN_SHAPES``
+and ``RECSYS_SHAPES``, and ``shapes_for_family``.
+
+``TransformerConfig.param_count()`` is the reference's: it leaves out the
+QKV biases (qwen1.5-32b: 983,040 elements over 64 layers), so it equals
+the elements ``init_params`` makes (``unembed`` included where the
+embeddings are untied) only where there are no biases.
 
 Configs are plain frozen dataclasses: hashable, serialisable with
 ``dataclasses.asdict`` and overridable with ``dataclasses.replace``.
@@ -21,17 +25,18 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell for an architecture: the reference's
-    ``ShapeSpec`` with the fields the GNN and recsys shapes set (its LM
-    fields wait for their slice).
+    """One input-shape cell for an architecture, as the reference's.
 
-    ``kind`` selects the regime: "full_graph" / "minibatch" /
-    "batched_graphs" (GNN) or "recsys_train" / "recsys_serve" /
-    "retrieval" (recsys).
+    ``kind`` selects the regime: "train" / "prefill" / "decode" (LM),
+    "full_graph" / "minibatch" / "batched_graphs" (GNN) or "recsys_train"
+    / "recsys_serve" / "retrieval" (recsys).
     """
 
     name: str
     kind: str
+    # LM fields
+    seq_len: int = 0
+    global_batch: int = 0
     # GNN fields
     n_nodes: int = 0
     n_edges: int = 0
@@ -90,6 +95,40 @@ class TransformerConfig(ArchConfig):
         attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) + (self.n_heads * h) * d
         mlp = 3 * d * self.d_ff
         per_layer = attn + mlp + 2 * d
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + d
+
+
+@dataclass(frozen=True)
+class MoEConfig(TransformerConfig):
+    """Mixture-of-experts transformer (mixtral / moonlight style)."""
+
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25    # slots per expert vs perfect balance
+    moe_groups: int = 0              # dispatch groups (0 -> 1): tokens are
+                                     # routed into group-local capacity
+                                     # buffers (models/transformer.py)
+    n_shared_experts: int = 0        # moonlight: shared expert(s) always active
+    d_ff_shared: int = 0             # width of shared expert (0 -> d_ff)
+    moe_every: int = 1               # MoE layer every k-th layer (1 = all layers)
+    router_aux_loss: float = 0.01
+
+    def param_count(self) -> int:
+        d, h = self.d_model, self.head_dim
+        attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) + (self.n_heads * h) * d
+        moe = 3 * d * self.d_ff * self.n_experts + d * self.n_experts
+        shared = 3 * d * (self.d_ff_shared or self.d_ff) * self.n_shared_experts
+        per_layer = attn + moe + shared + 2 * d
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + d
+
+    def active_param_count(self) -> int:
+        d, h = self.d_model, self.head_dim
+        attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) + (self.n_heads * h) * d
+        moe = 3 * d * self.d_ff * self.top_k + d * self.n_experts
+        shared = 3 * d * (self.d_ff_shared or self.d_ff) * self.n_shared_experts
+        per_layer = attn + moe + shared + 2 * d
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + d
 
@@ -173,6 +212,13 @@ class GraphEngineConfig(ArchConfig):
     deterministic: bool = False  # oneshot: hash-derived centers and shifts
 
 
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_4k", kind="train", seq_len=4096, global_batch=256),
+    ShapeSpec(name="prefill_32k", kind="prefill", seq_len=32768, global_batch=32),
+    ShapeSpec(name="decode_32k", kind="decode", seq_len=32768, global_batch=128),
+    ShapeSpec(name="long_500k", kind="decode", seq_len=524288, global_batch=1),
+)
+
 GNN_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec(name="full_graph_sm", kind="full_graph", n_nodes=2708, n_edges=10556, d_feat=1433),
     ShapeSpec(
@@ -194,3 +240,7 @@ RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec(name="serve_bulk", kind="recsys_serve", batch=262144),
     ShapeSpec(name="retrieval_cand", kind="retrieval", batch=1, n_candidates=1_000_000),
 )
+
+
+def shapes_for_family(family: str) -> Tuple[ShapeSpec, ...]:
+    return {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}[family]

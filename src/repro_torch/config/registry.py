@@ -17,7 +17,11 @@ _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 _ARCH_MODULES = {
     "gcn-cora": "gcn_cora",
     "gemma2-9b": "gemma2_9b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "paper-graph": "paper_graph",
+    "qwen1.5-32b": "qwen1_5_32b",
     "xdeepfm": "xdeepfm",
 }
 

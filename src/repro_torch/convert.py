@@ -61,8 +61,9 @@ def transformer_params_from_reference(params_np: Dict[str, Any], cfg,
                                       device="cuda") -> Dict[str, Any]:
     """The reference's stacked transformer parameter tree (``embed``,
     ``final_norm``, optional ``unembed``, and ``layers`` of ``[L, ...]``
-    arrays), as numpy, turned into the port's dict on ``device`` with the
-    same names, shapes and values. ``cfg`` is the port's
+    arrays, the QKV biases and the MoE tensors included), as numpy, turned
+    into the port's dict on ``device`` with the same names, shapes and
+    values. ``cfg`` is the port's
     ``TransformerConfig``; each array must already be in its dtype."""
     dev = resolve_device(device)
     want = getattr(torch, cfg.dtype)

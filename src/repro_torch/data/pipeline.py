@@ -1,23 +1,27 @@
-"""Synthetic, seeded recsys and GNN batches: copies of the JAX package's
-``data/pipeline.py`` ``DataCursor``, ``_seed_for``, ``RecsysPipeline``,
-``gnn_full_graph_batch`` and ``gnn_molecule_batch``.
+"""Synthetic, seeded LM, recsys and GNN batches: copies of the JAX
+package's ``data/pipeline.py`` ``DataCursor``, ``_seed_for``,
+``LMTokenPipeline``, ``RecsysPipeline``, ``gnn_full_graph_batch`` and
+``gnn_molecule_batch``.
 
 They are numpy only, and for the same seed and cursor give the same arrays
 as the reference: deterministic per-(shard, step) seeding, so a restored
-job replays the exact stream from its data cursor, and Zipf-ish ids (80% of
+job replays the exact stream from its data cursor; uniform random tokens
+with shifted labels (-1 masks the last position); and Zipf-ish ids (80% of
 lookups in the first 1% of each field's rows) that exercise the
 embedding-bag gather as real traffic does. The GNN batches give the same
-arrays as the reference's for the same seed. ``LMTokenPipeline`` waits for
-its slice.
+arrays as the reference's for the same seed.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
-from repro_torch.config.base import GNNConfig, RecsysConfig, ShapeSpec
+from repro_torch.config.base import (GNNConfig, RecsysConfig, ShapeSpec,
+                                     TransformerConfig)
+
+OVERDECOMPOSE = 4   # logical data shards per host
 
 
 @dataclass
@@ -31,6 +35,28 @@ def _seed_for(base: int, shard: int, step: int) -> np.random.Generator:
     return np.random.default_rng(
         np.random.SeedSequence([base, shard, step]).generate_state(4)
     )
+
+
+class LMTokenPipeline:
+    def __init__(self, cfg: TransformerConfig, shape: ShapeSpec,
+                 n_hosts: int = 1, seed: int = 0):
+        self.cfg, self.shape = cfg, shape
+        self.n_shards = n_hosts * OVERDECOMPOSE
+        self.seed = seed
+
+    def batch(self, cursor: DataCursor) -> Dict[str, np.ndarray]:
+        r = _seed_for(self.seed, cursor.shard, cursor.step)
+        B, S = self.shape.global_batch, self.shape.seq_len
+        toks = r.integers(0, self.cfg.vocab_size, (B, S), dtype=np.int32)
+        labels = np.roll(toks, -1, axis=1)
+        labels[:, -1] = -1
+        return {"tokens": toks, "labels": labels}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        cur = DataCursor()
+        while True:
+            yield self.batch(cur)
+            cur.step += 1
 
 
 class RecsysPipeline:

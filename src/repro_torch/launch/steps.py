@@ -1,17 +1,32 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
-of the JAX package's ``launch/steps.py`` ``build_cell`` for xDeepFM's two
-serving kinds (``_recsys_cell``) and the paper engine's cell
-(``_engine_cell``), on one device, with no mesh and no shardings.
+of the JAX package's ``launch/steps.py`` ``build_cell`` for the LM
+family's serving kinds (``_lm_cell``), xDeepFM's two serving kinds
+(``_recsys_cell``) and the paper engine's cell (``_engine_cell``), on one
+device, with no mesh and no shardings.
 
 ``build_cell(arch, shape_name, smoke=False, device="cuda")`` returns a
 ``Cell``:
-  step_fn     ``serve(params, batch, cin_impl="auto") -> logits [B]``
-              (``recsys_serve``) or ``retrieval(params, query,
-              cin_impl="auto") -> scores [C]`` (``retrieval``)
+  step_fn     ``serve_prefill(params, batch) -> logits [B, S, V]``
+              (``prefill``), ``serve_decode(params, cache, tok) -> (logits
+              [B, V], cache)`` (``decode``), ``serve(params, batch,
+              cin_impl="auto") -> logits [B]`` (``recsys_serve``) or
+              ``retrieval(params, query, cin_impl="auto") -> scores [C]``
+              (``retrieval``)
   arg_shapes  name -> (shape, dtype) of the step's inputs besides params
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
-              item fields)
+              item fields; an MoE arch: ``moe_groups`` 1)
   device      where ``Cell.inputs`` puts the inputs
+  model_flops the reference's analytic useful FLOPs of one step (LM: 2 N
+              a token, N the active parameters of an MoE arch; 0 where the
+              reference has none)
+
+An LM cell's ``serve_decode`` decodes one new token against a cache that
+already holds ``S - 1`` (the cache's ``len`` is set to ``S - 1``, a Python
+int, as the reference sets it), and its MoE dispatch runs in one group:
+the reference sets ``moe_groups`` to its mesh's data shards, one here. The
+keyword arguments ``batch`` and ``seq_len`` cut an LM cell's shape to what
+one card holds; the cell's ``note`` lists each cut against the
+``ShapeSpec``. ``train_4k`` raises: training waits for its slice.
 
 The ``paper-graph`` arch's cell (``build_cell("paper-graph", "n16M")``,
 keyword arguments ``n_nodes`` = 2^24 and ``avg_degree`` = 5 as the
@@ -20,9 +35,9 @@ scale through a session backend (see ``_engine_cell``).
 
 Retrieval scores one query against ``n_candidates`` with the full model:
 ``n_sparse // 3`` user fields broadcast over the candidates, the rest item
-fields. Every other family and kind (``recsys_train`` too) raises
-``NotImplementedError`` naming the ported kinds and the family and kind
-asked for; an arch the port does not register raises the registry's
+fields. Every other family and kind (``recsys_train`` and ``train`` too)
+raises ``NotImplementedError`` naming the ported kinds and the family and
+kind asked for; an arch the port does not register raises the registry's
 ``KeyError``. The GNN family has no cell here: the reference's GNN cell is
 a training step, which waits for the training slice (GNN inference runs
 through ``models/gnn.py``).
@@ -38,8 +53,9 @@ import numpy as np
 import torch
 
 from repro_torch.common import next_multiple, resolve_device
-from repro_torch.config.base import (GNN_SHAPES, RECSYS_SHAPES,
-                                     GraphEngineConfig, RecsysConfig)
+from repro_torch.config.base import (GraphEngineConfig, MoEConfig,
+                                     RecsysConfig, ShapeSpec,
+                                     TransformerConfig, shapes_for_family)
 from repro_torch.config.registry import get_arch
 from repro_torch.core import state as st
 from repro_torch.core.backend import KernelBackend, SingleDeviceBackend
@@ -47,9 +63,11 @@ from repro_torch.core.engine import default_uniform_fn
 from repro_torch.core.session import tau_for
 from repro_torch.graph.structures import EdgeList
 from repro_torch.models import recsys as recsys_mod
+from repro_torch.models import transformer as tf_mod
 
-# the recsys shape kinds build_cell ports
-PORTED_KINDS = ("recsys_serve", "retrieval")
+# the shape kinds build_cell ports, by family
+PORTED_KINDS = {"lm": ("prefill", "decode"),
+                "recsys": ("recsys_serve", "retrieval")}
 
 
 @dataclass
@@ -58,9 +76,10 @@ class Cell:
     shape: str
     step_fn: Callable
     arg_shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
-    cfg: Union[RecsysConfig, GraphEngineConfig]
+    cfg: Union[TransformerConfig, RecsysConfig, GraphEngineConfig]
     device: torch.device
     note: str = ""
+    model_flops: float = 0.0
 
     def inputs(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The step's inputs, by ``arg_shapes``' names and dtypes, from numpy
@@ -164,34 +183,94 @@ def _engine_cell(cfg: GraphEngineConfig, n_nodes: int = 1 << 24,
                       "round)", n_nodes=n, n_edges=e)
 
 
+def _lm_model_flops(cfg: TransformerConfig, shape: ShapeSpec,
+                    kind: str) -> float:
+    """The reference's analytic useful FLOPs of one step: 6 N a token to
+    train, 2 N a token to prefill, 2 N a sequence to decode, N the active
+    parameters of an MoE arch."""
+    n = (cfg.active_param_count() if isinstance(cfg, MoEConfig)
+         else cfg.param_count())
+    if kind == "train":
+        return 6.0 * n * shape.seq_len * shape.global_batch
+    if kind == "prefill":
+        return 2.0 * n * shape.seq_len * shape.global_batch
+    # decode: one token per sequence
+    return 2.0 * n * shape.global_batch
+
+
+def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec, dev: torch.device,
+             batch=None, seq_len=None) -> Cell:
+    """An LM serving cell on one device, at the shape's batch and length or
+    at the cuts ``batch`` / ``seq_len`` (listed in the note)."""
+    if isinstance(cfg, MoEConfig):
+        cfg = dataclasses.replace(cfg, moe_groups=1)   # one data shard
+    cuts = []
+    if batch is not None and batch != shape.global_batch:
+        cuts.append(f"batch {batch} of {shape.global_batch}")
+        shape = dataclasses.replace(shape, global_batch=int(batch))
+    if seq_len is not None and seq_len != shape.seq_len:
+        cuts.append(f"seq_len {seq_len} of {shape.seq_len}")
+        shape = dataclasses.replace(shape, seq_len=int(seq_len))
+    B, S = shape.global_batch, shape.seq_len
+    note = "; ".join(cuts)
+    flops = _lm_model_flops(cfg, shape, shape.kind)
+
+    if shape.kind == "prefill":
+        def serve_prefill(params, batch):
+            return tf_mod.prefill_step(params, batch["tokens"], cfg)
+
+        return Cell(cfg.name, shape.name, serve_prefill,
+                    {"tokens": ((B, S), torch.int32)}, cfg, dev,
+                    note=note, model_flops=flops)
+
+    # decode: one new token against a kv cache of S positions
+    def serve_decode(params, cache, tok):
+        # steady-state decode: the cache already holds S - 1 tokens
+        return tf_mod.decode_step(params, dict(cache, len=S - 1), tok, cfg)
+
+    kv = ((cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim),
+          getattr(torch, cfg.dtype))
+    return Cell(cfg.name, shape.name, serve_decode,
+                {"k": kv, "v": kv, "tok": ((B, 1), torch.int32)}, cfg, dev,
+                note="; ".join([f"decode against {S}-token cache"] + cuts),
+                model_flops=flops)
+
+
 def build_cell(arch: str, shape_name: str, smoke: bool = False,
-               device="cuda", **engine_kw) -> Cell:
+               device="cuda", **kw) -> Cell:
     """The ``(arch, shape)`` cell on ``device``. For the ``paper-graph``
     arch, ``shape_name`` is the cell's name (``n16M`` at the default
-    size) or ``""``, and ``engine_kw`` (``n_nodes``, ``avg_degree``) sizes
-    it."""
+    size) or ``""``, and ``kw`` (``n_nodes``, ``avg_degree``) sizes it; for
+    an LM arch, ``kw`` (``batch``, ``seq_len``) cuts the shape."""
     cfg = get_arch(arch, smoke=smoke)
     if isinstance(cfg, GraphEngineConfig):
-        cell = _engine_cell(cfg, device=device, **engine_kw)
+        cell = _engine_cell(cfg, device=device, **kw)
         if shape_name not in ("", cell.shape):
             raise KeyError(f"{arch}'s cell at this size is {cell.shape!r}, "
                            f"not {shape_name!r}")
         return cell
-    if engine_kw:
-        raise TypeError(f"{arch} takes no engine-cell arguments "
-                        f"{sorted(engine_kw)}")
-    shape = {s.name: s for s in RECSYS_SHAPES + GNN_SHAPES}.get(shape_name)
-    if cfg.family != "recsys" or shape is None \
-            or shape.kind not in PORTED_KINDS:
+    allowed = ("batch", "seq_len") if cfg.family == "lm" else ()
+    extra = sorted(set(kw) - set(allowed))
+    if extra:
+        raise TypeError(f"{arch} takes no cell arguments {extra}")
+    shape = {s.name: s for s in shapes_for_family(cfg.family)}.get(
+        shape_name)
+    if shape is None or shape.kind not in PORTED_KINDS.get(cfg.family, ()):
         kind = shape.kind if shape is not None else "unknown"
         why = (": the reference's GNN cell is a training step, which waits "
                "for the training slice; GNN inference runs through "
-               "models/gnn.py" if cfg.family == "gnn" else "")
+               "models/gnn.py" if cfg.family == "gnn" else
+               ": training waits for the training slice"
+               if kind == "train" else "")
         raise NotImplementedError(
             f"{arch} x {shape_name} is not ported; the port builds the "
-            f"recsys family's {' and '.join(PORTED_KINDS)} shapes, and this "
-            f"is the {cfg.family} family's {kind} kind{why}")
+            f"recsys family's {' and '.join(PORTED_KINDS['recsys'])} shapes "
+            f"and the lm family's {' and '.join(PORTED_KINDS['lm'])} "
+            f"shapes, and this is the {cfg.family} family's {kind} "
+            f"kind{why}")
     dev = resolve_device(device)
+    if cfg.family == "lm":
+        return _lm_cell(cfg, shape, dev, **kw)
     bag = max(cfg.multi_hot, 1)
     i32, f32 = torch.int32, torch.float32
 

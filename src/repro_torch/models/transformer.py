@@ -1,17 +1,42 @@
-"""Decoder-only transformer, dense path: the port of the JAX package's
-``models/transformer.py`` for serving (gemma2-9b and the other dense archs
-once their configs are ported).
+"""Decoder-only transformer: the port of the JAX package's
+``models/transformer.py`` for serving its five LM archs (gemma2-9b,
+mistral-nemo-12b, qwen1.5-32b, and the MoE archs moonshot-v1-16b-a3b and
+mixtral-8x7b).
 
 Parameters are a plain dict with layers STACKED on a leading ``[L]`` axis,
 as in the reference (``embed``, ``final_norm``, optional ``unembed``, and
 ``layers`` with ``attn_norm``, ``mlp_norm``, ``wq``, ``wk``, ``wv``, ``wo``,
-optional ``bq``/``bk``/``bv``, ``w_gate``, ``w_up``, ``w_down``). Attention
-tensors are ``[B, H, S, D]`` and the KV cache is ``[L, B, Hkv, S, D]``.
+optional ``bq``/``bk``/``bv``, and ``w_gate``, ``w_up``, ``w_down``; an
+MoE config's layers have ``router`` ``[L, d, E]``, ``w_gate``/``w_up``
+``[L, E, d, f]``, ``w_down`` ``[L, E, f, d]`` and, with shared experts,
+``ws_gate``/``ws_up`` ``[L, d, fs]`` and ``ws_down`` ``[L, fs, d]``).
+Attention tensors are ``[B, H, S, D]`` and the KV cache is
+``[L, B, Hkv, S, D]``.
+
+The MoE FFN (``_moe_mlp``) is the reference's group-local capacity
+dispatch: a float32 router softmax over a model-dtype product, top-k with
+ties to the lower expert index (``lax.top_k``'s order), gates renormalised,
+the Switch aux loss, ``capacity = ceil(Tg k / E cf)`` (``Tg`` when a group
+has fewer tokens than experts, then at least 4), each (token, choice)
+pair's position in its expert by a stable sort and ``searchsorted``, pairs
+past the capacity dropped with their gates zeroed, dense per-expert
+products over the capacity slots, the gate multiply promoted to float32
+as JAX promotes bf16 x float32, the combine summed per token, shared
+experts added. No step reads the device: shapes and the capacity are
+static, and nothing calls ``.item()``, ``nonzero``, boolean-mask indexing
+or ``bincount``. Every pair is copied into a flat ``[E * G * C + 1, d]``
+buffer by ``index_copy_``: each kept pair owns its (expert, group, slot)
+row and the dropped pairs all land on the last row, which no product
+reads, so no write needs an atomic add (the reference adds the dropped
+pairs, zeroed, into slot ``C - 1``: the same kept values). A decode step
+runs every expert's product on its capacity slots, as the reference's, so
+it reads every expert's weights.
 
 Where it differs from the reference, on purpose:
   * the layers run as a Python loop with each layer's window static (the
     reference's unrolled branch, ``transformer.py:428-440``), since eager
-    PyTorch has no ``lax.scan``;
+    PyTorch has no ``lax.scan``; the MoE aux loss is the layers' mean, as
+    there;
   * attention goes through ``kernels/flash_attention/ops.attention``: the
     hand-written CUDA kernel for CUDA tensors, the plain version for CPU
     tensors (``attn_impl="ref"`` forces the plain version anywhere);
@@ -21,19 +46,25 @@ Where it differs from the reference, on purpose:
   * ``init_params`` draws from a seeded ``torch.Generator`` on the device,
     one slice at a time: the values differ from the reference's
     ``jax.random`` init (tests carry the reference's weights over with
-    ``convert.transformer_params_from_reference``).
-Not yet ported: the MoE FFN and its all-to-all, ``lm_loss``, remat and the
-sharding constraints (the training and MoE slices).
+    ``convert.transformer_params_from_reference``). It keeps one quirk of
+    the reference's: ``ws_gate`` and ``ws_up`` come from one key there,
+    so they are equal, and here ``ws_up`` is a copy of ``ws_gate``.
+Not ported: the reference's ``MOE_CONSTRAINTS`` and ``MOE_A2A`` hooks
+(sharding constraints and the multi-device all-to-all dispatch of
+``moe_a2a.py``; on one device the reference runs the group-local dispatch
+above), ``lm_loss``, remat and the sharding constraints (the training and
+multi-device slices).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common import resolve_device
-from repro_torch.config.base import TransformerConfig
+from repro_torch.config.base import MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention.ops import attention
 
 Params = Dict[str, Any]
@@ -98,10 +129,23 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             p["layers"][name] = torch.zeros((L, width), dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(d, d, cfg.vocab_size)
-    f = cfg.d_ff
-    p["layers"]["w_gate"] = dense_init(d, L, d, f)
-    p["layers"]["w_up"] = dense_init(d, L, d, f)
-    p["layers"]["w_down"] = dense_init(f, L, f, d)
+    layers, f = p["layers"], cfg.d_ff
+    if isinstance(cfg, MoEConfig):
+        E = cfg.n_experts
+        layers["router"] = dense_init(d, L, d, E)
+        layers["w_gate"] = dense_init(d, L, E, d, f)
+        layers["w_up"] = dense_init(d, L, E, d, f)
+        layers["w_down"] = dense_init(f, L, E, f, d)
+        if cfg.n_shared_experts:
+            fs = (cfg.d_ff_shared or cfg.d_ff) * cfg.n_shared_experts
+            layers["ws_gate"] = dense_init(d, L, d, fs)
+            # the reference draws ws_up from ws_gate's key: the same values
+            layers["ws_up"] = layers["ws_gate"].clone()
+            layers["ws_down"] = dense_init(fs, L, fs, d)
+    else:
+        layers["w_gate"] = dense_init(d, L, d, f)
+        layers["w_up"] = dense_init(d, L, d, f)
+        layers["w_down"] = dense_init(f, L, f, d)
     return p
 
 
@@ -221,6 +265,114 @@ def _dense_mlp(x, lp, cfg: TransformerConfig):
     return x + g @ lp["w_down"]
 
 
+def moe_route(h: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+    """The router of ``h`` ``[G, Tg, d]``: (float32 probabilities
+    ``[G, Tg, E]``, renormalised gates ``[G, Tg, k]`` (float32), experts
+    ``[G, Tg, k]`` (int64), the Switch aux loss). The top k are the first
+    k of a stable descending sort, so of equal probabilities the lower
+    expert index wins, as in ``lax.top_k`` (``torch.topk`` breaks ties
+    otherwise)."""
+    E = cfg.n_experts
+    probs = torch.softmax((h @ router).float(), dim=-1)
+    gate_vals, exp_idx = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    gate_vals, exp_idx = gate_vals[..., :cfg.top_k], exp_idx[..., :cfg.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    # load-balance aux loss (Switch eq. 4) over all groups; the one-hot by
+    # a comparison (no bincount, no device read)
+    first = exp_idx[..., :1] == torch.arange(E, device=h.device)
+    aux = E * torch.sum(first.float().mean(dim=(0, 1))
+                        * probs.mean(dim=(0, 1)))
+    return probs, gate_vals, exp_idx, aux
+
+
+def moe_capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
+    """Slots per expert and group, in the reference's Python arithmetic:
+    ``ceil(Tg k / E cf)`` when a group has at least E tokens, else ``Tg``;
+    then at least 4."""
+    Tg, k, E = tokens_per_group, cfg.top_k, cfg.n_experts
+    capacity = (math.ceil(Tg * k / E * cfg.capacity_factor) if Tg >= E
+                else Tg)
+    return max(capacity, 4)
+
+
+def moe_dispatch(exp_idx: torch.Tensor, gate_vals: torch.Tensor,
+                 capacity: int, n_experts: int):
+    """Each (token, choice) pair's place, group by group, for experts
+    ``[G, Tg, k]``: its position among its expert's pairs in (token,
+    choice) order, from a stable sort and ``searchsorted``. Returns
+    (expert ``[G, Tg k]``, slot, gate, keep): pairs at positions past the
+    capacity are dropped, with gate 0 and slot ``capacity - 1``."""
+    G, Tg, k = exp_idx.shape
+    flat_e = exp_idx.reshape(G, Tg * k)
+    sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
+    experts = torch.arange(n_experts, dtype=flat_e.dtype,
+                           device=flat_e.device)
+    seg_start = torch.searchsorted(sorted_e,
+                                   experts.expand(G, n_experts).contiguous())
+    pos_sorted = (torch.arange(Tg * k, device=flat_e.device)
+                  - seg_start.gather(1, sorted_e))
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < capacity
+    gate = gate_vals.reshape(G, Tg * k) * keep
+    slot = torch.where(keep, pos, capacity - 1)
+    return flat_e, slot, gate, keep
+
+
+def _moe_ffn(h: torch.Tensor, lp: Params,
+             cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN on the normalised tokens ``h`` ``[G, Tg, d]`` (model
+    dtype): (float32 output ``[G, Tg, d]`` before the residual add, aux)."""
+    G, Tg, d = h.shape
+    E, k = cfg.n_experts, cfg.top_k
+    _, gate_vals, exp_idx, aux = moe_route(h, lp["router"], cfg)
+    C = moe_capacity(Tg, cfg)
+    flat_e, slot, gate, keep = moe_dispatch(exp_idx, gate_vals, C, E)
+    # row of each pair in the flat [E, G, C] slot buffer; dropped pairs are
+    # written to one extra row past its end and read back from slot C - 1
+    # (gate 0), as the reference's
+    group = torch.arange(G, device=h.device)[:, None]
+    row = (flat_e * G + group) * C + slot                     # [G, Tg k]
+    dest = torch.where(keep, row, E * G * C)
+    x_disp = h.new_zeros((E * G * C + 1, d))
+    x_disp.index_copy_(0, dest.reshape(-1),
+                       h[:, :, None].expand(G, Tg, k, d).reshape(-1, d))
+    xe = x_disp[:E * G * C].view(E, G * C, d)
+    gu = _act(torch.bmm(xe, lp["w_gate"]), cfg.act) * torch.bmm(xe,
+                                                                lp["w_up"])
+    y = torch.bmm(gu, lp["w_down"]).view(E * G * C, d)
+    # bf16 x float32 promotes to float32, as in JAX
+    y_tok = y[row.reshape(-1)].view(G, Tg * k, d) * gate[..., None]
+    out = y_tok.view(G, Tg, k, d).sum(dim=2)
+    if cfg.n_shared_experts:
+        gs = _act(h @ lp["ws_gate"], cfg.act) * (h @ lp["ws_up"])
+        out = out + gs @ lp["ws_down"]
+    return out, aux
+
+
+def _moe_mlp(x: torch.Tensor, lp: Params,
+             cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE with group-local dispatch: ``cfg.moe_groups``
+    groups of consecutive tokens (1 when 0 or when it does not divide the
+    token count), each routed into its own capacity buffer. Returns
+    (``x`` plus the FFN output cast to x's dtype, aux loss)."""
+    B, S, d = x.shape
+    G = cfg.moe_groups or 1
+    if (B * S) % G:
+        G = 1
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps).reshape(G, B * S // G, d)
+    out, aux = _moe_ffn(h, lp, cfg)
+    return x + out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _mlp(x, lp, cfg: TransformerConfig):
+    """The layer's FFN: (output, aux loss), aux ``None`` for a dense one."""
+    if isinstance(cfg, MoEConfig):
+        return _moe_mlp(x, lp, cfg)
+    return _dense_mlp(x, lp, cfg), None
+
+
 def _embed(params: Params, tokens: torch.Tensor,
            cfg: TransformerConfig) -> torch.Tensor:
     # the scale is rounded to the model dtype before the multiply, as the
@@ -238,18 +390,21 @@ def _embed(params: Params, tokens: torch.Tensor,
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone only: (hidden ``[B, S, D]`` after the final norm, aux loss
-    0 for the dense path)."""
+    """Backbone only: (hidden ``[B, S, D]`` after the final norm, the MoE
+    aux loss averaged over the layers; 0 for a dense config)."""
     _, S = tokens.shape
     x = _embed(params, tokens, cfg)
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         x, _ = _attention_block(x, lp, cfg, pos, S, _layer_window(cfg, i),
                                 attn_impl=attn_impl)
-        x = _dense_mlp(x, lp, cfg)
+        x, a = _mlp(x, lp, cfg)
+        if a is not None:
+            aux = aux + a / cfg.n_layers
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _unembed_logits(params: Params, x: torch.Tensor,
@@ -314,7 +469,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
             x, _ = _attention_block(
                 x, lp, cfg, pos, new_len, _layer_window(cfg, i),
                 cache_kv=(cache["k"][i], cache["v"][i]), attn_impl=attn_impl)
-            x = _dense_mlp(x, lp, cfg)
+            x, _ = _mlp(x, lp, cfg)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = _unembed_logits(params, x, cfg)
     return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": new_len}

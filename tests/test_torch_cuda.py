@@ -19,7 +19,12 @@ kernel backend (``KernelBackend.rebind`` after a scatter and after a
 capacity growth, fused and not, and a confined regrow whose frozen set is
 every alive node) against the plain backend; a kill by SIGTERM and a
 resume onto the card (fused and not), an unspill onto the kernel backend,
-and the ``paper-graph`` cell's kernel superstep against the plain one.
+and the ``paper-graph`` cell's kernel superstep against the plain one;
+the flash attention kernel at head dim 128 with the heads of
+mistral-nemo-12b, qwen1.5-32b, moonshot-v1-16b-a3b and mixtral-8x7b
+(its window of 4,096 crossed); the MoE FFN at smoke width in bf16
+against its dense check (``models/moe_check.py``), and an MoE prefill
+and decode step under ``torch.cuda.set_sync_debug_mode("error")``.
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -72,7 +77,7 @@ from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout, csr_layout,
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 from repro_torch.data.pipeline import gnn_full_graph_batch
 from repro_torch.launch.steps import build_cell
-from repro_torch.models import gnn, recsys
+from repro_torch.models import gnn, moe_check, recsys
 from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
@@ -656,6 +661,86 @@ def test_prefill_and_decode_through_the_kernel_on_card(cuda_device):
         logits, cache = tf.decode_step(params, cache, toks[:, i:i + 1], cfg)
     assert cache["len"] == 8 and torch.isfinite(logits).all()
     assert fmod.flash_attention_cuda.launches == cfg.n_layers
+
+
+# (Hq, Hkv, S, window) of the archs with head dim 128, at a moderate S
+D128_LAYOUTS = {"mistral-nemo-12b": (32, 8, 2048, 0),
+                "qwen1.5-32b": (40, 40, 2048, 0),
+                "moonshot-v1-16b-a3b": (16, 16, 2048, 0),
+                "mixtral-8x7b": (32, 8, 4608, 4096)}
+
+
+@pytest.mark.parametrize("arch", sorted(D128_LAYOUTS))
+def test_flash_attention_d128_at_each_arch_layout(cuda_device, arch):
+    """bf16, causal, the element-wise bf16 rule of ``cases.py``; mixtral's
+    rows past 4,096 see a window that cuts a kv tile."""
+    Hq, Hkv, S, window = D128_LAYOUTS[arch]
+    assert get_arch(arch).n_heads == Hq and get_arch(arch).head_dim == 128
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(Hq * 100 + Hkv)
+    q = torch.randn(1, Hq, S, 128, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, Hkv, S, 128, generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    before = fmod.flash_attention_cuda.launches
+    out = attention(q, k, v, causal=True, window=window)
+    assert fmod.flash_attention_cuda.launches == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert bf16_excess(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_ffn_bf16_matches_its_dense_check_on_card(cuda_device, arch):
+    """The dispatch at capacity factor 1.0 (pairs dropped) in two groups
+    against every expert on every token, under the rule of
+    ``moe_check.py``; its planted fault must read above 1."""
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="bfloat16",
+                              capacity_factor=1.0, moe_groups=2)
+    lp = tf.layer_params(tf.init_params(cfg, seed=5, device=cuda_device), 0)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(2)
+    x = torch.randn(2, 64, cfg.d_model, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    h = tf.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps).reshape(2, 64,
+                                                            cfg.d_model)
+    got, _ = tf._moe_ffn(h, lp, cfg)
+    want = moe_check.moe_ffn_dense(h, lp, cfg)
+    assert got.dtype == torch.float32
+    assert moe_check.moe_excess(got, want) <= 1.0
+    experts = tf.moe_route(h, lp["router"], cfg)[2]
+    cap = moe_check.fault_capacity(experts, tf.moe_capacity(64, cfg),
+                                   cfg.n_experts)
+    fault = moe_check.moe_ffn_dense(h, lp, cfg, capacity=cap)
+    assert moe_check.moe_excess(fault, want) > 1.0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_prefill_and_decode_read_nothing_from_the_card(cuda_device,
+                                                           arch):
+    """An MoE prefill (through the kernel) and decode steps raise nothing
+    under sync debug mode "error": no step reads the device."""
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="bfloat16")
+    params = tf.init_params(cfg, seed=1, device=cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                         device=cuda_device)
+    cache = tf.init_cache(cfg, 2, 4, device=cuda_device)
+    fmod.load_library()                 # the build, outside the mode
+    torch.cuda.synchronize()
+    fmod.flash_attention_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = tf.prefill_step(params, toks, cfg)
+        for i in range(4):
+            step, cache = tf.decode_step(params, cache, toks[:, i:i + 1],
+                                         cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fmod.flash_attention_cuda.launches == cfg.n_layers
+    assert cache["len"] == 4
+    assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
 
 
 @pytest.mark.parametrize("name", sorted(CIN_CASES))

@@ -89,10 +89,11 @@ def test_configs_and_registry_match_the_reference():
     assert cfg.param_count() == 9_241_404_928 == \
         ref_get_arch("gemma2-9b").param_count()
     assert cfg.head_dim == 256
-    assert list_archs() == ("gcn-cora", "gemma2-9b", "paper-graph",
-                            "xdeepfm")
+    assert list_archs() == ("gcn-cora", "gemma2-9b", "mistral-nemo-12b",
+                            "mixtral-8x7b", "moonshot-v1-16b-a3b",
+                            "paper-graph", "qwen1.5-32b", "xdeepfm")
     with pytest.raises(KeyError, match="gemma2-9b"):
-        get_arch("mixtral-8x7b")
+        get_arch("gatedgcn")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
