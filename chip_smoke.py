@@ -272,6 +272,32 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      must give the timed logits bit for bit, the logits must lie within the
      chained rule (the forward on absolute values) of the plain path's,
      and the loss is printed beside the plain path's.
+  14. gatedgcn, meshgraphnet and equiformer-v2 at full width (random
+     weights from seed 0; batches from the copied batch functions, seed 0,
+     and ``e`` drawn with numpy from seed 0 at ``GNN_EDGE_DIM``'s widths)
+     on ``molecule`` and ``full_graph_sm``: the layouts built once
+     (``resident_graph``), a warm-up, then 10 timed forwards (median
+     seconds, graphs/s or nodes/s, peak bytes) with exactly
+     ``segment_mm_launches(cfg)`` launches each (16, 15 and 24), the first
+     and last logits bit-equal, the logits under the element-wise spread
+     rule of ``models/gnn_check.py`` (the plain path in float64 the exact
+     side, in float32 the spread; excess <= 1; the global rule's reading
+     printed beside it), one edge dropped from the summed layout reading
+     above it, and the loss beside the plain path's.
+  15. gatedgcn and meshgraphnet on ``ogb_products`` (2,449,029 nodes, the
+     gcn phase's seed-0 arrays) with the edges cut to the first n, n the
+     most (a multiple of 2^20) at which the float64 plain forward (the
+     rule's exact side, the cell's largest run) fits the free memory
+     (``mem_get_info``) less 10 GiB, from a linear fit of its peak at 2^22
+     and 2^23 edges (printed with the cut); 3 timed forwards, checked as in
+     phase 14. equiformer-v2 does not run there: its node irreps alone
+     would be 61.4 GB.
+  16. equiformer-v2's rotation invariance at full width on ``molecule``:
+     the reference's check (``pos`` rotated about z by 1.1: within 1e-3;
+     its planted fault, rotating back without the transpose, is invariant
+     about z too and is printed); under ``gnn_check.ROTATION`` on the batch
+     without its self-loops, within 8 float32 spreads, and the planted
+     fault above that.
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1911,8 +1937,9 @@ def segmm_split(torch, smod, x, layout, coeff, iters: int) -> dict:
     return out
 
 
-def gnn_phases(torch, dev) -> dict:
-    """Phases 11-13; returns the segment_mm row of the kernel table."""
+def gnn_phases(torch, dev) -> tuple:
+    """Phases 11-13; returns the segment_mm row of the kernel table and
+    the ``ogb_products`` host batch (seed 0)."""
     from repro_torch.common import Timer
     from repro_torch.config import GNN_SHAPES, get_arch
     from repro_torch.data.pipeline import (gnn_full_graph_batch,
@@ -2038,10 +2065,12 @@ def gnn_phases(torch, dev) -> dict:
     cfg = get_arch("gcn-cora")
     shapes = {s.name: s for s in GNN_SHAPES}
 
+    host_batches = {}
+
     def resident(shape_name):
         """The shape's batch from the copied batch functions (seed 0), on
         the card, with its layout built there once; host and layout
-        seconds."""
+        seconds. The host batch of ``ogb_products`` is kept for phase 15."""
         shape = shapes[shape_name]
         with Timer() as t_host:
             if shape.kind == "batched_graphs":
@@ -2051,6 +2080,8 @@ def gnn_phases(torch, dev) -> dict:
                 batch = gnn_full_graph_batch(cfg, shape, seed=0,
                                              n_classes=cfg.d_out)
         graph = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        if shape_name == "ogb_products":
+            host_batches[shape_name] = batch
         del batch
         torch.cuda.synchronize()
         with Timer() as t_layout:
@@ -2298,7 +2329,321 @@ def gnn_phases(torch, dev) -> dict:
             "d7_in_8_ms": t7["strided_ms"],
             "layer2_contiguous_ms": layer2["contiguous_ms"],
             "layer2_padded_ms": layer2["padded_ms"],
-            "launches_by_path": launches_by_path}
+            "launches_by_path": launches_by_path}, host_batches["ogb_products"]
+
+
+GNN_KIND_ARCHS = ("gatedgcn", "meshgraphnet", "equiformer-v2")
+GNN_KIND_TIMED = 10             # timed forwards at molecule and full_graph_sm
+OGB_TIMED = 3                   # timed forwards at the ogb_products cut
+OGB_FIT_EDGES = (1 << 22, 1 << 23)  # the two cuts the memory fit runs at
+OGB_MARGIN = 10 << 30           # bytes kept free beside the fitted peak
+OGB_CUT_STEP = 1 << 20          # the cut is a multiple of this many edges
+
+
+def gnn_kind_batch(cfg, shape, n_edges=None, ogb=None) -> dict:
+    """The seed-0 batch of ``shape`` (or the first ``n_edges`` edges of the
+    ``ogb`` host batch), with ``e`` drawn with numpy (seed 0) at the
+    kind's cell width (``GNN_EDGE_DIM``) for the kinds that take it."""
+    from repro_torch.data.pipeline import (gnn_full_graph_batch,
+                                           gnn_molecule_batch)
+    from repro_torch.models import gnn
+
+    if ogb is not None:
+        b = {"x": ogb["x"], "labels": ogb["labels"],
+             "src": ogb["src"][:n_edges], "dst": ogb["dst"][:n_edges]}
+    elif shape.kind == "batched_graphs":
+        b = gnn_molecule_batch(cfg, shape, seed=0, d_feat=shape.d_feat)
+    else:
+        b = gnn_full_graph_batch(cfg, shape, seed=0, n_classes=cfg.d_out)
+    de = gnn.GNN_EDGE_DIM.get(cfg.kind)
+    if de:
+        b["e"] = np.random.default_rng(0).standard_normal(
+            (b["src"].shape[0], de)).astype(np.float32)
+    return b
+
+
+def segmm_at_layouts(torch, dev, cfg, graph, iters: int) -> dict:
+    """``segment_mm`` at the shapes a forward of ``cfg`` sums, one entry
+    per layout and width (gatedgcn: the edge layout at 2 d_hidden;
+    meshgraphnet: at d_hidden; equiformer-v2: at n_heads, and the irrep
+    layout at d_hidden), over a standard normal x (seed 0) with
+    coefficients 1: CUDA-event ms a launch, the plain version's, one
+    ``torch.sparse.mm`` of the same CSR (the yardstick; the port never
+    calls it) and the byte bound (every row of x is gathered once, so the
+    compulsory and gathered bounds are one)."""
+    from repro_torch.kernels.segment_mm.ops import segment_mm_csr
+
+    d = cfg.d_hidden
+    shapes = {"gatedgcn": [("edge_layout", 2 * d)],
+              "meshgraphnet": [("edge_layout", d)],
+              "equiformer_v2": [("edge_layout", cfg.n_heads),
+                                ("irrep_layout", d)]}[cfg.kind]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, width in shapes:
+        lay = graph[name]
+        items = lay.col.numel()
+        x = torch.randn(items, width, generator=gen, device=dev)
+        ones = torch.ones(items, device=dev)
+        csr = torch.sparse_csr_tensor(lay.row_ptr, lay.col.to(torch.int64),
+                                      ones, size=(lay.n_nodes, items))
+        bound, _ = segmm_bound_ms(lay.n_nodes, items, items, width)
+        row = {"rows": lay.n_nodes, "items": items, "d": width,
+               "ms": time_ms(torch, lambda: segment_mm_csr(x, lay, ones),
+                             iters),
+               "plain_ms": time_ms(torch, lambda: segment_mm_csr(
+                   x, lay, ones, impl="ref"), max(iters // 4, 1)),
+               "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, x),
+                                     max(iters // 4, 1)),
+               "bound_ms": bound, "bound_by": "bytes"}
+        row["bound_share"] = bound / row["ms"]
+        out[f"{name} d{width}"] = row
+        del x, ones, csr
+    return out
+
+
+def gnn_kind_cell(torch, dev, cfg, graph, n_timed: int,
+                  loss_fn=None) -> tuple:
+    """One cell of a GNN kind on the card: a warm-up forward, ``n_timed``
+    timed ones (host clock ending in a synchronize) with exactly
+    ``segment_mm_launches(cfg)`` launches each, the first and last logits
+    bit-equal, the logits under the element-wise spread rule of
+    ``models/gnn_check.py`` against the plain path in float64 (and its
+    float32 spread), the planted fault (one edge dropped from the summed
+    layout) above it, and
+    the loss beside the plain path's if ``loss_fn``. Returns the row and
+    the parameters (seed 0)."""
+    from repro_torch.common import Timer
+    from repro_torch.kernels.segment_mm import kernel as smod
+    from repro_torch.models import gnn, gnn_check
+
+    n_nodes, d_in = graph["x"].shape
+    params = gnn.init_gnn(cfg, d_in, torch.Generator(device=dev).manual_seed(
+        0), d_edge_in=gnn.GNN_EDGE_DIM.get(cfg.kind, 1))
+    gnn.gnn_forward(params, graph, cfg)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    smod.segment_mm_cuda.launches = 0
+    secs, first = [], None
+    for _ in range(n_timed):
+        with Timer() as t:
+            logits = gnn.gnn_forward(params, graph, cfg)
+            torch.cuda.synchronize()
+        secs.append(t.seconds)
+        first = logits if first is None else first
+    launches = smod.segment_mm_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_forward = gnn.segment_mm_launches(cfg)
+    what = f"{cfg.name} on {n_nodes} nodes"
+    if launches != n_timed * per_forward:
+        raise AssertionError(f"{what}: {launches} segment_mm launches in "
+                             f"{n_timed} forwards, not {per_forward} each")
+    if tuple(logits.shape) != (n_nodes, cfg.d_out) or not all_finite(
+            torch, logits):
+        raise AssertionError(f"{what}: logits malformed or not finite")
+    if not torch.equal(first, logits):
+        raise AssertionError(f"{what}: two kernel forwards differ")
+    with Timer() as t_check:
+        # each run starts from an empty allocator cache, as the memory fit
+        # of phase 15 measured it (blocks cached by the run before would
+        # fragment the float64 run's)
+        torch.cuda.empty_cache()
+        plain = gnn.gnn_forward(params, graph, cfg, impl="ref")
+        torch.cuda.empty_cache()
+        exact = gnn.gnn_forward(gnn_check.as64(params),
+                                gnn_check.as64(graph), cfg, impl="ref")
+        torch.cuda.empty_cache()
+        excess = gnn_check.elementwise_excess(logits, exact, plain)
+        faulty = gnn.gnn_forward(params, gnn_check.drop_one_edge(graph, cfg),
+                                 cfg)
+        fault = gnn_check.elementwise_excess(faulty, exact, plain)
+        row = {"seconds_median": float(np.median(secs)),
+               "seconds_max": max(secs), "seconds_min": min(secs),
+               "forwards": n_timed, "segmm_launches": launches,
+               "segmm_launches_per_forward": per_forward,
+               "peak_bytes": peak, "bit_equal": True,
+               "spread_plain32_vs_plain64": gnn_check.rel_max(plain, exact),
+               "kernel_vs_plain64": gnn_check.rel_max(logits, exact),
+               "kernel_vs_plain32": gnn_check.rel_max(logits, plain),
+               "excess": excess, "planted_fault_excess": fault,
+               "global_excess": gnn_check.spread_excess(logits, exact, plain),
+               "global_fault_excess": gnn_check.spread_excess(faulty, exact,
+                                                              plain),
+               "logits0": logits[0].tolist()}
+        del plain, exact, faulty
+        if loss_fn is not None:
+            row["loss"] = float(loss_fn(params, graph, cfg))
+            row["plain_loss"] = float(loss_fn(params, graph, cfg,
+                                              impl="ref"))
+    row["check_seconds"] = t_check.seconds
+    row["segmm_at_layouts"] = segmm_at_layouts(
+        torch, dev, cfg, graph, 20 if graph["src"].numel() < 1 << 20 else 5)
+    if not (excess <= 1.0 < fault):
+        raise AssertionError(f"{what}: kernel {excess} and planted fault "
+                             f"{fault} times the spread rule")
+    return row, params
+
+
+def gnn_kinds_phases(torch, dev, ogb_batch) -> tuple:
+    """Phases 14-16; returns the segment_mm launches of each timed path and
+    the launches timed at the largest cell of each kind (``ogb_products``;
+    equiformer-v2: ``full_graph_sm``)."""
+    from repro_torch.common import Timer
+    from repro_torch.config import GNN_SHAPES, get_arch
+    from repro_torch.models import gnn, gnn_check
+
+    shapes = {s.name: s for s in GNN_SHAPES}
+    launches, at_largest = {}, {}
+
+    # -- phase 14: the three kinds at full width on molecule, full_graph_sm --
+    eq_params = None
+    for arch in GNN_KIND_ARCHS:
+        cfg = get_arch(arch)
+        for shape_name in ("molecule", "full_graph_sm"):
+            shape = shapes[shape_name]
+            batch = gnn_kind_batch(cfg, shape)
+            with Timer() as t_layout:
+                graph = gnn.resident_graph(batch, device=dev, cfg=cfg)
+                torch.cuda.synchronize()
+            molecule = shape_name == "molecule"
+            row, params = gnn_kind_cell(
+                torch, dev, cfg, graph, GNN_KIND_TIMED,
+                gnn.graph_regression_loss if molecule
+                else gnn.node_classification_loss)
+            n_nodes = graph["x"].shape[0]
+            units = shape.n_graphs if molecule else n_nodes
+            launches[f"{arch} {shape_name}"] = row["segmm_launches"]
+            emit({"phase": "gnn_kind_forward", "arch": arch,
+                  "shape": shape_name, "nodes": n_nodes,
+                  "edges": int(graph["src"].numel()),
+                  "d_feat": int(graph["x"].shape[1]),
+                  "resident_and_layouts_seconds": t_layout.seconds,
+                  ("graphs_s" if molecule else "nodes_s"):
+                      units / row["seconds_median"], **row})
+            if arch == "equiformer-v2" and molecule:
+                eq_params = params
+            if arch == "equiformer-v2" and not molecule:
+                at_largest[f"{arch} {shape_name}"] = row["segmm_at_layouts"]
+            del graph, params, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # -- phase 15: gatedgcn and meshgraphnet on ogb_products, edges cut -------
+    n_all = int(ogb_batch["src"].shape[0])
+    for arch in ("gatedgcn", "meshgraphnet"):
+        cfg = get_arch(arch)
+
+        def plain64_peak(n_edges):
+            """Bytes the float64 plain forward (the rule's exact side, the
+            cell's largest run) holds at ``n_edges``, graph included."""
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            graph = gnn.resident_graph(gnn_kind_batch(
+                cfg, None, n_edges, ogb_batch), device=dev, cfg=cfg)
+            params = gnn.init_gnn(cfg, graph["x"].shape[1], torch.Generator(
+                device=dev).manual_seed(0), d_edge_in=gnn.GNN_EDGE_DIM[
+                    cfg.kind])
+            gnn.gnn_forward(gnn_check.as64(params), gnn_check.as64(graph),
+                            cfg, impl="ref")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            del graph, params
+            return peak
+
+        with Timer() as t_fit:
+            (e1, e2), (p1, p2) = OGB_FIT_EDGES, [plain64_peak(e)
+                                                 for e in OGB_FIT_EDGES]
+            gc.collect()
+            torch.cuda.empty_cache()
+            free = free_bytes(torch, dev)
+        per_edge = (p2 - p1) / (e2 - e1)
+        fixed = p1 - per_edge * e1
+        fit = int((free - OGB_MARGIN - fixed) / per_edge)
+        n_edges = min(n_all, fit // OGB_CUT_STEP * OGB_CUT_STEP)
+        if n_edges < e2:
+            raise AssertionError(f"{arch} on ogb_products: the fit leaves "
+                                 f"{n_edges} edges, fewer than it was "
+                                 f"measured at")
+        batch = gnn_kind_batch(cfg, None, n_edges, ogb_batch)
+        with Timer() as t_layout:
+            graph = gnn.resident_graph(batch, device=dev, cfg=cfg)
+            torch.cuda.synchronize()
+        del batch
+        row, _ = gnn_kind_cell(torch, dev, cfg, graph, OGB_TIMED)
+        n_nodes = graph["x"].shape[0]
+        launches[f"{arch} ogb_products"] = row["segmm_launches"]
+        at_largest[f"{arch} ogb_products {n_edges} edges"] = row[
+            "segmm_at_layouts"]
+        emit({"phase": "gnn_kind_ogb", "arch": arch, "shape": "ogb_products",
+              "nodes": n_nodes, "edges": n_edges, "edges_uncut": n_all,
+              "cut": {"n_edges": n_edges, "of": n_all,
+                      "why": "the most edges (a multiple of "
+                             f"{OGB_CUT_STEP}) at which "
+                             "the float64 plain forward, the rule's exact "
+                             "side and the cell's largest run, fits in the "
+                             "free memory less the margin, from a linear fit "
+                             "of its peak at two cuts"},
+              "fit_edges": list(OGB_FIT_EDGES), "fit_peaks": [p1, p2],
+              "fit_bytes_per_edge": per_edge, "fit_fixed_bytes": fixed,
+              "free_bytes": free, "margin_bytes": OGB_MARGIN,
+              "fit_seconds": t_fit.seconds,
+              "resident_and_layouts_seconds": t_layout.seconds,
+              "nodes_s": n_nodes / row["seconds_median"],
+              "edges_s": n_edges / row["seconds_median"], **row})
+        del graph
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- phase 16: equiformer-v2's rotation invariance at full width ---------
+    cfg = get_arch("equiformer-v2")
+    mol = shapes["molecule"]
+    graph = gnn.resident_graph(gnn_kind_batch(cfg, mol), device=dev,
+                               cfg=cfg)
+    out = gnn.gnn_forward(eq_params, graph, cfg)
+    about_z = gnn.gnn_forward(eq_params, gnn_check.rotated_graph(
+        graph, gnn_check.rotation_z()), cfg)
+    with gnn_check.untransposed_rotation():
+        fz = [gnn.gnn_forward(eq_params, g, cfg) for g in (
+            graph, gnn_check.rotated_graph(graph, gnn_check.rotation_z()))]
+    inv_z = gnn_check.invariance_rel(out, about_z)
+    inv_z_fault = gnn_check.invariance_rel(*fz)
+    batch = gnn_check.drop_self_loops(gnn_kind_batch(cfg, mol))
+    graph = gnn.resident_graph(batch, device=dev, cfg=cfg)
+    runs, spreads = {}, []
+    for name, g in (("out", graph), ("rot", gnn_check.rotated_graph(
+            graph, gnn_check.ROTATION))):
+        runs[name] = gnn.gnn_forward(eq_params, g, cfg)
+        exact = gnn.gnn_forward(gnn_check.as64(eq_params), gnn_check.as64(g),
+                                cfg, impl="ref")
+        spreads.append(gnn_check.rel_max(gnn.gnn_forward(
+            eq_params, g, cfg, impl="ref"), exact))
+        with gnn_check.untransposed_rotation():
+            runs[name + "_fault"] = gnn.gnn_forward(eq_params, g, cfg)
+    spread = max(spreads)
+    excess = gnn_check.invariance_excess(runs["out"], runs["rot"], spread)
+    fault = gnn_check.invariance_excess(runs["out_fault"], runs["rot_fault"],
+                                        spread)
+    emit({"phase": "equiformer_invariance", "shape": "molecule",
+          "about_z": {"theta": gnn_check.THETA, "rel": inv_z,
+                      "rule": gnn_check.INVARIANCE_RULE,
+                      "untransposed_fault_rel": inv_z_fault},
+          "rotation": {"matrix": gnn_check.ROTATION.tolist(),
+                       "self_loops_dropped": int(
+                           gnn_kind_batch(cfg, mol)["src"].shape[0]
+                           - batch["src"].shape[0]),
+                       "rel": gnn_check.invariance_rel(runs["out"],
+                                                       runs["rot"]),
+                       "spreads": spreads, "excess": excess,
+                       "untransposed_fault_excess": fault}})
+    if not (inv_z < gnn_check.INVARIANCE_RULE and excess <= 1.0 < fault):
+        raise AssertionError(f"equiformer invariance: about z {inv_z}, "
+                             f"rotated {excess}, fault {fault}")
+    del graph, runs, eq_params, out, about_z, fz
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, at_largest
 
 
 def main() -> int:
@@ -3606,7 +3951,16 @@ def main() -> int:
     # -- phases 11-13: segment_mm and gcn-cora inference ----------------------
     gc.collect()
     torch.cuda.empty_cache()
-    segmm_row = gnn_phases(torch, dev)
+    segmm_row, ogb_batch = gnn_phases(torch, dev)
+
+    # -- phases 14-16: gatedgcn, meshgraphnet and equiformer-v2 ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds, kinds_timed = gnn_kinds_phases(torch, dev, ogb_batch)
+    del ogb_batch
+    segmm_row["launches"] += sum(kinds.values())
+    segmm_row["launches_by_path"].update(kinds)
+    segmm_row["gnn_kinds_layouts"] = kinds_timed
 
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",

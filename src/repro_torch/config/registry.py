@@ -1,6 +1,6 @@
 """Architecture registry of the port: maps ``--arch`` ids to config
-factories, over the arches the port has ported. Factories are lazy, so
-importing the registry builds no config.
+factories, over the eleven arches the reference registers. Factories are
+lazy, so importing the registry builds no config.
 """
 from __future__ import annotations
 
@@ -12,11 +12,14 @@ from repro_torch.config.base import ArchConfig
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
-# arch-id -> module under repro_torch.configs that registers it (the ported
-# arches only; the reference registers more)
+# arch-id -> module under repro_torch.configs that registers it (the
+# reference's eleven arches)
 _ARCH_MODULES = {
+    "equiformer-v2": "equiformer_v2",
+    "gatedgcn": "gatedgcn",
     "gcn-cora": "gcn_cora",
     "gemma2-9b": "gemma2_9b",
+    "meshgraphnet": "meshgraphnet",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "mixtral-8x7b": "mixtral_8x7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
@@ -37,7 +40,7 @@ def _ensure_loaded(name: str) -> None:
         return
     mod = _ARCH_MODULES.get(name)
     if mod is None:
-        raise KeyError(f"arch {name!r} is not ported; ported arches: "
+        raise KeyError(f"arch {name!r} is not registered; arches: "
                        f"{sorted(_ARCH_MODULES)}")
     importlib.import_module(f"repro_torch.configs.{mod}")
 

@@ -5,9 +5,9 @@
 ``EngineState`` on a device, so both packages can start from the same
 mid-decomposition state. ``transformer_params_from_reference``,
 ``recsys_params_from_reference`` and ``gnn_params_from_reference`` turn the
-reference's transformer, xDeepFM and GCN parameter trees, given as numpy,
-into the port's parameter dicts, so both packages can run the same
-weights.
+reference's transformer, xDeepFM and GNN (all four kinds) parameter
+trees, given as numpy, into the port's parameter dicts, so both packages
+can run the same weights.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.core.state import EngineState
 from repro_torch.graph.structures import EdgeList
+from repro_torch.models.gnn import param_shapes
 
 PLANE_NAMES = tuple(f.name for f in dataclasses.fields(EngineState))
 _BOOL_PLANES = ("covered", "is_center")
@@ -118,34 +119,74 @@ def recsys_params_from_reference(params_np: Dict[str, Any], cfg,
     }
 
 
+def _gnn_leaves(tree: Any, shapes: Any, dev: torch.device,
+                name: str) -> Any:
+    """``tree`` (numpy leaves) as tensors on ``dev``, walked beside
+    ``shapes`` (``models.gnn.param_shapes``): the same keys and list
+    lengths, every leaf float32 of its shape; a ``ValueError`` names the
+    first leaf or node that differs."""
+    where = name or "the tree"
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"gnn_params_from_reference: {where} has keys "
+                             f"{got}, expected {sorted(shapes)}")
+        return {k: _gnn_leaves(tree[k], v, dev,
+                               f"{name}.{k}" if name else k)
+                for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree)
+            raise ValueError(f"gnn_params_from_reference: {where} has {got} "
+                             f"entries, expected {len(shapes)} (the "
+                             f"config's layers)")
+        return [_gnn_leaves(t, v, dev, f"{name}[{i}]")
+                for i, (t, v) in enumerate(zip(tree, shapes))]
+    t = _tensor_from_numpy(tree, dev)
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shapes):
+        raise ValueError(f"gnn_params_from_reference: {name} is {t.dtype} "
+                         f"{tuple(t.shape)}, expected float32 "
+                         f"{tuple(shapes)}")
+    return t
+
+
+# the leaf whose rows are the input width, and the one whose rows are the
+# edge-feature width, per kind
+_GNN_IN_LEAVES = {"gcn": (("layers", 0, "w"), None),
+                  "gatedgcn": (("embed_h", "w"), ("embed_e", "w")),
+                  "meshgraphnet": (("enc_node", "w0"), ("enc_edge", "w0")),
+                  "equiformer_v2": (("embed", "w"), None)}
+
+
 def gnn_params_from_reference(params_np: Dict[str, Any], cfg,
                               device="cuda") -> Dict[str, Any]:
-    """The reference's GCN parameter tree (``layers``, a list of ``{w,
-    b}``), as numpy, turned into the port's dict on ``device`` with the same
-    names, shapes and values. ``cfg`` is the port's ``GNNConfig``; the
-    input width is the first ``w``'s rows, and every array must be float32
-    and of the shape ``cfg`` gives it. Only gcn is ported."""
-    if cfg.kind != "gcn":
-        raise NotImplementedError(f"gnn_params_from_reference: GNN kind "
-                                  f"{cfg.kind!r} is not ported; the port "
-                                  f"runs gcn")
+    """The reference's parameter tree for ``cfg``'s kind, as numpy, turned
+    into the port's dict on ``device`` with the same names, shapes and
+    values: gcn ``layers[i].{w, b}``; gatedgcn ``embed_h``, ``embed_e``,
+    ``head`` and ``layers[i].{A..E}``; meshgraphnet ``enc_node``,
+    ``enc_edge``, ``dec`` and ``blocks[i].{edge, node}.{w0, b0, w1, b1}``;
+    equiformer-v2 ``embed``, ``head`` and ``layers[i].{radial, attn, gate,
+    so2_r_m, so2_i_m}``. ``cfg`` is the port's ``GNNConfig``; the input
+    (and edge-feature) widths are read from the first layer's rows, and
+    every array must be float32 and of the shape ``cfg`` gives it."""
+    if cfg.kind not in _GNN_IN_LEAVES:
+        raise ValueError(f"gnn_params_from_reference: unknown GNN kind "
+                         f"{cfg.kind!r}")
     dev = resolve_device(device)
-    layers = params_np["layers"]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"gnn_params_from_reference: {len(layers)} layers "
-                         f"in the tree, {cfg.n_layers} in the config")
-    d_in = np.shape(layers[0]["w"])[0]
-    dims = [d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.d_out]
 
-    def conv(a, shape, name):
-        t = _tensor_from_numpy(a, dev)
-        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-            raise ValueError(f"gnn_params_from_reference: {name} is "
-                             f"{t.dtype} {tuple(t.shape)}, expected float32 "
-                             f"{tuple(shape)}")
-        return t
+    def rows(path):
+        node = params_np
+        try:
+            for p in path:
+                node = node[p]
+        except (KeyError, IndexError, TypeError):
+            raise ValueError(f"gnn_params_from_reference: the {cfg.kind} "
+                             f"tree has no leaf {path}") from None
+        if np.ndim(node) != 2:
+            raise ValueError(f"gnn_params_from_reference: leaf {path} is "
+                             f"{np.ndim(node)}-d, expected 2-d")
+        return np.shape(node)[0]
 
-    return {"layers": [
-        {"w": conv(lp["w"], (dims[i], dims[i + 1]), f"layers[{i}].w"),
-         "b": conv(lp["b"], (dims[i + 1],), f"layers[{i}].b")}
-        for i, lp in enumerate(layers)]}
+    d_leaf, e_leaf = _GNN_IN_LEAVES[cfg.kind]
+    shapes = param_shapes(cfg, rows(d_leaf), rows(e_leaf) if e_leaf else 1)
+    return _gnn_leaves(params_np, shapes, dev, "")

@@ -181,16 +181,22 @@ def _drop(x, src, dst, coeff, n_nodes: int,
     return segment_mm_ref(x, src[keep], dst[keep], coeff[keep], n_nodes)
 
 
-def drop_one_edge(x, src, dst, coeff, n_nodes: int) -> torch.Tensor:
-    """The plain version as a kernel that skips one edge would compute it:
-    the first edge (in the layout's (dst, src) order) of the row whose
-    length is nearest the mean length of the non-empty rows."""
-    layout = csr_layout(src, dst, n_nodes)
+def mean_length_row(layout) -> int:
+    """The non-empty row of ``layout`` whose length is nearest the mean
+    length of the non-empty rows."""
     k = layout.in_degree().double()
     live = k > 0
     gap = torch.where(live, (k - k[live].mean()).abs(),
                       torch.full_like(k, float("inf")))
-    first = int(layout.row_ptr[int(torch.argmin(gap))])
+    return int(torch.argmin(gap))
+
+
+def drop_one_edge(x, src, dst, coeff, n_nodes: int) -> torch.Tensor:
+    """The plain version as a kernel that skips one edge would compute it:
+    the first edge (in the layout's (dst, src) order) of
+    ``mean_length_row``."""
+    layout = csr_layout(src, dst, n_nodes)
+    first = int(layout.row_ptr[mean_length_row(layout)])
     return _drop(x, src, dst, coeff, n_nodes, layout.perm[first:first + 1])
 
 

@@ -10,7 +10,11 @@ version, alone (two launches bit for bit equal), in a stack and inside
 xDeepFM's forward and retrieval,
 and the segment_mm kernel against its plain version in float64, alone (at
 the default piece size and at 32 items, with rows padded to 32 bytes, on
-a 39,485-edge hub) and inside the GCN forward (two launches per forward);
+a 39,485-edge hub), inside the GCN forward (two launches per forward),
+over the edge and irrep layouts, and inside the gatedgcn, meshgraphnet and
+equiformer-v2 forwards (smoke and full widths on ``molecule``: the launch
+count, bit-equal repeats, the spread rule and its planted fault;
+equiformer-v2's rotation invariance and its planted fault);
 CLUSTER2 and the quotient cascade on the kernel backend against the plain
 backend; pooled sessions (a padded row 0 past the long-row threshold)
 against unpooled ones, fused and not; an autotuned session (fuse 8 from
@@ -75,9 +79,9 @@ from repro_torch.kernels.segment_mm.cases import \
 from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout, csr_layout,
                                                 segment_mm, segment_mm_csr)
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
-from repro_torch.data.pipeline import gnn_full_graph_batch
+from repro_torch.data.pipeline import gnn_full_graph_batch, gnn_molecule_batch
 from repro_torch.launch.steps import build_cell
-from repro_torch.models import gnn, moe_check, recsys
+from repro_torch.models import gnn, gnn_check, moe_check, recsys
 from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
@@ -1031,6 +1035,123 @@ def test_gcn_forward_through_the_kernel_on_card(cuda_device):
                         int(layout.in_degree().max())) <= 1.0
     loss = gnn.node_classification_loss(params, graph, cfg)
     assert smod.segment_mm_cuda.launches == 6 and torch.isfinite(loss)
+
+
+def _gnn_molecule(cfg, dev):
+    """The seed-0 ``molecule`` batch on the card, with ``e`` drawn with
+    numpy (seed 0) at the kind's cell width, and its layouts."""
+    shape = {s.name: s for s in GNN_SHAPES}["molecule"]
+    b = gnn_molecule_batch(cfg, shape, seed=0, d_feat=shape.d_feat)
+    de = gnn.GNN_EDGE_DIM.get(cfg.kind)
+    if de:
+        b["e"] = np.random.default_rng(0).standard_normal(
+            (b["src"].shape[0], de)).astype(np.float32)
+    return gnn.resident_graph(b, device=dev, cfg=cfg), de or 1
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", ["gatedgcn", "meshgraphnet",
+                                  "equiformer-v2"])
+def test_gnn_kind_forward_through_the_kernel_on_card(cuda_device, arch,
+                                                     smoke):
+    """On ``molecule``: ``segment_mm_launches(cfg)`` launches a forward,
+    two forwards bit-equal, the logits within the element-wise spread rule
+    of ``models/gnn_check.py`` (the plain path in float64 the exact side,
+    in float32 the spread), and one edge dropped from the summed layout
+    read above it."""
+    cfg = get_arch(arch, smoke=smoke)
+    graph, de = _gnn_molecule(cfg, cuda_device)
+    params = gnn.init_gnn(cfg, graph["x"].shape[1], torch.Generator(
+        device=cuda_device).manual_seed(0), d_edge_in=de)
+    smod.segment_mm_cuda.launches = 0
+    got = gnn.gnn_forward(params, graph, cfg)
+    again = gnn.gnn_forward(params, graph, cfg)
+    torch.cuda.synchronize()
+    assert smod.segment_mm_cuda.launches == 2 * gnn.segment_mm_launches(cfg)
+    assert torch.equal(got, again)
+    plain = gnn.gnn_forward(params, graph, cfg, impl="ref")
+    exact = gnn.gnn_forward(gnn_check.as64(params), gnn_check.as64(graph),
+                            cfg, impl="ref")
+    assert smod.segment_mm_cuda.launches == 2 * gnn.segment_mm_launches(cfg)
+    assert gnn_check.elementwise_excess(got, exact, plain) <= 1.0
+    fault = gnn.gnn_forward(params, gnn_check.drop_one_edge(graph, cfg), cfg)
+    assert gnn_check.elementwise_excess(fault, exact, plain) > 1.0
+
+
+@pytest.mark.parametrize("what", ["edge-d70-in-72", "edge-d140",
+                                  "edge-d128", "irrep-k49-d128"])
+def test_edge_and_irrep_layout_sums_on_card(cuda_device, what):
+    """``segment_sum`` over the layouts the GNN kinds sum through, against
+    the plain version in float64 under the float32 rule of
+    ``kernels/segment_mm/cases.py``: gatedgcn's rows of 70 floats in rows
+    of 72 (a view), its ``[msg | gate]`` rows of 140, meshgraphnet's 128,
+    and equiformer-v2's irrep layout (K 49, C 128); two launches
+    bit-equal. The graph has empty rows, self-loops and a 3,000-edge
+    hub."""
+    r = np.random.default_rng(7)
+    n, e = 2000, 20_000
+    src = r.integers(0, n, e)
+    dst = r.integers(0, n // 2, e)
+    dst[:3000] = 5
+    dst[3000:3100] = src[3000:3100]
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+                for a in (src, dst))
+    layout = csr_layout(src, dst, n)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if what.startswith("irrep"):
+        k, d = 49, 128
+        lay = gnn.irrep_layout(layout, k)
+        x = torch.randn(e * k, d, generator=gen, device=cuda_device)
+    else:
+        lay = gnn.edge_layout(layout)
+        d = int(what.split("-d")[1].split("-")[0])
+        wide = torch.randn(e, -(-d // 8) * 8, generator=gen,
+                           device=cuda_device)
+        x = wide[:, :d]
+        assert what != "edge-d70-in-72" or (x.stride(0) == 72 and
+                                            smod._reads_whole_chunks(x))
+    before = smod.segment_mm_cuda.launches
+    out = gnn.segment_sum(x, lay)
+    assert torch.equal(out, gnn.segment_sum(x, lay))
+    assert smod.segment_mm_cuda.launches == before + 2
+    ones = torch.ones(lay.col.numel(), device=cuda_device)
+    exact = segment_mm_ref(x.double(), lay.col, lay.row, ones.double(),
+                           lay.n_nodes)
+    assert rule_excess(out, exact, x, lay.col, lay.row, ones,
+                       lay.n_nodes) <= 1.0
+
+
+def test_equiformer_rotation_invariance_on_card(cuda_device):
+    """equiformer-v2 at full width on ``molecule`` through the kernel: the
+    reference's check (about z, 1e-3) on the batch as it is; under
+    ``gnn_check.ROTATION`` without self-loops the spread-based rule holds,
+    and rotating back without the transpose breaks it."""
+    cfg = get_arch("equiformer-v2")
+    graph, _ = _gnn_molecule(cfg, cuda_device)
+    params = gnn.init_gnn(cfg, graph["x"].shape[1], torch.Generator(
+        device=cuda_device).manual_seed(0))
+    out = gnn.gnn_forward(params, graph, cfg)
+    about_z = gnn.gnn_forward(params, gnn_check.rotated_graph(
+        graph, gnn_check.rotation_z()), cfg)
+    assert gnn_check.invariance_rel(out, about_z) < gnn_check.INVARIANCE_RULE
+    shape = {s.name: s for s in GNN_SHAPES}["molecule"]
+    b = gnn_check.drop_self_loops(gnn_molecule_batch(
+        cfg, shape, seed=0, d_feat=shape.d_feat))
+    graph = gnn.resident_graph(b, device=cuda_device, cfg=cfg)
+    runs, spread = {}, 0.0
+    for name, g in (("out", graph), ("rot", gnn_check.rotated_graph(
+            graph, gnn_check.ROTATION))):
+        runs[name] = gnn.gnn_forward(params, g, cfg)
+        exact = gnn.gnn_forward(gnn_check.as64(params), gnn_check.as64(g),
+                                cfg, impl="ref")
+        spread = max(spread, gnn_check.rel_max(
+            gnn.gnn_forward(params, g, cfg, impl="ref"), exact))
+        with gnn_check.untransposed_rotation():
+            runs[name + "_fault"] = gnn.gnn_forward(params, g, cfg)
+    assert gnn_check.invariance_excess(runs["out"], runs["rot"],
+                                       spread) <= 1.0
+    assert gnn_check.invariance_excess(runs["out_fault"], runs["rot_fault"],
+                                       spread) > 1.0
 
 
 def _growth_batch(g, pairs: int, seed: int) -> UpdateBatch:

@@ -275,19 +275,15 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
                                         ("gatedgcn", "full_graph_sm")])
 def test_build_cell_raises_for_what_is_not_ported(arch, shape):
     """A family or kind the port lacks raises NotImplementedError naming
-    the ported kinds and the family and kind asked for (gcn-cora is
-    registered, but the GNN cell is a training step; so is an LM's
-    train_4k); an arch the port does not register (gatedgcn) raises the
-    registry's KeyError."""
-    want, match = ((KeyError, "'gatedgcn' is not ported") if arch == "gatedgcn"
-                   else (NotImplementedError,
-                         f"{arch} x {shape} is not ported; the port builds "
-                         f"the recsys family's recsys_serve and retrieval "
-                         f"shapes and the lm family's prefill and decode "
-                         f"shapes"))
-    with pytest.raises(want, match=match) as err:
+    the ported kinds and the family and kind asked for (gcn-cora and
+    gatedgcn are registered, but the GNN cell is a training step; so is an
+    LM's train_4k)."""
+    match = (f"{arch} x {shape} is not ported; the port builds the recsys "
+             f"family's recsys_serve and retrieval shapes and the lm "
+             f"family's prefill and decode shapes")
+    with pytest.raises(NotImplementedError, match=match) as err:
         build_cell(arch, shape, smoke=True, device="cpu")
-    if arch == "gcn-cora":
+    if arch in ("gcn-cora", "gatedgcn"):
         assert "the gnn family's full_graph kind" in str(err.value)
         assert "training step" in str(err.value)
     if arch == "gemma2-9b":

@@ -44,6 +44,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from repro.config.registry import get_arch as ref_get_arch  # noqa: E402
+from repro.config.registry import list_archs as ref_list_archs  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro_torch.config import get_arch, list_archs  # noqa: E402
 from repro_torch.convert import transformer_params_from_reference  # noqa: E402
@@ -89,11 +90,16 @@ def test_configs_and_registry_match_the_reference():
     assert cfg.param_count() == 9_241_404_928 == \
         ref_get_arch("gemma2-9b").param_count()
     assert cfg.head_dim == 256
-    assert list_archs() == ("gcn-cora", "gemma2-9b", "mistral-nemo-12b",
+    assert list_archs() == ("equiformer-v2", "gatedgcn", "gcn-cora",
+                            "gemma2-9b", "meshgraphnet", "mistral-nemo-12b",
                             "mixtral-8x7b", "moonshot-v1-16b-a3b",
                             "paper-graph", "qwen1.5-32b", "xdeepfm")
+    assert list_archs() == ref_list_archs()
+    # a name the reference does not register either
     with pytest.raises(KeyError, match="gemma2-9b"):
-        get_arch("gatedgcn")
+        get_arch("llama-7b")
+    with pytest.raises(KeyError):
+        ref_get_arch("llama-7b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
