@@ -119,8 +119,9 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      per graph, tau 16): ``ClusterQuotientEstimator``,
      ``CascadeEstimator(levels=2, tau_solve=32)``,
      ``DeltaSteppingEstimator(seed=7)`` (Bellman-Ford) and the same with
-     Δ = the mean weight, on ``road_like(262_144)`` (cut from 1,890,815:
-     Bellman-Ford's supersteps grow linearly with n on this family) and
+     Δ = the mean weight, on ``road_like(131_072)`` (cut from 1,890,815:
+     Bellman-Ford's supersteps grow linearly with n on this family; at
+     262,144 until the training phases needed its time) and
      RMAT ``social_like(20)``. Bellman-Ford's and Δ-stepping's distance
      planes from the same source must be equal element for element, and
      the SSSP lower bound at most either cluster estimate's Phi; each
@@ -298,6 +299,48 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      about z too and is printed); under ``gnn_check.ROTATION`` on the batch
      without its self-loops, within 8 float32 spreads, and the planted
      fault above that.
+  17. segment_mm's gradient (``segmm_backward``): the kernel over
+     ``transpose_layout`` of ``ogb_products``' CSR (rows the sources, items
+     the same edges, gcn-cora's coefficients carried by its ``perm``) at
+     D = 16 and 7, against the float64 plain version under the float32
+     rule, one item dropped reading above it, two launches bit-equal,
+     timed beside the plain version, ``torch.sparse.mm`` of the
+     transposed CSR (the yardstick; the port never calls it) and the
+     byte bound. Each cell of phase 18 holds the same check at its own
+     transposed layouts and widths (``backward_launches``; equiformer-v2
+     also at ``minibatch_lg``'s uncut 8.8 M one-item rows), with a
+     minibatch's padding rows of ``dy`` zero, as a step's are.
+  18. GNN training at full width (``gnn_train``): each arch's cells
+     through ``build_cell`` (``train_step``: the regime's loss, its
+     gradient by autograd, AdamW), weights from seed 0: gcn-cora at
+     ``molecule``, ``full_graph_sm``, ``ogb_products`` whole and
+     ``minibatch_lg``; gatedgcn and meshgraphnet at ``molecule``,
+     ``full_graph_sm``, ``minibatch_lg`` and ``ogb_products`` cut to its
+     first nodes and the edges among them (the node states a backward
+     keeps, 16 or 15 layers of 2,449,029 rows, do not fit whatever the
+     edges); equiformer-v2 at ``molecule``, ``full_graph_sm`` and
+     ``minibatch_lg`` with ``batch_nodes`` cut. A cut is the most nodes
+     (a multiple of 2^13) or seeds (of 16) at which the plain path's
+     float32 step fits the free memory less 12 GiB, from a linear fit of
+     its peak reserved bytes at two sizes (printed against the
+     ``ShapeSpec``).
+     ``minibatch_lg`` samples from ``gnn_full_graph_batch`` at its sizes
+     (232,965 nodes, 114,615,892 edges; made with the sampler's CSR by a
+     worker process while the phases before run), its node table resident
+     on the card: a step's batch uploads only ids and edges
+     (``gnn_minibatch_batch``); the sampler's and the layouts' host
+     seconds of 3 batches print apart from the step. Per cell: the first
+     step's loss and every gradient leaf on the kernel path against the
+     plain path's (``gnn_check.grad_excess`` against float64; at a cut
+     cell on a quarter of the cut, where the float64 step fits), and one
+     edge
+     dropped from the transposed layout beside it (above 1 at
+     ``molecule`` and ``full_graph_sm``); step 1 under
+     ``torch.cuda.set_sync_debug_mode("error")``; steps 2-20 on the same
+     batch (median seconds, nodes, graphs or seeds per second, peak
+     bytes) with exactly ``2 segment_mm_launches(cfg)`` launches a step;
+     the loss of every step, falling (equiformer-v2's one-class cells,
+     whose loss and gradient are 0 whatever the weights, stay at 0).
 
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -316,6 +359,7 @@ import os
 import pathlib
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -337,7 +381,7 @@ except ImportError:   # not a checkout of the repository: main() refuses
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
-SSSP_ROAD_NODES = 262_144       # the competitor's road graph (see phase 3b)
+SSSP_ROAD_NODES = 131_072       # the competitor's road graph (see phase 3b)
 PAPER_GRAPH_NODES = 1 << 24     # the paper-graph cell's roads-USA scale
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
@@ -2646,6 +2690,559 @@ def gnn_kinds_phases(torch, dev, ogb_batch) -> tuple:
     return launches, at_largest
 
 
+TRAIN_STEPS = 20                # steps of a cell on its fixed batch
+TRAIN_MARGIN = 12 << 30         # bytes kept free beside a cut's fitted peak
+TRAIN_FIT = {"ogb_products": (1 << 14, 1 << 15),    # nodes
+             "minibatch_lg": (16, 32)}              # seeds
+TRAIN_CUT_STEP = {"ogb_products": 1 << 13, "minibatch_lg": 16}
+MB_BATCHES = 3                  # minibatch_lg batches whose host seconds print
+# the cells of phase 18, by arch; the cut ones fit to the card's memory
+TRAIN_CELLS = {"gcn-cora": ("molecule", "full_graph_sm", "ogb_products",
+                            "minibatch_lg"),
+               "gatedgcn": ("molecule", "full_graph_sm", "minibatch_lg",
+                            "ogb_products"),
+               "meshgraphnet": ("molecule", "full_graph_sm", "minibatch_lg",
+                                "ogb_products"),
+               "equiformer-v2": ("molecule", "full_graph_sm",
+                                 "minibatch_lg")}
+TRAIN_CUT = {("gatedgcn", "ogb_products"), ("meshgraphnet", "ogb_products"),
+             ("equiformer-v2", "minibatch_lg")}
+
+
+def minibatch_job(out_dir: str) -> dict:
+    """The arrays phase 18 trains on beyond phase 11's ``ogb_products``
+    batch, made in a worker process while the phases before run and
+    written to ``out_dir`` as ``.npy`` files: ``gnn_full_graph_batch`` at
+    ``minibatch_lg``'s sizes (seed 0; its labels for 7, 3 and 1 classes,
+    the archs' ``d_out``, and equiformer-v2's ``pos``, drawn after the
+    1-class labels), the sampler's in-edge CSR of that graph, and the
+    3-class labels of ``ogb_products`` (meshgraphnet's). Returns the files'
+    names and the host seconds of the batches and of the CSR."""
+    from repro_torch.common import Timer
+    from repro_torch.config import GNN_SHAPES
+    from repro_torch.data.pipeline import gnn_full_graph_batch
+    from repro_torch.graph.sampler import in_edge_csr
+
+    shapes = {s.name: s for s in GNN_SHAPES}
+    mb = shapes["minibatch_lg"]
+    out, names = {}, {}
+
+    def save(name, a):
+        names[name] = os.path.join(out_dir, name + ".npy")
+        np.save(names[name], a)
+
+    with Timer() as t_batch:
+        for n_classes in (7, 3, 1):
+            b = gnn_full_graph_batch(None, mb, seed=0, n_classes=n_classes)
+            save(f"mb_labels_{n_classes}", b["labels"])
+            if n_classes == 7:
+                for k in ("x", "src", "dst"):
+                    save(f"mb_{k}", b[k])
+            if n_classes == 1:
+                save("mb_pos", b["pos"])
+            del b
+        save("ogb_labels_3", gnn_full_graph_batch(
+            None, shapes["ogb_products"], seed=0, n_classes=3)["labels"])
+    src, dst = np.load(names["mb_src"]), np.load(names["mb_dst"])
+    with Timer() as t_csr:
+        indptr, srcs = in_edge_csr(mb.n_nodes, src, dst)
+    save("mb_indptr", indptr)
+    save("mb_srcs", srcs)
+    out["files"] = names
+    out["batch_seconds"] = t_batch.seconds
+    out["csr_seconds"] = t_csr.seconds
+    return out
+
+
+def backward_launch(torch, dev, lay_t, n_src_rows: int, coeff_t, width: int,
+                    iters: int, pad_rows=None) -> dict:
+    """The gradient's launch over a transposed layout ``lay_t`` (rows the
+    forward's sources, items gathering ``dy`` [n_src_rows, width] rows
+    with ``coeff_t``) on a standard normal ``dy`` (seed 0), zero at the
+    rows ``pad_rows`` marks (a minibatch's padding nodes, whose gradient
+    is zero in a step: the thousands of self-loops on the last one would
+    otherwise sum one term over and over, which the rule, made for terms
+    that differ, does not cover): the kernel
+    against the float64 plain version under the float32 rule of
+    ``kernels/segment_mm/cases.py``, the first item of
+    ``mean_length_row`` dropped reading above it, two launches bit-equal;
+    CUDA-event ms a launch beside the plain version's, one
+    ``torch.sparse.mm`` of the same CSR (the yardstick; the port never
+    calls it) and the compulsory byte bound, counting the rows of ``dy``
+    the items gather (a sampled minibatch's last hop receives no edge, so
+    most of its rows are never read)."""
+    from repro_torch.kernels.segment_mm.cases import (mean_length_row,
+                                                      rule_excess)
+    from repro_torch.kernels.segment_mm.ops import segment_mm_csr
+    from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+    from repro_torch.models.gnn_check import drop_first_items
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dy = torch.randn(n_src_rows, width, generator=gen, device=dev)
+    if pad_rows is not None:
+        dy[pad_rows] = 0.0
+    n, items = lay_t.n_nodes, lay_t.col.numel()
+    with torch.no_grad():
+        out = segment_mm_csr(dy, lay_t, coeff_t)
+        again = segment_mm_csr(dy, lay_t, coeff_t)
+        torch.cuda.synchronize()
+        exact = segment_mm_ref(dy.double(), lay_t.col, lay_t.row,
+                               coeff_t.double(), n)
+        ex = rule_excess(out, exact, dy, lay_t.col, lay_t.row, coeff_t, n)
+        r = mean_length_row(lay_t)
+        keep = torch.ones_like(lay_t.col, dtype=torch.bool)
+        keep[lay_t.row_ptr[r]] = False
+        faulty = drop_first_items(lay_t, torch.tensor([r], device=dev))
+        fault = rule_excess(segment_mm_csr(dy, faulty, coeff_t[keep]),
+                            exact, dy, lay_t.col, lay_t.row, coeff_t, n)
+        del exact, faulty, keep
+        csr = torch.sparse_csr_tensor(lay_t.row_ptr, lay_t.col.long(),
+                                      coeff_t, size=(n, n_src_rows))
+        n_read = int((torch.bincount(lay_t.col, minlength=n_src_rows)
+                      > 0).sum())
+        bound, _ = segmm_bound_ms(n, n_read, items, width)
+        row = {"rows": n, "items": items, "d": width,
+               "dy_rows_read": n_read,
+               "bit_equal": bool(torch.equal(out, again)),
+               "max_abs_err": 0.0, "excess": ex,
+               "planted_fault_excess": fault,
+               "ms": time_ms(torch, lambda: segment_mm_csr(dy, lay_t,
+                                                           coeff_t), iters),
+               "plain_ms": time_ms(torch, lambda: segment_mm_csr(
+                   dy, lay_t, coeff_t, impl="ref"), max(iters // 4, 1), 1),
+               "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, dy),
+                                     max(iters // 4, 1), 1),
+               "bound_ms": bound, "bound_by": "bytes"}
+    row["max_abs_err"] = float((out.double() - segment_mm_ref(
+        dy.double(), lay_t.col, lay_t.row, coeff_t.double(), n)).abs().max())
+    row["bound_share"] = bound / row["ms"]
+    if not (row["bit_equal"] and ex <= 1.0 < fault):
+        raise AssertionError(f"segment_mm backward over {n} rows, D "
+                             f"{width}: bit-equal {row['bit_equal']}, rule "
+                             f"{ex}, planted fault {fault}")
+    del dy, out, again, csr
+    return row
+
+
+def backward_launches(torch, dev, cfg, graph, iters: int) -> dict:
+    """``backward_launch`` at each transposed layout and width a training
+    step of ``cfg`` sums its gradient over: gcn's ``layout_t`` with
+    gcn-cora's coefficients at d_hidden and d_out; gatedgcn's and
+    meshgraphnet's ``edge_layout_t`` at 2 d_hidden and d_hidden;
+    equiformer-v2's ``edge_layout_t`` at n_heads and ``irrep_layout_t``
+    at d_hidden (coefficients 1)."""
+    from repro_torch.models import gnn
+
+    d = cfg.d_hidden
+    out = {}
+    pad = graph["labels"] < 0               # a minibatch's padding nodes
+    if cfg.kind == "gcn":
+        layout = graph["layout"]
+        _, coeff, _ = gnn.gcn_norm(layout, cfg.norm)
+        lt = graph["layout_t"]
+        for width in (d, cfg.d_out):
+            out[f"layout_t d{width}"] = backward_launch(
+                torch, dev, lt, layout.n_nodes, coeff[lt.perm].contiguous(),
+                width, iters, pad)
+        return out
+    shapes = {"gatedgcn": [("edge_layout_t", 2 * d)],
+              "meshgraphnet": [("edge_layout_t", d)],
+              "equiformer_v2": [("edge_layout_t", cfg.n_heads),
+                                ("irrep_layout_t", d)]}[cfg.kind]
+    for name, width in shapes:
+        lt = graph[name]
+        fwd = graph[name[:-2]]
+        ones = torch.ones(lt.col.numel(), device=dev)
+        k = fwd.n_nodes // pad.numel()       # irrep rows n K + k
+        out[f"{name} d{width}"] = backward_launch(
+            torch, dev, lt, fwd.n_nodes, ones, width, iters,
+            pad.repeat_interleave(k))
+    return out
+
+
+def ogb_subgraph(ogb: dict, n: int):
+    """The edges of ``ogb_products`` among its first ``n`` nodes (all of
+    them at ``n`` = every node): a bool mask. The batch function draws
+    each endpoint as ``floor(N u^2)``, so the first nodes are the hubs and
+    a cut to ``n`` nodes keeps about ``n / N`` of the edges, the same mean
+    degree."""
+    if n >= ogb["x"].shape[0]:
+        return np.ones(ogb["src"].shape[0], dtype=bool)
+    return (ogb["src"] < n) & (ogb["dst"] < n)
+
+
+def train_batch(cell, shape, host: dict) -> dict:
+    """The cell's declared inputs for ``shape`` (seed 0): ``molecule`` and
+    ``full_graph_sm`` from the copied batch functions (the molecule
+    targets drawn with numpy, seed 0, at ``[n_graphs, d_out]`` where
+    ``d_out`` > 1), ``ogb_products`` from phase 11's arrays (the cell's
+    first nodes and the edges among them, ``ogb_subgraph``; labels of the
+    arch's ``d_out`` classes); ``e`` from
+    numpy seed 0 at ``GNN_EDGE_DIM``'s width."""
+    from repro_torch.data.pipeline import (gnn_full_graph_batch,
+                                           gnn_molecule_batch)
+    from repro_torch.models import gnn
+
+    cfg = cell.cfg
+    if shape.name == "ogb_products":
+        n = cell.arg_shapes["x"][0][0]
+        src, dst = host["ogb"]["src"], host["ogb"]["dst"]
+        keep = ogb_subgraph(host["ogb"], n)
+        b = {"x": host["ogb"]["x"][:n], "src": src[keep], "dst": dst[keep],
+             "labels": host[f"ogb_labels_{cfg.d_out}"][:n]}
+    elif shape.kind == "batched_graphs":
+        b = gnn_molecule_batch(cfg, shape, seed=0, d_feat=shape.d_feat)
+        if cfg.d_out > 1:
+            b["targets"] = np.random.default_rng(0).standard_normal(
+                (shape.n_graphs, cfg.d_out)).astype(np.float32)
+    else:
+        b = gnn_full_graph_batch(cfg, shape, seed=0, n_classes=cfg.d_out)
+    de = gnn.GNN_EDGE_DIM.get(cfg.kind)
+    if de:
+        b["e"] = np.random.default_rng(0).standard_normal(
+            (b["src"].shape[0], de)).astype(np.float32)
+    return {k: v for k, v in b.items() if k in cell.arg_shapes}
+
+
+def train_cell(torch, dev, cell, graph, fault_must_show: bool,
+               check=None) -> dict:
+    """One training cell on the card, from the cell's seed-0 parameters:
+      * the first step's loss and every gradient leaf on the kernel path
+        against the plain path's in float32 and float64,
+        ``gnn_check.grad_excess`` (under ``gnn_check.fixed_order()``; the
+        spread from three plain runs in different sum orders),
+        with one edge dropped from the
+        transposed layout the backward sums over read beside it (above 1
+        where ``fault_must_show``), on ``graph`` or, at a cut cell, on
+        ``check = (cell, graph)`` at a quarter of the cut, where the
+        float64 step fits; there the float32 gradients of the whole cut,
+        kernel against plain, are read too (``grad_rel``);
+      * step 1 under ``torch.cuda.set_sync_debug_mode("error")``;
+      * steps 2 to ``TRAIN_STEPS`` on the same batch, each on the host
+        clock ending in a synchronize: the median seconds, peak bytes and
+        exactly ``2 segment_mm_launches(cfg)`` launches a step; the loss
+        of every step read once at the end, and falling (a cell whose
+        loss is 0 whatever the weights stays at 0)."""
+    from repro_torch.common import Timer
+    from repro_torch.kernels.segment_mm import kernel as smod
+    from repro_torch.models import gnn, gnn_check
+    from repro_torch.optim import adamw
+
+    cfg = cell.cfg
+    loss_fn = (gnn.graph_regression_loss if "graph_id" in cell.arg_shapes
+               else gnn.node_classification_loss)
+    per_step = 2 * gnn.segment_mm_launches(cfg)
+    what = f"{cell.arch} x {cell.shape}"
+
+    def grads(params, g, impl="auto"):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = loss_fn(p, g, cfg, impl=impl)
+        loss.backward()
+        return loss.detach(), adamw.tree_map(
+            lambda t: t.grad if t.grad is not None else torch.zeros_like(t),
+            p)
+
+    row = {}
+    params, opt = cell.init(0)
+    with Timer() as t_check:
+        with gnn_check.fixed_order():
+            smod.segment_mm_cuda.launches = 0
+            loss_k, g_k = grads(params, graph)
+            torch.cuda.synchronize()
+            row["check_launches"] = smod.segment_mm_cuda.launches
+            torch.cuda.empty_cache()
+            loss_p, g_p = grads(params, graph, "ref")
+            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+        row["grad_rel_vs_plain32"] = gnn_check.grad_rel(g_k, g_p)
+        row["loss_kernel"], row["loss_plain32"] = float(loss_k), float(
+            loss_p)
+        degenerate = not any(bool(t.any()) for t in adamw.tree_leaves(g_p))
+        if check is not None:
+            del g_k, g_p
+            gc.collect()
+            torch.cuda.empty_cache()
+            c_cell, c_graph = check
+            row["check_on"] = {"nodes": int(c_graph["x"].shape[0]),
+                               "edges": int(c_graph["src"].numel()),
+                               "note": c_cell.note}
+            c_params, _ = c_cell.init(0)
+            with gnn_check.fixed_order():
+                _, g_k = grads(c_params, c_graph)
+                _, g_p = grads(c_params, c_graph, "ref")
+        else:
+            c_params, c_graph = params, graph
+        with gnn_check.fixed_order():
+            _, g_f = grads(c_params, gnn_check.drop_one_transposed(
+                c_graph, cfg))
+            torch.cuda.empty_cache()
+            loss_x, g_x = grads(gnn_check.as64(c_params),
+                                gnn_check.as64(c_graph), "ref")
+            # the other plain runs sum in shuffled orders
+            plains = [g_p] + [
+                grads(c_params, gnn_check.shuffled_sums(c_graph, cfg, s),
+                      "ref")[1]
+                for s in range(1, gnn_check.GRAD_PLAIN_RUNS)]
+        row["loss_plain64"] = float(loss_x)
+        row["rule"] = ("float64 element-wise against the largest error of "
+                       "3 plain float32 runs in different sum orders "
+                       "(gnn_check.grad_excess)")
+        row["excess"] = gnn_check.grad_excess(g_k, g_x, plains)
+        row["planted_fault_excess"] = gnn_check.grad_excess(g_f, g_x, plains)
+        del g_x, g_k, g_p, g_f, plains, c_params, c_graph
+    row["check_seconds"] = t_check.seconds
+    row["zero_loss_cell"] = degenerate
+    gc.collect()
+    torch.cuda.empty_cache()
+    if row["check_launches"] != per_step:
+        raise AssertionError(f"{what}: {row['check_launches']} segment_mm "
+                             f"launches in a forward and backward, not "
+                             f"{per_step}")
+    if not row["excess"] <= 1.0:
+        raise AssertionError(f"{what}: gradients {row['excess']} times the "
+                             f"rule")
+    if fault_must_show and not degenerate \
+            and not row["planted_fault_excess"] > 1.0:
+        raise AssertionError(f"{what}: the planted backward fault reads "
+                             f"{row['planted_fault_excess']}, not above 1")
+
+    losses = []
+    torch.cuda.synchronize()
+    smod.segment_mm_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss, stats = cell.step_fn(params, opt, graph)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    row["sync_debug_step_launches"] = smod.segment_mm_cuda.launches
+    torch.cuda.reset_peak_memory_stats(dev)
+    smod.segment_mm_cuda.launches = 0
+    secs = []
+    for _ in range(TRAIN_STEPS - 1):
+        with Timer() as t:
+            params, opt, loss, stats = cell.step_fn(params, opt, graph)
+            torch.cuda.synchronize()
+        secs.append(t.seconds)
+        losses.append(loss)
+    launches = smod.segment_mm_cuda.launches
+    losses = torch.stack(losses).tolist()
+    row.update({"steps_timed": len(secs),
+                "seconds_median": float(np.median(secs)),
+                "seconds_min": min(secs), "seconds_max": max(secs),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "segmm_launches": launches,
+                "segmm_launches_per_step": launches / len(secs),
+                "losses": losses, "grad_norm_last": float(
+                    stats["grad_norm"]), "lr_last": float(stats["lr"])})
+    if launches != per_step * len(secs) \
+            or row["sync_debug_step_launches"] != per_step:
+        raise AssertionError(f"{what}: {launches} segment_mm launches in "
+                             f"{len(secs)} steps, not {per_step} each")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    falls = (all(v == 0.0 for v in losses) if degenerate
+             else losses[-1] < losses[0])
+    if not falls:
+        raise AssertionError(f"{what}: the loss did not fall over "
+                             f"{TRAIN_STEPS} steps: {losses}")
+    del params, opt
+    return row
+
+
+def fit_train_cut(torch, dev, arch, shape, make) -> dict:
+    """The most (a multiple of ``TRAIN_CUT_STEP``) nodes or seeds at which
+    the plain path's float32 step fits the free memory less
+    ``TRAIN_MARGIN``, from a linear fit of its peak at the two sizes of
+    ``TRAIN_FIT`` (``make(size)`` gives the cell and its graph). The peak
+    is the allocator's reserved bytes, not the allocated ones: the blocks
+    a step frees and cannot reuse count too (a fit on the allocated peak
+    left 13.4 GiB of them in the way of gatedgcn's check at its cut)."""
+    from repro_torch.common import Timer
+
+    peaks = []
+    with Timer() as t_fit:
+        for size in TRAIN_FIT[shape.name]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            cell, graph = make(size)
+            params, opt = cell.init(0)
+            cell.step_fn(params, opt, graph, impl="ref")
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_reserved(dev) - base)
+            del cell, graph, params, opt
+        free = free_bytes(torch, dev)
+    (s1, s2), (p1, p2) = TRAIN_FIT[shape.name], peaks
+    per = (p2 - p1) / (s2 - s1)
+    fixed = p1 - per * s1
+    step = TRAIN_CUT_STEP[shape.name]
+    full = shape.n_nodes if shape.name == "ogb_products" else \
+        shape.batch_nodes
+    cut = min(full, int((free - TRAIN_MARGIN - fixed) / per) // step * step)
+    if cut < s2:
+        raise AssertionError(f"{arch} x {shape.name}: the fit leaves {cut}, "
+                             f"fewer than it was measured at")
+    what = "n_nodes" if shape.name == "ogb_products" else "batch_nodes"
+    return {what: cut, "of": full, "fit_sizes": list(TRAIN_FIT[shape.name]),
+            "fit_peaks": peaks, "fit_bytes_per_unit": per,
+            "fit_fixed_bytes": fixed, "free_bytes": free,
+            "margin_bytes": TRAIN_MARGIN, "fit_seconds": t_fit.seconds,
+            "why": f"the most {what} (a multiple of {step}) at which the "
+                   f"plain path's float32 step, the cell's largest run, "
+                   f"fits in the free memory less the margin, from a "
+                   f"linear fit of its peak reserved bytes at two sizes"}
+
+
+def gnn_train_phases(torch, dev, ogb_batch, mb_arrays) -> tuple:
+    """Phases 17-18; returns the ``segment_mm`` launches of each training
+    cell's timed steps and the backward row of the kernel table."""
+    from repro_torch.common import Timer
+    from repro_torch.config import GNN_SHAPES
+    from repro_torch.data.pipeline import DataCursor, gnn_minibatch_batch
+    from repro_torch.graph.sampler import NeighborSampler
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import gnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = {s.name: s for s in GNN_SHAPES}
+    files = mb_arrays["files"]
+    host = {"ogb": ogb_batch, "ogb_labels_7": ogb_batch["labels"],
+            "ogb_labels_3": np.load(files["ogb_labels_3"])}
+    mb = shapes["minibatch_lg"]
+    with Timer() as t_up:
+        table = {"x": torch.from_numpy(np.load(files["mb_x"])).to(dev),
+                 "pos": torch.from_numpy(np.load(files["mb_pos"])).to(dev)}
+        mb_labels = {c: torch.from_numpy(np.load(
+            files[f"mb_labels_{c}"])).to(dev) for c in (7, 3, 1)}
+        indptr, srcs = np.load(files["mb_indptr"]), np.load(files["mb_srcs"])
+        torch.cuda.synchronize()
+    emit({"phase": "gnn_train_arrays", "minibatch_lg_nodes": mb.n_nodes,
+          "minibatch_lg_edges": int(srcs.shape[0]),
+          "worker_batch_seconds": mb_arrays["batch_seconds"],
+          "sampler_csr_seconds": mb_arrays["csr_seconds"],
+          "load_and_upload_seconds": t_up.seconds,
+          "resident_table_bytes": int(table["x"].numel() * 4)})
+    launches, backward = {}, None
+
+    def minibatch(cell, step, sampler):
+        """The cell's graph of step ``step`` (the table on the card, only
+        the ids and edges uploaded), the sampler's host seconds and the
+        layouts' (``cell.graph``)."""
+        tab = dict(table, labels=mb_labels[cell.cfg.d_out])
+        shape = dataclasses.replace(mb, batch_nodes=cell.arg_shapes[
+            "seed_slots"][0][0])
+        with Timer() as t_s:
+            b = gnn_minibatch_batch(cell.cfg, shape, sampler, tab,
+                                    DataCursor(step=step))
+            torch.cuda.synchronize()
+        b = {k: v for k, v in b.items() if k in cell.arg_shapes}
+        with Timer() as t_l:
+            graph = cell.graph(b)
+            torch.cuda.synchronize()
+        return graph, t_s.seconds, t_l.seconds
+
+    for arch, cell_shapes in TRAIN_CELLS.items():
+        for shape_name in cell_shapes:
+            shape = shapes[shape_name]
+            extra, cut = {}, None
+            if (arch, shape_name) in TRAIN_CUT:
+                if shape_name == "ogb_products":
+                    def make(size):
+                        n_e = int(ogb_subgraph(ogb_batch, size).sum())
+                        c = build_cell(arch, shape_name, device=dev,
+                                       n_nodes=size, n_edges=n_e)
+                        return c, c.graph(train_batch(c, shape, host))
+                else:
+                    def make(size):
+                        c = build_cell(arch, shape_name, device=dev,
+                                       batch_nodes=size)
+                        return c, minibatch(c, 0, NeighborSampler.from_csr(
+                            indptr, srcs, mb.fanout, seed=0))[0]
+                cut = fit_train_cut(torch, dev, arch, shape, make)
+                key = "n_nodes" if shape_name == "ogb_products" else \
+                    "batch_nodes"
+                if shape_name == "ogb_products":
+                    cut["n_edges"] = int(ogb_subgraph(
+                        ogb_batch, cut["n_nodes"]).sum())
+                    extra = {k: cut[k] for k in ("n_nodes", "n_edges")}
+                else:
+                    extra = {"batch_nodes": cut["batch_nodes"]}
+            cell = build_cell(arch, shape_name, device=dev, **extra)
+            if shape.kind == "minibatch":
+                sampler = NeighborSampler.from_csr(indptr, srcs, mb.fanout,
+                                                   seed=0)
+                graph, s_s, s_l = minibatch(cell, 0, sampler)
+                setup = {"sample_seconds": [s_s], "layouts_seconds": [s_l]}
+                for i in range(1, MB_BATCHES):
+                    g, s1, s2 = minibatch(cell, i, sampler)
+                    setup["sample_seconds"].append(s1)
+                    setup["layouts_seconds"].append(s2)
+                    del g
+            else:
+                b = train_batch(cell, shape, host)
+                with Timer() as t_l:
+                    graph = cell.graph(b)
+                    torch.cuda.synchronize()
+                setup = {"resident_and_layouts_seconds": t_l.seconds}
+                del b
+            if arch == "gcn-cora" and shape_name == "ogb_products":
+                backward = {d: backward_launch(
+                    torch, dev, graph["layout_t"], graph["x"].shape[0],
+                    gnn.gcn_norm(graph["layout"], cell.cfg.norm)[1][
+                        graph["layout_t"].perm].contiguous(), d, 20)
+                    for d in (cell.cfg.d_hidden, cell.cfg.d_out)}
+                emit({"phase": "segmm_backward", "shape": "ogb_products",
+                      "layout": "layout_t of gcn-cora's graph "
+                                "(transpose_layout)",
+                      "coefficients": "gcn-cora's sym coefficients, "
+                                      "carried by layout_t.perm",
+                      **{f"d{d}": r for d, r in backward.items()}})
+            if cut is not None and shape.kind == "minibatch":
+                # the transposes at the uncut shape's sizes (E K = 8.8 M
+                # one-item rows), which the cut step does not reach
+                full = build_cell(arch, shape_name, device=dev)
+                g_full = minibatch(full, 0, NeighborSampler.from_csr(
+                    indptr, srcs, mb.fanout, seed=0))[0]
+                setup["backward_launches_uncut"] = backward_launches(
+                    torch, dev, full.cfg, g_full, 3)
+                del full, g_full
+                gc.collect()
+                torch.cuda.empty_cache()
+            check = None
+            if cut is not None:
+                step = TRAIN_CUT_STEP[shape_name]
+                check = make(max(step, cut[key] // 4 // step * step))
+            small = shape_name in ("molecule", "full_graph_sm")
+            row = train_cell(torch, dev, cell, graph, small, check)
+            del check
+            row["backward_launches"] = backward_launches(
+                torch, dev, cell.cfg, graph, 20 if small else 5)
+            n_nodes = graph["x"].shape[0]
+            step_s = row["seconds_median"]
+            if shape.kind == "batched_graphs":
+                rate = {"graphs_s": shape.n_graphs / step_s}
+            elif shape.kind == "minibatch":
+                rate = {"seeds_s": cell.arg_shapes["seed_slots"][0][0]
+                        / step_s}
+            else:
+                rate = {"nodes_s": n_nodes / step_s}
+            launches[f"{arch} {shape_name}"] = row["segmm_launches"]
+            emit({"phase": "gnn_train", "arch": arch, "shape": shape_name,
+                  "nodes": n_nodes, "edges": int(graph["src"].numel()),
+                  "d_feat": int(graph["x"].shape[1]),
+                  "cut": cut, "note": cell.note, **setup, **rate, **row})
+            del graph, cell
+            gc.collect()
+            torch.cuda.empty_cache()
+    del table, mb_labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, backward
+
+
 def main() -> int:
     import torch
 
@@ -2694,6 +3291,12 @@ def main() -> int:
     paper_pool = ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     paper_job = paper_pool.submit(graph_job, PAPER_GRAPH_NODES, 0)
+    # so are phase 18's minibatch_lg graph and its sampler's CSR, into a
+    # directory removed at the end
+    mb_dir = tempfile.mkdtemp(prefix="gnn_train_")
+    mb_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    mb_job = mb_pool.submit(minibatch_job, mb_dir)
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -3763,7 +4366,7 @@ def main() -> int:
 
     # -- phase 3b: the paper's competitor on the same session (Table 3) -------
     # Bellman-Ford's supersteps grow linearly with n on road_like, so the
-    # road graph is cut to 262,144 nodes; RMAT social_like(20) at its size
+    # road graph is cut to 131,072 nodes; RMAT social_like(20) at its size
     sssp_launches = {}
     for name, e in ((f"road_like({SSSP_ROAD_NODES})",
                      road_like(SSSP_ROAD_NODES, seed=0)),
@@ -3957,10 +4560,39 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kinds, kinds_timed = gnn_kinds_phases(torch, dev, ogb_batch)
-    del ogb_batch
     segmm_row["launches"] += sum(kinds.values())
     segmm_row["launches_by_path"].update(kinds)
     segmm_row["gnn_kinds_layouts"] = kinds_timed
+
+    # -- phases 17-18: segment_mm's gradient and GNN training ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        train, backward = gnn_train_phases(torch, dev, ogb_batch,
+                                           mb_job.result())
+    finally:
+        mb_pool.shutdown()
+        shutil.rmtree(mb_dir, ignore_errors=True)
+    del ogb_batch
+    segmm_row["launches"] += sum(train.values())
+    segmm_row["launches_by_path"].update(
+        {f"train {k}": v for k, v in train.items()})
+    b16, b7 = backward[16], backward[7]
+    segmm_row.update({
+        "backward": "the gradient in x: the same kernel over "
+                    "transpose_layout (one launch per forward launch)",
+        "backward_launches": sum(train.values()) // 2,
+        "backward_shape": f"ogb_products layout_t ({b16['rows']} rows, "
+                          f"{b16['items']} items), D 16",
+        "backward_ms": b16["ms"], "backward_plain_ms": b16["plain_ms"],
+        "backward_bound_ms": b16["bound_ms"],
+        "backward_library_ms": b16["library_ms"],
+        "backward_excess": b16["excess"],
+        "backward_d7_ms": b7["ms"], "backward_d7_plain_ms": b7["plain_ms"],
+        "backward_d7_bound_ms": b7["bound_ms"],
+        "backward_d7_library_ms": b7["library_ms"],
+        "max_abs_err": max(segmm_row["max_abs_err"], b16["max_abs_err"],
+                           b7["max_abs_err"])})
 
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",

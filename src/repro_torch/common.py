@@ -5,12 +5,15 @@ package's ``common/util.py`` helpers; ``GraphEngineConfig`` is
 ``config/base.py``'s, re-exported here. ``resolve_device`` is the port's
 one device policy: CUDA unless the caller asks for the CPU, and an error
 (never a silent CPU run) when CUDA is asked for and absent.
+``tree_leaves`` and ``tree_map`` walk the port's parameter trees (nested
+dicts and lists of tensors) in the JAX package's leaf order (dict keys
+sorted).
 """
 from __future__ import annotations
 
 import logging
 import sys
-from typing import Union
+from typing import Any, Callable, List, Union
 
 import torch
 
@@ -18,7 +21,27 @@ from repro_torch.config.base import GraphEngineConfig
 from repro_torch.runtime.telemetry import clock
 
 __all__ = ["GraphEngineConfig", "Timer", "ceil_div", "get_logger",
-           "next_multiple", "resolve_device"]
+           "next_multiple", "resolve_device", "tree_leaves", "tree_map"]
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts and lists, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and trees of its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def ceil_div(a: int, b: int) -> int:

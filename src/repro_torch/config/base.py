@@ -6,7 +6,8 @@ reference's rough ``param_count``), ``RecsysConfig`` (with ``param_count`` as th
 has it: it leaves out the ``linear`` table), ``GraphEngineConfig`` (the
 paper engine's, without the sharded and Pallas backends' knobs ``comm``,
 ``relax_impl``, ``node_tile`` and ``edge_block``; its ``backend`` defaults
-to the port's ``kernel``), the shape sets ``LM_SHAPES``, ``GNN_SHAPES``
+to the port's ``kernel``), ``TrainConfig`` (value for value), the shape
+sets ``LM_SHAPES``, ``GNN_SHAPES``
 and ``RECSYS_SHAPES``, and ``shapes_for_family``.
 
 ``TransformerConfig.param_count()`` is the reference's: it leaves out the
@@ -210,6 +211,25 @@ class GraphEngineConfig(ArchConfig):
                                  # "auto" defers to the autotuning record,
                                  # "stages" without one)
     deterministic: bool = False  # oneshot: hash-derived centers and shifts
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    lr: float = 3e-4
+    warmup: int = 10
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    zero1: bool = True                # shard optimizer state over data axis
+    grad_compression: str = "none"    # none | int8_ef
+    log_every: int = 10
 
 
 LM_SHAPES: Tuple[ShapeSpec, ...] = (

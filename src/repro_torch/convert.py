@@ -119,11 +119,11 @@ def recsys_params_from_reference(params_np: Dict[str, Any], cfg,
     }
 
 
-def _gnn_leaves(tree: Any, shapes: Any, dev: torch.device,
-                name: str) -> Any:
+def _gnn_leaves(tree: Any, shapes: Any, dev: torch.device, name: str,
+                dtype: torch.dtype = torch.float32) -> Any:
     """``tree`` (numpy leaves) as tensors on ``dev``, walked beside
     ``shapes`` (``models.gnn.param_shapes``): the same keys and list
-    lengths, every leaf float32 of its shape; a ``ValueError`` names the
+    lengths, every leaf ``dtype`` of its shape; a ``ValueError`` names the
     first leaf or node that differs."""
     where = name or "the tree"
     if isinstance(shapes, dict):
@@ -132,7 +132,7 @@ def _gnn_leaves(tree: Any, shapes: Any, dev: torch.device,
             raise ValueError(f"gnn_params_from_reference: {where} has keys "
                              f"{got}, expected {sorted(shapes)}")
         return {k: _gnn_leaves(tree[k], v, dev,
-                               f"{name}.{k}" if name else k)
+                               f"{name}.{k}" if name else k, dtype)
                 for k, v in shapes.items()}
     if isinstance(shapes, list):
         if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
@@ -140,12 +140,13 @@ def _gnn_leaves(tree: Any, shapes: Any, dev: torch.device,
             raise ValueError(f"gnn_params_from_reference: {where} has {got} "
                              f"entries, expected {len(shapes)} (the "
                              f"config's layers)")
-        return [_gnn_leaves(t, v, dev, f"{name}[{i}]")
+        return [_gnn_leaves(t, v, dev, f"{name}[{i}]", dtype)
                 for i, (t, v) in enumerate(zip(tree, shapes))]
     t = _tensor_from_numpy(tree, dev)
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shapes):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shapes):
         raise ValueError(f"gnn_params_from_reference: {name} is {t.dtype} "
-                         f"{tuple(t.shape)}, expected float32 "
+                         f"{tuple(t.shape)}, expected "
+                         f"{str(dtype).replace('torch.', '')} "
                          f"{tuple(shapes)}")
     return t
 
@@ -159,7 +160,9 @@ _GNN_IN_LEAVES = {"gcn": (("layers", 0, "w"), None),
 
 
 def gnn_params_from_reference(params_np: Dict[str, Any], cfg,
-                              device="cuda") -> Dict[str, Any]:
+                              device="cuda",
+                              dtype: torch.dtype = torch.float32
+                              ) -> Dict[str, Any]:
     """The reference's parameter tree for ``cfg``'s kind, as numpy, turned
     into the port's dict on ``device`` with the same names, shapes and
     values: gcn ``layers[i].{w, b}``; gatedgcn ``embed_h``, ``embed_e``,
@@ -168,7 +171,9 @@ def gnn_params_from_reference(params_np: Dict[str, Any], cfg,
     equiformer-v2 ``embed``, ``head`` and ``layers[i].{radial, attn, gate,
     so2_r_m, so2_i_m}``. ``cfg`` is the port's ``GNNConfig``; the input
     (and edge-feature) widths are read from the first layer's rows, and
-    every array must be float32 and of the shape ``cfg`` gives it."""
+    every array must be of ``dtype`` (float32; float64 for the float64
+    checks, and for gradient trees of that structure) and of the shape
+    ``cfg`` gives it."""
     if cfg.kind not in _GNN_IN_LEAVES:
         raise ValueError(f"gnn_params_from_reference: unknown GNN kind "
                          f"{cfg.kind!r}")
@@ -189,4 +194,4 @@ def gnn_params_from_reference(params_np: Dict[str, Any], cfg,
 
     d_leaf, e_leaf = _GNN_IN_LEAVES[cfg.kind]
     shapes = param_shapes(cfg, rows(d_leaf), rows(e_leaf) if e_leaf else 1)
-    return _gnn_leaves(params_np, shapes, dev, "")
+    return _gnn_leaves(params_np, shapes, dev, "", dtype)

@@ -1,7 +1,9 @@
 """Synthetic, seeded LM, recsys and GNN batches: copies of the JAX
 package's ``data/pipeline.py`` ``DataCursor``, ``_seed_for``,
 ``LMTokenPipeline``, ``RecsysPipeline``, ``gnn_full_graph_batch`` and
-``gnn_molecule_batch``.
+``gnn_molecule_batch``, and ``gnn_minibatch_batch``, which fills the
+reference's ``minibatch`` cell from the neighbor sampler (the reference
+declares that cell's inputs but has no batch function for it).
 
 They are numpy only, and for the same seed and cursor give the same arrays
 as the reference: deterministic per-(shard, step) seeding, so a restored
@@ -14,12 +16,14 @@ arrays as the reference's for the same seed.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.config.base import (GNNConfig, RecsysConfig, ShapeSpec,
                                      TransformerConfig)
+from repro_torch.models.gnn import GNN_EDGE_DIM
 
 OVERDECOMPOSE = 4   # logical data shards per host
 
@@ -119,3 +123,75 @@ def gnn_molecule_batch(cfg: GNNConfig, shape: ShapeSpec, seed: int = 0,
         "targets": r.standard_normal((g, 1)).astype(np.float32),
         "labels": np.zeros(N, np.int32),
     }
+
+
+def minibatch_padding(shape: ShapeSpec) -> Tuple[int, int]:
+    """The reference cell's padded sizes of a ``minibatch`` shape on one
+    device, from ``(batch_nodes, fanout)``: ``pad_n = b (f1 + 1) (f0 + 1)``
+    nodes and ``pad_e = n1 f0 + b f1`` edges, ``n1 = b (f1 + 1)``."""
+    b = shape.batch_nodes
+    f1, f0 = shape.fanout
+    n1 = b * (f1 + 1)
+    return n1 * (f0 + 1), n1 * f0 + b * f1
+
+
+def _gather_rows(table: Any, ids: np.ndarray, n_real: int, fill) -> Any:
+    """``table[ids]`` with the rows from ``n_real`` on set to ``fill``: on
+    the host for a numpy table, on the table's device for a tensor (only
+    the ids are uploaded)."""
+    if isinstance(table, torch.Tensor):
+        out = table[torch.from_numpy(ids).to(table.device)]
+    else:
+        out = table[ids]
+    out[n_real:] = fill
+    return out
+
+
+def gnn_minibatch_batch(cfg: GNNConfig, shape: ShapeSpec, sampler,
+                        table: Mapping[str, Any], cursor: DataCursor,
+                        seed: int = 0, pad: Tuple[int, int] = None
+                        ) -> Dict[str, Any]:
+    """The ``minibatch`` cell's inputs for step ``cursor`` from one
+    ``sampler.sample`` call (``graph/sampler.py``, over the full graph
+    whose node ``table`` holds ``x`` [n, F], ``labels`` [n] and, for
+    equiformer-v2, ``pos`` [n, 3]: numpy arrays, or tensors on a device,
+    where the rows are then gathered). The mapping:
+      * seeds: ``_seed_for(seed, shard, step).choice(n, batch_nodes,
+        replace=False)``, ``n`` the table's rows;
+      * node table: the sampled nodes first, in ``node_ids`` order, cut to
+        ``pad_n`` rows; padding slots have ``x = 0``, ``labels = -1`` and
+        ``pos = 0``;
+      * edges: both blocks' masked edges, deepest block first as the
+        sampler lists them, then inert self-loops on the last padding node
+        up to ``pad_e``;
+      * ``seed_slots``: the sampler's;
+      * ``e`` (gatedgcn, meshgraphnet): ``[pad_e, GNN_EDGE_DIM]`` standard
+        normal, float32, drawn from the step's generator after the seeds.
+    ``pad`` is ``(pad_n, pad_e)``, ``minibatch_padding(shape)`` by default.
+    Raises when the sample leaves no padding node or passes ``pad_e``."""
+    pad_n, pad_e = pad if pad is not None else minibatch_padding(shape)
+    r = _seed_for(seed, cursor.shard, cursor.step)
+    n = int(table["x"].shape[0])
+    seeds = r.choice(n, shape.batch_nodes, replace=False)
+    sb = sampler.sample(seeds)
+    n_real = int(sb.node_mask.sum())
+    src = np.concatenate([b.src_index[b.edge_mask] for b in sb.blocks])
+    dst = np.concatenate([b.dst_index[b.edge_mask] for b in sb.blocks])
+    if n_real >= pad_n or len(src) > pad_e:
+        raise ValueError(f"gnn_minibatch_batch: {n_real} sampled nodes and "
+                         f"{len(src)} edges do not fit {pad_n} slots (one "
+                         f"kept for padding) and {pad_e} edges")
+    loops = np.full(pad_e - len(src), pad_n - 1, dtype=np.int32)
+    ids = np.zeros(pad_n, dtype=np.int32)
+    ids[:n_real] = sb.node_ids[:n_real]
+    out = {"x": _gather_rows(table["x"], ids, n_real, 0),
+           "src": np.concatenate([src, loops]),
+           "dst": np.concatenate([dst, loops]),
+           "labels": _gather_rows(table["labels"], ids, n_real, -1),
+           "seed_slots": sb.seed_slots}
+    if cfg.kind == "equiformer_v2":
+        out["pos"] = _gather_rows(table["pos"], ids, n_real, 0)
+    if cfg.kind in GNN_EDGE_DIM:
+        out["e"] = r.standard_normal(
+            (pad_e, GNN_EDGE_DIM[cfg.kind])).astype(np.float32)
+    return out

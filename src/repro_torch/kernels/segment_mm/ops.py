@@ -18,10 +18,24 @@ tensors go to the hand-written kernel (``segment_mm_cuda``), which raises
 on failure (there is no fallback); CPU tensors go to the plain version
 (``segment_mm_ref``). ``impl="ref"`` runs the plain version on any device
 (the reference's ``impl="ref"``).
+
+The gradient. ``y = segment_mm_csr(x, layout, coeff)`` is ``y = A x``
+with ``A[n, s]`` the sum of the coefficients of edges ``s -> n``; its
+gradient in ``x`` is ``A^T dy``, the same sum over the transposed layout
+(``transpose_layout``: rows are the sources, items the same edges with
+``col`` set to their destination, and ``perm`` carrying the forward-order
+coefficients into the transposed order). So the backward is one more
+launch of the same kernel on the card (the plain version on the CPU),
+over a transposed layout built once per graph and passed in with the
+forward one (``layout_t``); it is never built inside a backward. The
+reference's Pallas kernel has no VJP (it trains through
+``jax.ops.segment_sum``), and no caller differentiates the coefficients:
+one that requires grad raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -96,16 +110,89 @@ def csr_layout(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     return CsrLayout(n_nodes, row_ptr, col, row, perm, int(tile))
 
 
-def segment_mm_csr(x: torch.Tensor, layout: CsrLayout, coeff: torch.Tensor,
-                   impl: str = "auto") -> torch.Tensor:
-    """x [N_src, D], ``coeff`` [E] in the layout's (sorted) order ->
-    ``[layout.n_nodes, D]``. ``impl``: auto | ref."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown segment_mm impl {impl!r} (expected one "
-                         f"of {IMPLS})")
+def transpose_layout(layout: CsrLayout, n_src: int,
+                     gathers_once: bool = False) -> CsrLayout:
+    """The layout of the transposed sum of ``layout`` over ``n_src``
+    source rows: row s holds the edges whose source is s, destinations
+    ascending (equal pairs in the forward order), each with ``col`` its
+    destination; ``perm`` is each item's position in ``layout``'s sorted
+    order, so ``coeff[perm]`` carries coefficients over. Built on the
+    layout's device by one stable sort of ``col``; with ``gathers_once``
+    (``col`` a permutation of ``range(n_src)``, as in ``edge_layout`` and
+    ``irrep_layout``) each row holds one item and the layout comes from
+    the inverse permutation, without a sort. Reads the crossing rows back
+    (one sync per graph)."""
+    dev, col = layout.col.device, layout.col
+    n_items = col.numel()
+    if gathers_once:
+        if n_items != n_src:
+            raise ValueError(f"transpose_layout: a layout that gathers each "
+                             f"of {n_src} rows once has {n_src} items, not "
+                             f"{n_items}")
+        inv = torch.empty(n_items, dtype=torch.int64, device=dev)
+        inv[col.long()] = torch.arange(n_items, device=dev)
+        return CsrLayout(n_src, torch.arange(n_items + 1, device=dev),
+                         layout.row[inv],
+                         torch.arange(n_items, dtype=torch.int32,
+                                      device=dev), inv, layout.tile)
+    if n_items and int(col.max()) >= n_src:
+        raise ValueError(f"transpose_layout: sources reach {int(col.max())}"
+                         f", outside [0, {n_src})")
+    row_t, perm = torch.sort(col, stable=True)
+    row_ptr = torch.searchsorted(
+        row_t, torch.arange(n_src + 1, dtype=torch.int32, device=dev))
+    return CsrLayout(n_src, row_ptr, layout.row[perm], row_t, perm,
+                     layout.tile)
+
+
+def _segment_mm(x: torch.Tensor, layout: CsrLayout, coeff: torch.Tensor,
+                impl: str) -> torch.Tensor:
     if impl == "auto" and x.device.type == "cuda":
         return segment_mm_cuda(x, layout, coeff)
     return segment_mm_ref(x, layout.col, layout.row, coeff, layout.n_nodes)
+
+
+class _SegmentMM(torch.autograd.Function):
+    """``segment_mm`` with its gradient in ``x``: the same sum over the
+    transposed layout, the coefficients carried by its ``perm``."""
+
+    @staticmethod
+    def forward(ctx, x, coeff, layout, layout_t, impl):
+        ctx.save_for_backward(coeff)
+        ctx.layout_t, ctx.impl = layout_t, impl
+        return _segment_mm(x, layout, coeff, impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        coeff, = ctx.saved_tensors
+        lt = ctx.layout_t
+        dx = _segment_mm(dy.contiguous(), lt, coeff[lt.perm], ctx.impl)
+        return dx, None, None, None, None
+
+
+def segment_mm_csr(x: torch.Tensor, layout: CsrLayout, coeff: torch.Tensor,
+                   impl: str = "auto",
+                   layout_t: Optional[CsrLayout] = None) -> torch.Tensor:
+    """x [N_src, D], ``coeff`` [E] in the layout's (sorted) order ->
+    ``[layout.n_nodes, D]``. ``impl``: auto | ref. Where autograd records
+    (grad enabled and ``x`` requiring grad), ``layout_t`` must be
+    ``transpose_layout(layout, N_src)``: the backward sums over it. A
+    ``coeff`` that requires grad raises while grad is enabled."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown segment_mm impl {impl!r} (expected one "
+                         f"of {IMPLS})")
+    if not torch.is_grad_enabled():
+        return _segment_mm(x, layout, coeff, impl)
+    if coeff.requires_grad:
+        raise ValueError("segment_mm_csr: coeff requires grad, and the "
+                         "coefficients have no gradient here (only x has)")
+    if not x.requires_grad:
+        return _segment_mm(x, layout, coeff, impl)
+    if layout_t is None:
+        raise ValueError("segment_mm_csr: x requires grad, so the backward "
+                         "needs layout_t = transpose_layout(layout, "
+                         "x.shape[0]), built once per graph")
+    return _SegmentMM.apply(x, coeff, layout, layout_t, impl)
 
 
 def segment_mm(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
@@ -122,4 +209,6 @@ def segment_mm(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if impl == "ref" or x.device.type != "cuda":
         return segment_mm_ref(x, src, dst, coeff, n_nodes)
     layout = csr_layout(src, dst, n_nodes)
-    return segment_mm_csr(x, layout, coeff[layout.perm], impl)
+    layout_t = (transpose_layout(layout, x.shape[0])
+                if torch.is_grad_enabled() and x.requires_grad else None)
+    return segment_mm_csr(x, layout, coeff[layout.perm], impl, layout_t)

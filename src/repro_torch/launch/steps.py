@@ -1,8 +1,9 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
 of the JAX package's ``launch/steps.py`` ``build_cell`` for the LM
 family's serving kinds (``_lm_cell``), xDeepFM's two serving kinds
-(``_recsys_cell``) and the paper engine's cell (``_engine_cell``), on one
-device, with no mesh and no shardings.
+(``_recsys_cell``), the GNN family's training cell (``_gnn_cell``) and
+the paper engine's cell (``_engine_cell``), on one device, with no mesh
+and no shardings.
 
 ``build_cell(arch, shape_name, smoke=False, device="cuda")`` returns a
 ``Cell``:
@@ -11,7 +12,10 @@ device, with no mesh and no shardings.
               [B, V], cache)`` (``decode``), ``serve(params, batch,
               cin_impl="auto") -> logits [B]`` (``recsys_serve``) or
               ``retrieval(params, query, cin_impl="auto") -> scores [C]``
-              (``retrieval``)
+              (``retrieval``) or ``train_step(params, opt, graph,
+              impl="auto") -> (params, opt, loss, stats)`` (the GNN
+              family's ``full_graph``, ``minibatch`` and
+              ``batched_graphs``)
   arg_shapes  name -> (shape, dtype) of the step's inputs besides params
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
               item fields; an MoE arch: ``moe_groups`` 1)
@@ -35,12 +39,27 @@ scale through a session backend (see ``_engine_cell``).
 
 Retrieval scores one query against ``n_candidates`` with the full model:
 ``n_sparse // 3`` user fields broadcast over the candidates, the rest item
-fields. Every other family and kind (``recsys_train`` and ``train`` too)
-raises ``NotImplementedError`` naming the ported kinds and the family and
-kind asked for; an arch the port does not register raises the registry's
-``KeyError``. The GNN family has no cell here: the reference's GNN cell is
-a training step, which waits for the training slice (GNN inference runs
-through ``models/gnn.py``).
+fields.
+
+A GNN cell (``GNNCell``) is the reference's training step: the loss of
+its regime (``batched_graphs``: ``graph_regression_loss``; otherwise
+``node_classification_loss``), its gradient by autograd (each
+``segment_mm`` launch of the forward has one in the backward, over the
+transposed layout), then ``optim/adamw.apply_updates``. Its
+``arg_shapes`` are the reference's padded shapes on one device:
+``full_graph`` as the shape gives them, ``minibatch`` from
+``(batch_nodes, fanout)`` (``data/pipeline.minibatch_padding``) with
+``seed_slots``, ``batched_graphs`` with ``graph_id`` and ``targets
+[n_graphs, d_out]``. The keyword arguments ``n_nodes`` and ``n_edges``
+(``full_graph``: a subgraph the caller picks, such as the first nodes and
+the edges among them) and ``batch_nodes`` (``minibatch``) cut the shape
+to what one card holds in training, listed in the note; ``train_cfg`` is
+the ``TrainConfig`` (the default's values otherwise).
+
+Every other family and kind (``recsys_train`` and ``train`` too) raises
+``NotImplementedError`` naming the ported kinds and the family and kind
+asked for; an arch the port does not register raises the registry's
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -53,21 +72,26 @@ import numpy as np
 import torch
 
 from repro_torch.common import next_multiple, resolve_device
-from repro_torch.config.base import (GraphEngineConfig, MoEConfig,
-                                     RecsysConfig, ShapeSpec,
-                                     TransformerConfig, shapes_for_family)
+from repro_torch.config.base import (GNNConfig, GraphEngineConfig,
+                                     MoEConfig, RecsysConfig, ShapeSpec,
+                                     TrainConfig, TransformerConfig,
+                                     shapes_for_family)
 from repro_torch.config.registry import get_arch
 from repro_torch.core import state as st
 from repro_torch.core.backend import KernelBackend, SingleDeviceBackend
 from repro_torch.core.engine import default_uniform_fn
 from repro_torch.core.session import tau_for
+from repro_torch.data.pipeline import minibatch_padding
 from repro_torch.graph.structures import EdgeList
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.optim import adamw
 
 # the shape kinds build_cell ports, by family
 PORTED_KINDS = {"lm": ("prefill", "decode"),
-                "recsys": ("recsys_serve", "retrieval")}
+                "recsys": ("recsys_serve", "retrieval"),
+                "gnn": ("full_graph", "minibatch", "batched_graphs")}
 
 
 @dataclass
@@ -76,7 +100,8 @@ class Cell:
     shape: str
     step_fn: Callable
     arg_shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
-    cfg: Union[TransformerConfig, RecsysConfig, GraphEngineConfig]
+    cfg: Union[TransformerConfig, RecsysConfig, GNNConfig,
+               GraphEngineConfig]
     device: torch.device
     note: str = ""
     model_flops: float = 0.0
@@ -183,6 +208,102 @@ def _engine_cell(cfg: GraphEngineConfig, n_nodes: int = 1 << 24,
                       "round)", n_nodes=n, n_edges=e)
 
 
+@dataclass
+class GNNCell(Cell):
+    """The GNN family's training cell. ``init(seed)`` gives the parameters
+    (``init_gnn`` from a generator seeded with ``seed`` on the cell's
+    device) and their AdamW state; ``graph(batch)`` checks a batch against
+    ``arg_shapes`` and makes it resident with the layouts and transposes a
+    step sums over (``resident_graph(..., train=True)``), once per
+    graph."""
+
+    train_cfg: TrainConfig = TrainConfig()
+
+    def init(self, seed: int = 0):
+        d_feat = self.arg_shapes["x"][0][1]
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = gnn_mod.init_gnn(self.cfg, d_feat, gen, d_edge_in=(
+            gnn_mod.GNN_EDGE_DIM.get(self.cfg.kind, 1)))
+        return params, adamw.init_state(params)
+
+    def graph(self, batch) -> Dict[str, object]:
+        """``batch`` (numpy arrays or tensors; other keys refused) as the
+        step's resident graph."""
+        extra = sorted(set(batch) - set(self.arg_shapes))
+        if extra:
+            raise ValueError(f"{self.arch} x {self.shape}: the cell takes "
+                             f"no inputs {extra}")
+        for name, (shape, dtype) in self.arg_shapes.items():
+            a = batch.get(name)
+            got = None if a is None else (
+                tuple(a.shape), str(a.dtype).replace("torch.", ""))
+            if got != (shape, str(dtype).replace("torch.", "")):
+                raise ValueError(f"{self.arch} x {self.shape}: input {name} "
+                                 f"is {got}, the cell declares {shape} "
+                                 f"{dtype}")
+        return gnn_mod.resident_graph(batch, self.device, self.cfg,
+                                      train=True)
+
+
+def _gnn_cell(cfg: GNNConfig, shape: ShapeSpec, dev: torch.device,
+              n_nodes=None, n_edges=None, batch_nodes=None,
+              train_cfg: TrainConfig = TrainConfig()) -> GNNCell:
+    """The reference's GNN training cell on one device, at the shape's
+    padded sizes or at the cuts ``n_nodes`` / ``n_edges``
+    (``full_graph``) and ``batch_nodes`` (``minibatch``)."""
+    cuts = []
+    for name, value in (("n_nodes", n_nodes), ("n_edges", n_edges)):
+        if value is not None and value != getattr(shape, name):
+            if shape.kind != "full_graph":
+                raise TypeError(f"{name} cuts a full_graph shape, not "
+                                f"{shape.kind}")
+            cuts.append(f"{name} {value} of {getattr(shape, name)}")
+            shape = dataclasses.replace(shape, **{name: int(value)})
+    if batch_nodes is not None and batch_nodes != shape.batch_nodes:
+        if shape.kind != "minibatch":
+            raise TypeError(f"batch_nodes cuts a minibatch shape, not "
+                            f"{shape.kind}")
+        cuts.append(f"batch_nodes {batch_nodes} of {shape.batch_nodes}")
+        shape = dataclasses.replace(shape, batch_nodes=int(batch_nodes))
+    d_feat = shape.d_feat or 32
+    if shape.kind == "batched_graphs":
+        pad_n = shape.n_graphs * shape.n_nodes
+        pad_e = shape.n_graphs * shape.n_edges
+        loss_fn = gnn_mod.graph_regression_loss
+    elif shape.kind == "minibatch":
+        pad_n, pad_e = minibatch_padding(shape)
+        loss_fn = gnn_mod.node_classification_loss
+    else:  # full_graph
+        pad_n, pad_e = shape.n_nodes, shape.n_edges
+        loss_fn = gnn_mod.node_classification_loss
+    i32, f32 = torch.int32, torch.float32
+    arg_shapes = {"x": ((pad_n, d_feat), f32), "src": ((pad_e,), i32),
+                  "dst": ((pad_e,), i32), "labels": ((pad_n,), i32)}
+    if cfg.kind == "equiformer_v2":
+        arg_shapes["pos"] = ((pad_n, 3), f32)
+    if cfg.kind in gnn_mod.GNN_EDGE_DIM:
+        arg_shapes["e"] = ((pad_e, gnn_mod.GNN_EDGE_DIM[cfg.kind]), f32)
+    if shape.kind == "batched_graphs":
+        arg_shapes["graph_id"] = ((pad_n,), i32)
+        arg_shapes["targets"] = ((shape.n_graphs, cfg.d_out), f32)
+    if shape.kind == "minibatch":
+        arg_shapes["seed_slots"] = ((shape.batch_nodes,), i32)
+
+    def train_step(params, opt, graph, impl="auto"):
+        params = adamw.tree_map(lambda p: p.detach().requires_grad_(),
+                                params)
+        loss = loss_fn(params, graph, cfg, impl=impl)
+        loss.backward()
+        grads = adamw.tree_map(lambda p: p.grad if p.grad is not None
+                               else torch.zeros_like(p), params)
+        params, opt, stats = adamw.apply_updates(params, opt, grads,
+                                                 train_cfg)
+        return params, opt, loss.detach(), stats
+
+    return GNNCell(cfg.name, shape.name, train_step, arg_shapes, cfg, dev,
+                   note="; ".join(cuts), train_cfg=train_cfg)
+
+
 def _lm_model_flops(cfg: TransformerConfig, shape: ShapeSpec,
                     kind: str) -> float:
     """The reference's analytic useful FLOPs of one step: 6 N a token to
@@ -249,7 +370,10 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
             raise KeyError(f"{arch}'s cell at this size is {cell.shape!r}, "
                            f"not {shape_name!r}")
         return cell
-    allowed = ("batch", "seq_len") if cfg.family == "lm" else ()
+    allowed = {"lm": ("batch", "seq_len"),
+               "gnn": ("n_nodes", "n_edges", "batch_nodes",
+                       "train_cfg")}.get(
+                   cfg.family, ())
     extra = sorted(set(kw) - set(allowed))
     if extra:
         raise TypeError(f"{arch} takes no cell arguments {extra}")
@@ -257,20 +381,19 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
         shape_name)
     if shape is None or shape.kind not in PORTED_KINDS.get(cfg.family, ()):
         kind = shape.kind if shape is not None else "unknown"
-        why = (": the reference's GNN cell is a training step, which waits "
-               "for the training slice; GNN inference runs through "
-               "models/gnn.py" if cfg.family == "gnn" else
-               ": training waits for the training slice"
-               if kind == "train" else "")
+        why = (": training waits for the training slice"
+               if kind in ("train", "recsys_train") else "")
         raise NotImplementedError(
             f"{arch} x {shape_name} is not ported; the port builds the "
-            f"recsys family's {' and '.join(PORTED_KINDS['recsys'])} shapes "
-            f"and the lm family's {' and '.join(PORTED_KINDS['lm'])} "
-            f"shapes, and this is the {cfg.family} family's {kind} "
-            f"kind{why}")
+            f"recsys family's {' and '.join(PORTED_KINDS['recsys'])} shapes, "
+            f"the lm family's {' and '.join(PORTED_KINDS['lm'])} shapes "
+            f"and the gnn family's {', '.join(PORTED_KINDS['gnn'])} shapes, "
+            f"and this is the {cfg.family} family's {kind} kind{why}")
     dev = resolve_device(device)
     if cfg.family == "lm":
         return _lm_cell(cfg, shape, dev, **kw)
+    if cfg.family == "gnn":
+        return _gnn_cell(cfg, shape, dev, **kw)
     bag = max(cfg.multi_hot, 1)
     i32, f32 = torch.int32, torch.float32
 

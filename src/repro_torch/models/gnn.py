@@ -33,25 +33,40 @@ the aggregation's input and not the reference's per-edge temporaries
 (``ogb_products`` has 61,859,140 edges). Every forward computes in the
 dtype of its inputs and parameters (float64 too, on the plain path).
 
+Training. Where autograd records a forward (grad enabled and a parameter
+requiring grad), nothing is written in place: the per-edge work runs over
+every edge at once (a backward keeps each chunk's temporaries anyway) and
+each tensor a later step changes is a new one, with the same values as
+the in-place forward's. Every sum then differentiates through
+``segment_mm_csr``'s backward, one more launch over the transposed layout
+(``layout_t``, ``edge_layout_t``, ``irrep_layout_t``), so a training
+step launches ``segment_mm`` twice as often as a forward. The transposes
+are built once per graph by ``resident_graph(..., train=True)`` (or for
+the call where missing). The segment max of the softmax is differentiated
+as it is (``scatter_reduce("amax")``'s gradient); in exact arithmetic its
+contribution cancels.
+
 A ``graph`` is the reference's dict of tensors (``x`` [N, F], ``src`` /
 ``dst`` [E], ``labels`` [N]; ``e`` [E, d_edge] for gatedgcn and
 meshgraphnet, ``pos`` [N, 3] for equiformer-v2; ``graph_id`` [N] and
 ``targets`` [G, T] for batched graphs; ``seed_slots`` for a minibatch),
-optionally with the prebuilt layouts above; a missing one is built for
-the call.
+optionally with the prebuilt layouts above and their transposes; a
+missing one is built for the call.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch.common import resolve_device, tree_leaves
 from repro_torch.config.base import GNNConfig
 from repro_torch.kernels.segment_mm.ops import (CsrLayout, csr_layout,
-                                                segment_mm_csr)
+                                                segment_mm_csr,
+                                                transpose_layout)
 from repro_torch.models.wigner import (edge_rotation, rotate_irreps,
                                        wigner_d_stack)
 
@@ -201,34 +216,49 @@ def irrep_layout(layout: CsrLayout, k: int) -> CsrLayout:
                      row.to(torch.int32), items, layout.tile)
 
 
-def segment_sum(x: torch.Tensor, layout: CsrLayout,
-                impl: str = "auto") -> torch.Tensor:
+def segment_sum(x: torch.Tensor, layout: CsrLayout, impl: str = "auto",
+                layout_t: Optional[CsrLayout] = None) -> torch.Tensor:
     """``[layout.n_nodes, D]``: row n the sum of ``x``'s rows that
     ``layout`` gathers into it (``edge_layout``, ``irrep_layout``), with
-    coefficients 1: ``jax.ops.segment_sum`` of the per-edge rows."""
+    coefficients 1: ``jax.ops.segment_sum`` of the per-edge rows.
+    ``layout_t`` is the transpose a backward sums over."""
     ones = torch.ones(layout.col.numel(), dtype=x.dtype, device=x.device)
-    return segment_mm_csr(x, layout, ones, impl=impl)
+    return segment_mm_csr(x, layout, ones, impl=impl, layout_t=layout_t)
 
 
 def segment_softmax(scores: torch.Tensor, seg: torch.Tensor,
                     num_segments: int, layout: Optional[CsrLayout] = None,
-                    impl: str = "auto") -> torch.Tensor:
+                    impl: str = "auto",
+                    layout_t: Optional[CsrLayout] = None) -> torch.Tensor:
     """Softmax of ``scores`` [E, ...] over the entries of each segment:
     the max a ``scatter_reduce("amax")``, the sum ``segment_sum`` over
     ``layout`` (an ``edge_layout`` of edges whose destinations are ``seg``;
-    built here if not given), the denominator floored at 1e-9."""
+    built here, with its transpose, if not given), the denominator floored
+    at 1e-9."""
     if layout is None:
         layout = edge_layout(csr_layout(torch.zeros_like(seg), seg,
                                         num_segments))
+        if torch.is_grad_enabled() and scores.requires_grad:
+            layout_t = transpose_layout(layout, seg.shape[0],
+                                        gathers_once=True)
     n_edges = scores.shape[0]
     flat = scores.reshape(n_edges, -1)
     smax = torch.full((num_segments, flat.shape[1]), float("-inf"),
-                      dtype=scores.dtype, device=scores.device)
-    smax.scatter_reduce_(0, seg.long()[:, None].expand_as(flat), flat,
-                         "amax")
-    ex = torch.exp(flat - smax[seg])
-    den = segment_sum(ex, layout, impl)
-    return (ex / torch.clamp_min(den[seg], 1e-9)).reshape(scores.shape)
+                      dtype=scores.dtype, device=scores.device).scatter_reduce(
+        0, seg.long()[:, None].expand_as(flat), flat, "amax")
+    ex = torch.exp(flat - _rows(smax, seg))
+    den = segment_sum(ex, layout, impl, layout_t)
+    return (ex / torch.clamp_min(_rows(den, seg), 1e-9)).reshape(
+        scores.shape)
+
+
+def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` along dim 0, as ``index_select``: the same values, and
+    a gradient summed by ``index_add_``. The gradient of ``x[index]``
+    (``index_put_`` with accumulation) adds the rows of one index one
+    after another, which at a hub (a minibatch's padding node has
+    thousands of self-loops) takes the step's time."""
+    return torch.index_select(x, 0, index)
 
 
 def _edge_slices(n_edges: int) -> List[slice]:
@@ -236,13 +266,72 @@ def _edge_slices(n_edges: int) -> List[slice]:
             for lo in range(0, n_edges, EDGE_CHUNK)]
 
 
-def _layouts(graph: Mapping[str, Any]) -> Tuple[CsrLayout, CsrLayout]:
-    """The graph's ``layout`` and ``edge_layout``, built where missing."""
+def _taping(params: Any) -> bool:
+    """Whether autograd records a forward of ``params``: grad enabled and
+    a parameter requiring grad."""
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for p in tree_leaves(params))
+
+
+def _edge_pass(fn, n_edges: int, tape: bool, outs) -> Tuple[torch.Tensor,
+                                                            ...]:
+    """Per-edge work ``fn(sl) -> tensors``. Under autograd (``tape``) it
+    runs once over every edge and its tensors are returned (nothing is
+    written in place: a backward needs the values); else ``EDGE_CHUNK``
+    edges at a time, each chunk's tensors written into ``outs()``'s, which
+    are returned."""
+    if tape:
+        return fn(slice(None))
+    bufs = outs()
+    for sl in _edge_slices(n_edges):
+        for b, t in zip(bufs, fn(sl)):
+            b[sl] = t
+    return bufs
+
+
+def _layouts(graph: Mapping[str, Any], names: Tuple[str, ...],
+             transposed: Tuple[str, ...] = (),
+             k: int = 0) -> Dict[str, CsrLayout]:
+    """The graph's layouts among ``layout``, ``edge_layout`` and
+    ``irrep_layout`` (at ``k`` items an edge) that ``names`` lists, and
+    the transposes (``<name>_t``) of those ``transposed`` lists, each
+    built where missing (an irrep layout of another ``k`` is built again,
+    with its transpose)."""
+    n, n_edges = graph["x"].shape[0], graph["src"].shape[0]
     layout = graph.get("layout")
     if layout is None:
-        layout = csr_layout(graph["src"], graph["dst"], graph["x"].shape[0])
-    lay_e = graph.get("edge_layout")
-    return layout, lay_e if lay_e is not None else edge_layout(layout)
+        layout = csr_layout(graph["src"], graph["dst"], n)
+    out = {"layout": layout}
+    n_src = {"layout": n, "edge_layout": n_edges,
+             "irrep_layout": n_edges * k}
+    for name in names:
+        lay, lay_t = graph.get(name), graph.get(name + "_t")
+        if name == "layout":
+            lay = layout
+        if name == "edge_layout" and lay is None:
+            lay, lay_t = edge_layout(layout), None
+        if name == "irrep_layout" and (lay is None or lay.n_nodes != n * k):
+            lay, lay_t = irrep_layout(layout, k), None
+        out[name] = lay
+        if name in transposed:
+            out[name + "_t"] = lay_t if lay_t is not None else \
+                transpose_layout(lay, n_src[name], name != "layout")
+    return out
+
+
+# the layouts each kind's forward sums over; a backward sums over their
+# transposes
+_SUMMED = {"gcn": ("layout",), "gatedgcn": ("edge_layout",),
+           "meshgraphnet": ("edge_layout",),
+           "equiformer_v2": ("edge_layout", "irrep_layout")}
+
+
+def _summed_layouts(graph: Mapping[str, Any], cfg: GNNConfig, params: Any,
+                    k: int = 0) -> Dict[str, CsrLayout]:
+    """The layouts a forward of ``cfg`` sums over, with their transposes
+    where autograd records it."""
+    names = _SUMMED[cfg.kind]
+    return _layouts(graph, names, names if _taping(params) else (), k)
 
 
 def _edge_input(graph: Mapping[str, Any], like: torch.Tensor
@@ -276,28 +365,31 @@ def gcn_norm(layout: CsrLayout, norm: str
 
 def gcn_layer(x: torch.Tensor, lp: Params, layout: CsrLayout,
               coeff: torch.Tensor, self_coeff: torch.Tensor, relu: bool,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto",
+              layout_t: Optional[CsrLayout] = None) -> torch.Tensor:
     """One GCN layer: ``segment_mm(x W) + (x W) / deg + b``, then ReLU on
-    all but the last layer."""
+    all but the last layer (``layout_t``: the transpose a backward sums
+    over)."""
     h = x @ lp["w"]
-    agg = segment_mm_csr(h, layout, coeff, impl=impl)
+    agg = segment_mm_csr(h, layout, coeff, impl=impl, layout_t=layout_t)
     out = agg + h * self_coeff[:, None] + lp["b"]
     return torch.relu(out) if relu else out
 
 
 def gcn_forward(params: Params, graph: Mapping[str, Any], cfg: GNNConfig,
                 impl: str = "auto") -> torch.Tensor:
-    """The graph's prebuilt ``"layout"`` is used if it has one; else one is
-    built for this call."""
-    layout = graph.get("layout")
-    if layout is None:
-        layout = csr_layout(graph["src"], graph["dst"], graph["x"].shape[0])
+    """The graph's prebuilt ``"layout"`` (and under autograd
+    ``"layout_t"``) is used if it has one; else one is built for this
+    call."""
+    lays = _summed_layouts(graph, cfg, params)
+    layout = lays["layout"]
     _, coeff, self_coeff = gcn_norm(layout, cfg.norm)
     x = graph["x"]
     n_layers = len(params["layers"])
     for i, lp in enumerate(params["layers"]):
         x = gcn_layer(x, lp, layout, coeff, self_coeff,
-                      relu=i < n_layers - 1, impl=impl)
+                      relu=i < n_layers - 1, impl=impl,
+                      layout_t=lays.get("layout_t"))
     return x
 
 
@@ -310,25 +402,29 @@ def gatedgcn_forward(params: Params, graph: Mapping[str, Any],
     """Each layer writes ``[gate * (B h)[src] | gate]`` of every edge into
     one ``[E, 2 d]`` buffer and sums it once: ``num`` and ``den``."""
     src, dst = graph["src"], graph["dst"]
-    _, lay_e = _layouts(graph)
+    tape = _taping(params)
+    lays = _summed_layouts(graph, cfg, params)
     h = _lin(params["embed_h"], graph["x"])
     e_in = _edge_input(graph, h)
     n_edges, d = src.shape[0], h.shape[1]
-    slices = _edge_slices(n_edges)
-    e = h.new_empty((n_edges, d))
-    for sl in slices:
-        e[sl] = _lin(params["embed_e"], e_in[sl])
-    buf = h.new_empty((n_edges, 2 * d))         # [msg | gate]
+    e, = _edge_pass(lambda sl: (_lin(params["embed_e"], e_in[sl]),),
+                    n_edges, tape, lambda: (h.new_empty((n_edges, d)),))
+    buf = None if tape else h.new_empty((n_edges, 2 * d))  # [msg | gate]
     for lp in params["layers"]:
         dh, eh, bh = _lin(lp["D"], h), _lin(lp["E"], h), _lin(lp["B"], h)
-        for sl in slices:
+
+        def edges(sl, e=e):
             s = src[sl]
-            e_new = _lin(lp["C"], e[sl]) + dh[s] + eh[dst[sl]]
+            e_new = _lin(lp["C"], e[sl]) + _rows(dh, s) + _rows(eh, dst[sl])
             gate = torch.sigmoid(e_new)
-            buf[sl, d:] = gate
-            buf[sl, :d] = gate * bh[s]
-            e[sl] += torch.relu(_layernorm(e_new))
-        agg = segment_sum(buf, lay_e, impl)
+            return (gate * _rows(bh, s), gate,
+                    e[sl] + torch.relu(_layernorm(e_new)))
+
+        msg, gate, e = _edge_pass(edges, n_edges, tape,
+                                  lambda: (buf[:, :d], buf[:, d:], e))
+        agg = segment_sum(torch.cat([msg, gate], -1) if tape else buf,
+                          lays["edge_layout"], impl,
+                          lays.get("edge_layout_t"))
         num, den = agg[:, :d], agg[:, d:]
         h_new = _lin(lp["A"], h) + num / (den + 1e-6)
         h = h + torch.relu(_layernorm(h_new))     # residual + norm
@@ -342,20 +438,25 @@ def gatedgcn_forward(params: Params, graph: Mapping[str, Any],
 def meshgraphnet_forward(params: Params, graph: Mapping[str, Any],
                          cfg: GNNConfig, impl: str = "auto") -> torch.Tensor:
     src, dst = graph["src"], graph["dst"]
-    _, lay_e = _layouts(graph)
+    tape = _taping(params)
+    lays = _summed_layouts(graph, cfg, params)
     m = cfg.mlp_layers
     h = _layernorm(_mlp_apply(params["enc_node"], graph["x"], m))
     e_in = _edge_input(graph, h)
-    slices = _edge_slices(src.shape[0])
-    e = h.new_empty((src.shape[0], h.shape[1]))
-    for sl in slices:
-        e[sl] = _layernorm(_mlp_apply(params["enc_edge"], e_in[sl], m))
+    n_edges = src.shape[0]
+    e, = _edge_pass(
+        lambda sl: (_layernorm(_mlp_apply(params["enc_edge"], e_in[sl], m)),),
+        n_edges, tape, lambda: (h.new_empty((n_edges, h.shape[1])),))
     for blk in params["blocks"]:
-        for sl in slices:
+
+        def edges(sl, e=e):
             e_up = _mlp_apply(blk["edge"], torch.cat(
-                [h[src[sl]], h[dst[sl]], e[sl]], -1), m)
-            e[sl] += _layernorm(e_up)
-        agg = segment_sum(e, lay_e, impl)
+                [_rows(h, src[sl]), _rows(h, dst[sl]), e[sl]], -1), m)
+            return (e[sl] + _layernorm(e_up),)
+
+        e, = _edge_pass(edges, n_edges, tape, lambda: (e,))
+        agg = segment_sum(e, lays["edge_layout"], impl,
+                          lays.get("edge_layout_t"))
         h_up = _mlp_apply(blk["node"], torch.cat([h, agg], -1), m)
         h = h + _layernorm(h_up)
     return _mlp_apply(params["dec"], h, m)
@@ -393,6 +494,27 @@ def _rbf(dist: torch.Tensor, n: int = N_RBF,
     return torch.exp(-beta * (dist[:, None] - mu[None, :]) ** 2)
 
 
+@lru_cache(maxsize=None)
+def _irrep_indices(l_max: int, m_max: int, device: torch.device
+                   ) -> Tuple[torch.Tensor, List[List[torch.Tensor]],
+                              torch.Tensor]:
+    """On ``device``, once: each coefficient's degree l (``l_of_k``), the
+    (+m, -m) index pairs of each |m| <= m_max, and ``at``: coefficient
+    k's place in the SO(2) mixes' output (+m then -m for each m, then one
+    zero block for those with |m| > m_max)."""
+    K = (l_max + 1) ** 2
+    l_of_k = torch.tensor([l for l in range(l_max + 1)
+                           for _ in range(2 * l + 1)], device=device)
+    comps = [[torch.tensor(i, device=device)
+              for i in _m_components(l_max, m)] for m in range(m_max + 1)]
+    order = [i for m in range(m_max + 1) for i in (
+        _m_components(l_max, m)[0]
+        + (_m_components(l_max, m)[1] if m else []))]
+    at = torch.tensor([order.index(k) if k in order else len(order)
+                       for k in range(K)], device=device)
+    return l_of_k, comps, at
+
+
 def equiformer_forward(params: Params, graph: Mapping[str, Any],
                        cfg: GNNConfig, impl: str = "auto") -> torch.Tensor:
     """graph: x [N, F] scalar features, pos [N, 3], src/dst [E]."""
@@ -401,53 +523,51 @@ def equiformer_forward(params: Params, graph: Mapping[str, Any],
     n, n_edges = x.shape[0], src.shape[0]
     C, L, M = cfg.d_hidden, cfg.l_max, cfg.m_max
     K = (L + 1) ** 2
-    layout, lay_e = _layouts(graph)
-    lay_k = graph.get("irrep_layout")
-    if lay_k is None or lay_k.n_nodes != n * K:
-        lay_k = irrep_layout(layout, K)
-    l_of_k = torch.tensor([l for l in range(L + 1) for _ in range(2 * l + 1)],
-                          device=x.device)
+    lays = _summed_layouts(graph, cfg, params, K)
+    l_of_k, comps, at = _irrep_indices(L, M, x.device)
 
     vec = pos[dst] - pos[src]
     dist = torch.linalg.vector_norm(vec, dim=-1)
     dmats = wigner_d_stack(edge_rotation(vec), L)
     rbf = _rbf(dist)
 
-    feat = x.new_zeros((n, K, C))
-    feat[:, 0, :] = x @ params["embed"]["w"] + params["embed"]["b"]
-    comps = [[torch.tensor(i, device=x.device) for i in _m_components(L, m)]
-             for m in range(M + 1)]
+    emb = x @ params["embed"]["w"] + params["embed"]["b"]
+    feat = torch.cat([emb[:, None, :], emb.new_zeros((n, K - 1, C))], 1)
 
     for lp in params["layers"]:
-        x_rot = rotate_irreps(feat[src], dmats)             # edge frame
+        x_rot = rotate_irreps(_rows(feat, src), dmats)      # edge frame
         # radial modulation: per-(l, channel) scale from the distance
         scale = _mlp_apply(lp["radial"], rbf, 2).reshape(-1, L + 1, C)
         x_mod = x_rot * scale[:, l_of_k]
         # SO(2) mixes per |m| <= m_max (coefficients with |m| > m_max drop:
         # the eSCN m-truncation)
-        y = torch.zeros_like(x_mod)
+        parts = []
         for m, (pos_i, neg_i) in enumerate(comps):
             xp = x_mod[:, pos_i].reshape(n_edges, -1)       # [E, n_l*C]
             wr = lp[f"so2_r_{m}"]
             if m == 0:
-                y[:, pos_i] = (xp @ wr).reshape(n_edges, -1, C)
+                parts.append((xp @ wr).reshape(n_edges, -1, C))
             else:
                 xn = x_mod[:, neg_i].reshape(n_edges, -1)
                 wi = lp[f"so2_i_{m}"]
                 yp = xp @ wr - xn @ wi
                 yn = xn @ wr + xp @ wi
-                y[:, pos_i] = yp.reshape(n_edges, -1, C)
-                y[:, neg_i] = yn.reshape(n_edges, -1, C)
+                parts += [yp.reshape(n_edges, -1, C),
+                          yn.reshape(n_edges, -1, C)]
+        parts.append(x_mod.new_zeros((n_edges, 1, C)))
+        y = torch.cat(parts, 1)[:, at]
+        del parts
 
         # scalar attention over incoming edges (heads over channel groups)
         scores = _mlp_apply(lp["attn"], y[:, 0, :], 2)      # [E, H]
-        alpha = segment_softmax(scores, dst, n, lay_e, impl)
+        alpha = segment_softmax(scores, dst, n, lays["edge_layout"], impl,
+                                lays.get("edge_layout_t"))
         alpha_c = alpha.repeat_interleave(C // cfg.n_heads, dim=-1)
         y = y * alpha_c[:, None, :]
 
         msg = rotate_irreps(y, dmats, transpose=True)       # back to global
-        agg = segment_sum(msg.reshape(n_edges * K, C), lay_k,
-                          impl).reshape(n, K, C)
+        agg = segment_sum(msg.reshape(n_edges * K, C), lays["irrep_layout"],
+                          impl, lays.get("irrep_layout_t")).reshape(n, K, C)
 
         # gated nonlinearity: scalars gate every l-block per channel
         gate = torch.sigmoid(agg[:, 0, :] @ lp["gate"]["w"]
@@ -523,14 +643,17 @@ def graph_regression_loss(params: Params, graph: Mapping[str, Any],
     return torch.mean((pooled - graph["targets"]) ** 2)
 
 
-def resident_graph(batch: Mapping[str, np.ndarray], device="cuda",
-                   cfg: Optional[GNNConfig] = None) -> Dict[str, Any]:
-    """A batch of ``data/pipeline.py``'s GNN batch functions as tensors on
-    ``device`` (int32 ids and labels, float32 features), with its layouts
-    built there once: ``"layout"`` and ``"edge_layout"``, and for an
-    equiformer-v2 ``cfg`` ``"irrep_layout"`` at its K. For a ``cfg`` of a
-    kind that takes edge features, a batch's ``"e"`` must have the width
-    the reference's cells feed it (``GNN_EDGE_DIM``)."""
+def resident_graph(batch: Mapping[str, Any], device="cuda",
+                   cfg: Optional[GNNConfig] = None,
+                   train: bool = False) -> Dict[str, Any]:
+    """A batch of ``data/pipeline.py``'s GNN batch functions (numpy arrays,
+    or tensors) as tensors on ``device`` (int32 ids and labels, float32
+    features), with its layouts built there once: ``"layout"`` and
+    ``"edge_layout"``, and for an equiformer-v2 ``cfg`` ``"irrep_layout"``
+    at its K; with ``train`` also their transposes, which a backward sums
+    over (``"layout_t"``, ``"edge_layout_t"``, ``"irrep_layout_t"``). For
+    a ``cfg`` of a kind that takes edge features, a batch's ``"e"`` must
+    have the width the reference's cells feed it (``GNN_EDGE_DIM``)."""
     dev = resolve_device(device)
     if cfg is not None:
         _check_kind(cfg)
@@ -541,12 +664,14 @@ def resident_graph(batch: Mapping[str, np.ndarray], device="cuda",
                              f"features e [E, {want}], got "
                              f"{np.shape(batch['e'])}")
     graph: Dict[str, Any] = {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        k: (v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v))).to(dev)
         for k, v in batch.items()}
-    graph["layout"] = csr_layout(graph["src"], graph["dst"],
-                                 graph["x"].shape[0])
-    graph["edge_layout"] = edge_layout(graph["layout"])
-    if cfg is not None and cfg.kind == "equiformer_v2":
-        graph["irrep_layout"] = irrep_layout(graph["layout"],
-                                             (cfg.l_max + 1) ** 2)
+    k = (cfg.l_max + 1) ** 2 if cfg is not None and \
+        cfg.kind == "equiformer_v2" else 0
+    names = ("layout", "edge_layout") + (("irrep_layout",) if k else ())
+    transposed = ()
+    if train:       # what the kind's backward sums over (all, without cfg)
+        transposed = names if cfg is None else _SUMMED[cfg.kind]
+    graph.update(_layouts(graph, names, transposed, k))
     return graph

@@ -32,6 +32,44 @@ max|a - b| / max|b|``.
 A dropped edge of a row of mean length (``drop_one_edge``) must read
 above the element-wise rule on the card.
 
+**Gradients** (a training step's, ``grad_excess``): the same element-wise
+rule leaf by leaf, the kernel path's float32 gradient against the plain
+path's float64 one, with the spread at each element the largest error of
+``GRAD_PLAIN_RUNS`` float32 plain runs that sum in different orders (the
+layouts as built, and with their items shuffled: ``shuffled_sums``), all
+under ``fixed_order()``, and floored at ``GRAD_ELEM_FLOOR`` (2^-12) of
+the leaf's largest magnitude. Measured on the card:
+  * The forward's floor (2^-18) is too fine for a gradient. A ReLU whose
+    input is within float32 rounding of 0 passes its term on one path and
+    not on the other, and the backwards scatter with float atomics
+    (``index_add_``, the gradient of every gather) in an order that
+    changes from run to run. So an element can move by a whole term:
+    4.7e-4 of the leaf's largest magnitude (meshgraphnet at
+    ``full_graph_sm``, where the plain path's own error at that element
+    was 7e-8); two plain runs read 5.3 against each other there.
+  * One plain run is a single draw of the float32 error, and the device's
+    scatter order barely varies it. equiformer-v2 at full width on
+    ``molecule`` read 0.61 with the pipeline's targets and 1.67 with
+    others against one run in fixed order; 0.23 and 0.37 against three
+    runs in shuffled orders (other shuffled runs read 0.13-0.22 against
+    those three), the planted faults unchanged (2.0 to 50 at the small
+    cells). Its float32 gradient is ill-conditioned: nodes whose
+    aggregated irreps nearly cancel are divided by their small RMS.
+A leaf whose gradient is zero in exact arithmetic (equiformer-v2's last
+attention bias: its softmax does not move when every score of a segment
+does; its largest ``|exact|`` below ``GRAD_FLOOR`` of the tree's) is
+float32 noise of the size of the other leaves' sums, floored at
+``GRAD_ELEM_FLOOR`` of the tree's largest magnitude. Where the float64
+step does not fit beside the graph (the cut cells), the check runs on a
+quarter of the cut, where it does; ``grad_rel`` reads how far two float32
+gradients are apart, for the record. A dropped edge of the transposed
+layout the backward sums over (``drop_one_transposed``) must read above
+the rule where it moves a gradient leaf by more than float32 rounding
+does (a few thousand edges); over millions of edges one edge's share of
+a parameter's gradient is below it, and the backward launch itself is
+held under ``kernels/segment_mm/cases.py``'s rule instead, where the
+dropped edge reads far above it.
+
 **Rotation invariance** (equiformer-v2), two checks.
   * The reference's own (``tests/test_models_deep.py``): the logits under
     ``pos`` rotated about z by ``THETA`` stay within ``INVARIANCE_RULE``
@@ -59,18 +97,23 @@ from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
 
+from repro_torch.common import tree_leaves
 from repro_torch.kernels.segment_mm.cases import mean_length_row
-from repro_torch.kernels.segment_mm.ops import CsrLayout
+from repro_torch.kernels.segment_mm.ops import CsrLayout, transpose_layout
 from repro_torch.models import gnn
 
 SPREAD_C = 8.0
 SPREAD_FLOOR = 2.0 ** -22
 ELEM_FLOOR = 2.0 ** -18
+GRAD_FLOOR = 2.0 ** -20
+GRAD_ELEM_FLOOR = 2.0 ** -12
+GRAD_PLAIN_RUNS = 3
 INVARIANCE_RULE = 1e-3
 THETA = 1.1            # the reference's test's angle
 
@@ -123,6 +166,58 @@ def elementwise_excess(out: torch.Tensor, exact: torch.Tensor,
     allow = SPREAD_C * torch.clamp_min((p - x).abs(),
                                        ELEM_FLOOR * float(x.abs().max()))
     return float(((o - x).abs() / allow).max())
+
+
+@contextlib.contextmanager
+def fixed_order() -> Iterator[None]:
+    """Inside, PyTorch's deterministic algorithms (``index_add_`` and the
+    other scatters in a fixed order; cuBLAS, which warns, is left as it
+    is): the gradient check's runs repeat bit for bit."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def grad_excess(got: Any, exact: Any, plains: list) -> float:
+    """The largest ``|got - exact|`` over ``SPREAD_C`` times the largest
+    error of the ``plains`` at that element, leaf by leaf, each leaf
+    floored at ``GRAD_ELEM_FLOOR`` of its largest ``|exact|`` (of the
+    tree's, for a leaf below ``GRAD_FLOOR`` of the tree's)."""
+    xs = [t.double() for t in tree_leaves(exact)]
+    top = max(float(x.abs().max()) for x in xs)
+    worst = 0.0
+    for o, x, *ps in zip(tree_leaves(got), xs,
+                         *[tree_leaves(p) for p in plains]):
+        o = o.to(x.device).double()
+        scale = float(x.abs().max())
+        floor = GRAD_ELEM_FLOOR * (scale if scale >= GRAD_FLOOR * top
+                                   else top)
+        if floor == 0.0:
+            continue
+        err = torch.stack([(p.to(x.device).double() - x).abs()
+                           for p in ps]).amax(0)
+        allow = SPREAD_C * torch.clamp_min(err, floor)
+        worst = max(worst, float(((o - x).abs() / allow).max()))
+    return worst
+
+
+def grad_rel(got: Any, plain: Any) -> float:
+    """The largest ``max|got - plain|`` of a leaf over the larger of its
+    largest ``|plain|`` and ``GRAD_FLOOR`` of the tree's."""
+    ps = tree_leaves(plain)
+    top = max(float(p.abs().max()) for p in ps)
+    worst = 0.0
+    for o, p in zip(tree_leaves(got), ps):
+        scale = max(float(p.abs().max()), GRAD_FLOOR * top)
+        if scale:
+            worst = max(worst, float((o.to(p.device) - p).abs().max())
+                        / scale)
+    return worst
 
 
 def invariance_rel(out: torch.Tensor, rotated: torch.Tensor) -> float:
@@ -192,6 +287,63 @@ def drop_one_edge(graph: Dict[str, Any], cfg) -> Dict[str, Any]:
             graph["irrep_layout"], rows))
     return dict(graph, edge_layout=drop_first_items(
         graph["edge_layout"], torch.tensor([r], device=dev)))
+
+
+def drop_one_transposed(graph: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """``graph`` as a backward that loses one edge would see it: the first
+    in-edge of ``mean_length_row`` dropped from the transposed layout the
+    kind's backward sums its gradient over, and only from it (gcn:
+    ``layout_t``, the edge's item in its source's row; gatedgcn and
+    meshgraphnet: the edge's row of ``edge_layout_t``; equiformer-v2: its
+    K rows of ``irrep_layout_t``)."""
+    layout = graph["layout"]
+    r = mean_length_row(layout)
+    dev = layout.row_ptr.device
+    j = layout.row_ptr[r]                       # the edge's sorted position
+    if cfg.kind == "gcn":
+        lt = graph["layout_t"]
+        # the item of sorted position j, in its source's row
+        at = torch.nonzero(lt.perm == j).flatten()
+        keep = torch.ones_like(lt.col, dtype=torch.bool)
+        keep[at] = False
+        row = lt.row[keep]
+        row_ptr = torch.searchsorted(row, torch.arange(
+            lt.n_nodes + 1, dtype=torch.int32, device=dev))
+        return dict(graph, layout_t=CsrLayout(lt.n_nodes, row_ptr,
+                                              lt.col[keep], row,
+                                              lt.perm[keep], lt.tile))
+    edge = layout.perm[j]                        # its input position
+    if cfg.kind == "equiformer_v2":
+        k = (cfg.l_max + 1) ** 2
+        rows = edge * k + torch.arange(k, device=dev)
+        return dict(graph, irrep_layout_t=drop_first_items(
+            graph["irrep_layout_t"], rows))
+    if cfg.kind not in ("gatedgcn", "meshgraphnet"):
+        raise ValueError(f"drop_one_transposed: unknown kind {cfg.kind}")
+    return dict(graph, edge_layout_t=drop_first_items(
+        graph["edge_layout_t"], edge.reshape(1)))
+
+
+def shuffled_sums(graph: Dict[str, Any], cfg, seed: int) -> Dict[str, Any]:
+    """``graph`` with the items of every layout a forward of ``cfg`` sums
+    over, and so of their transposes, in a random order (from ``seed``):
+    the same sums in another float32 order, for the plain path
+    (``impl="ref"``, which reads a layout's items in any order)."""
+    lays = {"gcn": ("layout",), "gatedgcn": ("edge_layout",),
+            "meshgraphnet": ("edge_layout",),
+            "equiformer_v2": ("edge_layout", "irrep_layout")}[cfg.kind]
+    out = dict(graph)
+    gen = torch.Generator().manual_seed(seed)
+    for name in lays:
+        lay = graph[name]
+        p = torch.randperm(lay.col.numel(), generator=gen).to(
+            lay.col.device)
+        shuffled = CsrLayout(lay.n_nodes, lay.row_ptr, lay.col[p],
+                             lay.row[p], lay.perm[p], lay.tile)
+        out[name] = shuffled
+        out[name + "_t"] = transpose_layout(
+            shuffled, graph[name + "_t"].n_nodes, name != "layout")
+    return out
 
 
 @contextlib.contextmanager

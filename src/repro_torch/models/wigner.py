@@ -15,6 +15,12 @@ and ``_gather_table`` lays the runs out as the columns of a padded
 ``[n_out, width]`` index (the pad points at a zero term); the sum is then
 ``width`` gathered adds in the table's own order, the same on every device
 and in every run (no float atomics).
+
+The tables are copied to a device once (``_device_table``) and the
+constants of ``edge_rotation`` are made there, so that a forward that
+runs again copies nothing from the host (a training step runs under
+``torch.cuda.set_sync_debug_mode("error")``, where a blocking copy
+raises).
 """
 from __future__ import annotations
 
@@ -131,10 +137,26 @@ def _gather_table(l: int) -> np.ndarray:
     return np.where(t[None, :] < count[:, None], idx, n_terms)
 
 
+@lru_cache(maxsize=None)
+def _device_table(l: int, device: torch.device, dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """``(r_idx, d_idx, coeff, gather table)`` of degree ``l`` on
+    ``device``, the indices int64 and the coefficients in ``dtype``."""
+    ri, di, cf, _ = _l_recursion_table(l)
+    return (torch.from_numpy(ri.astype(np.int64)).to(device),
+            torch.from_numpy(di.astype(np.int64)).to(device),
+            torch.from_numpy(cf).to(device=device, dtype=dtype),
+            torch.from_numpy(_gather_table(l)).to(device))
+
+
 def rotation_to_d1(rot: torch.Tensor) -> torch.Tensor:
     """3x3 cartesian rotation(s) [..., 3, 3] -> l=1 real-SH rotation r."""
-    perm = [_d1_index(m) for m in (-1, 0, 1)]
-    return rot[..., perm, :][..., :, perm]
+    # rows and columns in the order [_d1_index(m) for m = -1, 0, 1] =
+    # [1, 2, 0], by a roll: no index list copied to the device
+    if [_d1_index(m) for m in (-1, 0, 1)] != [1, 2, 0]:
+        raise AssertionError("rotation_to_d1: the l=1 order is not a roll")
+    return rot.roll(-1, dims=-2).roll(-1, dims=-1)
 
 
 def wigner_d_stack(rot: torch.Tensor, l_max: int) -> List[torch.Tensor]:
@@ -150,13 +172,9 @@ def wigner_d_stack(rot: torch.Tensor, l_max: int) -> List[torch.Tensor]:
     blocks = [torch.ones((E, 1, 1), dtype=dt, device=dev), r]
     d_prev = r
     for l in range(2, l_max + 1):
-        ri, di, cf, _ = _l_recursion_table(l)
-        ri, di = (torch.from_numpy(a.astype(np.int64)).to(dev)
-                  for a in (ri, di))
-        cf = torch.from_numpy(cf).to(device=dev, dtype=dt)
+        ri, di, cf, table = _device_table(l, dev, dt)
         vals = r_flat[:, ri] * d_prev.reshape(E, -1)[:, di] * cf[None, :]
         vals = torch.cat([vals, vals.new_zeros(E, 1)], dim=1)
-        table = torch.from_numpy(_gather_table(l)).to(dev)
         d_l = vals[:, table[:, 0]]
         for t in range(1, table.shape[1]):
             d_l = d_l + vals[:, table[:, t]]
@@ -175,7 +193,8 @@ def edge_rotation(vec: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """
     dt, dev = vec.dtype, vec.device
     n = vec / (torch.linalg.vector_norm(vec, dim=-1, keepdim=True) + eps)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
+    eye = torch.eye(3, dtype=dt, device=dev)
+    z = eye[2]
     v = torch.linalg.cross(n, z.expand_as(n))           # rotation axis * sin
     c = n[..., 2]                                       # cos(theta)
     zero = torch.zeros_like(c)
@@ -184,10 +203,9 @@ def edge_rotation(vec: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
         torch.stack([v[..., 2], zero, -v[..., 0]], -1),
         torch.stack([-v[..., 1], v[..., 0], zero], -1),
     ], -2)
-    eye = torch.eye(3, dtype=dt, device=dev)
     k = 1.0 / torch.clamp_min(1.0 + c, eps)
     r = eye + vx + (vx @ vx) * k[..., None, None]
-    flip = torch.diag(torch.tensor([1.0, -1.0, -1.0], dtype=dt, device=dev))
+    flip = torch.diag(eye[0] - eye[1] - eye[2])         # diag(1, -1, -1)
     anti = (c < -1.0 + 1e-6)[..., None, None]
     return torch.where(anti, flip, r)
 

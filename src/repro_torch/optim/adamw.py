@@ -1,0 +1,104 @@
+"""AdamW with global-norm clipping and the WSD schedule: the port of the
+JAX package's ``optim/adamw.py`` (``AdamWState``, ``init_state``,
+``wsd_schedule``, ``global_norm``, ``apply_updates``).
+
+It works on the port's parameter trees (nested dicts and lists of
+tensors) and returns new trees, as the reference does. The arithmetic is
+the reference's: gradients clipped by their global norm, the moments kept
+in float32, the bias correction folded into the scalars ``c1`` and
+``c2s`` (no bias-corrected temporaries), and the weight decay added to
+``delta`` before the step. ``step`` and ``lr`` stay device tensors, so an
+update reads nothing from the device. ``torch.optim.AdamW`` is not used:
+it puts ``eps`` after the bias correction of ``sqrt(v)`` and decays the
+weights before the step.
+
+Every quantity of the update is float32 whatever the parameters' type,
+as the reference casts them (its schedule too, under ``jax.enable_x64``):
+the new parameters are ``p`` in float32 less ``lr * delta``, cast back to
+``p``'s type. Dict leaves are visited in sorted key order, the
+reference's tree order (``common.tree_leaves``), so the global norm sums
+its leaves in the reference's order.
+
+``zero1_state_specs`` (a sharding decision) is not ported: the port runs
+on one device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.common import tree_leaves, tree_map
+from repro_torch.config.base import TrainConfig
+
+
+class AdamWState(NamedTuple):
+    m: Any
+    v: Any
+    step: torch.Tensor      # int32 [], on the parameters' device
+
+
+def init_state(params: Any) -> AdamWState:
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    return AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params),
+                      step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def wsd_schedule(step: torch.Tensor, cfg: TrainConfig,
+                 total_steps: int = 0) -> torch.Tensor:
+    """Warmup-stable-decay, float32. Decay phase only if total_steps
+    known."""
+    s = step.to(torch.float32)
+    lr = cfg.lr * torch.clamp_max(s / max(cfg.warmup, 1), 1.0)
+    if total_steps:
+        decay_start = int(0.8 * total_steps)
+        frac = torch.clamp((s - decay_start)
+                           / max(total_steps - decay_start, 1), 0.0, 1.0)
+        lr = lr * (1.0 - 0.9 * frac)
+    return lr
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """The float32 L2 norm of every leaf together, summed leaf by leaf in
+    tree order from a float32 zero."""
+    leaves = tree_leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params: Any, state: AdamWState, grads: Any,
+                  cfg: TrainConfig, total_steps: int = 0
+                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step: ``(new params, new state, {"grad_norm", "lr"})``,
+    the stats device tensors."""
+    step = state.step + 1
+    lr = wsd_schedule(step, cfg, total_steps)
+
+    gn = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
+    grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+
+    b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state.m, grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state.v, grads)
+    # bias correction folded into scalars: no bias-corrected temporaries
+    t = step.to(torch.float32)
+    c1 = 1.0 / (1 - b1 ** t)
+    c2s = torch.sqrt(1 - b2 ** t)
+
+    def upd(p, m_, v_):
+        p32 = p.to(torch.float32)
+        delta = (c1 * m_) / (torch.sqrt(v_) / c2s + eps) \
+            + cfg.weight_decay * p32
+        return (p32 - lr * delta).to(p.dtype)
+
+    new_params = tree_map(upd, params, m, v)
+    return new_params, AdamWState(m, v, step), {"grad_norm": gn, "lr": lr}

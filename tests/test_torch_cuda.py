@@ -28,7 +28,14 @@ the flash attention kernel at head dim 128 with the heads of
 mistral-nemo-12b, qwen1.5-32b, moonshot-v1-16b-a3b and mixtral-8x7b
 (its window of 4,096 crossed); the MoE FFN at smoke width in bf16
 against its dense check (``models/moe_check.py``), and an MoE prefill
-and decode step under ``torch.cuda.set_sync_debug_mode("error")``.
+and decode step under ``torch.cuda.set_sync_debug_mode("error")``; the
+segment_mm kernel over the transposed layouts a backward sums over
+(``transpose_layout`` of the CSR, edge and irrep layouts) against its
+plain version in float64, with a dropped item reading above the rule,
+and one GNN training step per kind (smoke width, ``molecule``) through
+``build_cell``: twice a forward's launches, its gradients within
+``gnn_check.grad_excess``'s rule of the plain path's, and no read of the
+device under sync debug mode "error".
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -77,11 +84,13 @@ from repro_torch.kernels.segment_mm.cases import (chain_excess,
 from repro_torch.kernels.segment_mm.cases import \
     case_inputs as segmm_case_inputs
 from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout, csr_layout,
-                                                segment_mm, segment_mm_csr)
+                                                segment_mm, segment_mm_csr,
+                                                transpose_layout)
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 from repro_torch.data.pipeline import gnn_full_graph_batch, gnn_molecule_batch
 from repro_torch.launch.steps import build_cell
 from repro_torch.models import gnn, gnn_check, moe_check, recsys
+from repro_torch.optim import adamw
 from repro_torch.models import transformer as tf
 
 INF, BIG = 2**31 - 1, 2**30
@@ -1313,3 +1322,101 @@ def test_paper_graph_cell_superstep_on_card(cuda_device):
     for f in dataclasses.fields(sk):
         assert torch.equal(getattr(sk, f.name), getattr(ss, f.name)), f.name
     assert (gk.steps, gk.reached) == (gs.steps, gs.reached) and gk.steps == 1
+
+
+@pytest.mark.parametrize("which", ["csr", "edge", "irrep"])
+def test_segment_mm_backward_layouts_on_card(cuda_device, which):
+    """The gradient's launch: the kernel over ``transpose_layout`` of the
+    CSR (non-symmetric coefficients carried by ``perm``), edge and irrep
+    (K 49) layouts of a graph with empty rows, self-loops and a 3,000-edge
+    hub, against the plain version in float64 under the float32 rule;
+    one item dropped from a row of mean length reads above it; two
+    launches bit-equal."""
+    from repro_torch.kernels.segment_mm.cases import mean_length_row
+    r = np.random.default_rng(11)
+    n, e = 2000, 20_000
+    src = r.integers(0, n, e)
+    dst = r.integers(0, n // 2, e)
+    src[:3000] = 7                     # a 3,000-edge hub in the transpose
+    dst[3000:3100] = src[3000:3100]
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+                for a in (src, dst))
+    layout = csr_layout(src, dst, n)
+    coeff = torch.from_numpy(r.uniform(0.5, 2.0, e).astype(np.float32)).to(
+        cuda_device)
+    n_src, d = n, 16
+    if which == "edge":
+        layout, n_src, d = gnn.edge_layout(layout), e, 140
+    elif which == "irrep":
+        layout, n_src, d = gnn.irrep_layout(layout, 49), 49 * e, 128
+        coeff = torch.ones(n_src, device=cuda_device)
+    lt = transpose_layout(layout, n_src, gathers_once=which != "csr")
+    ct = coeff[lt.perm].contiguous()
+    dy = torch.randn(layout.n_nodes, d, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(0))
+    before = smod.segment_mm_cuda.launches
+    out = segment_mm_csr(dy, lt, ct)
+    assert torch.equal(out, segment_mm_csr(dy, lt, ct))
+    assert smod.segment_mm_cuda.launches == before + 2
+    exact = segment_mm_ref(dy.double(), lt.col, lt.row, ct.double(),
+                           lt.n_nodes)
+    assert rule_excess(out, exact, dy, lt.col, lt.row, ct, lt.n_nodes) <= 1
+    row = mean_length_row(lt)
+    keep = torch.ones_like(lt.col, dtype=torch.bool)
+    keep[lt.row_ptr[row]] = False
+    faulty = gnn_check.drop_first_items(lt, torch.tensor([row],
+                                                         device=cuda_device))
+    assert rule_excess(segment_mm_csr(dy, faulty, ct[keep]), exact, dy,
+                       lt.col, lt.row, ct, lt.n_nodes) > 1
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "gatedgcn", "meshgraphnet",
+                                  "equiformer-v2"])
+def test_gnn_train_step_on_card(cuda_device, arch):
+    """One ``train_step`` of the full config on ``molecule`` through
+    ``build_cell``: 2 ``segment_mm_launches(cfg)`` launches, no read of
+    the device (sync debug mode "error"), a finite loss and updated
+    parameters; the first step's gradients within ``grad_excess``'s rule
+    of the plain path's (float64 exact, the spread of three float32 plain
+    runs in different sum orders), and one edge dropped from the
+    transposed layout above it (at the smoke widths one edge moves
+    meshgraphnet's gradients by less than the rule's floor: 0.71)."""
+    cfg = get_arch(arch)
+    shape = {s.name: s for s in GNN_SHAPES}["molecule"]
+    cell = build_cell(arch, "molecule", device=cuda_device)
+    b = gnn_molecule_batch(cfg, shape, seed=0, d_feat=shape.d_feat)
+    b["targets"] = np.random.default_rng(0).standard_normal(
+        (shape.n_graphs, cfg.d_out)).astype(np.float32)
+    de = gnn.GNN_EDGE_DIM.get(cfg.kind)
+    if de:
+        b["e"] = np.random.default_rng(0).standard_normal(
+            (b["src"].shape[0], de)).astype(np.float32)
+    graph = cell.graph({k: v for k, v in b.items() if k in cell.arg_shapes})
+    params, opt = cell.init(0)
+
+    def grads(p, g, impl="auto"):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), p)
+        gnn.graph_regression_loss(p, g, cfg, impl=impl).backward()
+        return adamw.tree_map(lambda t: t.grad, p)
+
+    with gnn_check.fixed_order():
+        got = grads(params, graph)
+        plains = [grads(params, graph, "ref")] + [
+            grads(params, gnn_check.shuffled_sums(graph, cfg, s), "ref")
+            for s in range(1, gnn_check.GRAD_PLAIN_RUNS)]
+        exact = grads(gnn_check.as64(params), gnn_check.as64(graph), "ref")
+        fault = grads(params, gnn_check.drop_one_transposed(graph, cfg))
+    assert gnn_check.grad_excess(got, exact, plains) <= 1.0
+    assert gnn_check.grad_excess(fault, exact, plains) > 1.0
+    torch.cuda.synchronize()
+    smod.segment_mm_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, opt, loss, stats = cell.step_fn(params, opt, graph)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert smod.segment_mm_cuda.launches == 2 * gnn.segment_mm_launches(cfg)
+    assert np.isfinite(float(loss)) and int(opt.step) == 1
+    assert any(not torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(new), adamw.tree_leaves(params)))

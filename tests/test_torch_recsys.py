@@ -270,22 +270,22 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
 
 @pytest.mark.parametrize("arch,shape", [("xdeepfm", "train_batch"),
                                         ("gemma2-9b", "train_4k"),
-                                        ("gcn-cora", "full_graph_sm"),
+                                        ("gcn-cora", "no_such_shape"),
                                         ("xdeepfm", "no_such_shape"),
-                                        ("gatedgcn", "full_graph_sm")])
+                                        ("gatedgcn", "serve_p99")])
 def test_build_cell_raises_for_what_is_not_ported(arch, shape):
     """A family or kind the port lacks raises NotImplementedError naming
-    the ported kinds and the family and kind asked for (gcn-cora and
-    gatedgcn are registered, but the GNN cell is a training step; so is an
-    LM's train_4k)."""
+    the ported kinds and the family and kind asked for (an LM's train_4k,
+    xdeepfm's train_batch, and shapes a GNN arch does not have: its four
+    shapes are ported as training cells)."""
     match = (f"{arch} x {shape} is not ported; the port builds the recsys "
-             f"family's recsys_serve and retrieval shapes and the lm "
-             f"family's prefill and decode shapes")
+             f"family's recsys_serve and retrieval shapes, the lm "
+             f"family's prefill and decode shapes and the gnn family's "
+             f"full_graph, minibatch, batched_graphs shapes")
     with pytest.raises(NotImplementedError, match=match) as err:
         build_cell(arch, shape, smoke=True, device="cpu")
     if arch in ("gcn-cora", "gatedgcn"):
-        assert "the gnn family's full_graph kind" in str(err.value)
-        assert "training step" in str(err.value)
+        assert "the gnn family's unknown kind" in str(err.value)
     if arch == "gemma2-9b":
         assert "the lm family's train kind" in str(err.value)
         assert "training waits for the training slice" in str(err.value)

@@ -12,9 +12,15 @@ reference's ``block_edges_for_mm`` order, and its crossing rows against a
 numpy merge-path partition; ``TILE`` against the source's ``kTile``; a
 float64 emulation of the kernel's piece-and-carry order (pieces, the
 consumer groups' runs, tails, heads and the fix-up) under the rule; the
-dispatch of the entry points; and the CUDA wrapper's refusals, which come
-before anything is built. The CUDA kernel itself runs only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+dispatch of the entry points; the CUDA wrapper's refusals, which come
+before anything is built; and the gradient: ``transpose_layout`` of
+``csr_layout``, ``edge_layout`` and ``irrep_layout`` against a numpy
+transpose of their items, ``torch.autograd.gradcheck`` of
+``segment_mm_csr`` in float64 over non-symmetric coefficients (a
+coefficient permutation that is wrong fails it), and its refusals (a
+coefficient that requires grad; no transposed layout). The CUDA kernel
+itself runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Tolerance: the rule of ``cases.py``, ``|o - r| <= 16 u sqrt(K) A`` with
 ``A`` the same sum on absolute values, K the row's length and u = 2^-24.
@@ -57,7 +63,8 @@ from repro_torch.kernels.segment_mm.cases import (CASES, FAULT_CASE,  # noqa: E4
                                                   rule_excess)
 from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout,  # noqa: E402
                                                 crossing_rows, csr_layout,
-                                                segment_mm, segment_mm_csr)
+                                                segment_mm, segment_mm_csr,
+                                                transpose_layout)
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref  # noqa: E402
 
 
@@ -476,3 +483,109 @@ def test_emulation_catches_a_lost_tail():
         layout, crossing_rows=torch.tensor(rows, dtype=torch.int32))
     got, writes = emulate_pieces(tx, lossy, tc[layout.perm], 64)
     assert writes[hub] == 0 and np.isnan(got[hub].numpy()).all()
+
+
+def _graph_for_grad(seed, n=40, e=300):
+    """Edges with empty rows, self-loops and duplicates, and per-edge
+    coefficients in no symmetric pattern."""
+    r = np.random.default_rng(seed)
+    src = r.integers(0, n, e).astype(np.int32)
+    dst = r.integers(0, n - 8, e).astype(np.int32)
+    dst[:10] = src[:10]
+    src[-15:], dst[-15:] = src[:15], dst[:15]
+    return (torch.from_numpy(src), torch.from_numpy(dst),
+            torch.from_numpy(r.uniform(0.5, 2.0, e)), n)
+
+
+def _numpy_transpose(layout, n_src):
+    """``(row_ptr, col, perm)`` of the transposed items, from numpy: the
+    items sorted by (source, destination, forward position)."""
+    col, row = layout.col.numpy(), layout.row.numpy()
+    order = np.lexsort((np.arange(len(col)), row, col))
+    row_ptr = np.searchsorted(col[order], np.arange(n_src + 1))
+    return row_ptr, row[order], order
+
+
+@pytest.mark.parametrize("which", ["csr", "edge", "irrep"])
+def test_transpose_layout_matches_numpy(which):
+    from repro_torch.models.gnn import edge_layout, irrep_layout
+    src, dst, _, n = _graph_for_grad(0)
+    layout = csr_layout(src, dst, n)
+    n_src = n
+    if which == "edge":
+        layout, n_src = edge_layout(layout), src.numel()
+    elif which == "irrep":
+        layout, n_src = irrep_layout(layout, 9), 9 * src.numel()
+    lt = transpose_layout(layout, n_src, gathers_once=which != "csr")
+    row_ptr, col, perm = _numpy_transpose(layout, n_src)
+    assert lt.n_nodes == n_src and lt.tile == layout.tile
+    assert np.array_equal(lt.row_ptr.numpy(), row_ptr)
+    assert np.array_equal(lt.col.numpy(), col)
+    assert np.array_equal(lt.perm.numpy(), perm)
+    assert lt.col.dtype == lt.row.dtype == torch.int32
+    assert lt.row_ptr.dtype == lt.perm.dtype == torch.int64
+    assert np.array_equal(lt.row.numpy(), np.repeat(np.arange(n_src),
+                                                    np.diff(row_ptr)))
+    assert torch.equal(lt.crossing_rows, crossing_rows(lt.row_ptr, lt.tile))
+    if which != "csr":
+        assert (np.diff(row_ptr) == 1).all()
+        with pytest.raises(ValueError, match="once"):
+            transpose_layout(layout, n_src + 1, gathers_once=True)
+    else:
+        with pytest.raises(ValueError, match="outside"):
+            transpose_layout(layout, int(src.max()))
+
+
+@pytest.mark.parametrize("norm", ["sym", "none", "random"])
+def test_gradcheck_over_the_transposed_layout(norm):
+    """The Function's gradient in x against finite differences (float64,
+    D = 3) at GCN's two coefficient forms and at random ones; with the
+    transposed coefficients taken in the forward order instead (a wrong
+    permutation), the same check fails."""
+    from repro_torch.models.gnn import gcn_norm
+    src, dst, coeff_in, n = _graph_for_grad(1)
+    layout = csr_layout(src, dst, n)
+    if norm == "random":
+        coeff = coeff_in[layout.perm]
+    else:
+        coeff = gcn_norm(layout, norm)[1].double()
+    lt = transpose_layout(layout, n)
+    x = torch.randn(n, 3, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(2),
+                    requires_grad=True)
+
+    def fn(v):
+        return segment_mm_csr(v, layout, coeff, layout_t=lt)
+
+    assert torch.autograd.gradcheck(fn, (x,))
+    wrong = dataclasses.replace(lt, perm=torch.arange(lt.perm.numel()))
+    assert not torch.autograd.gradcheck(
+        lambda v: segment_mm_csr(v, layout, coeff, layout_t=wrong), (x,),
+        raise_exception=False)
+
+
+def test_gradient_refusals_and_no_grad_paths():
+    src, dst, coeff_in, n = _graph_for_grad(3)
+    layout = csr_layout(src, dst, n)
+    coeff = coeff_in[layout.perm]
+    x = torch.randn(n, 4, dtype=torch.float64)
+    want = segment_mm_csr(x, layout, coeff)
+    with pytest.raises(ValueError, match="coeff requires grad"):
+        segment_mm_csr(x, layout, coeff.clone().requires_grad_())
+    with pytest.raises(ValueError, match="transpose_layout"):
+        segment_mm_csr(x.clone().requires_grad_(), layout, coeff)
+    with torch.no_grad():
+        got = segment_mm_csr(x.clone().requires_grad_(), layout,
+                             coeff.clone().requires_grad_())
+    assert torch.equal(got, want) and not got.requires_grad
+    lt = transpose_layout(layout, n)
+    y = segment_mm_csr(x.clone().requires_grad_(), layout, coeff,
+                       layout_t=lt)
+    assert torch.equal(y.detach(), want) and y.requires_grad
+    # the flat entry point differentiates too (the plain version's own
+    # autograd on the CPU)
+    xs = x.clone().requires_grad_()
+    segment_mm(xs, src, dst, coeff_in, n).sum().backward()
+    xt = x.clone().requires_grad_()
+    segment_mm_csr(xt, layout, coeff, layout_t=lt).sum().backward()
+    assert torch.allclose(xs.grad, xt.grad, rtol=1e-14, atol=1e-14)
