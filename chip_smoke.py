@@ -234,6 +234,25 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      ``RecsysPipeline`` batch), 3 timed calls after a warm-up, 3 CIN
      launches per call, checked as in phase 9 with the kernel at
      B = 1,000,000.
+  10b. The CIN's gradient kernels at the training batch's layers (B =
+     65,536; layer 1, H = 39, and an H-200 layer): ``cin_dxk_cuda`` and
+     ``cin_dx0_cuda`` (the layer kernel on permuted operands; dx0 stages
+     xk's 200 rows) under the layer rule against the plain layer,
+     ``cin_dw_cuda`` (float32 FMA) under dW's rule against float64
+     (``|o - r| <= 16 u sqrt(K) (S + |r|)``, ``kernels/cin/cases.py``),
+     each planted fault above its rule (a dropped slice of the permuted
+     W; one tile of 128 values of k left out of dW), each timed beside
+     its bounds and, at B = 16,384, beside the plain version and one
+     ``torch.einsum`` call (float32, TF32 off).
+  10c. xDeepFM training at full width and uncut: ``train_batch`` (B =
+     65,536) through ``build_cell``, seed 0, one resident
+     ``RecsysPipeline`` batch: the first step's gradients of every leaf
+     against the float64 plain path in batch chunks under
+     ``gnn_check.grad_excess`` (per leaf), a dW with one tile of k left
+     out above it; step 1 under ``torch.cuda.set_sync_debug_mode(
+     "error")``; steps 2-20 timed (median seconds, rows/s, peak bytes);
+     exactly 3 forward, 3 dxk, 3 dx0 and 3 dW launches a step; the loss
+     falling.
   11. segment_mm vs plain: ``segment_mm_cuda`` against ``segment_mm_ref``
      run in float64 on the card, over the cases of
      ``kernels/segment_mm/cases.py`` (the reference's sweep (N, E, D) =
@@ -620,7 +639,8 @@ def profile_paths() -> int:
     """``--profile``: the decompositions of the main paths (stages fused;
     one-shot fused and unfused), then gemma2-9b's full-width prefill
     (B = 1, S = 8192) and 8 decode steps (batch 4), then one xdeepfm
-    ``serve_bulk`` forward (B = 262,144, full width), then 5 gcn-cora
+    ``serve_bulk`` forward (B = 262,144, full width) and one xdeepfm
+    ``train_batch`` step (B = 65,536, full width), then 5 gcn-cora
     forwards on ``ogb_products`` (2,449,029 nodes), under
     ``torch.profiler``, each after a warm-up run, printing the device-busy
     share of the host-clock time, the device ops launched and the kernels
@@ -719,6 +739,23 @@ def profile_paths() -> int:
     emit({"phase": "profile", "path": "recsys_serve_bulk",
           "batch": shape.batch, **stats})
     del params, cell, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cell = build_cell("xdeepfm", "train_batch", device=dev)
+    shape = {s.name: s for s in RECSYS_SHAPES}["train_batch"]
+    batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
+        DataCursor()))
+    state = list(cell.init(0))
+
+    def train_step():
+        state[0], state[1], loss, _ = cell.step_fn(state[0], state[1], batch)
+        return loss
+
+    _, stats = profiled(train_step)
+    emit({"phase": "profile", "path": "recsys_train_step",
+          "batch": shape.batch, **stats})
+    del cell, batch, state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1876,6 +1913,305 @@ def recsys_phases(torch, dev) -> dict:
             "serve_bulk_layer1_bound_ms": bulk_l1["bound_ms"],
             "launches_by_path": launches_by_path}
 
+
+
+RECSYS_TRAIN_CHUNK = 4096        # batch rows per plain gradient chunk
+
+
+def cin_grad_bound_ms(B, m, H, H2, D, which: str) -> tuple:
+    """Least time for one gradient launch of a CIN layer (x0 [B, m, D], xk
+    [B, H, D], W [H2, H, m], dy [B, H2, D]): each does the layer's 2 B H2
+    H m D flops, and reads its three operands and writes its output once.
+    dxk and dx0 run the layer kernel (3xTF32 on the tensor cores, beside
+    the float32-FMA bound); dW runs float32 FMA. Returns (bound ms, what
+    bounds it, flops, FMA bound ms)."""
+    flops = 2 * B * H2 * H * m * D
+    ins = {"dxk": B * m * D + B * H2 * D + H2 * H * m + B * H * D,
+           "dx0": B * H * D + B * H2 * D + H2 * H * m + B * m * D,
+           "dw": B * m * D + B * H * D + B * H2 * D + H2 * H * m}[which]
+    t_bytes = 4 * ins / HBM_BYTES_PER_S
+    t_fma = flops / F32_FLOPS_PER_S
+    t_ops = t_fma if which == "dw" else 3 * flops / TF32_FLOPS_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops,
+            1e3 * max(t_fma, t_bytes))
+
+
+def cin_backward_phase(torch, dev) -> dict:
+    """Phase 10b: each gradient kernel at the training batch's layers (B
+    65,536; layer 1, H 39, and an H-200 layer) against its plain version
+    under its rule (``kernels/cin/cases.py``: the layer rule for dxk and
+    dx0, dW's rule against float64), each planted fault above it, then
+    timed (CUDA events) beside its bounds, and at B 16,384 beside the
+    plain version and one ``torch.einsum`` call of the same function
+    (float32, TF32 off). Returns the rows by (layer, gradient)."""
+    from repro_torch.kernels.cin import cases as cc
+    from repro_torch.kernels.cin import kernel as cmod
+    from repro_torch.kernels.cin.ref import (cin_dw_ref, cin_dx0_ref,
+                                             cin_dxk_ref, cin_layer_ref)
+
+    fn = {"dxk": lambda x0, xk, w, dy: cmod.cin_dxk_cuda(x0, dy, w),
+          "dx0": lambda x0, xk, w, dy: cmod.cin_dx0_cuda(xk, dy, w),
+          "dw": lambda x0, xk, w, dy: cmod.cin_dw_cuda(x0, xk, dy)}
+    plain = {"dxk": lambda x0, xk, w, dy: cin_dxk_ref(x0, dy, w),
+             "dx0": lambda x0, xk, w, dy: cin_dx0_ref(xk, dy, w),
+             "dw": lambda x0, xk, w, dy: cin_dw_ref(x0, xk, dy)}
+    # one call each, ordered so that no pairwise product is wider than Z
+    library = {
+        "dxk": lambda x0, xk, w, dy: torch.einsum("bnd,bmd,nhm->bhd", dy,
+                                                  x0, w),
+        "dx0": lambda x0, xk, w, dy: torch.einsum("bnd,bhd,nhm->bmd", dy,
+                                                  xk, w),
+        "dw": lambda x0, xk, w, dy: torch.einsum("bhd,bmd,bnd->nhm", xk,
+                                                 x0, dy)}
+    rows = {}
+    for name, case in cc.TRAIN_CASES.items():
+        layer = "layer1" if case[2] == case[1] else "layer2"
+        B, m, H, H2, D = case
+        x0, xk, w, dy = (torch.from_numpy(a).to(dev)
+                         for a in cc.grad_case_inputs(case))
+        ops = cc.input_grad_operands(x0, xk, w, dy)
+        r, S = cc.dw_exact(x0, xk, dy, chunk=RECSYS_TRAIN_CHUNK)
+        for what in ("dxk", "dx0", "dw"):
+            out = fn[what](x0, xk, w, dy)
+            torch.cuda.synchronize()
+            if what == "dw":
+                ex = cc.dw_excess(out, r, S, B * D)
+                k0 = (B * D) // 2 + 5
+                fault = cc.dw_excess(cc.dw_planted_fault(
+                    x0, xk, dy, k0, chunk=RECSYS_TRAIN_CHUNK), r, S, B * D)
+                err = float((out.double() - r).abs().max())
+                rule = "|o - r| <= 16 u sqrt(K) (S + |r|), r float64"
+                fault_what = f"the {cc.DW_FAULT_K} values of k from {k0}"
+            else:
+                a, b, wp = ops[what]
+                ref = torch.cat([cin_layer_ref(a[i:i + cc.PLAIN_CHUNK],
+                                               b[i:i + cc.PLAIN_CHUNK], wp)
+                                 for i in range(0, B, cc.PLAIN_CHUNK)])
+                ex = cc.layer_excess(out, ref, a, b, wp)
+                s = slice(0, cc.PLAIN_CHUNK)
+                fault = cc.layer_excess(cc.planted_fault(a[s], b[s], wp, h=1),
+                                        ref[s], a[s], b[s], wp)
+                err = float((out - ref).abs().max())
+                rule = "|o - r| <= 2^-16 A (the layer rule)"
+                fault_what = "slice 1 of the permuted W"
+                del ref
+            if not (ex <= 1.0 and fault > 1.0
+                    and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"cin {what} {name}: {ex} times its "
+                                     f"rule, planted fault {fault}")
+            bound, by, flops, fma_bound = cin_grad_bound_ms(B, m, H, H2, D,
+                                                            what)
+            ms = time_ms(torch, lambda: fn[what](x0, xk, w, dy), 3,
+                         warmup=1)
+            row = {"phase": "cin_backward", "gradient": what,
+                   "layer": layer, "shape": list(case), "rule": rule,
+                   "excess": ex, "max_abs_err": err,
+                   "planted_fault": fault_what,
+                   "planted_fault_excess": fault, "ms": ms,
+                   "bound_ms": bound, "bound_by": by,
+                   "fma_bound_ms": fma_bound, "gflop": flops / 1e9,
+                   "tflop_s": flops / ms / 1e9, "bound_share": bound / ms}
+            del out
+            torch.cuda.empty_cache()
+            # plain and library at B 16,384, where their intermediates fit
+            c = (x0[:cc.PLAIN_CHUNK], xk[:cc.PLAIN_CHUNK], w,
+                 dy[:cc.PLAIN_CHUNK])
+            row["b16384_ms"] = time_ms(torch, lambda: fn[what](*c), 5,
+                                       warmup=1)
+            row["b16384_bound_ms"] = cin_grad_bound_ms(
+                cc.PLAIN_CHUNK, m, H, H2, D, what)[0]
+            row["b16384_plain_ms"] = time_ms(torch, lambda: plain[what](*c),
+                                             3, warmup=1)
+            torch.cuda.empty_cache()
+            row["b16384_library_ms"] = time_ms(
+                torch, lambda: library[what](*c), 3, warmup=1)
+            torch.cuda.empty_cache()
+            rows[(layer, what)] = row
+            emit(row)
+        del x0, xk, w, dy, ops, r, S
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recsys_plain_grads(torch, params, batch, cfg, order, dtype):
+    """The gradient of ``bce_loss`` on the plain path (``cin_impl="ref"``)
+    in ``dtype``, summed over the batch in chunks of
+    ``RECSYS_TRAIN_CHUNK`` rows taken in ``order`` (a permutation of the
+    rows: another float32 sum order): each chunk's mean loss weighted by
+    its share of the batch, its gradients added up. Returns (loss,
+    gradient tree)."""
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+
+    B = batch["labels"].shape[0]
+    p = adamw.tree_map(lambda t: t.detach().to(dtype).requires_grad_(),
+                       params)
+    total = 0.0
+    for i in range(0, B, RECSYS_TRAIN_CHUNK):
+        rows = order[i:i + RECSYS_TRAIN_CHUNK]
+        chunk = {k: (v[rows].to(dtype) if v.is_floating_point()
+                     else v[rows]) for k, v in batch.items()}
+        loss = recsys.bce_loss(p, chunk, cfg, cin_impl="ref") \
+            * (rows.numel() / B)
+        loss.backward()
+        total += float(loss)
+    return total, adamw.tree_map(lambda t: t.grad, p)
+
+
+def recsys_train_phase(torch, dev) -> dict:
+    """Phase 10c: xdeepfm's ``train_batch`` at full width and uncut (B
+    65,536, 39 fields, vocab 1,000,000, CIN 200-200-200, DNN 400-400,
+    seed 0), one resident batch, through ``build_cell``:
+      * the first step's gradients of every leaf on the kernel path
+        against the float64 plain path (in batch chunks) under
+        ``gnn_check.grad_excess`` (the spread from three plain float32
+        runs over the rows in shuffled orders; each leaf floored at its
+        own largest: the CIN filters' gradients are some 1e-9 of the
+        DNN's, and the tree's floor would hide them), and a dW kernel that
+        leaves out one tile of 128 values of k at layer 2 read beside it
+        (above 1);
+      * step 1 under ``torch.cuda.set_sync_debug_mode("error")``;
+      * steps 2-20 on the host clock, each ending in a synchronize: the
+        median seconds, rows/s, peak bytes; the forward and the three
+        gradient kernels' launches over the 20 steps, each exactly 3 a
+        step; the losses, read once at the end, falling."""
+    from repro_torch.common import Timer
+    from repro_torch.config import RECSYS_SHAPES
+    from repro_torch.data.pipeline import DataCursor, RecsysPipeline
+    from repro_torch.kernels.cin import cases as cc
+    from repro_torch.kernels.cin import kernel as cmod
+    from repro_torch.kernels.cin import ops as cops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import gnn_check, recsys
+    from repro_torch.optim import adamw
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cell = build_cell("xdeepfm", "train_batch", device=dev)
+    cfg = cell.cfg
+    shape = {s.name: s for s in RECSYS_SHAPES}["train_batch"]
+    B = shape.batch
+    with Timer() as t_init:
+        params, opt = cell.init(0)
+        batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
+            DataCursor()))
+        torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    if n_params != XDEEPFM_PARAMS or tuple(batch["ids"].shape) != (
+            B, cfg.n_sparse, max(cfg.multi_hot, 1)):
+        raise AssertionError(f"recsys_train: {n_params} parameters, ids "
+                             f"{tuple(batch['ids'].shape)}")
+    counts = {"forward": cmod.cin_layer_cuda, "dxk": cmod.cin_dxk_cuda,
+              "dx0": cmod.cin_dx0_cuda, "dw": cmod.cin_dw_cuda}
+    n_cin = len(cfg.cin_layers)
+    row = {"phase": "recsys_train", "arch": cfg.name, "shape": shape.name,
+           "batch": B, "params": n_params, "init_seconds": t_init.seconds}
+
+    def kernel_grads():
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = recsys.bce_loss(p, batch, cfg)
+        loss.backward()
+        return float(loss), adamw.tree_map(lambda t: t.grad, p)
+
+    with Timer() as t_check:
+        with gnn_check.fixed_order():
+            loss_k, g_k = kernel_grads()
+            real_dw = cmod.cin_dw_cuda
+
+            def dropped_tile(x0, xk, dy):
+                """dW as a kernel that skips one tile of 128 values of k
+                at an H-200 layer would give it."""
+                if xk.shape[1] == cfg.cin_layers[0] and dy.shape[0] == B:
+                    k = torch.arange(B * dy.shape[2], device=dy.device)
+                    k0 = (B * dy.shape[2]) // 3
+                    keep = ((k < k0) | (k >= k0 + cc.DW_FAULT_K)).to(
+                        dy.dtype).view(B, 1, -1)
+                    dy = dy * keep
+                return real_dw(x0, xk, dy)
+
+            cops.cin_dw_cuda = dropped_tile   # the name the backward calls
+            try:
+                _, g_f = kernel_grads()
+            finally:
+                cops.cin_dw_cuda = real_dw
+            torch.cuda.empty_cache()
+            loss_x, g_x = recsys_plain_grads(
+                torch, params, batch, cfg,
+                torch.arange(B, device=dev), torch.float64)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            plains = [recsys_plain_grads(
+                torch, params, batch, cfg,
+                torch.arange(B, device=dev) if i == 0 else torch.randperm(
+                    B, generator=gen, device=dev), torch.float32)[1]
+                for i in range(gnn_check.GRAD_PLAIN_RUNS)]
+        row["loss_kernel"], row["loss_plain64"] = loss_k, loss_x
+        row["rule"] = ("float64 element-wise against the largest error of 3 "
+                       "plain float32 runs over the rows in shuffled orders, "
+                       "floored at 2^-12 of each leaf's own largest "
+                       "(gnn_check.grad_excess, per_leaf)")
+        row["excess"] = gnn_check.grad_excess(g_k, g_x, plains,
+                                              per_leaf=True)
+        row["planted_fault"] = ("one tile of 128 values of k left out of "
+                                "the dW of each H-200 layer")
+        row["planted_fault_excess"] = gnn_check.grad_excess(
+            g_f, g_x, plains, per_leaf=True)
+        row["cin_grads_nonzero"] = all(bool(g.abs().max() > 0)
+                                       for g in g_k["cin"])
+        del g_k, g_f, g_x, plains
+    row["check_seconds"] = t_check.seconds
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (row["excess"] <= 1.0 and row["planted_fault_excess"] > 1.0
+            and row["cin_grads_nonzero"]
+            and abs(loss_k - loss_x) <= 1e-4 * abs(loss_x)):
+        raise AssertionError(f"recsys_train gradients: {row}")
+
+    # -- the main path: 20 steps, every count set to 0 just before --------
+    losses = []
+    torch.cuda.synchronize()
+    for c in counts.values():
+        c.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss, stats = cell.step_fn(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(TRAIN_STEPS - 1):
+        with Timer() as t:
+            params, opt, loss, stats = cell.step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+        secs.append(t.seconds)
+        losses.append(loss)
+    launches = {k: c.launches for k, c in counts.items()}
+    losses = torch.stack(losses).tolist()
+    row.update({"steps": TRAIN_STEPS, "steps_timed": len(secs),
+                "seconds_median": float(np.median(secs)),
+                "seconds_min": min(secs), "seconds_max": max(secs),
+                "rows_s": B / float(np.median(secs)),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+                "launches": launches,
+                "launches_per_step": {k: v / TRAIN_STEPS
+                                      for k, v in launches.items()},
+                "sync_debug_step": "error", "losses": losses,
+                "grad_norm_last": float(stats["grad_norm"]),
+                "lr_last": float(stats["lr"])})
+    emit(row)
+    if any(v != n_cin * TRAIN_STEPS for v in launches.values()):
+        raise AssertionError(f"recsys_train: launches {launches} in "
+                             f"{TRAIN_STEPS} steps, not {n_cin} each a step")
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"recsys_train: losses {losses}")
+    del params, opt, batch, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 L2_SHARES = (40 * 2**20, 50 * 2**20)   # L2 bytes an estimate lets x keep
 
@@ -4550,6 +4886,44 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cin_row = recsys_phases(torch, dev)
+
+    # -- phases 10b-10c: the CIN's gradient kernels and xDeepFM training ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_rows = cin_backward_phase(torch, dev)
+    train_launches = recsys_train_phase(torch, dev)
+    cin_row["launches"] += train_launches["forward"]
+    cin_row["launches_by_path"]["recsys_train"] = train_launches["forward"]
+    l2 = {w: grad_rows[("layer2", w)] for w in ("dxk", "dx0", "dw")}
+    cin_row.update({
+        "backward": "dxk and dx0: the layer kernel (cin_layer_wgmma) on "
+                    "(x0, dy, W^(1,0,2)) and (xk, dy, W^(2,0,1)); dW: "
+                    "cin_dw_fma (float32 FMA, K parts summed in order)",
+        "backward_launches": sum(train_launches[w]
+                                 for w in ("dxk", "dx0", "dw")),
+        "backward_launches_by_kernel": {
+            w: train_launches[w] for w in ("dxk", "dx0", "dw")},
+        "backward_shape": "an H-200 layer of train_batch (B 65,536, m 39, "
+                          "H 200, H2 200, D 10): dxk + dx0 + dW",
+        "backward_ms": sum(r["ms"] for r in l2.values()),
+        "backward_bound_ms": sum(r["bound_ms"] for r in l2.values()),
+        "backward_fma_bound_ms": sum(r["fma_bound_ms"]
+                                     for r in l2.values()),
+        "backward_b16384_ms": sum(r["b16384_ms"] for r in l2.values()),
+        "backward_plain_ms": sum(r["b16384_plain_ms"] for r in l2.values()),
+        "backward_library_ms": sum(r["b16384_library_ms"]
+                                   for r in l2.values()),
+        "backward_plain_and_library_at": "B 16,384 (their intermediates "
+                                         "fit)",
+        "backward_excess": max(r["excess"] for r in grad_rows.values()),
+        "backward_planted_fault_excess": min(
+            r["planted_fault_excess"] for r in grad_rows.values()),
+        "backward_kernels": {f"{layer} {w}": {
+            k: r[k] for k in ("ms", "bound_ms", "bound_by", "fma_bound_ms",
+                              "tflop_s", "excess", "planted_fault_excess",
+                              "max_abs_err", "b16384_ms", "b16384_bound_ms",
+                              "b16384_plain_ms", "b16384_library_ms")}
+            for (layer, w), r in grad_rows.items()}})
 
     # -- phases 11-13: segment_mm and gcn-cora inference ----------------------
     gc.collect()

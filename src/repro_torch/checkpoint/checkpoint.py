@@ -17,6 +17,13 @@ leaf. Tensor leaves reach the host through ``guard.fetch``, so any
 active ``guard.metered()`` region counts them. ``restore`` places each
 leaf like the matching leaf of ``like``: a tensor on its device with its
 dtype, anything else as a numpy array of its dtype.
+
+A bfloat16 tensor is written as the reference writes one (numpy has no
+bfloat16; the reference's arrays carry ml_dtypes' type): its 2-byte words
+under the ``.npy`` descr ``<V2``, and ``bfloat16`` in the manifest, byte
+for byte the reference's file. ``restore`` reads such a leaf by the
+manifest's dtype and views its words as ``torch.bfloat16``, where the
+reference's ``restore`` hands back a numpy void array.
 """
 from __future__ import annotations
 
@@ -90,9 +97,25 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
                     for p, c in kids[0]])
 
 
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"     # ml_dtypes' bfloat16 in a .npy header
+
+
 def _write_npy(path: str, arr: np.ndarray) -> None:
     with open(path, "wb") as f:
         np.save(f, arr)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _write_bf16_npy(path: str, words: np.ndarray) -> None:
+    """bfloat16 values, given as their int16 words, as the reference's
+    ``.npy``: the words under the header descr ``<V2``."""
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": words.shape})
+        f.write(np.ascontiguousarray(words).tobytes())
         f.flush()
         os.fsync(f.fileno())
 
@@ -109,18 +132,22 @@ def save(ckpt_dir: str, step: int, tree: Any,
     flat = _flatten(tree)
     manifest = {"step": step, "extra": extra or {}, "leaves": {},
                 "written_at": telemetry.wall_time()}
-    write = retriable(_write_npy)
+    write, write_bf16 = retriable(_write_npy), retriable(_write_bf16_npy)
     for key, leaf in flat.items():
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
         if isinstance(leaf, torch.Tensor):
             # the one device->host seam: an active meter counts the save's
-            # reads (EngineMetrics.checkpoint_syncs)
+            # reads (EngineMetrics.checkpoint_syncs); numpy has no
+            # bfloat16, so such a leaf is fetched as its 2-byte words
             leaf = guard.fetch(
-                leaf, reason=f"checkpoint save: materialize leaf {key}")
+                leaf.view(torch.int16) if bf16 else leaf,
+                reason=f"checkpoint save: materialize leaf {key}")
         arr = np.asarray(leaf)
         fname = f"{key}.npy"
-        write(os.path.join(tmp, fname), arr)
-        manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)}
+        (write_bf16 if bf16 else write)(os.path.join(tmp, fname), arr)
+        manifest["leaves"][key] = {
+            "file": fname, "shape": list(arr.shape),
+            "dtype": _BF16 if bf16 else str(arr.dtype)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -149,10 +176,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _place(arr: np.ndarray, like):
+def _place(arr: np.ndarray, like, dtype: str):
+    """A loaded leaf placed like ``like``. A ``bfloat16`` leaf (2-byte void
+    words) placed like a tensor is those words viewed as bfloat16, on
+    ``like``'s device, then cast to its dtype; placed like anything else,
+    it stays the void array the file holds."""
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=like.device, dtype=like.dtype)
+        # ascontiguousarray makes a 0-d array 1-d: the leaf keeps its shape
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16 if dtype == _BF16 else arr.dtype)).reshape(arr.shape)
+        if dtype == _BF16:
+            return t.to(like.device).view(torch.bfloat16).to(like.dtype)
+        return t.to(device=like.device, dtype=like.dtype)
+    if dtype == _BF16:
+        return arr
     return np.asarray(arr, dtype=np.asarray(like).dtype)
 
 
@@ -176,7 +213,7 @@ def restore(ckpt_dir: str, like: Any,
             log.warning("checkpoint leaf %s not in target tree; skipped", key)
             continue
         loaded[key] = _place(np.load(os.path.join(d, meta["file"])),
-                             flat_like[key])
+                             flat_like[key], meta["dtype"])
     missing = set(flat_like) - set(loaded)
     if missing:
         raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]}...")

@@ -34,15 +34,50 @@ that the rule's margin under it can be read without the card: the dropped
 size, 1/32 of ``c``. One pass (``hi hi`` alone) leaves about ``2^-11`` of
 each term, which over K = 7,800 terms of random signs is some ``2^-17.5 A``
 typically and comes too near ``c A`` at the largest element.
+
+**The gradients** (``GRAD_CASES``; ``TRAIN_CASES`` are the training
+batch's layers, checked on the card in chunks of rows). The input
+gradients dxk and dx0 are layers of the same kernel on ``(x0, dy,
+W.permute(1, 0, 2))`` and ``(xk, dy, W.permute(2, 0, 1))``, so they are
+held to the layer rule above on those operands (``input_grad_operands``):
+their K is ``H2 m`` or ``H2 H`` (7,800 or 40,000), and the rule sees a
+dropped slice there as it does in the forward.
+
+dW sums over the batch, K = B D terms (655,360 at the training batch of
+65,536), and the layer rule is blind there: the signed sum of K terms of
+random signs is about ``sqrt(K)`` times smaller than ``A``, so ``2^-16 A``
+is some 10 typical terms at that K, and a kernel that left out one tile
+of 128 values of k = (b, d) (about 11 typical terms) would pass. Its rule
+scales with the sum's own size instead. With ``S`` the root sum of the
+terms' squares (``sqrt(dW of dy^2, xk^2, x0^2)``) and ``r`` the exact
+(float64) dW, an element passes when
+
+  |o - r| <= C u sqrt(K) (S + |r|),   u = 2^-24, C = 16
+
+(``dw_excess``; pass at <= 1). A float32 sum's rounding errors are about
+``u`` of its running partial sum at each add and take both signs, so
+they add up as a random walk: ``sqrt(K) u`` times the partial sums, which
+stay below ``S`` where the terms' signs are random and grow to ``|r|``
+where they are not. The kernel sums each K part in order (``dw_parts``
+parts of contiguous batch rows, the longest 327,680 terms at the training
+batch) and then the parts in order; ``emulated_dw`` repeats that in
+float32. Measured on the CPU at ``DW_RULE_CASE`` (B 65,536, K 524,288):
+0.0035 under the rule in the 264 parts ``dw_parts`` gives that shape,
+0.044 in 2 parts (the training batch's H-200 layers' split) and 0.040
+in one. A dropped tile of 128 terms moves an element by about ``sqrt(128
+/ K) S`` (0.016 S there), and reads 67 to 74 (``dw_planted_fault``, at
+the first, middle and last tile). The rule assumes what the batch gives: rows drawn
+independently, so that no long run of k sums one sign and cancels later.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.cin.ref import cin_layer_ref
+from repro_torch.kernels.cin.ref import cin_dw_ref, cin_layer_ref
 
 # name -> (B, m, H, H2, D). xdeepfm's layers: m = 39, D = 10, H = 39 (layer
 # 1) or 200 (layers 2, 3), H2 = 200; its smoke config: m = 6, D = 8, H = 6
@@ -156,3 +191,113 @@ def planted_fault(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
     w = w.clone()
     w[:, h] = 0
     return cin_layer_ref(x0, xk, w)
+
+
+# The gradients' cases, name -> (B, m, H, H2, D): xdeepfm's layer 1 and
+# its H-200 layers at ragged batches (dx0 stages xk's 200 rows at layer
+# 2), outputs of 39 and 6 fields (dxk at layer 1, dx0), the smoke config,
+# and a dW whose K parts (``dw_parts``) are one batch row each (B = 7).
+GRAD_CASES = {
+    "xdeepfm-layer1-B25": (25, 39, 39, 200, 10),
+    "xdeepfm-layer2-B37": (37, 39, 200, 200, 10),
+    "xdeepfm-layer2-B512": (512, 39, 200, 200, 10),
+    "H2-39-B61": (61, 39, 200, 39, 10),
+    "H2-6-B9": (9, 6, 16, 6, 8),
+    "smoke-layer1-B7": (7, 6, 6, 16, 8),
+    "smoke-layer2-B513": (513, 6, 16, 16, 8),
+}
+
+# the training batch's layers (B 65,536), card only: their plain Z does not
+# fit a CPU test, and the card checks them in chunks of PLAIN_CHUNK rows
+TRAIN_CASES = {
+    "train-layer1-B65536": (65536, 39, 39, 200, 10),
+    "train-layer2-B65536": (65536, 39, 200, 200, 10),
+}
+
+# the rule's and the emulation's case on the CPU: the smoke widths at the
+# training batch, K = 524,288
+DW_RULE_CASE = (65536, 6, 16, 16, 8)
+
+U = 2.0 ** -24
+GRAD_RULE_C = 16.0
+DW_FAULT_K = 128       # values of k = (b, d) the planted dW fault drops
+
+
+def grad_case_inputs(case, seed: int = 0):
+    """x0, xk and w as ``case_inputs`` gives them, and dy [B, H2, D]
+    (standard normal), float32, from ``seed``."""
+    x0, xk, w = case_inputs(case, seed)
+    B, m, H, H2, D = case
+    dy = np.random.default_rng([seed, 1, B, H2, D]).standard_normal(
+        (B, H2, D)).astype(np.float32)
+    return x0, xk, w, dy
+
+
+def input_grad_operands(x0, xk, w, dy):
+    """The layer operands whose kernel launch is each input gradient:
+    ``{"dxk": (x0, dy, W^(1,0,2)), "dx0": (xk, dy, W^(2,0,1))}``, the
+    permuted W contiguous (``layer_excess`` takes them as they are)."""
+    return {"dxk": (x0, dy, w.permute(1, 0, 2).contiguous()),
+            "dx0": (xk, dy, w.permute(2, 0, 1).contiguous())}
+
+
+def dw_exact(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
+             chunk: int = PLAIN_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(r, S)`` of the dW rule: the float64 dW and the root sum of its
+    terms' squares, summed over the batch in chunks of ``chunk`` rows."""
+    r = s2 = 0
+    for i in range(0, x0.shape[0], chunk):
+        a, b, c = (t[i:i + chunk].double() for t in (x0, xk, dy))
+        r = r + cin_dw_ref(a, b, c)
+        s2 = s2 + cin_dw_ref(a * a, b * b, c * c)
+    return r, torch.sqrt(s2)
+
+
+def dw_excess(out: torch.Tensor, r: torch.Tensor, S: torch.Tensor,
+              K: int) -> float:
+    """The largest ``|out - r|`` over ``C u sqrt(K) (S + |r|)``; 1 or less
+    passes (an allowance of 0 as in ``excess``)."""
+    err = (out.to(r.device).double() - r).abs()
+    allow = GRAD_RULE_C * U * math.sqrt(K) * (S + r.abs())
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def dw_planted_fault(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
+                     k0: int, chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """The float64 dW as a kernel that leaves out one tile of
+    ``DW_FAULT_K`` values of k = (b, d) from ``k0`` would sum it: dy zeroed
+    there."""
+    B, H2, D = dy.shape
+    k = torch.arange(B * D, device=dy.device).view(B, 1, D)
+    keep = ((k < k0) | (k >= k0 + DW_FAULT_K)).to(dy.dtype)
+    return dw_exact(x0, xk, dy * keep, chunk)[0]
+
+
+def emulated_dw(x0: np.ndarray, xk: np.ndarray, dy: np.ndarray, parts: int,
+                chunk: int = 1024) -> np.ndarray:
+    """dW [H2, H, m] in the kernel's arithmetic and order: ``z = xk x0``
+    in float32 (the reference's product), and per K part (``parts`` ranges
+    of contiguous batch rows, as the kernel splits them) a float32 sum of
+    the terms ``dy z`` in the order of k = (b, d), from zero; then the
+    parts' sums added in order. The kernel adds each term by one fused
+    multiply-add (one rounding); here the product is rounded to float32
+    first, one more rounding of at most ``u/2`` of each term, whose random
+    walk (``u S / 2``) is far below the sum's own."""
+    x0, xk, dy = (torch.as_tensor(np.asarray(a, np.float32))
+                  for a in (x0, xk, dy))
+    B, m, D = x0.shape
+    H, H2 = xk.shape[1], dy.shape[1]
+    out = None
+    for p in range(parts):
+        acc = np.zeros(H2 * H * m, np.float32)
+        for c0 in range(B * p // parts, B * (p + 1) // parts, chunk):
+            c1 = min(c0 + chunk, B * (p + 1) // parts)
+            z = xk[c0:c1, :, None, :] * x0[c0:c1, None, :, :]  # [c, H, m, D]
+            # the terms in k order: [c, D, H2, H m], each product rounded
+            t = (dy[c0:c1].transpose(1, 2)[:, :, :, None]
+                 * z.reshape(c1 - c0, H * m, D).transpose(1, 2)[:, :, None])
+            for term in t.reshape(-1, H2 * H * m).numpy():
+                acc += term          # float32, one k after another
+        out = acc if out is None else out + acc
+    return out.reshape(H2, H, m)

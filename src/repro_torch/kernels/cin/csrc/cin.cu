@@ -69,7 +69,11 @@
 //     depends only on the shapes and the card, so two launches are bit
 //     for bit identical.
 //   * Shared memory at NI = 200, m = 39: 6 x 25,600 + 2 x 40 x 72 x 4 =
-//     176,640 bytes; at m = 128 (the wrapper's limit) 227,328.
+//     176,640 bytes; the staged rows take 576 bytes per field, so m may
+//     reach 136 at NI = 200 and 312 at NI = 64 (the launch refuses what
+//     does not fit the card's opt-in limit; kernel.py checks it first).
+//     The layer's input gradients are layers of this kernel with other
+//     operands (kernel.py): dX0 stages xk's H rows (200) in place of x0's.
 //
 // Bound (chip_smoke.py computes it from the run's shapes): operations.
 // 2*H2*H*m*D flops per batch row and layer, three times over in 3xTF32, at
@@ -79,6 +83,29 @@
 // layer with H = 200 at that batch, 1.4 ms at 3.35 TB/s. Every M tile
 // streams the whole split W (12.8 MB at H = 200) from the 50 MB L2; 128
 // rows per tile keep that stream near the L2's rate at the tensor cores'.
+
+// The filters' gradient, dW[n, h, m] = sum_{b, d} dy[b, n, d] xk[b, h, d]
+// x0[b, m, d] (cin_dw_fma, below), replaces no TPU kernel: the reference
+// trains through the plain CIN and takes this gradient by autodiff of its
+// einsums (src/repro/kernels/cin/ref.py). It is the GEMM
+//
+//   dW_flat[n, (h, m)] = dy^T[n, (b, d)] . Z[(b, d), (h, m)],
+//
+// M = H2, N = H*m, K = B*D (655,360 at the training batch), with Z made on
+// the fly from xk and x0 (never in device memory), in float32 FMA outside
+// the tensor cores. Design: a block per 128 x 128 tile of (n, (h, m)) and
+// per K part (a contiguous range of batch rows; the wrapper picks the
+// parts so that the blocks fill the card twice over); 256 threads of 8 x
+// 8 outputs each. Per chunk of up to 32 values of k (whole batch rows) the
+// block stages dy's tile and Z's tile (z = xk * x0 rounded to float32, the
+// reference's product) in shared memory, each thread one column of both
+// with its indices worked out once, then every thread adds
+// fma(dy, z, acc) for each k in order. So each part sums its k
+// sequentially, and the parts' outputs are summed in order by
+// cin_sum_parts: no float atomics, two launches are bit for bit equal.
+// Bound: operations, 2*H2*H*m*D flops per batch row at 67 TFLOP/s of
+// float32 FMA (2.04 TFLOP, 30.5 ms, for a layer with H = 200 at B =
+// 65,536), far above its bytes (dy, xk and x0 read once, dW written once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -332,6 +359,123 @@ __global__ void cin_sum_parts(const float* __restrict__ part,
   }
 }
 
+constexpr int kDwTile = 128;     // n and (h, m) per block
+constexpr int kDwThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kDwK = 32;         // k values per staged chunk (at most)
+constexpr int kDwStride = 132;   // floats per staged row (128 + 4)
+
+struct DwParams {
+  const float* x0;
+  const float* xk;
+  const float* dy;
+  float* out;              // dW, or the K parts' partial outputs
+  long long B;
+  long long part_stride;   // floats between partial outputs (H2 * H * m)
+  int m, H, H2, D, J;      // J = H * m
+  int rows;                // batch rows per chunk: max(1, kDwK / D)
+  int parts;
+};
+
+// Thread (tx, ty) owns rows n0 + 4 ty + i and n0 + 64 + 4 ty + i (i < 4) and
+// columns j0 + 4 tx + i and j0 + 64 + 4 tx + i: its float4 reads of a
+// staged row are conflict-free. kDwThreads = 2 kDwTile (staging below).
+__global__ void __launch_bounds__(kDwThreads, 2)
+cin_dw_fma(const __grid_constant__ DwParams p) {
+  extern __shared__ __align__(16) float dw_smem[];
+  const int kc = p.rows * p.D;
+  float* As = dw_smem;                    // As[k][n - n0]: dy
+  float* Bs = dw_smem + kc * kDwStride;   // Bs[k][j - j0]: z
+  const int j0 = blockIdx.x * kDwTile, n0 = blockIdx.y * kDwTile;
+  const int part = blockIdx.z;
+  const long long b0 = p.B * part / p.parts;
+  const long long b1 = p.B * (part + 1) / p.parts;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long H2D = static_cast<long long>(p.H2) * p.D;
+  const long long HD = static_cast<long long>(p.H) * p.D;
+  const long long mD = static_cast<long long>(p.m) * p.D;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // Staging: thread t fills column c = t % 128 of both tiles at k = t / 128,
+  // t / 128 + 2, ...: its n, h and mm are fixed, and (bb, d) of k advance
+  // without a division.
+  const int c = threadIdx.x & (kDwTile - 1), k_first = threadIdx.x >> 7;
+  const bool n_ok = n0 + c < p.H2, j_ok = j0 + c < p.J;
+  const int h = j_ok ? (j0 + c) / p.m : 0;
+  const int mm = j_ok ? j0 + c - h * p.m : 0;
+  const float* dy_col = p.dy + static_cast<long long>(n0 + c) * p.D;
+  const float* xk_col = p.xk + static_cast<long long>(h) * p.D;
+  const float* x0_col = p.x0 + static_cast<long long>(mm) * p.D;
+
+  for (long long b = b0; b < b1; b += p.rows) {
+    const int nb = static_cast<int>(b1 - b < p.rows ? b1 - b : p.rows);
+    __syncthreads();   // the previous chunk's products are done
+    // eight of the thread's values of k at a time: their loads are issued
+    // together, so a chunk waits on memory twice, not sixteen times
+    const int kk = nb * p.D;
+    int bb = k_first / p.D, d = k_first - bb * p.D;
+    for (int k0 = k_first; k0 < kk; k0 += 16) {
+      float vy[8], vk[8], v0[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool in = k0 + 2 * i < kk;
+        const long long row = b + bb;
+        vy[i] = in && n_ok ? __ldg(dy_col + row * H2D + d) : 0.f;
+        vk[i] = in && j_ok ? __ldg(xk_col + row * HD + d) : 0.f;
+        v0[i] = in && j_ok ? __ldg(x0_col + row * mD + d) : 0.f;
+        d += 2;
+        if (d >= p.D) {
+          d -= p.D;
+          ++bb;
+          if (d >= p.D) {   // D = 1
+            d -= p.D;
+            ++bb;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = k0 + 2 * i;
+        if (k < kk) {
+          As[k * kDwStride + c] = vy[i];
+          Bs[k * kDwStride + c] = vk[i] * v0[i];
+        }
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < kk; ++k) {
+      const float* ar = As + k * kDwStride;
+      const float* br = Bs + k * kDwStride;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64 + 4 * ty);
+      const float4 c0 = *reinterpret_cast<const float4*>(br + 4 * tx);
+      const float4 c1 = *reinterpret_cast<const float4*>(br + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float z[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], z[j], acc[i][j]);
+    }
+  }
+
+  float* out = p.out + part * p.part_stride;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (n >= p.H2) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (col < p.J) out[static_cast<long long>(n) * p.J + col] = acc[i][j];
+    }
+  }
+}
+
 // Fragment layout (warp w of the warpgroup, lane l, g = l / 4, t = l % 4):
 // the A operand of a k8 step is a0 = A[g][t], a1 = A[g+8][t],
 // a2 = A[g][t+4], a3 = A[g+8][t+4] of the warp's 16 rows; element 4j + e
@@ -495,8 +639,19 @@ struct Plan {
   int parts;        // K parts (1: no second pass)
 };
 
+// The N tile an output of H2 fields takes.
+int n_tile(int H2) { return H2 <= 16 ? 16 : (H2 <= 64 ? 64 : 200); }
+
+// Dynamic shared memory of one layer launch at N tile ni with mp staged
+// rows: 128 of alignment, the W ring, the staged rows (hi and lo) and the
+// ring's barriers.
+long long layer_smem(int ni, int mp) {
+  return 128 + kStages * stage_floats(ni) * 4 + 2LL * mp * kX0Stride * 4 +
+         16 * kStages;
+}
+
 cudaError_t make_plan(long long B, int m, int H, int H2, int D, Plan* pl) {
-  pl->ni = H2 <= 16 ? 16 : (H2 <= 64 ? 64 : 200);
+  pl->ni = n_tile(H2);
   pl->nt = (H2 + pl->ni - 1) / pl->ni;
   pl->mp = (m + 7) / 8 * 8;
   pl->T = (static_cast<long long>(H) * (pl->mp / 8) + kKS - 1) / kKS;
@@ -519,21 +674,48 @@ long long split_w_floats(const Plan& pl) {
   return pl.nt * pl.T * stage_floats(pl.ni);
 }
 
+// The card's opt-in limit of dynamic shared memory a block may use.
+cudaError_t smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+}
+
 template <int NI>
 cudaError_t launch_layer(const Params& p, const Plan& pl,
                          cudaStream_t stream) {
-  const int smem = static_cast<int>(128 + kStages * stage_floats(NI) * 4 +
-                                    2 * pl.mp * kX0Stride * 4 +
-                                    16 * kStages);
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_layer_wgmma<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long long smem = layer_smem(NI, pl.mp);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  if (smem > limit) return cudaErrorInvalidValue;   // too many fields m
+  err = cudaFuncSetAttribute(
+      cin_layer_wgmma<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(static_cast<unsigned>(pl.tiles), pl.parts, pl.nt);
-  cin_layer_wgmma<NI><<<grid, kThreads, smem, stream>>>(p);
+  cin_layer_wgmma<NI><<<grid, kThreads, static_cast<size_t>(smem),
+                        stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The most staged rows m (a multiple of 8) a layer launch beside an output
+// of H2 fields takes on the current device: its shared memory's limit.
+// Returns a CUDA error (0 on success).
+extern "C" int cin_layer_max_fields(int H2, int* m) {
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ni = n_tile(H2);
+  int most = 0;
+  while (layer_smem(ni, most + 8) <= limit) most += 8;
+  *m = most;
+  return 0;
+}
 
 // Scratch the wrapper allocates for one layer (float32 elements):
 // sizes[0] for W's split parts, sizes[1] for the K parts' partial outputs
@@ -550,8 +732,9 @@ extern "C" int cin_layer_workspace(long long B, int m, int H, int H2, int D,
 
 // x0 [B, m, D], xk [B, H, D], w [H2, H, m] and out [B, H2, D]: contiguous
 // float32 on one device; ws and part: the scratch of cin_layer_workspace.
-// Requires 1 <= m <= 128 and 1 <= D <= 128 (the wrapper, kernel.py, checks
-// shapes, types, strides and devices first). Launches on `stream` without
+// Requires 1 <= m <= cin_layer_max_fields(H2) and 1 <= D <= 128 (the
+// wrapper, kernel.py, checks shapes, types, strides, devices and that limit
+// first; a launch over it is refused). Launches on `stream` without
 // synchronising and returns the CUDA error of the launches (0 on success;
 // B = 0 launches nothing).
 extern "C" int cin_layer_launch(const float* x0, const float* xk,
@@ -559,7 +742,7 @@ extern "C" int cin_layer_launch(const float* x0, const float* xk,
                                 float* part, long long B, int m, int H,
                                 int H2, int D, void* stream_ptr) {
   if (B == 0) return 0;
-  if (m < 1 || m > 128 || D < 1 || D > 128 || H < 1 || H2 < 1)
+  if (m < 1 || D < 1 || D > 128 || H < 1 || H2 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   cudaError_t err = make_plan(B, m, H, H2, D, &pl);
@@ -598,5 +781,54 @@ extern "C" int cin_layer_launch(const float* x0, const float* xk,
   const long long blocks = (n + 255) / 256;
   cin_sum_parts<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256,
                   0, stream>>>(part, out, n, pl.parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dW [H2, H, m] = sum over the batch of dy[b, n, d] xk[b, h, d] x0[b, m, d]
+// for x0 [B, m, D], xk [B, H, D] and dy [B, H2, D], contiguous float32 on
+// one device, in `parts` K parts of contiguous batch rows; `part` holds
+// parts * H2 * H * m floats when parts > 1 (else it is not read). Requires
+// B >= 1, 1 <= D <= 128, m, H, H2 >= 1, 1 <= parts <= B (the wrapper,
+// kernel.py, checks first). Launches on `stream` without synchronising and
+// returns the CUDA error of the launches (0 on success).
+extern "C" int cin_dw_launch(const float* x0, const float* xk,
+                             const float* dy, float* dw, float* part,
+                             long long B, int m, int H, int H2, int D,
+                             int parts, void* stream_ptr) {
+  if (B < 1 || m < 1 || H < 1 || H2 < 1 || D < 1 || D > 128 || parts < 1 ||
+      parts > B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long J = static_cast<long long>(H) * m;
+  const long long jt = (J + kDwTile - 1) / kDwTile;
+  const long long nt = (H2 + kDwTile - 1) / kDwTile;
+  if (J > 0x7fffffffLL || jt > 0x7fffffffLL || nt > 65535 || parts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  DwParams p;
+  p.x0 = x0;
+  p.xk = xk;
+  p.dy = dy;
+  p.out = parts > 1 ? part : dw;
+  p.B = B;
+  p.part_stride = H2 * J;
+  p.m = m;
+  p.H = H;
+  p.H2 = H2;
+  p.D = D;
+  p.J = static_cast<int>(J);
+  p.rows = kDwK / D > 1 ? kDwK / D : 1;
+  p.parts = parts;
+  const int smem = 2 * p.rows * D * kDwStride * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      cin_dw_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(jt), static_cast<unsigned>(nt), parts);
+  cin_dw_fma<<<grid, kDwThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  const long long n = H2 * J;
+  const long long blocks = (n + 255) / 256;
+  cin_sum_parts<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256,
+                  0, stream>>>(part, dw, n, parts);
   return static_cast<int>(cudaGetLastError());
 }

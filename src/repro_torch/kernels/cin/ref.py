@@ -11,6 +11,18 @@ the outer product ``Z[B, H, m, D]``: at xdeepfm's widths 5.1 GB per 16,384
 rows, and 81.8 GB (more than the card holds) at a serving batch of
 262,144. It is the CPU path of ``ops.cin_layer`` and the oracle the CUDA
 kernel is held to on the card.
+
+The layer's three gradients, for ``dy = dL/dout [B, H2, D]``, in the same
+einsum idiom (each is what autograd of ``cin_layer_ref`` gives, without
+keeping Z for the backward):
+
+  dxk[b, h, d] = sum_{n, m} W[n, h, m] dy[b, n, d] x0[b, m, d]
+  dx0[b, m, d] = sum_{n, h} W[n, h, m] dy[b, n, d] xk[b, h, d]
+  dW[n, h, m]  = sum_{b, d} dy[b, n, d] xk[b, h, d] x0[b, m, d]
+
+The first two are CIN layers themselves: ``dxk = cin_layer_ref(x0, dy,
+W.permute(1, 0, 2))`` and ``dx0 = cin_layer_ref(xk, dy, W.permute(2, 0,
+1))``; the third sums over the batch.
 """
 from __future__ import annotations
 
@@ -24,6 +36,27 @@ def cin_layer_ref(x0: torch.Tensor, xk: torch.Tensor,
     """x0 [B, m, D], xk [B, H, D], w [H2, H, m] -> [B, H2, D]."""
     z = torch.einsum("bhd,bmd->bhmd", xk, x0)
     return torch.einsum("bhmd,nhm->bnd", z, w)
+
+
+def cin_dxk_ref(x0: torch.Tensor, dy: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """x0 [B, m, D], dy [B, H2, D], w [H2, H, m] -> dxk [B, H, D]."""
+    z = torch.einsum("bnd,bmd->bnmd", dy, x0)
+    return torch.einsum("bnmd,nhm->bhd", z, w)
+
+
+def cin_dx0_ref(xk: torch.Tensor, dy: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """xk [B, H, D], dy [B, H2, D], w [H2, H, m] -> dx0 [B, m, D]."""
+    z = torch.einsum("bnd,bhd->bnhd", dy, xk)
+    return torch.einsum("bnhd,nhm->bmd", z, w)
+
+
+def cin_dw_ref(x0: torch.Tensor, xk: torch.Tensor,
+               dy: torch.Tensor) -> torch.Tensor:
+    """x0 [B, m, D], xk [B, H, D], dy [B, H2, D] -> dW [H2, H, m]."""
+    z = torch.einsum("bhd,bmd->bhmd", xk, x0)
+    return torch.einsum("bhmd,bnd->nhm", z, dy)
 
 
 def cin_ref(x0: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
 of the JAX package's ``launch/steps.py`` ``build_cell`` for the LM
-family's serving kinds (``_lm_cell``), xDeepFM's two serving kinds
-(``_recsys_cell``), the GNN family's training cell (``_gnn_cell``) and
-the paper engine's cell (``_engine_cell``), on one device, with no mesh
-and no shardings.
+family's serving kinds (``_lm_cell``), xDeepFM's training and two serving
+kinds (``_recsys_cell``), the GNN family's training cell (``_gnn_cell``)
+and the paper engine's cell (``_engine_cell``), on one device, with no
+mesh and no shardings.
 
 ``build_cell(arch, shape_name, smoke=False, device="cuda")`` returns a
 ``Cell``:
@@ -15,7 +15,9 @@ and no shardings.
               (``retrieval``) or ``train_step(params, opt, graph,
               impl="auto") -> (params, opt, loss, stats)`` (the GNN
               family's ``full_graph``, ``minibatch`` and
-              ``batched_graphs``)
+              ``batched_graphs``) or ``train_step(params, opt, batch,
+              cin_impl="auto") -> (params, opt, loss, stats)``
+              (``recsys_train``)
   arg_shapes  name -> (shape, dtype) of the step's inputs besides params
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
               item fields; an MoE arch: ``moe_groups`` 1)
@@ -56,7 +58,19 @@ the edges among them) and ``batch_nodes`` (``minibatch``) cut the shape
 to what one card holds in training, listed in the note; ``train_cfg`` is
 the ``TrainConfig`` (the default's values otherwise).
 
-Every other family and kind (``recsys_train`` and ``train`` too) raises
+xDeepFM's training cell (``RecsysTrainCell``, ``recsys_train``) is the
+reference's: ``bce_loss``, its gradient by autograd (each CIN layer's
+forward launch has its gradient kernels in the backward, ``kernels/cin``),
+then ``optim/adamw.apply_updates`` with ``train_cfg`` (the keyword
+argument; ``TrainConfig()``'s values otherwise). Its ``arg_shapes`` are
+the reference's batch: ``ids`` and ``id_mask [B, F, bag]``, ``dense [B,
+n_dense]`` and ``labels [B]``. A step raises when a parameter gets no
+gradient, where the GNN step takes zeros: in xDeepFM every parameter
+reaches the loss, so a missing gradient is a fault (a kernel autograd
+cannot see), never a leaf the loss does not use. ``zero1`` shards the
+optimizer state across data replicas and means nothing on one device.
+
+Every other family and kind (the LM family's ``train`` too) raises
 ``NotImplementedError`` naming the ported kinds and the family and kind
 asked for; an arch the port does not register raises the registry's
 ``KeyError``.
@@ -90,7 +104,7 @@ from repro_torch.optim import adamw
 
 # the shape kinds build_cell ports, by family
 PORTED_KINDS = {"lm": ("prefill", "decode"),
-                "recsys": ("recsys_serve", "retrieval"),
+                "recsys": ("recsys_train", "recsys_serve", "retrieval"),
                 "gnn": ("full_graph", "minibatch", "batched_graphs")}
 
 
@@ -304,6 +318,63 @@ def _gnn_cell(cfg: GNNConfig, shape: ShapeSpec, dev: torch.device,
                    note="; ".join(cuts), train_cfg=train_cfg)
 
 
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` of a tree of dicts and lists in ``tree_leaves``'
+    order, paths joined by ``/``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _leaf_paths(v, f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+@dataclass
+class RecsysTrainCell(Cell):
+    """xDeepFM's training cell. ``init(seed)`` gives the parameters
+    (``recsys.init_params`` seeded with ``seed`` on the cell's device) and
+    their AdamW state; ``inputs(batch)`` puts a ``RecsysPipeline`` batch
+    on the device, labels included."""
+
+    train_cfg: TrainConfig = TrainConfig()
+
+    def init(self, seed: int = 0):
+        params = recsys_mod.init_params(self.cfg, seed=seed,
+                                        device=self.device)
+        return params, adamw.init_state(params)
+
+
+def _recsys_train_cell(cfg: RecsysConfig, shape: ShapeSpec,
+                       dev: torch.device,
+                       train_cfg: TrainConfig = TrainConfig()
+                       ) -> RecsysTrainCell:
+    """The reference's ``recsys_train`` cell on one device."""
+    B, bag = shape.batch, max(cfg.multi_hot, 1)
+    i32, f32 = torch.int32, torch.float32
+
+    def train_step(params, opt, batch, cin_impl="auto"):
+        params = adamw.tree_map(lambda p: p.detach().requires_grad_(),
+                                params)
+        loss = recsys_mod.bce_loss(params, batch, cfg, cin_impl=cin_impl)
+        loss.backward()
+        missing = [path for path, p in _leaf_paths(params) if p.grad is None]
+        if missing:
+            raise RuntimeError(f"{cfg.name} x {shape.name}: no gradient "
+                               f"reached {missing}")
+        grads = adamw.tree_map(lambda p: p.grad, params)
+        params, opt, stats = adamw.apply_updates(params, opt, grads,
+                                                 train_cfg)
+        return params, opt, loss.detach(), stats
+
+    arg_shapes = {"ids": ((B, cfg.n_sparse, bag), i32),
+                  "id_mask": ((B, cfg.n_sparse, bag), f32),
+                  "dense": ((B, cfg.n_dense), f32),
+                  "labels": ((B,), i32)}
+    return RecsysTrainCell(cfg.name, shape.name, train_step, arg_shapes, cfg,
+                           dev, train_cfg=train_cfg)
+
+
 def _lm_model_flops(cfg: TransformerConfig, shape: ShapeSpec,
                     kind: str) -> float:
     """The reference's analytic useful FLOPs of one step: 6 N a token to
@@ -371,9 +442,8 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
                            f"not {shape_name!r}")
         return cell
     allowed = {"lm": ("batch", "seq_len"),
-               "gnn": ("n_nodes", "n_edges", "batch_nodes",
-                       "train_cfg")}.get(
-                   cfg.family, ())
+               "gnn": ("n_nodes", "n_edges", "batch_nodes", "train_cfg"),
+               "recsys": ("train_cfg",)}.get(cfg.family, ())
     extra = sorted(set(kw) - set(allowed))
     if extra:
         raise TypeError(f"{arch} takes no cell arguments {extra}")
@@ -382,10 +452,10 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
     if shape is None or shape.kind not in PORTED_KINDS.get(cfg.family, ()):
         kind = shape.kind if shape is not None else "unknown"
         why = (": training waits for the training slice"
-               if kind in ("train", "recsys_train") else "")
+               if kind == "train" else "")
         raise NotImplementedError(
             f"{arch} x {shape_name} is not ported; the port builds the "
-            f"recsys family's {' and '.join(PORTED_KINDS['recsys'])} shapes, "
+            f"recsys family's {', '.join(PORTED_KINDS['recsys'])} shapes, "
             f"the lm family's {' and '.join(PORTED_KINDS['lm'])} shapes "
             f"and the gnn family's {', '.join(PORTED_KINDS['gnn'])} shapes, "
             f"and this is the {cfg.family} family's {kind} kind{why}")
@@ -394,6 +464,11 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
         return _lm_cell(cfg, shape, dev, **kw)
     if cfg.family == "gnn":
         return _gnn_cell(cfg, shape, dev, **kw)
+    if shape.kind == "recsys_train":
+        return _recsys_train_cell(cfg, shape, dev, **kw)
+    if kw:
+        raise TypeError(f"train_cfg is an argument of a training cell, not "
+                        f"of {shape.kind}")
     bag = max(cfg.multi_hot, 1)
     i32, f32 = torch.int32, torch.float32
 

@@ -1,6 +1,6 @@
-"""xDeepFM (arXiv:1803.05170) serving: the port of the JAX package's
+"""xDeepFM (arXiv:1803.05170): the port of the JAX package's
 ``models/recsys.py`` (``embedding_bag``, ``init_params``, ``forward``,
-``retrieval_scores``).
+``bce_loss``, ``retrieval_scores``).
 
 The reference vmaps a one-table embedding bag over the fields; here all
 fields are one gather over the ``[F, V, D]`` table viewed as ``[F * V, D]``
@@ -9,8 +9,10 @@ over ``repeat(arange(B), bag)`` is a sum over the bag axis.
 
 Branches: linear (per-id weight) + CIN (``kernels/cin``: the hand-written
 CUDA kernel on the card, the plain version on the CPU) + DNN. Parameters
-are a plain dict with the reference's names and shapes. The training loss
-(``bce_loss``) waits for the training slice.
+are a plain dict with the reference's names and shapes. Both gathers (the
+embedding rows and the linear weights) are ``index_select``: its gradient
+is a scatter-add that sums repeated ids in parallel, where advanced
+indexing's (``index_put_``) adds one index's rows serially.
 """
 from __future__ import annotations
 
@@ -112,8 +114,9 @@ def forward(
     emb = embedding_bag(params["tables"], ids, mask)          # [B, F, D]
 
     # --- linear branch ------------------------------------------------------
-    lin_w = (params["linear"].reshape(-1)[_flat_index(ids, cfg.vocab_per_field)]
-             * mask).sum(dim=-1)                               # [B, F]
+    flat = _flat_index(ids, cfg.vocab_per_field)
+    lin_w = (params["linear"].reshape(-1).index_select(0, flat.reshape(-1))
+             .view(flat.shape) * mask).sum(dim=-1)             # [B, F]
     logit_lin = lin_w.sum(dim=-1)
 
     # --- CIN branch -----------------------------------------------------------
@@ -128,6 +131,17 @@ def forward(
     logit_dnn = h[:, 0]
 
     return logit_lin + logit_cin + logit_dnn + params["bias"]
+
+
+def bce_loss(params: Params, batch: Dict[str, torch.Tensor],
+             cfg: RecsysConfig, cin_impl: str = "auto") -> torch.Tensor:
+    """The mean binary cross-entropy of ``forward``'s logits against
+    ``batch["labels"]`` (cast to float32), in the reference's stable form
+    ``max(l, 0) - l y + log1p(exp(-|l|))``."""
+    logits = forward(params, batch, cfg, cin_impl=cin_impl)
+    y = batch["labels"].to(torch.float32)
+    return torch.mean(torch.clamp_min(logits, 0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
 
 
 def retrieval_batch(user_ids: torch.Tensor, user_mask: torch.Tensor,

@@ -39,7 +39,8 @@ from repro.kernels.cin.ops import cin as ref_cin  # noqa: E402
 from repro.kernels.cin.ops import cin_layer as ref_cin_layer  # noqa: E402
 from repro_torch.kernels.cin import kernel as cmod  # noqa: E402
 from repro_torch.kernels.cin.cases import (CASES, FAULT_CASE,  # noqa: E402
-                                           case_inputs, emulated_layer,
+                                           GRAD_CASES, case_inputs,
+                                           emulated_layer, grad_case_inputs,
                                            excess, layer_excess,
                                            planted_fault, pooled_magnitude,
                                            tf32_round)
@@ -178,3 +179,45 @@ def test_cuda_wrapper_refuses_before_building():
         cmod.cin_layer_cuda(tx0, txk, tw)
     assert cmod.cin_layer_cuda.launches == before
     assert cmod.load_library.cache_info().currsize == 0
+
+
+def test_gradient_wrappers_refuse_before_building():
+    """The gradient wrappers' checks (shapes that do not agree, float64,
+    a strided view, CPU tensors) come before the
+    library is built or loaded, and a refused call counts no launch."""
+    x0, xk, w, dy = _torch(*grad_case_inputs(
+        GRAD_CASES["xdeepfm-layer2-B37"]))
+    counts = (cmod.cin_dxk_cuda, cmod.cin_dx0_cuda, cmod.cin_dw_cuda)
+    before = [c.launches for c in counts]
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dxk_cuda(x0, dy[:, :5], w)
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dx0_cuda(xk, dy, w[:, :7])
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dw_cuda(x0, xk[:3], dy)
+    with pytest.raises(ValueError, match="3-d"):
+        cmod.cin_dw_cuda(x0[0], xk, dy)
+    with pytest.raises(ValueError, match="float32"):
+        cmod.cin_dw_cuda(x0.double(), xk.double(), dy.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cmod.cin_dxk_cuda(x0, dy.transpose(1, 2).contiguous().transpose(
+            1, 2), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        cmod.cin_dw_cuda(x0, xk, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        cmod.cin_dx0_cuda(xk, dy, w)
+    assert [c.launches for c in counts] == before
+    assert cmod.load_library.cache_info().currsize == 0
+
+
+def test_dw_plan():
+    """dW's K parts fill 264 blocks at the training batch's layers (2 and
+    11 parts) and give one batch row a part at most; the tile matches the
+    source's."""
+    assert cmod.dw_parts(65536, 39, 200, 200) == 2
+    assert cmod.dw_parts(65536, 39, 39, 200) == 11
+    assert cmod.dw_parts(7, 6, 6, 16) == 7
+    assert cmod.dw_parts(1, 39, 200, 200) == 1
+    assert cmod.dw_parts(65536, 6, 16, 16) == 264
+    src = cmod._build.source_paths(cmod.SOURCES)[0].read_text()
+    assert f"constexpr int kDwTile = {cmod.DW_TILE};" in src

@@ -35,7 +35,15 @@ plain version in float64, with a dropped item reading above the rule,
 and one GNN training step per kind (smoke width, ``molecule``) through
 ``build_cell``: twice a forward's launches, its gradients within
 ``gnn_check.grad_excess``'s rule of the plain path's, and no read of the
-device under sync debug mode "error".
+device under sync debug mode "error"; the CIN layer's gradient kernels
+(dxk and dx0 through the layer kernel, dW by ``cin_dw_fma``) against
+their plain versions under ``kernels/cin/cases.py``'s rules (the layer
+rule, and dW's against float64) over its gradient cases and at the
+training batch's layers (B 65,536, in chunks), each with its planted
+fault above the rule, two launches bit for bit equal, the wrappers'
+refusals, and xDeepFM's smoke training step through ``build_cell`` (3
+forward and 9 backward launches, gradients against the plain path's,
+no read of the device).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -62,6 +70,7 @@ from repro_torch.kernels.cin.cases import CASES as CIN_CASES
 from repro_torch.kernels.cin.cases import (case_inputs, excess,
                                            layer_excess, planted_fault,
                                            pooled_magnitude)
+from repro_torch.kernels.cin import cases as cin_cases
 from repro_torch.kernels.cin.ops import cin, cin_layer
 from repro_torch.kernels.cin.ref import cin_layer_ref
 from repro_torch.kernels.edge_relax import kernel as kmod
@@ -88,7 +97,10 @@ from repro_torch.kernels.segment_mm.ops import (TILE, CsrLayout, csr_layout,
                                                 transpose_layout)
 from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 from repro_torch.data.pipeline import gnn_full_graph_batch, gnn_molecule_batch
+from repro_torch.launch import steps
 from repro_torch.launch.steps import build_cell
+from repro_torch.config import RECSYS_SHAPES
+from repro_torch.data.pipeline import DataCursor, RecsysPipeline
 from repro_torch.models import gnn, gnn_check, moe_check, recsys
 from repro_torch.optim import adamw
 from repro_torch.models import transformer as tf
@@ -869,6 +881,188 @@ def test_recsys_cells_through_the_kernel_on_card(cuda_device):
     assert cmod.cin_layer_cuda.launches == len(cfg.cin_layers)
     torch.testing.assert_close(scores, cell.step_fn(params, q, cin_impl="ref"),
                                rtol=0, atol=1e-6)
+
+
+def _cin_grad_check(dev, case, seed=0):
+    """Each gradient kernel on one case's inputs against its plain version:
+    dxk and dx0 under the layer rule (float32 plain, chunked), dW under
+    the dW rule (float64); the planted faults read beside them. Returns
+    the readings."""
+    x0, xk, w, dy = (torch.from_numpy(a).to(dev)
+                     for a in cin_cases.grad_case_inputs(case, seed))
+    B, m, H, H2, D = case
+    before = (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+              cmod.cin_dw_cuda.launches)
+    got = {"dxk": cmod.cin_dxk_cuda(x0, dy, w),
+           "dx0": cmod.cin_dx0_cuda(xk, dy, w)}
+    dw = cmod.cin_dw_cuda(x0, xk, dy)
+    torch.cuda.synchronize()
+    assert (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+            cmod.cin_dw_cuda.launches) == tuple(b + 1 for b in before)
+    out = {}
+    for what, (a, b, wp) in cin_cases.input_grad_operands(x0, xk, w,
+                                                          dy).items():
+        ref = torch.cat([cin_layer_ref(a[i:i + cin_cases.PLAIN_CHUNK],
+                                       b[i:i + cin_cases.PLAIN_CHUNK], wp)
+                         for i in range(0, B, cin_cases.PLAIN_CHUNK)])
+        assert got[what].shape == ref.shape
+        assert torch.isfinite(got[what]).all()
+        out[what] = layer_excess(got[what], ref, a, b, wp)
+        out[what + "_fault"] = layer_excess(planted_fault(
+            a[:cin_cases.PLAIN_CHUNK], b[:cin_cases.PLAIN_CHUNK], wp, h=1),
+            ref[:cin_cases.PLAIN_CHUNK], a[:cin_cases.PLAIN_CHUNK],
+            b[:cin_cases.PLAIN_CHUNK], wp)
+        del ref
+    r, S = cin_cases.dw_exact(x0, xk, dy, chunk=4096)
+    assert dw.shape == (H2, H, m) and torch.isfinite(dw).all()
+    out["dw"] = cin_cases.dw_excess(dw, r, S, B * D)
+    out["dw_fault"] = cin_cases.dw_excess(cin_cases.dw_planted_fault(
+        x0, xk, dy, (B * D) // 2, chunk=4096), r, S, B * D)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(cin_cases.GRAD_CASES))
+def test_cin_gradient_kernels_match_plain(cuda_device, name):
+    """dxk and dx0 (the layer kernel at outputs of 200, 39 and 6 and xk's
+    200 rows staged) under the layer rule, dW under the dW rule; one
+    launch each; and autograd through ``cin_layer`` launches each once and
+    gives the same gradients."""
+    case = cin_cases.GRAD_CASES[name]
+    got = _cin_grad_check(cuda_device, case)
+    assert got["dxk"] <= 1.0 and got["dx0"] <= 1.0 and got["dw"] <= 1.0, got
+    x0, xk, w, dy = (torch.from_numpy(a).to(cuda_device)
+                     for a in cin_cases.grad_case_inputs(case))
+    x0.requires_grad_()
+    xk.requires_grad_()
+    w.requires_grad_()
+    before = (cmod.cin_layer_cuda.launches, cmod.cin_dxk_cuda.launches,
+              cmod.cin_dx0_cuda.launches, cmod.cin_dw_cuda.launches)
+    out = cin_layer(x0, xk, w)
+    g = torch.autograd.grad(out, (x0, xk, w), dy)
+    torch.cuda.synchronize()
+    assert (cmod.cin_layer_cuda.launches, cmod.cin_dxk_cuda.launches,
+            cmod.cin_dx0_cuda.launches, cmod.cin_dw_cuda.launches) == tuple(
+                b + 1 for b in before)
+    with torch.no_grad():
+        assert torch.equal(g[0], cmod.cin_dx0_cuda(xk, dy, w))
+        assert torch.equal(g[1], cmod.cin_dxk_cuda(x0, dy, w))
+        assert torch.equal(g[2], cmod.cin_dw_cuda(x0, xk, dy))
+
+
+@pytest.mark.parametrize("name", sorted(cin_cases.TRAIN_CASES))
+def test_cin_gradients_at_the_training_batch(cuda_device, name):
+    """xdeepfm's layer 1 and H-200 layer at B 65,536: each gradient kernel
+    under its rule (the plain side in chunks), each planted fault (a
+    dropped slice of the input gradients' W; one tile of 128 values of k
+    left out of dW) above it."""
+    got = _cin_grad_check(cuda_device, cin_cases.TRAIN_CASES[name])
+    assert got["dxk"] <= 1.0 and got["dx0"] <= 1.0 and got["dw"] <= 1.0, got
+    assert got["dxk_fault"] > 1.0 and got["dx0_fault"] > 1.0, got
+    assert got["dw_fault"] > 1.0, got
+
+
+@pytest.mark.parametrize("B", [1, 512, 65536])
+def test_cin_gradient_two_launches_bit_identical(cuda_device, B):
+    """dW sums its K parts (``dw_parts`` at xdeepfm's H-200 layer: one at
+    B 1, with no second pass, and 2 beyond) in a fixed order, dx0 is the
+    layer kernel: two launches give the same bits."""
+    x0, xk, w, dy = (torch.from_numpy(a).to(cuda_device)
+                     for a in cin_cases.grad_case_inputs(
+                         (B, 39, 200, 200, 10), seed=1))
+    assert torch.equal(cmod.cin_dw_cuda(x0, xk, dy),
+                       cmod.cin_dw_cuda(x0, xk, dy))
+    assert torch.equal(cmod.cin_dx0_cuda(xk, dy, w),
+                       cmod.cin_dx0_cuda(xk, dy, w))
+
+
+def test_cin_gradient_wrappers_refuse(cuda_device):
+    x0, xk, w, dy = (torch.from_numpy(a).to(cuda_device)
+                     for a in cin_cases.grad_case_inputs((9, 39, 200, 200,
+                                                          10)))
+    before = (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+              cmod.cin_dw_cuda.launches)
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dxk_cuda(x0, dy[:, :5], w)
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dx0_cuda(xk[:, :5], dy, w)
+    with pytest.raises(ValueError, match="do not agree"):
+        cmod.cin_dw_cuda(x0, xk[:3], dy)
+    with pytest.raises(ValueError, match="float32"):
+        cmod.cin_dw_cuda(x0.double(), xk.double(), dy.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cmod.cin_dw_cuda(x0, xk, dy.transpose(1, 2).contiguous().transpose(
+            1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        cmod.cin_dx0_cuda(xk, dy.cpu(), w)
+    wide = torch.zeros(9, 320, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="m <= 312"):
+        cmod.cin_dx0_cuda(wide, dy, torch.zeros(200, 320, 39,
+                                                device=cuda_device))
+    assert (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+            cmod.cin_dw_cuda.launches) == before
+    empty = cmod.cin_dw_cuda(x0[:0], xk[:0], dy[:0])
+    assert empty.shape == (200, 200, 39) and not empty.any()
+    assert cmod.cin_dw_cuda.launches == before[2]
+
+
+def test_cin_field_limit_follows_shared_memory(cuda_device):
+    """The C entry's field limit is the layer launch's shared memory within
+    the card's opt-in limit: a multiple of 8, wider beside a narrower
+    output (the N tile: 16, 64 or 200), enough for xdeepfm's forward (39
+    rows beside 200) and its dx0 (200 beside 39), and on an H100 136, 312
+    and 376. A layer over it is refused before a launch."""
+    mf = cmod.max_fields
+    assert all(mf(h) % 8 == 0 for h in (6, 16, 39, 64, 200))
+    assert mf(200) <= mf(64) == mf(39) <= mf(16) == mf(6)
+    assert mf(200) >= 39 and mf(39) >= 200
+    if "H100" in torch.cuda.get_device_name(cuda_device):
+        assert (mf(200), mf(39), mf(6)) == (136, 312, 376)
+    m = mf(200) + 1
+    before = cmod.cin_layer_cuda.launches
+    with pytest.raises(ValueError, match=f"m <= {m - 1}"):
+        cmod.cin_layer_cuda(torch.zeros(9, m, 10, device=cuda_device),
+                            torch.zeros(9, 39, 10, device=cuda_device),
+                            torch.zeros(200, 39, m, device=cuda_device))
+    assert cmod.cin_layer_cuda.launches == before
+
+
+def test_recsys_train_step_through_the_kernels_on_card(cuda_device):
+    """xdeepfm's smoke training cell at B 4,096: a step launches the CIN
+    kernel once a layer and each gradient kernel once a layer (layer 1's
+    x0 and xk are one tensor; every layer's input needs both), reads
+    nothing from the device, and its gradients agree with the plain
+    path's within ``gnn_check.grad_rel`` 1e-4; the loss falls over 5
+    steps."""
+    cfg = get_arch("xdeepfm", smoke=True)
+    shape = dataclasses.replace(
+        {s.name: s for s in RECSYS_SHAPES}["train_batch"], batch=4096)
+    cell = steps._recsys_train_cell(cfg, shape, cuda_device)
+    batch = cell.inputs(RecsysPipeline(cfg, shape, seed=0).batch(
+        DataCursor()))
+    params, opt = cell.init(0)
+
+    def grads(impl):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        recsys.bce_loss(p, batch, cfg, cin_impl=impl).backward()
+        return adamw.tree_map(lambda t: t.grad, p)
+
+    assert gnn_check.grad_rel(grads("auto"), grads("ref")) < 1e-4
+    counts = (cmod.cin_layer_cuda, cmod.cin_dxk_cuda, cmod.cin_dx0_cuda,
+              cmod.cin_dw_cuda)
+    for c in counts:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss0, _ = cell.step_fn(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [c.launches for c in counts] == [len(cfg.cin_layers)] * 4
+    losses = [float(loss0)]
+    for _ in range(4):
+        params, opt, loss, _ = cell.step_fn(params, opt, batch)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0], losses
 
 
 def _segmm_case(name, dev):

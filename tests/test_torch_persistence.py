@@ -298,6 +298,66 @@ def test_restores_a_directory_the_reference_wrote(tmp_path):
     np.testing.assert_array_equal(tree["store"]["h_src"], store["h_src"])
 
 
+def test_bfloat16_leaves_are_the_reference_files(tmp_path):
+    """bfloat16 leaves (0-d, 1-d and 2-d; random bits with NaN, inf, -0 and
+    a subnormal among them) beside float32 and int32 leaves and a 0-d
+    int32 step: the port's files equal the reference's byte for byte and
+    so do the manifests' leaves; the port's restore of either directory
+    gives back the same bfloat16 bits and every leaf's shape (a float32
+    ``like`` takes the bf16 values exactly); the reference's restore of
+    the port's directory hands back its void words."""
+    r = np.random.default_rng(5)
+    words = {"w": r.integers(0, 1 << 16, (3, 5), dtype=np.uint16),
+             "b": np.array([0x7FC0, 0x7F80, 0x8000, 0x0001, 0x3F80],
+                           np.uint16),
+             "s": np.array(0xC040, np.uint16)}
+    other = {"f": r.standard_normal(4).astype(np.float32),
+             "step": np.array(7, np.int32)}
+    ref_tree = {"params": {k: jnp.asarray(v.view(jnp.bfloat16))
+                           for k, v in words.items()},
+                **{k: jnp.asarray(v) for k, v in other.items()}}
+    tree = {"params": {k: torch.from_numpy(v.view(np.int16)).view(
+                torch.bfloat16) for k, v in words.items()},
+            **{k: torch.from_numpy(v) for k, v in other.items()}}
+    d_ref, d = str(tmp_path / "ref"), str(tmp_path / "port")
+    p_ref = ref_ckpt.save(d_ref, 4, ref_tree, extra={"s": 1})
+    p = ckpt.save(d, 4, tree, extra={"s": 1})
+    with open(os.path.join(p_ref, "manifest.json")) as f:
+        man_ref = json.load(f)
+    with open(os.path.join(p, "manifest.json")) as f:
+        man = json.load(f)
+    assert man["leaves"] == man_ref["leaves"]
+    assert man["leaves"]["params__w"]["dtype"] == "bfloat16"
+    for leaf in man["leaves"].values():
+        with open(os.path.join(p_ref, leaf["file"]), "rb") as f:
+            want = f.read()
+        with open(os.path.join(p, leaf["file"]), "rb") as f:
+            assert f.read() == want, leaf["file"]
+    like = {"params": {k: torch.zeros(v.shape, dtype=torch.bfloat16)
+                       for k, v in words.items()},
+            **{k: torch.zeros(v.shape, dtype=torch.from_numpy(v).dtype)
+               for k, v in other.items()}}
+    for src in (d_ref, d):
+        got, extra = ckpt.restore(src, like)
+        assert extra == {"s": 1}
+        for k, v in words.items():
+            t = got["params"][k]
+            assert t.dtype == torch.bfloat16 and t.shape == v.shape, k
+            assert np.array_equal(t.view(torch.int16).numpy(),
+                                  v.view(np.int16)), k
+        for k, v in other.items():
+            assert got[k].shape == v.shape and np.array_equal(
+                got[k].numpy(), v), k
+    wide, _ = ckpt.restore(d, {**like, "params": {
+        k: torch.zeros(v.shape) for k, v in words.items()}})
+    w = wide["params"]["w"]
+    assert w.dtype == torch.float32 and torch.equal(
+        w, tree["params"]["w"].float())
+    back, _ = ref_ckpt.restore(d, ref_tree)
+    assert back["params"]["w"].dtype == np.dtype("V2")
+    assert back["params"]["w"].tobytes() == words["w"].tobytes()
+
+
 # ---------------------------------------------------------------------------
 # StageCheckpointer against the reference
 # ---------------------------------------------------------------------------

@@ -268,7 +268,7 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
     torch.testing.assert_close(scores[0], logits[0], rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch,shape", [("xdeepfm", "train_batch"),
+@pytest.mark.parametrize("arch,shape", [("xdeepfm", "molecule"),
                                         ("gemma2-9b", "train_4k"),
                                         ("gcn-cora", "no_such_shape"),
                                         ("xdeepfm", "no_such_shape"),
@@ -276,10 +276,12 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
 def test_build_cell_raises_for_what_is_not_ported(arch, shape):
     """A family or kind the port lacks raises NotImplementedError naming
     the ported kinds and the family and kind asked for (an LM's train_4k,
-    xdeepfm's train_batch, and shapes a GNN arch does not have: its four
-    shapes are ported as training cells)."""
+    and shapes an arch's family does not have: a GNN shape of xdeepfm,
+    whose train_batch is ported with its serving shapes, and a recsys
+    shape of a GNN arch, whose four shapes are ported as training
+    cells)."""
     match = (f"{arch} x {shape} is not ported; the port builds the recsys "
-             f"family's recsys_serve and retrieval shapes, the lm "
+             f"family's recsys_train, recsys_serve, retrieval shapes, the lm "
              f"family's prefill and decode shapes and the gnn family's "
              f"full_graph, minibatch, batched_graphs shapes")
     with pytest.raises(NotImplementedError, match=match) as err:
