@@ -235,15 +235,17 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      launches per call, checked as in phase 9 with the kernel at
      B = 1,000,000.
   10b. The CIN's gradient kernels at the training batch's layers (B =
-     65,536; layer 1, H = 39, and an H-200 layer): ``cin_dxk_cuda`` and
-     ``cin_dx0_cuda`` (the layer kernel on permuted operands; dx0 stages
-     xk's 200 rows) under the layer rule against the plain layer,
-     ``cin_dw_cuda`` (float32 FMA) under dW's rule against float64
-     (``|o - r| <= 16 u sqrt(K) (S + |r|)``, ``kernels/cin/cases.py``),
-     each planted fault above its rule (a dropped slice of the permuted
-     W; one tile of 128 values of k left out of dW), each timed beside
-     its bounds and, at B = 16,384, beside the plain version and one
-     ``torch.einsum`` call (float32, TF32 off).
+     65,536; layer 1, H = 39, and an H-200 layer): ``cin_dx_cuda`` (dxk
+     and dx0 in one 3xTF32 launch, ``cin_dx_wgmma``), each output under
+     the layer rule against the plain layer on its permuted operands,
+     and ``cin_dw_cuda`` (3xTF32, ``cin_dw_wgmma``) under dW's rule
+     against float64 (``|o - r| <= 16 u sqrt(K) (S + |r|)``,
+     ``kernels/cin/cases.py``), each planted fault above its rule (a
+     dropped slice of the permuted W; one tile of 128 values of k left
+     out of dW), each timed beside its 3xTF32 and float32-FMA bounds, the
+     route they replace in the same run (``cin_layer_cuda`` on the
+     permuted operands for dxk and dx0), and, at B = 16,384, beside the
+     plain versions and ``torch.einsum`` (float32, TF32 off).
   10c. xDeepFM training at full width and uncut: ``train_batch`` (B =
      65,536) through ``build_cell``, seed 0, one resident
      ``RecsysPipeline`` batch: the first step's gradients of every leaf
@@ -251,8 +253,8 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      ``gnn_check.grad_excess`` (per leaf), a dW with one tile of k left
      out above it; step 1 under ``torch.cuda.set_sync_debug_mode(
      "error")``; steps 2-20 timed (median seconds, rows/s, peak bytes);
-     exactly 3 forward, 3 dxk, 3 dx0 and 3 dW launches a step; the loss
-     falling.
+     exactly 3 forward, 3 dx (dxk and dx0 in one launch) and 3 dW
+     launches a step; the loss falling.
   11. segment_mm vs plain: ``segment_mm_cuda`` against ``segment_mm_ref``
      run in float64 on the card, over the cases of
      ``kernels/segment_mm/cases.py`` (the reference's sweep (N, E, D) =
@@ -1920,18 +1922,20 @@ RECSYS_TRAIN_CHUNK = 4096        # batch rows per plain gradient chunk
 
 def cin_grad_bound_ms(B, m, H, H2, D, which: str) -> tuple:
     """Least time for one gradient launch of a CIN layer (x0 [B, m, D], xk
-    [B, H, D], W [H2, H, m], dy [B, H2, D]): each does the layer's 2 B H2
-    H m D flops, and reads its three operands and writes its output once.
-    dxk and dx0 run the layer kernel (3xTF32 on the tensor cores, beside
-    the float32-FMA bound); dW runs float32 FMA. Returns (bound ms, what
-    bounds it, flops, FMA bound ms)."""
+    [B, H, D], W [H2, H, m], dy [B, H2, D]): ``"dw"`` or ``"dx"`` (dxk and
+    dx0 in one launch, reassociated: one layer's flops for the pair) does
+    the layer's 2 B H2 H m D flops, three TF32 passes on the tensor cores
+    at 495 TFLOP/s (the least time for float32-accurate work; the
+    float32-FMA bound beside it), and reads its operands and writes its
+    outputs once. Returns (bound ms, what bounds it, flops, FMA bound
+    ms)."""
     flops = 2 * B * H2 * H * m * D
-    ins = {"dxk": B * m * D + B * H2 * D + H2 * H * m + B * H * D,
-           "dx0": B * H * D + B * H2 * D + H2 * H * m + B * m * D,
-           "dw": B * m * D + B * H * D + B * H2 * D + H2 * H * m}[which]
-    t_bytes = 4 * ins / HBM_BYTES_PER_S
+    moved = B * m * D + B * H * D + B * H2 * D + {
+        "dx": H2 * H * m + B * m * D + B * H * D,   # W in; dx0, dxk out
+        "dw": H2 * H * m}[which]                    # dW out
+    t_bytes = 4 * moved / HBM_BYTES_PER_S
     t_fma = flops / F32_FLOPS_PER_S
-    t_ops = t_fma if which == "dw" else 3 * flops / TF32_FLOPS_PER_S
+    t_ops = 3 * flops / TF32_FLOPS_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops,
             1e3 * max(t_fma, t_bytes))
@@ -1941,29 +1945,43 @@ def cin_backward_phase(torch, dev) -> dict:
     """Phase 10b: each gradient kernel at the training batch's layers (B
     65,536; layer 1, H 39, and an H-200 layer) against its plain version
     under its rule (``kernels/cin/cases.py``: the layer rule for dxk and
-    dx0, dW's rule against float64), each planted fault above it, then
-    timed (CUDA events) beside its bounds, and at B 16,384 beside the
-    plain version and one ``torch.einsum`` call of the same function
-    (float32, TF32 off). Returns the rows by (layer, gradient)."""
+    dx0, both from one ``cin_dx_cuda``; dW's rule against float64), each
+    planted fault above it, then timed (CUDA events) beside its bounds and
+    the route it replaces (dx: ``cin_layer_cuda`` on the permuted operands
+    of dxk and of dx0, a launch each), and at B 16,384 beside that route,
+    the plain version and ``torch.einsum`` (float32, TF32 off; dx: the two
+    einsums of dxk and dx0). Returns the rows by (layer, "dx" or "dw")."""
     from repro_torch.kernels.cin import cases as cc
     from repro_torch.kernels.cin import kernel as cmod
     from repro_torch.kernels.cin.ref import (cin_dw_ref, cin_dx0_ref,
                                              cin_dxk_ref, cin_layer_ref)
 
-    fn = {"dxk": lambda x0, xk, w, dy: cmod.cin_dxk_cuda(x0, dy, w),
-          "dx0": lambda x0, xk, w, dy: cmod.cin_dx0_cuda(xk, dy, w),
+    fn = {"dx": lambda x0, xk, w, dy: cmod.cin_dx_cuda(x0, xk, dy, w),
           "dw": lambda x0, xk, w, dy: cmod.cin_dw_cuda(x0, xk, dy)}
-    plain = {"dxk": lambda x0, xk, w, dy: cin_dxk_ref(x0, dy, w),
-             "dx0": lambda x0, xk, w, dy: cin_dx0_ref(xk, dy, w),
+    plain = {"dx": lambda x0, xk, w, dy: (cin_dx0_ref(xk, dy, w),
+                                          cin_dxk_ref(x0, dy, w)),
              "dw": lambda x0, xk, w, dy: cin_dw_ref(x0, xk, dy)}
-    # one call each, ordered so that no pairwise product is wider than Z
+    # one call per gradient, ordered so that no pairwise product is wider
+    # than Z
     library = {
-        "dxk": lambda x0, xk, w, dy: torch.einsum("bnd,bmd,nhm->bhd", dy,
-                                                  x0, w),
-        "dx0": lambda x0, xk, w, dy: torch.einsum("bnd,bhd,nhm->bmd", dy,
-                                                  xk, w),
+        "dx": lambda x0, xk, w, dy: (
+            torch.einsum("bnd,bhd,nhm->bmd", dy, xk, w),
+            torch.einsum("bnd,bmd,nhm->bhd", dy, x0, w)),
         "dw": lambda x0, xk, w, dy: torch.einsum("bhd,bmd,bnd->nhm", xk,
                                                  x0, dy)}
+
+    def old_route(x0, xk, w, dy, wk, w0):
+        """dxk and dx0 by the route the dx kernel replaced: the layer
+        kernel on the permuted operands (W permuted once, outside the
+        timing)."""
+        return (cmod.cin_layer_cuda(xk, dy, w0),
+                cmod.cin_layer_cuda(x0, dy, wk))
+
+    # registers and spills of the xdeepfm instances (N tile 200, 40 fields)
+    ptxas = {"dx": ptxas_entry(cmod.NAME, cmod.SOURCES, (),
+                               "cin_dx_wgmmaILi200ELi40E"),
+             "dw": ptxas_entry(cmod.NAME, cmod.SOURCES, (),
+                               "cin_dw_wgmmaILi200E")}
     rows = {}
     for name, case in cc.TRAIN_CASES.items():
         layer = "layer1" if case[2] == case[1] else "layer2"
@@ -1971,49 +1989,64 @@ def cin_backward_phase(torch, dev) -> dict:
         x0, xk, w, dy = (torch.from_numpy(a).to(dev)
                          for a in cc.grad_case_inputs(case))
         ops = cc.input_grad_operands(x0, xk, w, dy)
+        wk, w0 = ops["dxk"][2], ops["dx0"][2]
         r, S = cc.dw_exact(x0, xk, dy, chunk=RECSYS_TRAIN_CHUNK)
-        for what in ("dxk", "dx0", "dw"):
+        for what in ("dx", "dw"):
             out = fn[what](x0, xk, w, dy)
             torch.cuda.synchronize()
+            row = {"phase": "cin_backward", "gradient": what,
+                   "layer": layer, "shape": list(case),
+                   "ptxas": ptxas[what]}
             if what == "dw":
                 ex = cc.dw_excess(out, r, S, B * D)
                 k0 = (B * D) // 2 + 5
                 fault = cc.dw_excess(cc.dw_planted_fault(
                     x0, xk, dy, k0, chunk=RECSYS_TRAIN_CHUNK), r, S, B * D)
                 err = float((out.double() - r).abs().max())
-                rule = "|o - r| <= 16 u sqrt(K) (S + |r|), r float64"
-                fault_what = f"the {cc.DW_FAULT_K} values of k from {k0}"
+                row["rule"] = "|o - r| <= 16 u sqrt(K) (S + |r|), r float64"
+                row["planted_fault"] = (f"the {cc.DW_FAULT_K} values of k "
+                                        f"from {k0}")
+                finite = bool(torch.isfinite(out).all())
             else:
-                a, b, wp = ops[what]
-                ref = torch.cat([cin_layer_ref(a[i:i + cc.PLAIN_CHUNK],
-                                               b[i:i + cc.PLAIN_CHUNK], wp)
-                                 for i in range(0, B, cc.PLAIN_CHUNK)])
-                ex = cc.layer_excess(out, ref, a, b, wp)
+                got = dict(zip(("dx0", "dxk"), out))
+                ex, fault, err = {}, {}, 0.0
                 s = slice(0, cc.PLAIN_CHUNK)
-                fault = cc.layer_excess(cc.planted_fault(a[s], b[s], wp, h=1),
-                                        ref[s], a[s], b[s], wp)
-                err = float((out - ref).abs().max())
-                rule = "|o - r| <= 2^-16 A (the layer rule)"
-                fault_what = "slice 1 of the permuted W"
-                del ref
-            if not (ex <= 1.0 and fault > 1.0
-                    and bool(torch.isfinite(out).all())):
+                for g, (a, b, wp) in ops.items():
+                    ref = torch.cat([cin_layer_ref(a[i:i + cc.PLAIN_CHUNK],
+                                                   b[i:i + cc.PLAIN_CHUNK],
+                                                   wp)
+                                     for i in range(0, B, cc.PLAIN_CHUNK)])
+                    ex[g] = cc.layer_excess(got[g], ref, a, b, wp)
+                    fault[g] = cc.layer_excess(cc.planted_fault(
+                        a[s], b[s], wp, h=1), ref[s], a[s], b[s], wp)
+                    err = max(err, float((got[g] - ref).abs().max()))
+                    del ref
+                row.update({f"{g}_excess": ex[g] for g in ex})
+                row.update({f"{g}_planted_fault_excess": fault[g]
+                            for g in fault})
+                ex, fault = max(ex.values()), min(fault.values())
+                row["rule"] = "|o - r| <= 2^-16 A (the layer rule), each"
+                row["planted_fault"] = "slice 1 of each permuted W"
+                finite = all(bool(torch.isfinite(t).all()) for t in out)
+            if not (ex <= 1.0 and fault > 1.0 and finite):
                 raise AssertionError(f"cin {what} {name}: {ex} times its "
                                      f"rule, planted fault {fault}")
             bound, by, flops, fma_bound = cin_grad_bound_ms(B, m, H, H2, D,
                                                             what)
             ms = time_ms(torch, lambda: fn[what](x0, xk, w, dy), 3,
                          warmup=1)
-            row = {"phase": "cin_backward", "gradient": what,
-                   "layer": layer, "shape": list(case), "rule": rule,
-                   "excess": ex, "max_abs_err": err,
-                   "planted_fault": fault_what,
-                   "planted_fault_excess": fault, "ms": ms,
-                   "bound_ms": bound, "bound_by": by,
-                   "fma_bound_ms": fma_bound, "gflop": flops / 1e9,
-                   "tflop_s": flops / ms / 1e9, "bound_share": bound / ms}
+            row.update({"excess": ex, "max_abs_err": err,
+                        "planted_fault_excess": fault, "ms": ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "fma_bound_ms": fma_bound, "gflop": flops / 1e9,
+                        "tflop_s": flops / ms / 1e9,
+                        "bound_share": bound / ms})
             del out
             torch.cuda.empty_cache()
+            if what == "dx":
+                row["old_route_ms"] = time_ms(
+                    torch, lambda: old_route(x0, xk, w, dy, wk, w0), 3,
+                    warmup=1)
             # plain and library at B 16,384, where their intermediates fit
             c = (x0[:cc.PLAIN_CHUNK], xk[:cc.PLAIN_CHUNK], w,
                  dy[:cc.PLAIN_CHUNK])
@@ -2021,6 +2054,9 @@ def cin_backward_phase(torch, dev) -> dict:
                                        warmup=1)
             row["b16384_bound_ms"] = cin_grad_bound_ms(
                 cc.PLAIN_CHUNK, m, H, H2, D, what)[0]
+            if what == "dx":
+                row["b16384_old_route_ms"] = time_ms(
+                    torch, lambda: old_route(*c, wk, w0), 5, warmup=1)
             row["b16384_plain_ms"] = time_ms(torch, lambda: plain[what](*c),
                                              3, warmup=1)
             torch.cuda.empty_cache()
@@ -2029,7 +2065,7 @@ def cin_backward_phase(torch, dev) -> dict:
             torch.cuda.empty_cache()
             rows[(layer, what)] = row
             emit(row)
-        del x0, xk, w, dy, ops, r, S
+        del x0, xk, w, dy, ops, wk, w0, r, S
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -2074,9 +2110,10 @@ def recsys_train_phase(torch, dev) -> dict:
         (above 1);
       * step 1 under ``torch.cuda.set_sync_debug_mode("error")``;
       * steps 2-20 on the host clock, each ending in a synchronize: the
-        median seconds, rows/s, peak bytes; the forward and the three
-        gradient kernels' launches over the 20 steps, each exactly 3 a
-        step; the losses, read once at the end, falling."""
+        median seconds, rows/s, peak bytes; the forward's and the two
+        gradient kernels' launches (dx: dxk and dx0 in one; dW) over the
+        20 steps, each exactly 3 a step; the losses, read once at the
+        end, falling."""
     from repro_torch.common import Timer
     from repro_torch.config import RECSYS_SHAPES
     from repro_torch.data.pipeline import DataCursor, RecsysPipeline
@@ -2102,8 +2139,8 @@ def recsys_train_phase(torch, dev) -> dict:
             B, cfg.n_sparse, max(cfg.multi_hot, 1)):
         raise AssertionError(f"recsys_train: {n_params} parameters, ids "
                              f"{tuple(batch['ids'].shape)}")
-    counts = {"forward": cmod.cin_layer_cuda, "dxk": cmod.cin_dxk_cuda,
-              "dx0": cmod.cin_dx0_cuda, "dw": cmod.cin_dw_cuda}
+    counts = {"forward": cmod.cin_layer_cuda, "dx": cmod.cin_dx_cuda,
+              "dw": cmod.cin_dw_cuda}
     n_cin = len(cfg.cin_layers)
     row = {"phase": "recsys_train", "arch": cfg.name, "shape": shape.name,
            "batch": B, "params": n_params, "init_seconds": t_init.seconds}
@@ -4894,21 +4931,28 @@ def main() -> int:
     train_launches = recsys_train_phase(torch, dev)
     cin_row["launches"] += train_launches["forward"]
     cin_row["launches_by_path"]["recsys_train"] = train_launches["forward"]
-    l2 = {w: grad_rows[("layer2", w)] for w in ("dxk", "dx0", "dw")}
+    l2 = {w: grad_rows[("layer2", w)] for w in ("dx", "dw")}
     cin_row.update({
-        "backward": "dxk and dx0: the layer kernel (cin_layer_wgmma) on "
-                    "(x0, dy, W^(1,0,2)) and (xk, dy, W^(2,0,1)); dW: "
-                    "cin_dw_fma (float32 FMA, K parts summed in order)",
-        "backward_launches": sum(train_launches[w]
-                                 for w in ("dxk", "dx0", "dw")),
+        "backward": "cin_dx_wgmma (dxk and dx0 in one launch, reassociated "
+                    "around U = dy W; 3xTF32) and cin_dw_wgmma (3xTF32, Z "
+                    "in registers against dy split by cin_split_dy, K parts "
+                    "summed in order)",
+        "backward_sources": {
+            "cin_dx_wgmma": "src/repro_torch/kernels/cin/csrc/cin.cu",
+            "cin_dw_wgmma": "src/repro_torch/kernels/cin/csrc/cin.cu"},
+        "backward_replaces": "no TPU kernel: the reference trains through "
+                             "the plain einsums (src/repro/kernels/cin/"
+                             "ref.py)",
+        "backward_launches": sum(train_launches[w] for w in ("dx", "dw")),
         "backward_launches_by_kernel": {
-            w: train_launches[w] for w in ("dxk", "dx0", "dw")},
+            w: train_launches[w] for w in ("dx", "dw")},
         "backward_shape": "an H-200 layer of train_batch (B 65,536, m 39, "
-                          "H 200, H2 200, D 10): dxk + dx0 + dW",
+                          "H 200, H2 200, D 10): dx + dW",
         "backward_ms": sum(r["ms"] for r in l2.values()),
         "backward_bound_ms": sum(r["bound_ms"] for r in l2.values()),
         "backward_fma_bound_ms": sum(r["fma_bound_ms"]
                                      for r in l2.values()),
+        "backward_old_route_dx_ms": l2["dx"]["old_route_ms"],
         "backward_b16384_ms": sum(r["b16384_ms"] for r in l2.values()),
         "backward_plain_ms": sum(r["b16384_plain_ms"] for r in l2.values()),
         "backward_library_ms": sum(r["b16384_library_ms"]
@@ -4920,9 +4964,13 @@ def main() -> int:
             r["planted_fault_excess"] for r in grad_rows.values()),
         "backward_kernels": {f"{layer} {w}": {
             k: r[k] for k in ("ms", "bound_ms", "bound_by", "fma_bound_ms",
-                              "tflop_s", "excess", "planted_fault_excess",
-                              "max_abs_err", "b16384_ms", "b16384_bound_ms",
-                              "b16384_plain_ms", "b16384_library_ms")}
+                              "bound_share", "tflop_s", "excess",
+                              "planted_fault_excess", "max_abs_err",
+                              "b16384_ms", "b16384_bound_ms",
+                              "b16384_plain_ms", "b16384_library_ms",
+                              "old_route_ms", "b16384_old_route_ms",
+                              "ptxas")
+            if k in r}
             for (layer, w), r in grad_rows.items()}})
 
     # -- phases 11-13: segment_mm and gcn-cora inference ----------------------

@@ -37,11 +37,15 @@ typically and comes too near ``c A`` at the largest element.
 
 **The gradients** (``GRAD_CASES``; ``TRAIN_CASES`` are the training
 batch's layers, checked on the card in chunks of rows). The input
-gradients dxk and dx0 are layers of the same kernel on ``(x0, dy,
+gradients dxk and dx0 are CIN layers themselves, on ``(x0, dy,
 W.permute(1, 0, 2))`` and ``(xk, dy, W.permute(2, 0, 1))``, so they are
 held to the layer rule above on those operands (``input_grad_operands``):
 their K is ``H2 m`` or ``H2 H`` (7,800 or 40,000), and the rule sees a
-dropped slice there as it does in the forward.
+dropped slice there as it does in the forward. The card computes both in
+one launch, reassociated around ``U = dy . W`` (``ref.cin_dx_ref``):
+``U`` in 3xTF32 over K = H2, then dx0's sum over h and dxk's over m in
+float32 by fused multiply-adds in a fixed order; ``emulated_dx`` repeats
+that arithmetic.
 
 dW sums over the batch, K = B D terms (655,360 at the training batch of
 65,536), and the layer rule is blind there: the signed sum of K terms of
@@ -58,16 +62,18 @@ terms' squares (``sqrt(dW of dy^2, xk^2, x0^2)``) and ``r`` the exact
 ``u`` of its running partial sum at each add and take both signs, so
 they add up as a random walk: ``sqrt(K) u`` times the partial sums, which
 stay below ``S`` where the terms' signs are random and grow to ``|r|``
-where they are not. The kernel sums each K part in order (``dw_parts``
-parts of contiguous batch rows, the longest 327,680 terms at the training
-batch) and then the parts in order; ``emulated_dw`` repeats that in
-float32. Measured on the CPU at ``DW_RULE_CASE`` (B 65,536, K 524,288):
-0.0035 under the rule in the 264 parts ``dw_parts`` gives that shape,
-0.044 in 2 parts (the training batch's H-200 layers' split) and 0.040
-in one. A dropped tile of 128 terms moves an element by about ``sqrt(128
-/ K) S`` (0.016 S there), and reads 67 to 74 (``dw_planted_fault``, at
-the first, middle and last tile). The rule assumes what the batch gives: rows drawn
-independently, so that no long run of k sums one sign and cancels later.
+where they are not. The kernel sums in 3xTF32 on the tensor cores:
+each stage of 16 values of k from zero, the stages of a K part
+(``kernel.dw_plan``: contiguous ranges of stages, 2 parts of 327,680
+terms at the training batch's H-200 layers) in order by float32 adds,
+then the parts in order; ``emulated_dw`` repeats that. Measured on the
+CPU at ``DW_RULE_CASE`` (B 65,536, K 524,288): 0.0013 under the rule in
+the 132 parts of that shape's plan, 0.011 in 2 parts and 0.013 in one.
+A dropped tile of 128 terms moves an element by about ``sqrt(128 / K)
+S`` (0.016 S there), and reads 67 to 74 (``dw_planted_fault``, at the
+first, middle and last tile). The rule assumes what the batch gives: rows
+drawn independently, so that no long run of k sums one sign and cancels
+later.
 """
 from __future__ import annotations
 
@@ -166,6 +172,12 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x's TF32 hi and lo parts, as the kernels split an operand."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
 def emulated_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
                    passes: int = 3) -> torch.Tensor:
     """The layer in the kernel's arithmetic: ``z = xk * x0`` in float32 (the
@@ -174,11 +186,10 @@ def emulated_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
     (``passes=1``), each product summed in float32."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
-    z = torch.einsum("bhd,bmd->bhmd", xk, x0)
-    zh, wh = tf32_round(z), tf32_round(w)
+    zh, zl = _split(torch.einsum("bhd,bmd->bhmd", xk, x0))
+    wh, wl = _split(w)
     out = torch.einsum("bhmd,nhm->bnd", zh, wh)
     if passes == 3:
-        zl, wl = tf32_round(z - zh), tf32_round(w - wh)
         out = (out + torch.einsum("bhmd,nhm->bnd", zh, wl)
                + torch.einsum("bhmd,nhm->bnd", zl, wh))
     return out
@@ -193,10 +204,12 @@ def planted_fault(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
     return cin_layer_ref(x0, xk, w)
 
 
-# The gradients' cases, name -> (B, m, H, H2, D): xdeepfm's layer 1 and
-# its H-200 layers at ragged batches (dx0 stages xk's 200 rows at layer
-# 2), outputs of 39 and 6 fields (dxk at layer 1, dx0), the smoke config,
-# and a dW whose K parts (``dw_parts``) are one batch row each (B = 7).
+# The gradients' cases, name -> (B, m, H, H2, D): xdeepfm's layer 1 (39
+# filters: dW's last filter pair half empty) and its H-200 layers at
+# ragged batches (a ragged last M tile; the dx kernel's N tiles in parts),
+# dy of 39 and 6 fields (K = H2 of the dx kernel's U not a multiple of
+# 16), fields of 39 and 6 (padded to 40 and 8: the dx kernel's N tiles of
+# 200, 16 and 64), the smoke config, and a batch of one stage and less.
 GRAD_CASES = {
     "xdeepfm-layer1-B25": (25, 39, 39, 200, 10),
     "xdeepfm-layer2-B37": (37, 39, 200, 200, 10),
@@ -234,7 +247,8 @@ def grad_case_inputs(case, seed: int = 0):
 
 
 def input_grad_operands(x0, xk, w, dy):
-    """The layer operands whose kernel launch is each input gradient:
+    """The layer operands of which each input gradient is a CIN layer (the
+    layer rule's operands):
     ``{"dxk": (x0, dy, W^(1,0,2)), "dx0": (xk, dy, W^(2,0,1))}``, the
     permuted W contiguous (``layer_excess`` takes them as they are)."""
     return {"dxk": (x0, dy, w.permute(1, 0, 2).contiguous()),
@@ -274,30 +288,84 @@ def dw_planted_fault(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
     return dw_exact(x0, xk, dy * keep, chunk)[0]
 
 
-def emulated_dw(x0: np.ndarray, xk: np.ndarray, dy: np.ndarray, parts: int,
-                chunk: int = 1024) -> np.ndarray:
-    """dW [H2, H, m] in the kernel's arithmetic and order: ``z = xk x0``
-    in float32 (the reference's product), and per K part (``parts`` ranges
-    of contiguous batch rows, as the kernel splits them) a float32 sum of
-    the terms ``dy z`` in the order of k = (b, d), from zero; then the
-    parts' sums added in order. The kernel adds each term by one fused
-    multiply-add (one rounding); here the product is rounded to float32
-    first, one more rounding of at most ``u/2`` of each term, whose random
-    walk (``u S / 2``) is far below the sum's own."""
-    x0, xk, dy = (torch.as_tensor(np.asarray(a, np.float32))
-                  for a in (x0, xk, dy))
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(a, b, c)``: the product exact in float64, one sum,
+    rounded to float32 (a second rounding only where the float64 sum
+    itself rounds)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulated_dx(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
+                w: torch.Tensor, plan: dict) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """(dx0, dxk) in the dx kernel's arithmetic and order, float32:
+    ``U[b, h, m, d] = sum_n W dy`` in 3xTF32 (dy and W split into hi and
+    lo, ``hi hi + hi lo + lo hi`` summed in float32); dx0 by fused
+    multiply-adds of ``xk U`` over h in order within each N part of
+    ``plan`` (``kernel.dx_plan``: ``ntn`` tiles of ``ni // mp`` filters in
+    ``parts`` parts), the parts' sums added in order; dxk by each quad
+    lane's fused multiply-adds of ``x0 U`` over its fields ``mm`` (those
+    with ``(mm mod 8) div 2`` its lane) in order, then ``(s0 + s1) + (s2 +
+    s3)``."""
+    B, m, D = x0.shape
+    H = xk.shape[1]
+    dh, dl = _split(dy)
+    wh, wl = _split(w)
+    u = (torch.einsum("bnd,nhm->bhmd", dh, wh)
+         + torch.einsum("bnd,nhm->bhmd", dh, wl)
+         + torch.einsum("bnd,nhm->bhmd", dl, wh))
+    hs, ntn, parts = plan["ni"] // plan["mp"], plan["ntn"], plan["parts"]
+    dx0 = None
+    for p in range(parts):
+        acc = torch.zeros(B, m, D)
+        for h in range(ntn * p // parts * hs,
+                       min(ntn * (p + 1) // parts * hs, H)):
+            acc = _fma(xk[:, h, None, :], u[:, h], acc)
+        dx0 = acc if dx0 is None else dx0 + acc
+    lanes = []
+    for t in range(4):
+        acc = torch.zeros(B, H, D)
+        for mm in range(m):
+            if (mm % 8) // 2 == t:
+                acc = _fma(x0[:, None, mm, :], u[:, :, mm, :], acc)
+        lanes.append(acc)
+    return dx0, (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def emulated_dw(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
+                parts: int, chunk: int = 4096) -> torch.Tensor:
+    """dW [H2, H, m] in the dW kernel's arithmetic and order, float32: ``z
+    = xk x0`` (the reference's product) and dy split into TF32 hi and lo;
+    over k = (b, d), each stage of 16 values of k summed from zero (``hi
+    hi + hi lo + lo hi``, as the tensor cores sum it, here in float32);
+    per K part (``parts`` contiguous ranges of stages, as the kernel splits
+    them) the stages added in order to a float32 total from zero; then the
+    parts' totals added in order. ``chunk`` stages are formed at a time."""
     B, m, D = x0.shape
     H, H2 = xk.shape[1], dy.shape[1]
+    K = B * D
+    T = -(-K // 16)
+    dyk = dy.transpose(1, 2).reshape(K, H2)
     out = None
     for p in range(parts):
-        acc = np.zeros(H2 * H * m, np.float32)
-        for c0 in range(B * p // parts, B * (p + 1) // parts, chunk):
-            c1 = min(c0 + chunk, B * (p + 1) // parts)
-            z = xk[c0:c1, :, None, :] * x0[c0:c1, None, :, :]  # [c, H, m, D]
-            # the terms in k order: [c, D, H2, H m], each product rounded
-            t = (dy[c0:c1].transpose(1, 2)[:, :, :, None]
-                 * z.reshape(c1 - c0, H * m, D).transpose(1, 2)[:, :, None])
-            for term in t.reshape(-1, H2 * H * m).numpy():
-                acc += term          # float32, one k after another
-        out = acc if out is None else out + acc
+        tot = torch.zeros(H2, H * m)
+        for s0 in range(T * p // parts, T * (p + 1) // parts, chunk):
+            s1 = min(s0 + chunk, T * (p + 1) // parts)
+            k0, k1 = 16 * s0, min(16 * s1, K)
+            b0, b1 = k0 // D, -(-k1 // D)
+            z = (xk[b0:b1, :, None, :] * x0[b0:b1, None, :, :]).permute(
+                0, 3, 1, 2).reshape(-1, H * m)[k0 - b0 * D:k1 - b0 * D]
+            y = dyk[k0:k1]
+            pad = 16 * (s1 - s0) - (k1 - k0)
+            if pad:
+                z = torch.cat([z, z.new_zeros(pad, H * m)])
+                y = torch.cat([y, y.new_zeros(pad, H2)])
+            zh, zl = (t.view(s1 - s0, 16, H * m) for t in _split(z))
+            yh, yl = (t.view(s1 - s0, 16, H2) for t in _split(y))
+            stages = (torch.einsum("skn,skj->snj", yh, zh)
+                      + torch.einsum("skn,skj->snj", yl, zh)
+                      + torch.einsum("skn,skj->snj", yh, zl))
+            for st in stages:
+                tot += st           # float32, one stage after another
+        out = tot if out is None else out + tot
     return out.reshape(H2, H, m)

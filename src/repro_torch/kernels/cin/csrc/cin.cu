@@ -72,8 +72,6 @@
 //     176,640 bytes; the staged rows take 576 bytes per field, so m may
 //     reach 136 at NI = 200 and 312 at NI = 64 (the launch refuses what
 //     does not fit the card's opt-in limit; kernel.py checks it first).
-//     The layer's input gradients are layers of this kernel with other
-//     operands (kernel.py): dX0 stages xk's H rows (200) in place of x0's.
 //
 // Bound (chip_smoke.py computes it from the run's shapes): operations.
 // 2*H2*H*m*D flops per batch row and layer, three times over in 3xTF32, at
@@ -84,28 +82,90 @@
 // streams the whole split W (12.8 MB at H = 200) from the 50 MB L2; 128
 // rows per tile keep that stream near the L2's rate at the tensor cores'.
 
-// The filters' gradient, dW[n, h, m] = sum_{b, d} dy[b, n, d] xk[b, h, d]
-// x0[b, m, d] (cin_dw_fma, below), replaces no TPU kernel: the reference
-// trains through the plain CIN and takes this gradient by autodiff of its
-// einsums (src/repro/kernels/cin/ref.py). It is the GEMM
+// The layer's gradients (cin_dw_wgmma and cin_dx_wgmma, below the layer
+// kernel) replace no TPU kernel: the reference trains through the plain CIN
+// and takes its gradients by autodiff of its einsums
+// (src/repro/kernels/cin/ref.py). Both run on the tensor cores in 3xTF32,
+// warp-specialised as the layer kernel is (a producer streaming B stages by
+// bulk TMA through a ring of stages, two consumer warpgroups of 64 rows
+// forming A in registers), so they share its helpers and its bound: one
+// layer's 2*H2*H*m*D flops per batch row, three TF32 passes at 495 TFLOP/s
+// (12.39 ms for an H-200 layer at the training batch of 65,536, 2.416 ms for
+// layer 1), far above their bytes.
 //
-//   dW_flat[n, (h, m)] = dy^T[n, (b, d)] . Z[(b, d), (h, m)],
+// cin_dw_wgmma: dW[n, h, m] = sum_{b, d} dy[b, n, d] xk[b, h, d] x0[b, m, d]
+// as the GEMM
 //
-// M = H2, N = H*m, K = B*D (655,360 at the training batch), with Z made on
-// the fly from xk and x0 (never in device memory), in float32 FMA outside
-// the tensor cores. Design: a block per 128 x 128 tile of (n, (h, m)) and
-// per K part (a contiguous range of batch rows; the wrapper picks the
-// parts so that the blocks fill the card twice over); 256 threads of 8 x
-// 8 outputs each. Per chunk of up to 32 values of k (whole batch rows) the
-// block stages dy's tile and Z's tile (z = xk * x0 rounded to float32, the
-// reference's product) in shared memory, each thread one column of both
-// with its indices worked out once, then every thread adds
-// fma(dy, z, acc) for each k in order. So each part sums its k
-// sequentially, and the parts' outputs are summed in order by
-// cin_sum_parts: no float atomics, two launches are bit for bit equal.
-// Bound: operations, 2*H2*H*m*D flops per batch row at 67 TFLOP/s of
-// float32 FMA (2.04 TFLOP, 30.5 ms, for a layer with H = 200 at B =
-// 65,536), far above its bytes (dy, xk and x0 read once, dW written once).
+//   dW^T[(h, mm), n] = Z^T[(h, mm), (b, d)] . dy[(b, d), n],
+//
+// M = H*mp rows (h, mm) (m padded to mp as the layer pads it), N = H2 (one
+// m64n200k8 at xdeepfm's 200), K = B*D (655,360 at the training batch).
+//   * A is made in registers: z = xk[b, h, d] * x0[b, mm, d], the
+//     reference's product, split into hi and lo. A warp's 16 rows are 8
+//     fields mm of two filters h, h + 1 (rows g and g + 8 of the fragment
+//     share mm), so a thread reads three values per k (x0 once, xk twice).
+//     They come from shared memory: 80 lanes of the producer warpgroup copy
+//     each stage's x0 and xk values (the block's 64 field and 16 filter
+//     columns at 16 values of k, 5 KB) into the stage's slot beside its dy
+//     tile by 4-byte cp.async, arriving on the stage's barrier when the
+//     copies land, so several stages are in flight per lane and the
+//     consumers never wait on a global load (consumers loading their own
+//     values one stage ahead, or loaders holding them in registers, kept
+//     one L2 latency a stage on the critical path and were slower on the
+//     card). Z never reaches device memory.
+//   * B is dy, K-major. tf32 wgmma takes K-major shared-memory operands only
+//     and D = 10 is not a multiple of 4, so dy's rows as they lie ([b][n][d],
+//     a 40-byte pitch) are no valid operand. A pre-pass (cin_split_dy) writes
+//     dy's hi and lo parts in the stage tiles the main kernel copies, the
+//     layer's W layout with k = (b, d): 2 x 4 bytes per dy value (1.05 GB of
+//     scratch at the training batch; 1.57 GB moved, 0.47 ms at 3.35 TB/s),
+//     which buys one contiguous bulk copy per stage and no split in the
+//     main loop; rearranging each stage in shared memory would cost the
+//     consumers a second barrier per stage.
+//   * dy through L2: unlike W in the layer, dy is the operand all M tiles
+//     share, and its split (1.05 GB) does not fit the 50 MB L2. The grid runs
+//     the M tiles fastest, so the M tiles of one K part (63 at an H-200 layer,
+//     13 at layer 1) are resident together and walk the same stages in step:
+//     each byte of the split crosses from device memory about once in all and
+//     from L2 once per M tile.
+//   * The long K: each stage's 16 values of k are summed by wgmma from zero
+//     and added to a second accumulator by float32 adds, as the layer does.
+//     K is split into parts (contiguous ranges of stages, as many as fill the
+//     SMs: 2 at an H-200 layer, 10 at layer 1) that depend only on the shapes
+//     and the card, summed in order by cin_sum_parts. No float atomics: two
+//     launches are bit for bit equal.
+//
+// cin_dx_wgmma: dxk and dx0 in one launch, reassociated around
+//
+//   U[b, (h, mm), d] = sum_n W[n, h, mm] dy[b, n, d],
+//   dx0[b, mm, d] = sum_h xk[b, h, d] U,
+//   dxk[b, h, d] = sum_mm x0[b, mm, d] U,
+//
+// so the pair does one layer's flops (computed as two layers of their own,
+// they take twice that). U is the GEMM U[(b, d), (h, mm)] = dy[(b, d), n] . W_flat[n, (h,
+// mm)], M = B*D, N = H*mp, K = H2 (200, padded to 208).
+//   * A is dy: each consumer stages its 64 rows (b, d) at all of K in
+//     shared memory once (58 KB at H2 200, 0 past H2), and every N tile
+//     splits them in registers stage by stage, so the block reads dy from
+//     device memory once. That leaves room for a W^T ring of 4 stages and
+//     K = H2 of at most 224 (the wrapper refuses more).
+//   * B is W^T, split once per launch by cin_split_wt into the stage tiles
+//     (13.3 MB at xdeepfm's widths), read by every M tile from L2 as the
+//     layer reads W.
+//   * U never leaves the block. An N tile is NI / mp whole filters h (5 x 40
+//     = 200 at m = 39), so by the fragment layout thread t's accumulator
+//     column 8j + 2t + e holds h = j div (mp/8) and mm = 8 (j mod mp/8) + 2t
+//     + e. The epilogue of each N tile folds it in: dx0's partial sums over h
+//     stay in registers across the N tiles (mp/4 fields for each of the
+//     thread's two rows), added in h order; dxk's sum over mm is in-thread in
+//     mm order, then a fixed butterfly over the quad. Every output element is
+//     written once. At K = 208 the tensor cores' own sums serve (no second
+//     accumulator): U's rounding is averaged again by the sums over h and mm.
+//   * Batches of fewer M tiles than SMs split the N tiles into parts; each
+//     part writes dxk for its own filters and a partial dx0, summed in order
+//     by cin_sum_parts. No atomics: two launches are bit for bit equal.
+//   * Fields: mp 40 (N tile 200) or 8 (N tile 16, 64 or 200); the wrapper
+//     refuses other m, and H2 over 224, before anything is built.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -356,123 +416,6 @@ __global__ void cin_sum_parts(const float* __restrict__ part,
     float s = part[i];
     for (int q = 1; q < parts; ++q) s += part[q * n + i];
     out[i] = s;
-  }
-}
-
-constexpr int kDwTile = 128;     // n and (h, m) per block
-constexpr int kDwThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kDwK = 32;         // k values per staged chunk (at most)
-constexpr int kDwStride = 132;   // floats per staged row (128 + 4)
-
-struct DwParams {
-  const float* x0;
-  const float* xk;
-  const float* dy;
-  float* out;              // dW, or the K parts' partial outputs
-  long long B;
-  long long part_stride;   // floats between partial outputs (H2 * H * m)
-  int m, H, H2, D, J;      // J = H * m
-  int rows;                // batch rows per chunk: max(1, kDwK / D)
-  int parts;
-};
-
-// Thread (tx, ty) owns rows n0 + 4 ty + i and n0 + 64 + 4 ty + i (i < 4) and
-// columns j0 + 4 tx + i and j0 + 64 + 4 tx + i: its float4 reads of a
-// staged row are conflict-free. kDwThreads = 2 kDwTile (staging below).
-__global__ void __launch_bounds__(kDwThreads, 2)
-cin_dw_fma(const __grid_constant__ DwParams p) {
-  extern __shared__ __align__(16) float dw_smem[];
-  const int kc = p.rows * p.D;
-  float* As = dw_smem;                    // As[k][n - n0]: dy
-  float* Bs = dw_smem + kc * kDwStride;   // Bs[k][j - j0]: z
-  const int j0 = blockIdx.x * kDwTile, n0 = blockIdx.y * kDwTile;
-  const int part = blockIdx.z;
-  const long long b0 = p.B * part / p.parts;
-  const long long b1 = p.B * (part + 1) / p.parts;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long H2D = static_cast<long long>(p.H2) * p.D;
-  const long long HD = static_cast<long long>(p.H) * p.D;
-  const long long mD = static_cast<long long>(p.m) * p.D;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // Staging: thread t fills column c = t % 128 of both tiles at k = t / 128,
-  // t / 128 + 2, ...: its n, h and mm are fixed, and (bb, d) of k advance
-  // without a division.
-  const int c = threadIdx.x & (kDwTile - 1), k_first = threadIdx.x >> 7;
-  const bool n_ok = n0 + c < p.H2, j_ok = j0 + c < p.J;
-  const int h = j_ok ? (j0 + c) / p.m : 0;
-  const int mm = j_ok ? j0 + c - h * p.m : 0;
-  const float* dy_col = p.dy + static_cast<long long>(n0 + c) * p.D;
-  const float* xk_col = p.xk + static_cast<long long>(h) * p.D;
-  const float* x0_col = p.x0 + static_cast<long long>(mm) * p.D;
-
-  for (long long b = b0; b < b1; b += p.rows) {
-    const int nb = static_cast<int>(b1 - b < p.rows ? b1 - b : p.rows);
-    __syncthreads();   // the previous chunk's products are done
-    // eight of the thread's values of k at a time: their loads are issued
-    // together, so a chunk waits on memory twice, not sixteen times
-    const int kk = nb * p.D;
-    int bb = k_first / p.D, d = k_first - bb * p.D;
-    for (int k0 = k_first; k0 < kk; k0 += 16) {
-      float vy[8], vk[8], v0[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const bool in = k0 + 2 * i < kk;
-        const long long row = b + bb;
-        vy[i] = in && n_ok ? __ldg(dy_col + row * H2D + d) : 0.f;
-        vk[i] = in && j_ok ? __ldg(xk_col + row * HD + d) : 0.f;
-        v0[i] = in && j_ok ? __ldg(x0_col + row * mD + d) : 0.f;
-        d += 2;
-        if (d >= p.D) {
-          d -= p.D;
-          ++bb;
-          if (d >= p.D) {   // D = 1
-            d -= p.D;
-            ++bb;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + 2 * i;
-        if (k < kk) {
-          As[k * kDwStride + c] = vy[i];
-          Bs[k * kDwStride + c] = vk[i] * v0[i];
-        }
-      }
-    }
-    __syncthreads();
-    for (int k = 0; k < kk; ++k) {
-      const float* ar = As + k * kDwStride;
-      const float* br = Bs + k * kDwStride;
-      const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64 + 4 * ty);
-      const float4 c0 = *reinterpret_cast<const float4*>(br + 4 * tx);
-      const float4 c1 = *reinterpret_cast<const float4*>(br + 64 + 4 * tx);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float z[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], z[j], acc[i][j]);
-    }
-  }
-
-  float* out = p.out + part * p.part_stride;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int n = n0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (n >= p.H2) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (col < p.J) out[static_cast<long long>(n) * p.J + col] = acc[i][j];
-    }
   }
 }
 
@@ -784,51 +727,747 @@ extern "C" int cin_layer_launch(const float* x0, const float* xk,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the gradients ---------------------------------------------------------
+
+namespace {
+
+constexpr int kStageK = kKS * 8;   // values of k per stage (16)
+
+// One stage's products into acc: per k8 step, wgmma m64nNIk8 of A_hi B_hi,
+// A_hi B_lo and A_lo B_hi, B the stage's hi tile at s_hi and its lo tile
+// after it (the layer's stage layout); `first`: the stage's first product
+// overwrites acc.
+template <int NI>
+__device__ __forceinline__ void stage_products(float (&acc)[NI / 2],
+                                               const uint32_t (&ahi)[kKS][4],
+                                               const uint32_t (&alo)[kKS][4],
+                                               uint32_t s_hi, bool first) {
+  constexpr uint32_t kHalf = stage_floats(NI) * 2;   // bytes of the hi tile
+#pragma unroll
+  for (int j = 0; j < kKS; ++j) {
+    // k8 step j: core-matrix columns 2j (k 0-3) and 2j + 1 (k 4-7), NI rows
+    // each: LBO (k) = NI * 16 bytes, SBO (8 rows n) = 128
+    const uint32_t off = j * 2 * NI * 16;
+    const uint64_t dh = smem_desc(s_hi + off, NI * 16, 128, 0);
+    const uint64_t dl = smem_desc(s_hi + kHalf + off, NI * 16, 128, 0);
+    wgmma_tf32(acc, ahi[j], dh, first && j == 0 ? 0 : 1);
+    wgmma_tf32(acc, ahi[j], dl, 1);
+    wgmma_tf32(acc, alo[j], dh, 1);
+  }
+}
+
+// A ring of S slots' barriers (full[s] = bars + 8 s: `full` arrivals, the
+// copy's among them, and the copy's bytes; empty[s] = bars + 8 (S + s), one
+// arrival per consumer warp), initialised by thread 0 before the block's
+// first barrier.
+template <int S>
+__device__ __forceinline__ void ring_init(uint32_t bars, uint32_t full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, full);
+      mbar_init(bars + 8 * (S + s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer: one thread streams `count` consecutive stages of `bytes`
+// each from `src` into the S-slot ring of `slot` bytes a slot at sW.
+template <int S>
+__device__ __forceinline__ void produce(const float* src, long long count,
+                                        uint32_t sW, uint32_t bars,
+                                        uint32_t bytes, uint32_t slot) {
+  for (long long t = 0; t < count; ++t) {
+    const int s = static_cast<int>(t % S);
+    mbar_wait(bars + 8 * (S + s), ((t / S) & 1) ^ 1);
+    mbar_expect_tx(bars + 8 * s, bytes);
+    bulk_load(sW + s * slot, src, bytes, bars + 8 * s);
+    src += bytes / 4;
+  }
+}
+
+// 4 bytes global -> shared by cp.async, or 4 zero bytes where !valid (no
+// read of src).
+__device__ __forceinline__ void copy4(uint32_t dst, const float* src,
+                                      bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// A consumer warp is done with slot s of an S-slot ring.
+template <int S>
+__device__ __forceinline__ void release(uint32_t bars, int s, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bars + 8 * (S + s));
+}
+
+// dy's hi and lo parts in cin_dw_wgmma's stage tiles: the layer's W layout
+// with dy's n for W's rows and k = (b, d) for its columns,
+// ds[(sid sf) + part sf/2 + (q ni + n') 4 + j] = part of dy[b, nt ni + n',
+// d] at k = 16 st + 4 q + j = b D + d, sid = nt T + st; 0 past K = B D and
+// past H2. A block per stage tile (grid-strided), a thread per value.
+__global__ void cin_split_dy(const float* __restrict__ dy,
+                             float* __restrict__ ds, unsigned K, int H2,
+                             int D, int T, int ni, int tiles) {
+  const int sf = static_cast<int>(stage_floats(ni)), half = sf / 2;
+  for (int sid = blockIdx.x; sid < tiles; sid += gridDim.x) {
+    const int nt = sid / T, st = sid - nt * T;
+    float* dst = ds + static_cast<long long>(sid) * sf;
+    for (int e = threadIdx.x; e < sf; e += blockDim.x) {
+      const bool lo_part = e >= half;
+      const int f = lo_part ? e - half : e;
+      const int q = f / (ni * 4), rem = f - q * ni * 4;
+      const int n = nt * ni + (rem >> 2);
+      const unsigned k = static_cast<unsigned>(kStageK) * st + 4u * q +
+                         (rem & 3);
+      float v = 0.f;
+      if (k < K && n < H2) {
+        const unsigned b = k / D;
+        v = dy[(static_cast<long long>(b) * H2 + n) * D + (k - b * D)];
+      }
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      dst[e] = __uint_as_float(lo_part ? lo : hi);
+    }
+  }
+}
+
+// W^T's hi and lo parts in cin_dx_wgmma's stage tiles: columns c = h mp + mm
+// of U, k = n: ws[(sid sf) + part sf/2 + (q ni + c') 4 + j] = part of W[n,
+// h, mm] at c = nt ni + c', n = 16 st + 4 q + j, sid = nt T + st; 0 at n >=
+// H2, h >= H and mm >= m.
+__global__ void cin_split_wt(const float* __restrict__ w,
+                             float* __restrict__ ws, int m, int H, int H2,
+                             int mp, int T, int ni, int tiles) {
+  const int sf = static_cast<int>(stage_floats(ni)), half = sf / 2;
+  for (int sid = blockIdx.x; sid < tiles; sid += gridDim.x) {
+    const int nt = sid / T, st = sid - nt * T;
+    float* dst = ws + static_cast<long long>(sid) * sf;
+    for (int e = threadIdx.x; e < sf; e += blockDim.x) {
+      const bool lo_part = e >= half;
+      const int f = lo_part ? e - half : e;
+      const int q = f / (ni * 4), rem = f - q * ni * 4;
+      const int c = nt * ni + (rem >> 2);
+      const int n = kStageK * st + 4 * q + (rem & 3);
+      const int h = c / mp, mm = c - h * mp;
+      float v = 0.f;
+      if (n < H2 && h < H && mm < m)
+        v = w[(static_cast<long long>(n) * H + h) * m + mm];
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      dst[e] = __uint_as_float(lo_part ? lo : hi);
+    }
+  }
+}
+
+struct DwParams {
+  const float* x0;
+  const float* xk;
+  const float* ds;         // split dy: [n tile][stage][hi | lo][k/4][NI][4]
+  float* out;              // dW, or the K parts' partial outputs
+  long long part_stride;   // floats between partial outputs (H2 * H * m)
+  int B, T;                // batch rows; stages over K = B * D
+  int m, H, H2, D, mp;
+  int groups;              // 16-row groups: ceil(H / 2) * mp / 8
+  int parts;
+};
+
+// A stage's A inputs in shared memory beside its dy tile: per k (16 rows
+// of kDwCols floats), x0 at the fields of the block's 8 groups (column 8 gi
+// + g: group gi's field g) and xk at their filters (column 64 + 2 gi + hh).
+// The row pitch of 88 floats makes a warp's reads (8 fields of one group
+// at 4 values of k) conflict-free. The full barrier of a stage counts the
+// dy copy's arrival and one per loader lane.
+constexpr int kDwCols = 80;       // 64 fields + 16 filters: a loader each
+constexpr int kDwPitch = 88;
+constexpr uint32_t kDwSliceBytes = kStageK * kDwPitch * 4;
+
+// M tile t holds 16-row groups 8 t .. 8 t + 7, consumer c the four from 8 t +
+// 4 c, warp w one. Group G is filters h = 2 (G div (mp/8)) and h + 1 at
+// fields mm = 8 (G mod (mp/8)) + g: fragment rows g and g + 8.
+template <int NI>
+__global__ void __launch_bounds__(kThreads, 1)
+cin_dw_wgmma(const __grid_constant__ DwParams p) {
+  constexpr uint32_t STAGE_BYTES = stage_floats(NI) * 4;
+  constexpr uint32_t SLOT_BYTES = STAGE_BYTES + kDwSliceBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 127) & ~127u) - raw;
+  const uint32_t sW = raw + pad;   // slot s: dy tile, then the A slice
+  float* slots = reinterpret_cast<float*>(smem_raw + pad);
+  const uint32_t bars = sW + kStages * SLOT_BYTES;
+  const int tile = blockIdx.x, part = blockIdx.y, nt = blockIdx.z;
+  const int st0 = static_cast<int>(static_cast<long long>(p.T) * part /
+                                   p.parts);
+  const int st1 = static_cast<int>(static_cast<long long>(p.T) * (part + 1) /
+                                   p.parts);
+  const int wg = threadIdx.x / 128;
+  const int per_pair = p.mp / 8;
+  ring_init<kStages>(bars, 1 + kDwCols);   // the dy copy, each loader
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      // ---- producer: one thread streams this part's stages of split dy ----
+      produce<kStages>(p.ds + (static_cast<long long>(nt) * p.T + st0) *
+                                  stage_floats(NI),
+                       st1 - st0, sW, bars, STAGE_BYTES, SLOT_BYTES);
+    } else if (threadIdx.x >= 32 && threadIdx.x < 32 + kDwCols) {
+      // ---- loaders: lane col copies column col of each stage's A slice by
+      // cp.async (4 bytes, zero-filled where there is no value) and arrives
+      // on the stage's full barrier when its copies land: several stages
+      // in flight per lane, no registers held
+      const int col = threadIdx.x - 32;
+      const bool fld = col < 64;
+      const int gi = fld ? col >> 3 : (col - 64) >> 1;
+      const int G = 8 * tile + gi;
+      const int hp = G / per_pair;
+      const int h = 2 * hp + (fld ? 0 : (col - 64) & 1);
+      const int mm = 8 * (G - hp * per_pair) + (fld ? col & 7 : 0);
+      const bool ok = G < p.groups && (fld ? mm < p.m : h < p.H);
+      const long long row = fld ? static_cast<long long>(p.m) * p.D
+                                : static_cast<long long>(p.H) * p.D;
+      const float* base = (fld ? p.x0 : p.xk) +
+                          (ok ? static_cast<long long>(fld ? mm : h) * p.D
+                              : 0);
+      const unsigned k0 = static_cast<unsigned>(kStageK) * st0;
+      int b = static_cast<int>(k0 / p.D), d = static_cast<int>(k0 % p.D);
+      for (int t = 0; t < st1 - st0; ++t) {
+        const int s = t % kStages;
+        mbar_wait(bars + 8 * (kStages + s), ((t / kStages) & 1) ^ 1);
+        const uint32_t dst = sW + s * SLOT_BYTES + STAGE_BYTES + 4 * col;
+#pragma unroll
+        for (int kk = 0; kk < kStageK; ++kk) {
+          const bool in = ok && b < p.B;
+          copy4(dst + kk * kDwPitch * 4, in ? base + b * row + d : p.x0, in);
+          if (++d == p.D) {
+            d = 0;
+            ++b;
+          }
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                     ::"r"(bars + 8 * s) : "memory");
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows (h, mm) each -----------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int gi = 4 * c + warp, G = 8 * tile + gi;
+    const int hp = G / per_pair;
+    const int h1 = 2 * hp, h2 = h1 + 1, mm = 8 * (G - hp * per_pair) + g;
+    const bool gv = G < p.groups && mm < p.m;
+    const bool v1 = gv && h1 < p.H, v2 = gv && h2 < p.H;
+
+    float acc[NI / 2], tot[NI / 2];
+#pragma unroll
+    for (int i = 0; i < NI / 2; ++i) tot[i] = 0.f;
+    int t = 0;
+    for (int st = st0; st < st1; ++st, ++t) {
+      const int s = t % kStages;
+      mbar_wait(bars + 8 * s, (t / kStages) & 1);
+      // A[r][k] = xk[b, h_r, d] * x0[b, mm, d]: a0, a1 at k = t4 (rows g,
+      // g + 8), a2, a3 at k = t4 + 4 of k8 step j
+      const float* slice = slots + (s * SLOT_BYTES + STAGE_BYTES) / 4;
+      uint32_t ahi[kKS][4], alo[kKS][4];
+#pragma unroll
+      for (int j = 0; j < kKS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* r = slice + (8 * j + 4 * e + t4) * kDwPitch;
+          const float x0v = r[8 * gi + g];
+          split_tf32(r[64 + 2 * gi] * x0v, ahi[j][2 * e], alo[j][2 * e]);
+          split_tf32(r[65 + 2 * gi] * x0v, ahi[j][2 * e + 1],
+                     alo[j][2 * e + 1]);
+        }
+      }
+      reg_fence(acc);
+      wgmma_fence();
+      stage_products<NI>(acc, ahi, alo, sW + s * SLOT_BYTES, true);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      release<kStages>(bars, s, lane);
+#pragma unroll
+      for (int i = 0; i < NI / 2; ++i) tot[i] += acc[i];
+    }
+
+    // element 4j + e: row g (e < 2: h1) or g + 8 (h2), column n = 8j + 2 t4
+    // + (e & 1)
+    float* out = p.out + part * p.part_stride;
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = nt * NI + 8 * j + 2 * t4 + (e & 1);
+        if (n < p.H2 && (e < 2 ? v1 : v2))
+          out[(static_cast<long long>(n) * p.H + (e < 2 ? h1 : h2)) * p.m +
+              mm] = tot[4 * j + e];
+      }
+    }
+  }
+}
+
+struct DxParams {
+  const float* x0;
+  const float* xk;
+  const float* dy;
+  const float* ws;         // split W^T: [n tile][stage][hi | lo][k/4][NI][4]
+  float* dx0;              // dx0, or the N parts' partial dx0
+  float* dxk;
+  long long M;             // B * D
+  long long part_stride;   // floats between partial dx0 (B * m * D)
+  int T;                   // stages over K = H2
+  int pitch;               // floats per staged dy row (dx_pitch)
+  int ntn;                 // N tiles over H * mp
+  int m, H, H2, D, parts;
+  int need_x0, need_xk;
+};
+
+constexpr int kDxStages = 4;   // W^T ring: the staged dy rows take the rest
+
+// Floats per row of the staged dy: the T stages' 16 T values of n, rounded
+// to 32 T' + 4 so that a warp's reads (rows g at 4 values of n) hit 32
+// banks.
+__host__ __device__ constexpr int dx_pitch(int T) {
+  return 32 * ((T + 1) / 2) + 4;
+}
+
+// Dynamic shared memory of a dx launch: 128 of alignment, the W^T ring, the
+// two consumers' staged dy rows and the ring's barriers.
+long long dx_smem(int ni, int T) {
+  return 128 + kDxStages * stage_floats(ni) * 4 + 4LL * kBM * dx_pitch(T) +
+         16 * kDxStages;
+}
+
+// Rows (b, d) as in the layer kernel: M tile t, consumer c, rows 128 t + 64 c
+// + 16 w + g and + 8. An N tile is HS = NI / MP whole filters.
+template <int NI, int MP>
+__global__ void __launch_bounds__(kThreads, 1)
+cin_dx_wgmma(const __grid_constant__ DxParams p) {
+  constexpr uint32_t STAGE_BYTES = stage_floats(NI) * 4;
+  constexpr int HS = NI / MP, J8 = MP / 8;
+  static_assert(NI % MP == 0 && MP % 8 == 0, "an N tile of whole filters");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 127) & ~127u) - raw;
+  const uint32_t sW = raw + pad;
+  float* dys_all = reinterpret_cast<float*>(smem_raw + pad +
+                                            kDxStages * STAGE_BYTES);
+  const uint32_t bars = sW + kDxStages * STAGE_BYTES + 4 * kBM * p.pitch;
+  const long long tile = blockIdx.x;
+  const int part = blockIdx.y;
+  const int nt0 = p.ntn * part / p.parts, nt1 = p.ntn * (part + 1) / p.parts;
+  const int wg = threadIdx.x / 128;
+  ring_init<kDxStages>(bars, 1);
+
+  if (wg == 0) {
+    // ---- producer: one thread streams this part's N tiles of split W^T ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0)
+      produce<kDxStages>(
+          p.ws + static_cast<long long>(nt0) * p.T * stage_floats(NI),
+          static_cast<long long>(nt1 - nt0) * p.T, sW, bars, STAGE_BYTES,
+          STAGE_BYTES);
+  } else {
+    // ---- consumers: 64 rows (b, d) each ------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const long long R0 = tile * kBM + 64 * c;   // this consumer's first row
+    const long long H2D = static_cast<long long>(p.H2) * p.D;
+    const long long HD = static_cast<long long>(p.H) * p.D;
+    const long long mD = static_cast<long long>(p.m) * p.D;
+
+    // dys[r][n] = dy[b, n, d] of row R0 + r = b D + d, once for all N
+    // tiles; 0 past M and H2. Thread tid fills row tid % 64.
+    float* dys = dys_all + c * 64 * p.pitch;
+    {
+      const int r = tid & 63;
+      const long long R = R0 + r;
+      const bool ok = R < p.M;
+      const long long b = ok ? R / p.D : 0;
+      const float* src = p.dy + b * H2D + (ok ? R - b * p.D : 0);
+      for (int n = tid >> 6; n < kStageK * p.T; n += 2)
+        dys[r * p.pitch + n] = ok && n < p.H2 ? src[n * p.D] : 0.f;
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+
+    const int r1 = 16 * warp + g, r2 = r1 + 8;   // this thread's rows
+    const long long R1 = R0 + r1, R2 = R0 + r2;
+    const bool v1 = R1 < p.M, v2 = R2 < p.M;
+    const long long b1 = v1 ? R1 / p.D : 0, b2 = v2 ? R2 / p.D : 0;
+    const int d1 = static_cast<int>(v1 ? R1 - b1 * p.D : 0);
+    const int d2 = static_cast<int>(v2 ? R2 - b2 * p.D : 0);
+    const float* xk1 = p.xk + b1 * HD + d1;
+    const float* xk2 = p.xk + b2 * HD + d2;
+    const float* dy1 = dys + r1 * p.pitch + t4;   // + n - t4
+    const float* dy2 = dys + r2 * p.pitch + t4;
+
+    // x0 at this thread's fields mm = 8 i + 2 t4 + e, and dx0's sums there
+    float x0v[2][2 * J8], dx0a[2][2 * J8];
+#pragma unroll
+    for (int i = 0; i < J8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int mm = 8 * i + 2 * t4 + e;
+        x0v[0][2 * i + e] = v1 && mm < p.m ? p.x0[b1 * mD + mm * p.D + d1]
+                                           : 0.f;
+        x0v[1][2 * i + e] = v2 && mm < p.m ? p.x0[b2 * mD + mm * p.D + d2]
+                                           : 0.f;
+        dx0a[0][2 * i + e] = 0.f;
+        dx0a[1][2 * i + e] = 0.f;
+      }
+    }
+
+    int t = 0;   // ring position over all of this part's stages
+    for (int nt = nt0; nt < nt1; ++nt) {
+      float acc[NI / 2];
+      for (int st = 0; st < p.T; ++st, ++t) {
+        // A[r][n] = dy[b_r, n, d_r]: a0, a1 at n = 16 st + 8 j + t4 (rows
+        // r1, r2), a2, a3 at n + 4
+        uint32_t ahi[kKS][4], alo[kKS][4];
+#pragma unroll
+        for (int j = 0; j < kKS; ++j) {
+          const int n = kStageK * st + 8 * j;
+          split_tf32(dy1[n], ahi[j][0], alo[j][0]);
+          split_tf32(dy2[n], ahi[j][1], alo[j][1]);
+          split_tf32(dy1[n + 4], ahi[j][2], alo[j][2]);
+          split_tf32(dy2[n + 4], ahi[j][3], alo[j][3]);
+        }
+        const int s = t % kDxStages;
+        mbar_wait(bars + 8 * s, (t / kDxStages) & 1);
+        reg_fence(acc);
+        wgmma_fence();
+        stage_products<NI>(acc, ahi, alo, sW + s * STAGE_BYTES, st == 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(acc);
+        release<kDxStages>(bars, s, lane);
+      }
+
+      // the epilogue: element 4j + e of acc is row g (e < 2) or g + 8 at
+      // column 8j + 2 t4 + (e & 1) = filter h0 + j / J8, field 8 (j % J8) +
+      // 2 t4 + (e & 1)
+      const int h0 = nt * HS;
+#pragma unroll
+      for (int hl = 0; hl < HS; ++hl) {
+        const int h = h0 + hl;
+        const float xa = v1 && h < p.H ? xk1[static_cast<long long>(h) * p.D]
+                                       : 0.f;
+        const float xb = v2 && h < p.H ? xk2[static_cast<long long>(h) * p.D]
+                                       : 0.f;
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < J8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float u1 = acc[4 * (hl * J8 + i) + e];
+            const float u2 = acc[4 * (hl * J8 + i) + 2 + e];
+            dx0a[0][2 * i + e] = fmaf(xa, u1, dx0a[0][2 * i + e]);
+            dx0a[1][2 * i + e] = fmaf(xb, u2, dx0a[1][2 * i + e]);
+            s1 = fmaf(x0v[0][2 * i + e], u1, s1);
+            s2 = fmaf(x0v[1][2 * i + e], u2, s2);
+          }
+        }
+        if (p.need_xk) {
+          // the quad's four partial sums: (s0 + s1) + (s2 + s3) in every lane
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+          if (t4 == (hl & 3) && h < p.H) {
+            if (v1) p.dxk[b1 * HD + static_cast<long long>(h) * p.D + d1] = s1;
+            if (v2) p.dxk[b2 * HD + static_cast<long long>(h) * p.D + d2] = s2;
+          }
+        }
+      }
+    }
+
+    if (p.need_x0) {
+      float* out = p.dx0 + part * p.part_stride;
+#pragma unroll
+      for (int i = 0; i < J8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mm = 8 * i + 2 * t4 + e;
+          if (mm >= p.m) continue;
+          if (v1) out[b1 * mD + mm * p.D + d1] = dx0a[0][2 * i + e];
+          if (v2) out[b2 * mD + mm * p.D + d2] = dx0a[1][2 * i + e];
+        }
+      }
+    }
+  }
+}
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Blocks of a launch over `blocks` tiles that fill the card: `sms / blocks`
+// parts where the tiles are fewer than the SMs, at most `most`, at least 1.
+int fill_parts(long long blocks, int sms, long long most) {
+  long long parts = blocks < sms ? sms / blocks : 1;
+  if (parts > most) parts = most;
+  return static_cast<int>(parts < 1 ? 1 : parts);
+}
+
+// The dW launch: N tile ni (n_tile) over nt tiles, mp, 16-row groups, M
+// tiles of 8 groups, stages T over K = B D, K parts; scratch floats of the
+// split dy and of the partial outputs.
+struct DwPlan {
+  int ni, nt, mp, groups, tiles, T, parts;
+  long long split_floats, part_floats;
+};
+
+cudaError_t make_dw_plan(long long B, int m, int H, int H2, int D,
+                         DwPlan* pl) {
+  const long long K = B * D;
+  if (B < 1 || m < 1 || H < 1 || H2 < 1 || D < 1 || D > 128 ||
+      K > 0x7fffffffLL - kStageK)
+    return cudaErrorInvalidValue;
+  pl->ni = n_tile(H2);
+  pl->nt = (H2 + pl->ni - 1) / pl->ni;
+  pl->mp = (m + 7) / 8 * 8;
+  pl->groups = (H + 1) / 2 * (pl->mp / 8);
+  pl->tiles = (pl->groups + 7) / 8;
+  pl->T = static_cast<int>((K + kStageK - 1) / kStageK);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  pl->parts = fill_parts(static_cast<long long>(pl->tiles) * pl->nt, sms,
+                         pl->T);
+  if (pl->nt > 65535 || pl->parts > 65535) return cudaErrorInvalidValue;
+  pl->split_floats = static_cast<long long>(pl->nt) * pl->T *
+                     stage_floats(pl->ni);
+  pl->part_floats = pl->parts > 1
+                        ? static_cast<long long>(pl->parts) * H2 * H * m
+                        : 0;
+  return cudaSuccess;
+}
+
+// The dx launch: N tile ni of ni / mp whole filters over ntn tiles, mp (8 or
+// 40), stages T over K = H2, M tiles of kBM rows (b, d), N parts; scratch
+// floats of the split W^T and of the partial dx0.
+struct DxPlan {
+  int ni, mp, ntn, T, parts;
+  long long tiles, split_floats, part_floats;
+};
+
+cudaError_t make_dx_plan(long long B, int m, int H, int H2, int D,
+                         DxPlan* pl) {
+  if (B < 1 || m < 1 || H < 1 || H2 < 1 || D < 1 || D > 128)
+    return cudaErrorInvalidValue;
+  pl->mp = (m + 7) / 8 * 8;
+  if (pl->mp == 40) {
+    pl->ni = 200;
+  } else if (pl->mp == 8) {
+    // the tile that pads H * 8 columns least (the wider on a tie)
+    const int cand[3] = {200, 64, 16};
+    long long best = -1;
+    for (int i = 0; i < 3; ++i) {
+      const long long cols = (8LL * H + cand[i] - 1) / cand[i] * cand[i];
+      if (best < 0 || cols < best) {
+        best = cols;
+        pl->ni = cand[i];
+      }
+    }
+  } else {
+    return cudaErrorInvalidValue;   // fields the kernel does not take
+  }
+  const int hs = pl->ni / pl->mp;
+  pl->ntn = (H + hs - 1) / hs;
+  pl->T = (H2 + kStageK - 1) / kStageK;
+  pl->tiles = (B * D + kBM - 1) / kBM;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  pl->parts = fill_parts(pl->tiles, sms, pl->ntn);
+  if (pl->tiles > 0x7fffffffLL || pl->parts > 65535)
+    return cudaErrorInvalidValue;
+  pl->split_floats = static_cast<long long>(pl->ntn) * pl->T *
+                     stage_floats(pl->ni);
+  pl->part_floats = pl->parts > 1 ? pl->parts * B * m * D : 0;
+  return cudaSuccess;
+}
+
+// Grid of a split pass over `tiles` stage tiles.
+unsigned split_grid(long long tiles) {
+  return static_cast<unsigned>(tiles < 2048 ? tiles : 2048);
+}
+
+cudaError_t sum_parts(const float* part, float* out, long long n, int parts,
+                      cudaStream_t stream) {
+  const long long blocks = (n + 255) / 256;
+  cin_sum_parts<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256,
+                  0, stream>>>(part, out, n, parts);
+  return cudaGetLastError();
+}
+
+template <int NI>
+cudaError_t launch_dw(const DwParams& p, const DwPlan& pl,
+                      cudaStream_t stream) {
+  // 128 of alignment, the ring's slots (dy tile and A slice), barriers
+  const long long smem = 128 + kStages * (stage_floats(NI) * 4 +
+                                          kDwSliceBytes) + 16 * kStages;
+  cudaError_t err = cudaFuncSetAttribute(
+      cin_dw_wgmma<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(pl.tiles, pl.parts, pl.nt);
+  cin_dw_wgmma<NI><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NI, int MP>
+cudaError_t launch_dx(const DxParams& p, const DxPlan& pl,
+                      cudaStream_t stream) {
+  const long long smem = dx_smem(NI, pl.T);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  if (smem > limit) return cudaErrorInvalidValue;   // too long a K = H2
+  err = cudaFuncSetAttribute(
+      cin_dx_wgmma<NI, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(static_cast<unsigned>(pl.tiles), pl.parts);
+  cin_dx_wgmma<NI, MP><<<grid, kThreads, static_cast<size_t>(smem),
+                         stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The dW launch's plan on the current device: out[0..8] = N tile, N tiles,
+// mp, 16-row groups, M tiles, stages, K parts, and the scratch floats of the
+// split dy and of the partial outputs (the wrapper allocates both). Returns
+// a CUDA error (0 on success).
+extern "C" int cin_dw_plan(long long B, int m, int H, int H2, int D,
+                           long long* out) {
+  DwPlan pl;
+  cudaError_t err = make_dw_plan(B, m, H, H2, D, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long v[9] = {pl.ni, pl.nt, pl.mp, pl.groups, pl.tiles, pl.T,
+                          pl.parts, pl.split_floats, pl.part_floats};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
 // dW [H2, H, m] = sum over the batch of dy[b, n, d] xk[b, h, d] x0[b, m, d]
 // for x0 [B, m, D], xk [B, H, D] and dy [B, H2, D], contiguous float32 on
-// one device, in `parts` K parts of contiguous batch rows; `part` holds
-// parts * H2 * H * m floats when parts > 1 (else it is not read). Requires
-// B >= 1, 1 <= D <= 128, m, H, H2 >= 1, 1 <= parts <= B (the wrapper,
-// kernel.py, checks first). Launches on `stream` without synchronising and
-// returns the CUDA error of the launches (0 on success).
+// one device; ds and part: the scratch of cin_dw_plan. Requires B >= 1,
+// 1 <= D <= 128 and m, H, H2 >= 1 (the wrapper, kernel.py, checks first).
+// Launches on `stream` without synchronising and returns the CUDA error of
+// the launches (0 on success).
 extern "C" int cin_dw_launch(const float* x0, const float* xk,
-                             const float* dy, float* dw, float* part,
-                             long long B, int m, int H, int H2, int D,
-                             int parts, void* stream_ptr) {
-  if (B < 1 || m < 1 || H < 1 || H2 < 1 || D < 1 || D > 128 || parts < 1 ||
-      parts > B)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long J = static_cast<long long>(H) * m;
-  const long long jt = (J + kDwTile - 1) / kDwTile;
-  const long long nt = (H2 + kDwTile - 1) / kDwTile;
-  if (J > 0x7fffffffLL || jt > 0x7fffffffLL || nt > 65535 || parts > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+                             const float* dy, float* dw, float* ds,
+                             float* part, long long B, int m, int H, int H2,
+                             int D, void* stream_ptr) {
+  DwPlan pl;
+  cudaError_t err = make_dw_plan(B, m, H, H2, D, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int tiles = pl.nt * pl.T;
+  cin_split_dy<<<split_grid(tiles), 256, 0, stream>>>(
+      dy, ds, static_cast<unsigned>(B * D), H2, D, pl.T, pl.ni, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   DwParams p;
   p.x0 = x0;
   p.xk = xk;
-  p.dy = dy;
-  p.out = parts > 1 ? part : dw;
-  p.B = B;
-  p.part_stride = H2 * J;
+  p.ds = ds;
+  p.out = pl.parts > 1 ? part : dw;
+  p.part_stride = static_cast<long long>(H2) * H * m;
+  p.B = static_cast<int>(B);
+  p.T = pl.T;
   p.m = m;
   p.H = H;
   p.H2 = H2;
   p.D = D;
-  p.J = static_cast<int>(J);
-  p.rows = kDwK / D > 1 ? kDwK / D : 1;
-  p.parts = parts;
-  const int smem = 2 * p.rows * D * kDwStride * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_dw_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  p.mp = pl.mp;
+  p.groups = pl.groups;
+  p.parts = pl.parts;
+  switch (pl.ni) {
+    case 16: err = launch_dw<16>(p, pl, stream); break;
+    case 64: err = launch_dw<64>(p, pl, stream); break;
+    default: err = launch_dw<200>(p, pl, stream); break;
+  }
+  if (err != cudaSuccess || pl.parts == 1) return static_cast<int>(err);
+  return static_cast<int>(sum_parts(part, dw, p.part_stride, pl.parts,
+                                    stream));
+}
+
+// The dx launch's plan on the current device: out[0..8] = N tile, mp, N
+// tiles, stages, N parts, M tiles, and the scratch floats of the split W^T
+// and of the partial dx0. Returns a CUDA error (0 on success; m whose mp is
+// neither 8 nor 40 is cudaErrorInvalidValue).
+extern "C" int cin_dx_plan(long long B, int m, int H, int H2, int D,
+                           long long* out) {
+  DxPlan pl;
+  cudaError_t err = make_dx_plan(B, m, H, H2, D, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(jt), static_cast<unsigned>(nt), parts);
-  cin_dw_fma<<<grid, kDwThreads, smem, stream>>>(p);
+  const long long v[8] = {pl.ni, pl.mp, pl.ntn, pl.T, pl.parts, pl.tiles,
+                          pl.split_floats, pl.part_floats};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// dx0 [B, m, D] and dxk [B, H, D] of a layer on x0 [B, m, D] and xk [B, H,
+// D] with filters w [H2, H, m], for dy [B, H2, D], contiguous float32 on one
+// device; ws and part: the scratch of cin_dx_plan; need_x0 / need_xk: write
+// that gradient (its pointer is not read otherwise). Requires B >= 1, 1 <= D
+// <= 128, m, H, H2 >= 1 and m padded to 8 or 40 (the wrapper, kernel.py,
+// checks first). Launches on `stream` without synchronising and returns the
+// CUDA error of the launches (0 on success).
+extern "C" int cin_dx_launch(const float* x0, const float* xk,
+                             const float* dy, const float* w, float* dx0,
+                             float* dxk, float* ws, float* part, long long B,
+                             int m, int H, int H2, int D, int need_x0,
+                             int need_xk, void* stream_ptr) {
+  DxPlan pl;
+  cudaError_t err = make_dx_plan(B, m, H, H2, D, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int tiles = pl.ntn * pl.T;
+  cin_split_wt<<<split_grid(tiles), 256, 0, stream>>>(w, ws, m, H, H2, pl.mp,
+                                                      pl.T, pl.ni, tiles);
   err = cudaGetLastError();
-  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
-  const long long n = H2 * J;
-  const long long blocks = (n + 255) / 256;
-  cin_sum_parts<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256,
-                  0, stream>>>(part, dw, n, parts);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DxParams p;
+  p.x0 = x0;
+  p.xk = xk;
+  p.dy = dy;
+  p.ws = ws;
+  p.dx0 = pl.parts > 1 ? part : dx0;
+  p.dxk = dxk;
+  p.M = B * D;
+  p.part_stride = B * m * D;
+  p.T = pl.T;
+  p.pitch = dx_pitch(pl.T);
+  p.ntn = pl.ntn;
+  p.m = m;
+  p.H = H;
+  p.H2 = H2;
+  p.D = D;
+  p.parts = pl.parts;
+  p.need_x0 = need_x0;
+  p.need_xk = need_xk;
+  if (pl.mp == 40) err = launch_dx<200, 40>(p, pl, stream);
+  else if (pl.ni == 200) err = launch_dx<200, 8>(p, pl, stream);
+  else if (pl.ni == 64) err = launch_dx<64, 8>(p, pl, stream);
+  else err = launch_dx<16, 8>(p, pl, stream);
+  if (err != cudaSuccess || pl.parts == 1 || !need_x0)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_parts(part, dx0, p.part_stride, pl.parts,
+                                    stream));
 }

@@ -11,10 +11,10 @@ no counterpart: the kernel masks the ragged D itself.
 
 Under autograd (grad enabled and an input that requires it), ``impl="auto"``
 goes through ``CinLayer``, whose backward is the gradient kernels on CUDA
-tensors (``cin_dxk_cuda``, ``cin_dx0_cuda``, ``cin_dw_cuda``) and their
-plain versions on the CPU. It keeps x0, xk and W for the backward, never
-the outer product Z that autograd of the plain layer keeps (20.4 GB at an
-H-200 layer of the training batch). ``impl="ref"`` stays the plain einsums
+tensors (one ``cin_dx_cuda`` for dx0 and dxk, one ``cin_dw_cuda``) and
+their plain versions on the CPU. It keeps x0, xk and W for the backward,
+never the outer product Z that autograd of the plain layer keeps (20.4 GB
+at an H-200 layer of the training batch). ``impl="ref"`` stays the plain einsums
 under autograd, as the reference's ``impl="ref"`` trains. Without autograd
 a forward is the dispatch above and nothing more.
 """
@@ -24,8 +24,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.cin.kernel import (cin_dw_cuda, cin_dx0_cuda,
-                                            cin_dxk_cuda, cin_layer_cuda)
+from repro_torch.kernels.cin.kernel import (cin_dw_cuda, cin_dx_cuda,
+                                            cin_layer_cuda)
 from repro_torch.kernels.cin.ref import (cin_dw_ref, cin_dx0_ref, cin_dxk_ref,
                                          cin_layer_ref)
 
@@ -38,9 +38,9 @@ def _on_card(t: torch.Tensor) -> bool:
 
 class CinLayer(torch.autograd.Function):
     """One CIN layer whose gradients are the hand-written kernels on the
-    card. Each gradient is computed only where its input needs it; a
-    tensor passed as both x0 and xk (layer 1) gets both, summed by
-    autograd."""
+    card: dx0 and dxk in one launch, dW in another. Each gradient is
+    computed only where its input needs it; a tensor passed as both x0 and
+    xk (layer 1) gets both, summed by autograd."""
 
     @staticmethod
     def forward(ctx, x0, xk, w):
@@ -53,10 +53,12 @@ class CinLayer(torch.autograd.Function):
         dy = dy.contiguous()
         card = _on_card(x0)
         need_x0, need_xk, need_w = ctx.needs_input_grad
-        dx0 = ((cin_dx0_cuda if card else cin_dx0_ref)(xk, dy, w)
-               if need_x0 else None)
-        dxk = ((cin_dxk_cuda if card else cin_dxk_ref)(x0, dy, w)
-               if need_xk else None)
+        if card:
+            dx0, dxk = (cin_dx_cuda(x0, xk, dy, w, need_x0, need_xk)
+                        if need_x0 or need_xk else (None, None))
+        else:
+            dx0 = cin_dx0_ref(xk, dy, w) if need_x0 else None
+            dxk = cin_dxk_ref(x0, dy, w) if need_xk else None
         dw = ((cin_dw_cuda if card else cin_dw_ref)(x0, xk, dy)
               if need_w else None)
         return dx0, dxk, dw

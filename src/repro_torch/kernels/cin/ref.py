@@ -22,7 +22,12 @@ keeping Z for the backward):
 
 The first two are CIN layers themselves: ``dxk = cin_layer_ref(x0, dy,
 W.permute(1, 0, 2))`` and ``dx0 = cin_layer_ref(xk, dy, W.permute(2, 0,
-1))``; the third sums over the batch.
+1))``; the third sums over the batch. ``cin_dx_ref`` gives the first two
+reassociated around one intermediate, as the card's kernel computes them:
+
+  U[b, h, m, d] = sum_n W[n, h, m] dy[b, n, d]
+  dx0[b, m, d]  = sum_h xk[b, h, d] U[b, h, m, d]
+  dxk[b, h, d]  = sum_m x0[b, m, d] U[b, h, m, d]
 """
 from __future__ import annotations
 
@@ -50,6 +55,15 @@ def cin_dx0_ref(xk: torch.Tensor, dy: torch.Tensor,
     """xk [B, H, D], dy [B, H2, D], w [H2, H, m] -> dx0 [B, m, D]."""
     z = torch.einsum("bnd,bhd->bnhd", dy, xk)
     return torch.einsum("bnhd,nhm->bmd", z, w)
+
+
+def cin_dx_ref(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
+               w: torch.Tensor) -> tuple:
+    """x0 [B, m, D], xk [B, H, D], dy [B, H2, D], w [H2, H, m] -> (dx0 [B,
+    m, D], dxk [B, H, D]), reassociated around U [B, H, m, D]."""
+    u = torch.einsum("bnd,nhm->bhmd", dy, w)
+    return (torch.einsum("bhd,bhmd->bmd", xk, u),
+            torch.einsum("bmd,bhmd->bhd", x0, u))
 
 
 def cin_dw_ref(x0: torch.Tensor, xk: torch.Tensor,

@@ -183,16 +183,17 @@ def test_cuda_wrapper_refuses_before_building():
 
 def test_gradient_wrappers_refuse_before_building():
     """The gradient wrappers' checks (shapes that do not agree, float64,
-    a strided view, CPU tensors) come before the
-    library is built or loaded, and a refused call counts no launch."""
+    a strided view, fields the dx kernel does not take, CPU tensors) come
+    before the library is built or loaded, and a refused call counts no
+    launch."""
     x0, xk, w, dy = _torch(*grad_case_inputs(
         GRAD_CASES["xdeepfm-layer2-B37"]))
-    counts = (cmod.cin_dxk_cuda, cmod.cin_dx0_cuda, cmod.cin_dw_cuda)
+    counts = (cmod.cin_dx_cuda, cmod.cin_dw_cuda)
     before = [c.launches for c in counts]
     with pytest.raises(ValueError, match="do not agree"):
-        cmod.cin_dxk_cuda(x0, dy[:, :5], w)
+        cmod.cin_dx_cuda(x0, xk, dy[:, :5], w)
     with pytest.raises(ValueError, match="do not agree"):
-        cmod.cin_dx0_cuda(xk, dy, w[:, :7])
+        cmod.cin_dx_cuda(x0, xk, dy, w[:, :7])
     with pytest.raises(ValueError, match="do not agree"):
         cmod.cin_dw_cuda(x0, xk[:3], dy)
     with pytest.raises(ValueError, match="3-d"):
@@ -200,24 +201,91 @@ def test_gradient_wrappers_refuse_before_building():
     with pytest.raises(ValueError, match="float32"):
         cmod.cin_dw_cuda(x0.double(), xk.double(), dy.double())
     with pytest.raises(ValueError, match="contiguous"):
-        cmod.cin_dxk_cuda(x0, dy.transpose(1, 2).contiguous().transpose(
+        cmod.cin_dx_cuda(x0, xk, dy.transpose(1, 2).contiguous().transpose(
             1, 2), w)
     with pytest.raises(ValueError, match="CUDA"):
         cmod.cin_dw_cuda(x0, xk, dy)
     with pytest.raises(ValueError, match="CUDA"):
-        cmod.cin_dx0_cuda(xk, dy, w)
+        cmod.cin_dx_cuda(x0, xk, dy, w)
     assert [c.launches for c in counts] == before
     assert cmod.load_library.cache_info().currsize == 0
 
 
+@pytest.mark.parametrize("m", [9, 16, 20, 32, 41, 64])
+def test_dx_wrapper_refuses_fields_it_does_not_take(m):
+    """The dx kernel takes fields padded to 8 or 40 and H2 up to 224 (every
+    shape xDeepFM and the case table use); ``dx_check`` refuses other
+    shapes, and the wrapper refuses them (here first for the CPU tensors)
+    before anything is built."""
+    x0 = torch.zeros(3, m, 10)
+    xk = torch.zeros(3, 16, 10)
+    dy = torch.zeros(3, 16, 10)
+    w = torch.zeros(16, 16, m)
+    before = cmod.cin_dx_cuda.launches
+    with pytest.raises(ValueError, match="m padded to 8 or 40"):
+        cmod.dx_check(m, 16)
+    with pytest.raises(ValueError, match="CUDA|m padded"):
+        cmod.cin_dx_cuda(x0, xk, dy, w)
+    with pytest.raises(ValueError, match="H2 <= 224"):
+        cmod.dx_check(39, 225)
+    assert cmod.dx_check(39, 224) == 40
+    assert cmod.cin_dx_cuda.launches == before
+    assert cmod.load_library.cache_info().currsize == 0
+
+
 def test_dw_plan():
-    """dW's K parts fill 264 blocks at the training batch's layers (2 and
-    11 parts) and give one batch row a part at most; the tile matches the
-    source's."""
-    assert cmod.dw_parts(65536, 39, 200, 200) == 2
-    assert cmod.dw_parts(65536, 39, 39, 200) == 11
-    assert cmod.dw_parts(7, 6, 6, 16) == 7
-    assert cmod.dw_parts(1, 39, 200, 200) == 1
-    assert cmod.dw_parts(65536, 6, 16, 16) == 264
+    """dW's K parts fill the SMs at the training batch's layers (2 and 10
+    on an H100's 132: 126 and 130 blocks) and at most one a stage; a warp's
+    16 rows are 8 fields of two filters, so layer 1's 39 filters make 20
+    pairs; the tile and stage constants match the source's."""
+    p2 = cmod.dw_plan(65536, 39, 200, 200, 10, 132)
+    assert (p2["ni"], p2["nt"], p2["mp"], p2["groups"], p2["tiles"],
+            p2["T"], p2["parts"]) == (200, 1, 40, 500, 63, 40960, 2)
+    assert p2["split_floats"] == 262_144_000     # 1.05 GB: dy's hi and lo
+    assert p2["part_floats"] == 2 * 200 * 200 * 39
+    p1 = cmod.dw_plan(65536, 39, 39, 200, 10, 132)
+    assert (p1["groups"], p1["tiles"], p1["parts"]) == (100, 13, 10)
+    assert cmod.dw_plan(7, 6, 6, 16, 8, 132)["parts"] == 4    # T = 4
+    assert cmod.dw_plan(1, 39, 200, 200, 10, 132)["parts"] == 1
+    assert cmod.dw_plan(65536, 6, 16, 16, 8, 132)["parts"] == 132
+    assert cmod.dw_plan(65536, 6, 16, 16, 8, 132)["part_floats"] == \
+        132 * 16 * 16 * 6
+    big = cmod.dw_plan(512, 39, 200, 300, 10, 132)
+    assert (big["ni"], big["nt"], big["parts"]) == (200, 2, 1)
     src = cmod._build.source_paths(cmod.SOURCES)[0].read_text()
-    assert f"constexpr int kDwTile = {cmod.DW_TILE};" in src
+    assert f"constexpr int kBM = {cmod.BM};" in src
+    assert f"constexpr int kKS = {cmod.STAGE_K // 8};" in src
+    assert "return H2 <= 16 ? 16 : (H2 <= 64 ? 64 : 200);" in src
+    assert cmod.N_TILES == (16, 64, 200)
+
+
+def test_dx_plan():
+    """The dx kernel's N tiles are whole filters (5 of 40 fields at m 39;
+    at 8 fields the width of 16, 64 and 200 that pads H * 8 least), its
+    K = H2 padded to stages of 16, and its N parts fill the SMs where the
+    M tiles are fewer (one at the training batch)."""
+    p = cmod.dx_plan(65536, 39, 200, 200, 10, 132)
+    assert (p["ni"], p["mp"], p["ntn"], p["T"], p["parts"], p["tiles"]) == (
+        200, 40, 40, 13, 1, 5120)
+    assert p["split_floats"] == 40 * 13 * 6400 and p["part_floats"] == 0
+    assert cmod.dx_plan(65536, 39, 39, 200, 10, 132)["ntn"] == 8
+    assert cmod.dx_plan(512, 39, 200, 200, 10, 132)["parts"] == 3
+    assert cmod.dx_plan(1, 39, 200, 200, 10, 132)["parts"] == 40
+    assert cmod.dx_plan(7, 6, 6, 16, 8, 132)["ni"] == 16       # 48 columns
+    assert cmod.dx_plan(9, 6, 16, 6, 8, 132)["ni"] == 64       # 128: a tie
+    assert cmod.dx_plan(9, 6, 200, 6, 8, 132)["ni"] == 200     # 1,600
+    assert cmod.dx_plan(9, 6, 39, 6, 8, 132)["ni"] == 64       # 320
+    assert cmod.dx_plan(61, 39, 200, 39, 10, 132)["T"] == 3
+    assert cmod.dx_check(1, 6) == 8 and cmod.dx_check(33, 200) == 40
+    src = cmod._build.source_paths(cmod.SOURCES)[0].read_text()
+    for ni, mp in ((200, 40), (200, 8), (64, 8), (16, 8)):
+        assert f"launch_dx<{ni}, {mp}>" in src
+    # the largest K = H2 whose staged dy rows fit beside the 4-stage ring
+    # in an H100's 232,448 bytes at N tile 200 (cin.cu's dx_smem)
+    pitch = 32 * ((-(-cmod.DX_MAX_H2 // 16) + 1) // 2) + 4
+    assert 128 + 4 * 6400 * 4 + 4 * 128 * pitch + 64 <= 232_448
+    pitch = 32 * ((-(-(cmod.DX_MAX_H2 + 1) // 16) + 1) // 2) + 4
+    assert 128 + 4 * 6400 * 4 + 4 * 128 * pitch + 64 > 232_448
+    assert "constexpr int kDxStages = 4;" in src
+    cand = ", ".join(map(str, reversed(cmod.N_TILES)))
+    assert f"const int cand[3] = {{{cand}}};" in src

@@ -36,14 +36,14 @@ and one GNN training step per kind (smoke width, ``molecule``) through
 ``build_cell``: twice a forward's launches, its gradients within
 ``gnn_check.grad_excess``'s rule of the plain path's, and no read of the
 device under sync debug mode "error"; the CIN layer's gradient kernels
-(dxk and dx0 through the layer kernel, dW by ``cin_dw_fma``) against
-their plain versions under ``kernels/cin/cases.py``'s rules (the layer
-rule, and dW's against float64) over its gradient cases and at the
+(dxk and dx0 in one launch of ``cin_dx_wgmma``, dW by ``cin_dw_wgmma``)
+against their plain versions under ``kernels/cin/cases.py``'s rules (the
+layer rule, and dW's against float64) over its gradient cases and at the
 training batch's layers (B 65,536, in chunks), each with its planted
-fault above the rule, two launches bit for bit equal, the wrappers'
-refusals, and xDeepFM's smoke training step through ``build_cell`` (3
-forward and 9 backward launches, gradients against the plain path's,
-no read of the device).
+fault above the rule, their plans against the Python mirrors, two
+launches bit for bit equal, the wrappers' refusals, and xDeepFM's smoke
+training step through ``build_cell`` (3 forward and 6 backward launches,
+gradients against the plain path's, no read of the device).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -885,20 +885,25 @@ def test_recsys_cells_through_the_kernel_on_card(cuda_device):
 
 def _cin_grad_check(dev, case, seed=0):
     """Each gradient kernel on one case's inputs against its plain version:
-    dxk and dx0 under the layer rule (float32 plain, chunked), dW under
-    the dW rule (float64); the planted faults read beside them. Returns
-    the readings."""
+    dxk and dx0 (one ``cin_dx_cuda``) under the layer rule (float32 plain,
+    chunked), dW under the dW rule (float64); the planted faults read
+    beside them; the C plans equal ``kernel.dw_plan`` / ``dx_plan``.
+    Returns the readings."""
     x0, xk, w, dy = (torch.from_numpy(a).to(dev)
                      for a in cin_cases.grad_case_inputs(case, seed))
     B, m, H, H2, D = case
-    before = (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
-              cmod.cin_dw_cuda.launches)
-    got = {"dxk": cmod.cin_dxk_cuda(x0, dy, w),
-           "dx0": cmod.cin_dx0_cuda(xk, dy, w)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cmod._c_plan("test", "cin_dw_plan", case, 9) == list(
+        cmod.dw_plan(B, m, H, H2, D, sms).values())
+    assert cmod._c_plan("test", "cin_dx_plan", case, 8) == list(
+        cmod.dx_plan(B, m, H, H2, D, sms).values())
+    before = (cmod.cin_dx_cuda.launches, cmod.cin_dw_cuda.launches)
+    dx0, dxk = cmod.cin_dx_cuda(x0, xk, dy, w)
+    got = {"dxk": dxk, "dx0": dx0}
     dw = cmod.cin_dw_cuda(x0, xk, dy)
     torch.cuda.synchronize()
-    assert (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
-            cmod.cin_dw_cuda.launches) == tuple(b + 1 for b in before)
+    assert (cmod.cin_dx_cuda.launches, cmod.cin_dw_cuda.launches) == tuple(
+        b + 1 for b in before)
     out = {}
     for what, (a, b, wp) in cin_cases.input_grad_operands(x0, xk, w,
                                                           dy).items():
@@ -923,10 +928,11 @@ def _cin_grad_check(dev, case, seed=0):
 
 @pytest.mark.parametrize("name", sorted(cin_cases.GRAD_CASES))
 def test_cin_gradient_kernels_match_plain(cuda_device, name):
-    """dxk and dx0 (the layer kernel at outputs of 200, 39 and 6 and xk's
-    200 rows staged) under the layer rule, dW under the dW rule; one
-    launch each; and autograd through ``cin_layer`` launches each once and
-    gives the same gradients."""
+    """dxk and dx0 (one ``cin_dx_cuda``: N tiles of 200, 64 and 16, N
+    parts at small batches) under the layer rule, dW under the dW rule;
+    one launch each; autograd through ``cin_layer`` launches each once
+    and gives the same gradients; a gradient not asked for is None and
+    leaves the other's bits as they were."""
     case = cin_cases.GRAD_CASES[name]
     got = _cin_grad_check(cuda_device, case)
     assert got["dxk"] <= 1.0 and got["dx0"] <= 1.0 and got["dw"] <= 1.0, got
@@ -935,18 +941,21 @@ def test_cin_gradient_kernels_match_plain(cuda_device, name):
     x0.requires_grad_()
     xk.requires_grad_()
     w.requires_grad_()
-    before = (cmod.cin_layer_cuda.launches, cmod.cin_dxk_cuda.launches,
-              cmod.cin_dx0_cuda.launches, cmod.cin_dw_cuda.launches)
+    before = (cmod.cin_layer_cuda.launches, cmod.cin_dx_cuda.launches,
+              cmod.cin_dw_cuda.launches)
     out = cin_layer(x0, xk, w)
     g = torch.autograd.grad(out, (x0, xk, w), dy)
     torch.cuda.synchronize()
-    assert (cmod.cin_layer_cuda.launches, cmod.cin_dxk_cuda.launches,
-            cmod.cin_dx0_cuda.launches, cmod.cin_dw_cuda.launches) == tuple(
-                b + 1 for b in before)
+    assert (cmod.cin_layer_cuda.launches, cmod.cin_dx_cuda.launches,
+            cmod.cin_dw_cuda.launches) == tuple(b + 1 for b in before)
     with torch.no_grad():
-        assert torch.equal(g[0], cmod.cin_dx0_cuda(xk, dy, w))
-        assert torch.equal(g[1], cmod.cin_dxk_cuda(x0, dy, w))
+        dx0, dxk = cmod.cin_dx_cuda(x0, xk, dy, w)
+        assert torch.equal(g[0], dx0) and torch.equal(g[1], dxk)
         assert torch.equal(g[2], cmod.cin_dw_cuda(x0, xk, dy))
+        only0 = cmod.cin_dx_cuda(x0, xk, dy, w, need_xk=False)
+        onlyk = cmod.cin_dx_cuda(x0, xk, dy, w, need_x0=False)
+        assert only0[1] is None and onlyk[0] is None
+        assert torch.equal(only0[0], dx0) and torch.equal(onlyk[1], dxk)
 
 
 @pytest.mark.parametrize("name", sorted(cin_cases.TRAIN_CASES))
@@ -963,28 +972,28 @@ def test_cin_gradients_at_the_training_batch(cuda_device, name):
 
 @pytest.mark.parametrize("B", [1, 512, 65536])
 def test_cin_gradient_two_launches_bit_identical(cuda_device, B):
-    """dW sums its K parts (``dw_parts`` at xdeepfm's H-200 layer: one at
-    B 1, with no second pass, and 2 beyond) in a fixed order, dx0 is the
-    layer kernel: two launches give the same bits."""
+    """dW sums its K parts (``dw_plan`` at xdeepfm's H-200 layer on an
+    H100: one at B 1, a single stage, and 2 beyond) and dx0 its N parts
+    (40 at B 1, 3 at 512, one at 65,536) in a fixed order: two launches
+    give the same bits."""
     x0, xk, w, dy = (torch.from_numpy(a).to(cuda_device)
                      for a in cin_cases.grad_case_inputs(
                          (B, 39, 200, 200, 10), seed=1))
     assert torch.equal(cmod.cin_dw_cuda(x0, xk, dy),
                        cmod.cin_dw_cuda(x0, xk, dy))
-    assert torch.equal(cmod.cin_dx0_cuda(xk, dy, w),
-                       cmod.cin_dx0_cuda(xk, dy, w))
+    a, b = cmod.cin_dx_cuda(x0, xk, dy, w), cmod.cin_dx_cuda(x0, xk, dy, w)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_cin_gradient_wrappers_refuse(cuda_device):
     x0, xk, w, dy = (torch.from_numpy(a).to(cuda_device)
                      for a in cin_cases.grad_case_inputs((9, 39, 200, 200,
                                                           10)))
-    before = (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
-              cmod.cin_dw_cuda.launches)
+    before = (cmod.cin_dx_cuda.launches, cmod.cin_dw_cuda.launches)
     with pytest.raises(ValueError, match="do not agree"):
-        cmod.cin_dxk_cuda(x0, dy[:, :5], w)
+        cmod.cin_dx_cuda(x0, xk, dy[:, :5], w)
     with pytest.raises(ValueError, match="do not agree"):
-        cmod.cin_dx0_cuda(xk[:, :5], dy, w)
+        cmod.cin_dx_cuda(x0, xk[:, :5], dy, w)
     with pytest.raises(ValueError, match="do not agree"):
         cmod.cin_dw_cuda(x0, xk[:3], dy)
     with pytest.raises(ValueError, match="float32"):
@@ -993,23 +1002,28 @@ def test_cin_gradient_wrappers_refuse(cuda_device):
         cmod.cin_dw_cuda(x0, xk, dy.transpose(1, 2).contiguous().transpose(
             1, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        cmod.cin_dx0_cuda(xk, dy.cpu(), w)
-    wide = torch.zeros(9, 320, 10, device=cuda_device)
-    with pytest.raises(ValueError, match="m <= 312"):
-        cmod.cin_dx0_cuda(wide, dy, torch.zeros(200, 320, 39,
-                                                device=cuda_device))
-    assert (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
-            cmod.cin_dw_cuda.launches) == before
+        cmod.cin_dx_cuda(x0, xk, dy.cpu(), w)
+    wide = torch.zeros(9, 20, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="m padded to 8 or 40"):
+        cmod.cin_dx_cuda(wide, xk, dy, torch.zeros(200, 200, 20,
+                                                   device=cuda_device))
+    long = torch.zeros(9, 240, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="H2 <= 224"):
+        cmod.cin_dx_cuda(x0, xk, long, torch.zeros(240, 200, 39,
+                                                   device=cuda_device))
+    assert (cmod.cin_dx_cuda.launches, cmod.cin_dw_cuda.launches) == before
     empty = cmod.cin_dw_cuda(x0[:0], xk[:0], dy[:0])
     assert empty.shape == (200, 200, 39) and not empty.any()
-    assert cmod.cin_dw_cuda.launches == before[2]
+    e0, ek = cmod.cin_dx_cuda(x0[:0], xk[:0], dy[:0], w)
+    assert e0.shape == (0, 39, 10) and ek.shape == (0, 200, 10)
+    assert (cmod.cin_dx_cuda.launches, cmod.cin_dw_cuda.launches) == before
 
 
 def test_cin_field_limit_follows_shared_memory(cuda_device):
     """The C entry's field limit is the layer launch's shared memory within
     the card's opt-in limit: a multiple of 8, wider beside a narrower
     output (the N tile: 16, 64 or 200), enough for xdeepfm's forward (39
-    rows beside 200) and its dx0 (200 beside 39), and on an H100 136, 312
+    rows beside 200) and for 200 rows beside 39, and on an H100 136, 312
     and 376. A layer over it is refused before a launch."""
     mf = cmod.max_fields
     assert all(mf(h) % 8 == 0 for h in (6, 16, 39, 64, 200))
@@ -1028,9 +1042,9 @@ def test_cin_field_limit_follows_shared_memory(cuda_device):
 
 def test_recsys_train_step_through_the_kernels_on_card(cuda_device):
     """xdeepfm's smoke training cell at B 4,096: a step launches the CIN
-    kernel once a layer and each gradient kernel once a layer (layer 1's
-    x0 and xk are one tensor; every layer's input needs both), reads
-    nothing from the device, and its gradients agree with the plain
+    kernel once a layer and each gradient kernel (dx, dW) once a layer
+    (layer 1's x0 and xk are one tensor; every layer's input needs both),
+    reads nothing from the device, and its gradients agree with the plain
     path's within ``gnn_check.grad_rel`` 1e-4; the loss falls over 5
     steps."""
     cfg = get_arch("xdeepfm", smoke=True)
@@ -1047,8 +1061,7 @@ def test_recsys_train_step_through_the_kernels_on_card(cuda_device):
         return adamw.tree_map(lambda t: t.grad, p)
 
     assert gnn_check.grad_rel(grads("auto"), grads("ref")) < 1e-4
-    counts = (cmod.cin_layer_cuda, cmod.cin_dxk_cuda, cmod.cin_dx0_cuda,
-              cmod.cin_dw_cuda)
+    counts = (cmod.cin_layer_cuda, cmod.cin_dx_cuda, cmod.cin_dw_cuda)
     for c in counts:
         c.launches = 0
     torch.cuda.synchronize()
@@ -1057,7 +1070,7 @@ def test_recsys_train_step_through_the_kernels_on_card(cuda_device):
         params, opt, loss0, _ = cell.step_fn(params, opt, batch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert [c.launches for c in counts] == [len(cfg.cin_layers)] * 4
+    assert [c.launches for c in counts] == [len(cfg.cin_layers)] * 3
     losses = [float(loss0)]
     for _ in range(4):
         params, opt, loss, _ = cell.step_fn(params, opt, batch)

@@ -9,9 +9,11 @@ reference under ``jax.enable_x64``), with numpy-drawn weights in the
 reference's tree carried over by ``recsys_params_from_reference``. Also: ``CinLayer``'s
 gradients in all three inputs against ``jax.vjp`` of the reference's
 ``cin_layer_ref`` over ``kernels/cin/cases.py``'s gradient cases (and a
-layer-1 call whose x0 and xk are one tensor); the dW rule's emulated
-margin and planted fault at B 65,536; the step's refusal of a parameter
-that gets no gradient; the cell's shapes and refusals.
+layer-1 call whose x0 and xk are one tensor), and the reassociated
+``cin_dx_ref`` against the same; the kernels' arithmetic emulated
+(``emulated_dx`` under the layer rule, ``emulated_dw`` in 3xTF32 under
+dW's rule at B 65,536) with the planted faults above; the step's refusal
+of a parameter that gets no gradient; the cell's shapes and refusals.
 
 Tolerances (float64):
   * the loss and every gradient leaf: within 1e-9 of the leaf's largest
@@ -21,9 +23,9 @@ Tolerances (float64):
     casts it, so every parameter after each step within ``PARAM_REL``
     (2^-22, two float32 ulps) of the leaf's largest magnitude (measured:
     at most 6.6e-8), and the later steps' losses within ``PARAM_REL``;
-  * ``CinLayer``'s gradients: within 1e-12 of each gradient's largest
-    magnitude (the same float64 sums in another order; measured: at most
-    1.6e-15);
+  * ``CinLayer``'s gradients and ``cin_dx_ref``'s: within 1e-12 of each
+    gradient's largest magnitude (the same float64 sums in another order;
+    measured: at most 1.6e-15);
   * the dW rule (``cases.dw_excess``): the emulated kernel far below 1,
     the planted fault far above.
 """
@@ -61,6 +63,7 @@ from repro_torch.convert import recsys_params_from_reference  # noqa: E402
 from repro_torch.kernels.cin import cases  # noqa: E402
 from repro_torch.kernels.cin import kernel as cmod  # noqa: E402
 from repro_torch.kernels.cin.ops import cin_layer  # noqa: E402
+from repro_torch.kernels.cin.ref import cin_dx_ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -255,10 +258,10 @@ def _vjp_case(case, shared: bool = False):
 @pytest.mark.parametrize("name", sorted(cases.GRAD_CASES))
 def test_cin_layer_gradients_match_reference_vjp(name):
     case = cases.GRAD_CASES[name]
-    before = (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+    before = (cmod.cin_layer_cuda.launches, cmod.cin_dx_cuda.launches,
               cmod.cin_dw_cuda.launches)
     got, want = _vjp_case(case)
-    assert (cmod.cin_dxk_cuda.launches, cmod.cin_dx0_cuda.launches,
+    assert (cmod.cin_layer_cuda.launches, cmod.cin_dx_cuda.launches,
             cmod.cin_dw_cuda.launches) == before
     for g, r, what in zip(got, want, ("dx0", "dxk", "dw")):
         assert g.shape == r.shape, what
@@ -269,22 +272,38 @@ def test_cin_layer_gradients_match_reference_vjp(name):
             assert np.abs(g - r).max() <= CIN_REL * np.abs(r).max(), what
 
 
+@pytest.mark.parametrize("name", sorted(cases.GRAD_CASES))
+def test_reassociated_dx_matches_reference_vjp(name):
+    """``cin_dx_ref`` (the kernel's form: U = dy . W, then the sums over h
+    and m) gives the reference's dx0 and dxk (``jax.vjp``, float64)."""
+    x0, xk, w, dy = (a.astype(np.float64)
+                     for a in cases.grad_case_inputs(cases.GRAD_CASES[name]))
+    with jax.enable_x64(True):
+        _, vjp = jax.vjp(ref_cin_layer, x0, xk, w)
+        want = [np.asarray(g) for g in vjp(dy)[:2]]
+    got = cin_dx_ref(*(torch.from_numpy(a) for a in (x0, xk, dy, w)))
+    for g, r, what in zip(got, want, ("dx0", "dxk")):
+        assert g.shape == r.shape, what
+        assert np.abs(g.numpy() - r).max() <= CIN_REL * np.abs(r).max(), what
+
+
 def test_dw_rule_passes_the_emulated_kernel_and_rejects_a_dropped_tile():
-    """At ``DW_RULE_CASE`` (B 65,536, K 524,288): the kernel's float32 sum
-    order emulated in ``dw_parts``' split and in the 2 parts of the
-    training batch's H-200 layers reads far below 1 (measured 0.0035 and
-    0.044); one dropped tile of 128 values of k reads far above (measured
-    67 to 74)."""
+    """At ``DW_RULE_CASE`` (B 65,536, K 524,288): the dW kernel's 3xTF32
+    arithmetic and sum order (16-k stages, then the stages of each K part
+    by float32 adds, then the parts) emulated in the plan's 132 parts, in
+    the 2 parts of the training batch's H-200 layers and in one reads far
+    below 1 (measured 0.0013, 0.011, 0.013); one dropped tile of 128
+    values of k reads far above (measured 67 to 74)."""
     Bc, m, H, H2, D = cases.DW_RULE_CASE
     x0, xk, _, dy = (torch.from_numpy(a)
                      for a in cases.grad_case_inputs(cases.DW_RULE_CASE))
     r, S = cases.dw_exact(x0, xk, dy)
     K = Bc * D
-    for parts in (cmod.dw_parts(Bc, m, H, H2),
-                  cmod.dw_parts(Bc, 39, 200, 200)):
-        emu = cases.emulated_dw(x0.numpy(), xk.numpy(), dy.numpy(), parts)
-        assert cases.dw_excess(torch.from_numpy(emu), r, S, K) < 0.1, parts
-    assert cmod.dw_parts(Bc, 39, 200, 200) == 2
+    assert cmod.dw_plan(Bc, m, H, H2, D, 132)["parts"] == 132
+    assert cmod.dw_plan(Bc, 39, 200, 200, D, 132)["parts"] == 2
+    for parts in (132, 2, 1):
+        emu = cases.emulated_dw(x0, xk, dy, parts)
+        assert cases.dw_excess(emu, r, S, K) < 0.1, parts
     for k0 in (0, K // 2 + 3, K - cases.DW_FAULT_K):
         bad = cases.dw_planted_fault(x0, xk, dy, k0)
         assert cases.dw_excess(bad, r, S, K) > 10.0, k0
@@ -294,16 +313,20 @@ def test_dw_rule_passes_the_emulated_kernel_and_rejects_a_dropped_tile():
 @pytest.mark.parametrize("name", ["xdeepfm-layer2-B37", "H2-39-B61",
                                   "smoke-layer1-B7"])
 def test_input_gradients_under_the_layer_rule(name):
-    """dxk and dx0 are layers of the forward kernel: its 3xTF32 arithmetic
-    emulated on their operands reads within a tenth of the layer rule,
-    and a dropped slice of their W reads far above it."""
+    """The dx kernel's arithmetic (``emulated_dx``: U in 3xTF32 over K =
+    H2, the sums over h and m by float32 fused multiply-adds in the
+    kernel's order, dx0's N parts of its plan on 132 SMs) reads within a
+    tenth of the layer rule on each input gradient's operands, and a
+    dropped slice of their W reads far above it."""
+    case = cases.GRAD_CASES[name]
     x0, xk, w, dy = (torch.from_numpy(a) for a in cases.grad_case_inputs(
-        cases.GRAD_CASES[name]))
+        case))
+    emu = dict(zip(("dx0", "dxk"), cases.emulated_dx(
+        x0, xk, dy, w, cmod.dx_plan(*case, sms=132))))
     for what, (a, b, wp) in cases.input_grad_operands(x0, xk, w,
                                                       dy).items():
         ref = cases.cin_layer_ref(a, b, wp)
-        assert cases.layer_excess(cases.emulated_layer(a, b, wp), ref, a, b,
-                                  wp) < 0.1, what
+        assert cases.layer_excess(emu[what], ref, a, b, wp) < 0.1, what
         assert cases.layer_excess(cases.planted_fault(a, b, wp, h=1), ref, a,
                                   b, wp) > 1.0, what
 
