@@ -119,9 +119,10 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      per graph, tau 16): ``ClusterQuotientEstimator``,
      ``CascadeEstimator(levels=2, tau_solve=32)``,
      ``DeltaSteppingEstimator(seed=7)`` (Bellman-Ford) and the same with
-     Δ = the mean weight, on ``road_like(131_072)`` (cut from 1,890,815:
+     Δ = the mean weight, on ``road_like(65_536)`` (cut from 1,890,815:
      Bellman-Ford's supersteps grow linearly with n on this family; at
-     262,144 until the training phases needed its time) and
+     262,144 until the GNN training phases needed its time, and at
+     131,072 until the LM training phases did) and
      RMAT ``social_like(20)``. Bellman-Ford's and Δ-stepping's distance
      planes from the same source must be equal element for element, and
      the SSSP lower bound at most either cluster estimate's Phi; each
@@ -173,7 +174,7 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
   6. LM serving at full width: the port's serve launcher
      (``repro_torch.launch.serve``), gemma2-9b, batch 4, prompt 32, 16
      generated tokens.
-  6b-6e. the rest of the LM family at full width (random weights from
+  6b-6d. the rest of the LM family at full width (random weights from
      seed 0; mixtral-8x7b at the deepest of 26 and 24 of its 32 layers
      whose prefill fits, its 93.4 GB not fitting one card), arch by arch,
      each model freed before the next: 6b. ``build_cell``'s
@@ -202,7 +203,9 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      longest cache that fits), its first step under sync debug mode
      "error" for the MoE archs, then 5 timed steps beside the read bound
      (the weights but the embedding table, every expert, the whole
-     cache); 6e. the serve launcher (batch 4, prompt 32, gen 16).
+     cache). (A phase 6e ran the serve launcher per arch until the LM
+     training phases needed its time: it repeated what 6b and 6d time;
+     phase 6 drives the launcher.)
   7. CIN vs plain: ``cin_layer_cuda`` (3xTF32 ``wgmma``) against
      ``cin_layer_ref`` in float32 on the card, over the cases of
      ``kernels/cin/cases.py`` (B = 1, 7, 25, 37 and 512; m = 6 and 39;
@@ -362,9 +365,41 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      bytes) with exactly ``2 segment_mm_launches(cfg)`` launches a step;
      the loss of every step, falling (equiformer-v2's one-class cells,
      whose loss and gradient are 0 whatever the weights, stay at 0).
+  19. the flash attention backward (``flash_backward``):
+     ``flash_attention_bwd_cuda`` (three launches: delta, dK/dV, dQ)
+     against the float64 plain backward on the kernel forward's own o and
+     lse, over ``kernels/flash_attention/cases.py``'s ``GRAD_CASES`` (GQA
+     1, 2 and 4; causal and bidirectional; windows; softcap 50, with and
+     without a window; ``q_offset``; ``kv_len`` per row; ragged lengths;
+     fully masked rows; D 128 and 256), each output under that module's
+     backward rule, both planted faults (a dropped query tile in dK/dV,
+     a dropped kv tile in dQ) above it, two launches bit-equal; timed at
+     S 4,096 on gemma2-9b's global and local layers (B 1, 16 / 8 heads of
+     256, softcap 50) and mistral-nemo-12b's (32 / 8 of 128), each under
+     the rule, beside the plain ``mef_backward``, the bound (2.5 times
+     the forward's flops), ptxas's registers and spills, and (global and
+     mistral-nemo) SDPA's backward on its flash backend in turns with
+     the kernel at the causal function without softcap.
+  20. LM training at full width (``lm_train``): gemma2-9b's ``train_4k``
+     through ``build_cell`` at batch 4 and S 4,096, cut in depth to the
+     deepest even count whose fitted peak (one step at 2 and 4 layers,
+     ``max_memory_reserved``, linear in the layers) leaves 4 GiB free;
+     the first step's gradients against the plain attention's
+     (``attention_mef``) per leaf, before the optimizer state exists;
+     step 1 under sync debug mode "error"; steps 2-10 timed (median, min,
+     max; tokens/s, model TFLOP/s from ``_lm_model_flops``, peak bytes);
+     exactly 2L forward and L backward flash launches a step; the loss
+     falling.
+  21. the train launcher (``lm_train_launcher``): ``launch/train.py`` at
+     phase 20's depth and batch for 3 steps, no save (at that size one
+     would write about 47 GB); then at the smoke config in bf16 at head
+     dim 128, 4 steps with a save every 2, a real SIGTERM after step 2
+     (exit 75), ``--resume``, and the result against an uninterrupted run.
 
-Prints one JSON line per phase, the kernel table, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
+Prints one JSON line per phase, the wall seconds of each phase group as
+it ends (``group_seconds``) and all of them together
+(``group_seconds_total``), the kernel table, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -384,6 +419,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 import types
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -402,7 +438,7 @@ except ImportError:   # not a checkout of the repository: main() refuses
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
-SSSP_ROAD_NODES = 131_072       # the competitor's road graph (see phase 3b)
+SSSP_ROAD_NODES = 65_536        # the competitor's road graph (see phase 3b)
 PAPER_GRAPH_NODES = 1 << 24     # the paper-graph cell's roads-USA scale
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
@@ -642,7 +678,9 @@ def profile_paths() -> int:
     one-shot fused and unfused), then gemma2-9b's full-width prefill
     (B = 1, S = 8192) and 8 decode steps (batch 4), then one xdeepfm
     ``serve_bulk`` forward (B = 262,144, full width) and one xdeepfm
-    ``train_batch`` step (B = 65,536, full width), then 5 gcn-cora
+    ``train_batch`` step (B = 65,536, full width), then one gemma2-9b
+    ``train_4k`` step at full width cut to ``PROFILE_TRAIN_LAYERS`` layers
+    and batch 4 (S 4,096), then 5 gcn-cora
     forwards on ``ogb_products`` (2,449,029 nodes), under
     ``torch.profiler``, each after a warm-up run, printing the device-busy
     share of the host-clock time, the device ops launched and the kernels
@@ -757,6 +795,37 @@ def profile_paths() -> int:
     _, stats = profiled(train_step)
     emit({"phase": "profile", "path": "recsys_train_step",
           "batch": shape.batch, **stats})
+    del cell, batch, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from functools import partial
+
+    from repro_torch.config import LM_SHAPES
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch import steps as steps_mod
+
+    steps_mod.get_arch = partial(gemma2_at_depth,
+                                 layers=PROFILE_TRAIN_LAYERS)
+    try:
+        cell = build_cell("gemma2-9b", "train_4k", device=dev,
+                          batch=LM_TRAIN_BATCH)
+    finally:
+        steps_mod.get_arch = get_arch
+    shape = dataclasses.replace({s.name: s for s in LM_SHAPES}["train_4k"],
+                                global_batch=LM_TRAIN_BATCH)
+    batch = cell.inputs(LMTokenPipeline(cell.cfg, shape, seed=0).batch(
+        DataCursor()))
+    state = list(cell.init(0))
+
+    def lm_train_step():
+        state[0], state[1], loss, _ = cell.step_fn(state[0], state[1], batch)
+        return loss
+
+    _, stats = profiled(lm_train_step)
+    emit({"phase": "profile", "path": "lm_train_step",
+          "layers": PROFILE_TRAIN_LAYERS, "batch": LM_TRAIN_BATCH,
+          "seq": shape.seq_len, **stats})
     del cell, batch, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1570,26 +1639,9 @@ def lm_family_arch(torch, dev, arch, cfg, spec, S, cut, gen) -> dict:
     torch.cuda.empty_cache()
     if torch.cuda.memory_allocated(dev) > LEAK_BYTES:
         raise AssertionError(f"{arch}: {torch.cuda.memory_allocated(dev)} "
-                             f"bytes still allocated before the launcher")
+                             f"bytes still allocated after the arch")
 
-    # -- phase 6e: the serve launcher at full width ---------------------------
-    fmod.flash_attention_cuda.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    res = serve.serve_lm(serve.parse_args(
-        ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen", "16",
-         "--device", str(dev)]))
-    serve_launches = fmod.flash_attention_cuda.launches
-    ids = res.pop("ids")
-    if tuple(ids.shape) != (4, 16) or not res["logits_finite"] \
-            or not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
-        raise AssertionError(f"{arch} serve: malformed ids or non-finite "
-                             f"logits")
-    emit({"phase": "lm_family_serve", **res, "layers": cfg.n_layers,
-          "ids0": ids[0, :8].tolist(), "flash_launches": serve_launches,
-          "peak_bytes": torch.cuda.max_memory_allocated(dev),
-          "decode_step_bound_ms": 1e3 * (weight_bytes - embed_bytes)
-          / HBM_BYTES_PER_S})
-    return {"prefill": prefill_launches, "serve": serve_launches}
+    return {"prefill": prefill_launches}
 
 
 XDEEPFM_PARAMS = 432_747_202     # parameter elements at full width
@@ -3616,6 +3668,517 @@ def gnn_train_phases(torch, dev, ogb_batch, mb_arrays) -> tuple:
     return launches, backward
 
 
+FLASH_BWD_SEQ = 4096            # the training cell's length
+FLASH_BWD_ITERS = 10            # timed launches of each backward timing
+FLASH_LSE_ATOL = 1e-4           # the forward's lse against the plain one's
+LM_TRAIN_STEPS = 10             # steps of the LM training cell on one batch
+LM_TRAIN_BATCH = 4              # its batch rows (of train_4k's 256)
+LM_TRAIN_FIT = (2, 4)           # depths the memory fit steps at
+LM_TRAIN_MARGIN = 4 << 30       # bytes kept free beside the fitted peak
+LM_GRAD_REL = 5e-2              # per-leaf rule of the gradient check
+PROFILE_TRAIN_LAYERS = 16       # the --profile training step's depth
+LAUNCHER_STEPS = 3              # the launcher's steps at the cut depth
+
+
+def flash_bwd_bound_ms(B, Hq, Hkv, S, D, causal, window) -> tuple:
+    """Least time for one attention backward on these shapes: the useful
+    flops, 2.5 times the forward's (10 D a pair and query head: S, dP, dV,
+    dK and dQ; no recompute charged), over the bf16 tensor-core peak, or
+    the bytes of q, k, v, o, dO and lse read once and dq, dk, dv written
+    once over HBM; the larger, and which of the two bounds it."""
+    flops = 10 * D * Hq * B * unmasked_pairs(S, S, causal, window)
+    nbytes = (2 * D * (3 * B * Hq * S + 2 * B * Hkv * S) + 4 * B * Hq * S
+              + 2 * D * (B * Hq * S + 2 * B * Hkv * S))
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def flash_backward_phase(torch, dev) -> dict:
+    """Phase 19 (``flash_backward``): the forward kernel's lse against the
+    plain forward's, and the backward kernel against the float64 plain
+    backward, over ``cases.GRAD_CASES`` and at gemma2-9b's and
+    mistral-nemo-12b's training shapes, where it is also timed; returns
+    the ``backward_*`` fields of the flash attention row.
+
+    The backward is checked twice a case: from the plain forward's ``o``
+    and ``lse`` (so the check does not lean on the forward kernel; the
+    planted faults and the bit-equal launches are read there), and from
+    the forward kernel's, as the training path chains them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import blocked, cases
+    from repro_torch.kernels.flash_attention import kernel as fmod
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    names = ("dq", "dk", "dv")
+
+    def forwards(label, q, k, v, kw):
+        """The forward kernel's ``(o, lse)`` and the plain forward's (o
+        rounded to q's dtype, lse float32); fails unless the kernel's lse
+        is within ``FLASH_LSE_ATOL`` of the plain one on every row with a
+        valid key and -1e30 on the others. Also returns that error."""
+        o, lse = fmod.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        o_p, lse_p = blocked.mef_forward(q, k, v, **kw)
+        o_p, lse_p = o_p.to(q.dtype), lse_p.float().contiguous()
+        live = lse_p > -1e29
+        err = (float((lse[live] - lse_p[live]).abs().max())
+               if bool(live.any()) else 0.0)
+        dead = bool((lse[~live] == -1e30).all())
+        if not (err <= FLASH_LSE_ATOL and dead):
+            raise AssertionError(f"flash forward's lse at {label}: "
+                                 f"{err} from the plain lse (allowed "
+                                 f"{FLASH_LSE_ATOL}); rows with no valid "
+                                 f"key at -1e30: {dead}")
+        return o, lse, o_p, lse_p, err
+
+    def check(label, q, k, v, o, lse, do, kw, faults=False):
+        """The backward kernel from ``(o, lse)`` against the float64 plain
+        backward from the same: per-output excess, largest error, the
+        planted faults' excess (if asked), the gradients, finite."""
+        got = fmod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        ref = cases.grad_reference(q, k, v, o, lse, do, **kw)
+        excess = {n: cases.grad_excess(g, ref[n], ref["a_" + n])
+                  for n, g in zip(names, got)}
+        err = max(float((g.double() - ref[n]).abs().max())
+                  for n, g in zip(names, got))
+        planted = {}
+        for fault in (cases.GRAD_FAULTS if faults else ()):
+            bad = cases.grad_reference(q, k, v, o, lse, do, drop=fault, **kw)
+            planted[fault] = max(cases.grad_excess(bad[n], ref[n],
+                                                   ref["a_" + n])
+                                 for n in names)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (max(excess.values()) <= 1.0 and finite
+                and all(x > 1.0 for x in planted.values())):
+            raise AssertionError(f"flash backward {label}: excess {excess}, "
+                                 f"faults {planted}, finite {finite}")
+        return excess, err, planted, got
+
+    worst_excess, worst_fault, worst_err, worst_lse = 0.0, math.inf, 0.0, 0.0
+    for name, case in cases.GRAD_CASES.items():
+        B, Hq, Hkv, Sq, Skv, D, *_, qs = case
+        q, k, v, do = (randn(B, Hq, Sq, D, scale=qs), randn(B, Hkv, Skv, D),
+                       randn(B, Hkv, Skv, D), randn(B, Hq, Sq, D))
+        kw = cases.case_kwargs(case, dev)
+        o, lse, o_p, lse_p, lse_err = forwards(name, q, k, v, kw)
+        excess_p, err_p, faults, got = check(f"{name} from the plain "
+                                             f"forward", q, k, v, o_p,
+                                             lse_p, do, kw, faults=True)
+        again = fmod.flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        excess, err, _, _ = check(f"{name} from the forward kernel", q, k,
+                                  v, o, lse, do, kw)
+        emit({"phase": "flash_backward", "case": name,
+              "shape": [B, Hq, Hkv, Sq, Skv, D], "causal": kw["causal"],
+              "window": kw["window"], "softcap": kw["softcap"],
+              "lse_max_abs_err": lse_err,
+              "excess_from_plain_forward": excess_p,
+              "excess_from_forward_kernel": excess,
+              "planted_fault_excess": faults,
+              "max_abs_err": max(err, err_p),
+              "two_launches_bit_equal": same})
+        if not same:
+            raise AssertionError(f"flash backward {name}: two launches "
+                                 f"differ")
+        worst_excess = max(worst_excess, *excess.values(), *excess_p.values())
+        worst_fault = min(worst_fault, min(faults.values()))
+        worst_err = max(worst_err, err, err_p)
+        worst_lse = max(worst_lse, lse_err)
+        del q, k, v, do, o, lse, o_p, lse_p, got, again
+
+    ptxas = {f"{entry}<{d}>": ptxas_entry(fmod.NAME, fmod.SOURCES,
+                                          fmod.EXTRA_FLAGS,
+                                          f"{entry}ILi{d}E")
+             for d in (256, 128) for entry in ("flash_bwd_dkdv",
+                                               "flash_bwd_dq",
+                                               "flash_bwd_delta")}
+    gemma, nemo = get_arch("gemma2-9b"), get_arch("mistral-nemo-12b")
+    shapes = (("gemma2-9b global", gemma, 0, True),
+              ("gemma2-9b local", gemma, gemma.sliding_window, False),
+              ("mistral-nemo-12b", nemo, nemo.sliding_window, True))
+    S = FLASH_BWD_SEQ
+    timed = {}
+    for label, c, window, library in shapes:
+        Hq, Hkv, D = c.n_heads, c.n_kv_heads, c.head_dim
+        cap = c.attn_logit_softcap
+        q, k, v, do = (randn(1, Hq, S, D), randn(1, Hkv, S, D),
+                       randn(1, Hkv, S, D), randn(1, Hq, S, D))
+        kw = dict(causal=True, window=window, softcap=cap)
+        o, lse, o_p, lse_p, lse_err = forwards(label, q, k, v, kw)
+        excess_p = check(f"at {label} from the plain forward", q, k, v,
+                         o_p, lse_p, do, kw)[0]
+        excess = check(f"at {label} from the forward kernel", q, k, v, o,
+                       lse, do, kw)[0]
+        worst_excess = max(worst_excess, *excess.values(), *excess_p.values())
+        worst_lse = max(worst_lse, lse_err)
+        del o_p, lse_p
+        torch.cuda.empty_cache()
+        bound, by, flops = flash_bwd_bound_ms(1, Hq, Hkv, S, D, True,
+                                              window)
+        row = {"phase": "flash_backward_timed", "shape_of": label,
+               "shape": [1, Hq, Hkv, S, S, D], "window": window,
+               "softcap": cap, "lse_max_abs_err": lse_err,
+               "excess_from_plain_forward": excess_p,
+               "excess_from_forward_kernel": excess,
+               "ms": time_ms(torch, lambda: fmod.flash_attention_bwd_cuda(
+                   q, k, v, o, lse, do, **kw), FLASH_BWD_ITERS),
+               "forward_ms": time_ms(torch, lambda: fmod.flash_attention_cuda(
+                   q, k, v, return_lse=True, **kw), FLASH_BWD_ITERS),
+               "plain_ms": time_ms(torch, lambda: blocked.mef_backward(
+                   q, k, v, o, lse, do, **kw), 2, warmup=1),
+               "plain": "blocked.mef_backward (float32, kv blocks of 512)",
+               "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+               "ptxas": {key: r for key, r in ptxas.items()
+                         if key.endswith(f"<{D}>")}}
+        row["tflop_s"] = flops / row["ms"] / 1e9
+        row["bound_share"] = bound / row["ms"]
+        row["library_ms"] = None
+        if library:
+            # SDPA's backward, flash backend forced, computes causal
+            # attention without softcap or window over k and v expanded to
+            # Hq heads (their gradients not summed over the group); the
+            # kernel at the same function, in turns with it
+            kk, vv = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, vv))
+            o2, lse2 = fmod.flash_attention_cuda(q, k, v, causal=True,
+                                                 return_lse=True)
+
+            def kernel_same():
+                fmod.flash_attention_bwd_cuda(q, k, v, o2, lse2, do,
+                                              causal=True)
+
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True)
+
+                def sdpa_bwd():
+                    torch.autograd.grad(out, (qg, kg, vg), do,
+                                        retain_graph=True)
+
+                t = [time_ms(torch, kernel_same, FLASH_BWD_ITERS),
+                     time_ms(torch, sdpa_bwd, FLASH_BWD_ITERS),
+                     time_ms(torch, sdpa_bwd, FLASH_BWD_ITERS),
+                     time_ms(torch, kernel_same, FLASH_BWD_ITERS)]
+            row.update({
+                "library": "scaled_dot_product_attention's backward, "
+                           "SDPBackend.FLASH_ATTENTION (forced), causal",
+                "library_ms": (t[1] + t[2]) / 2,
+                "kernel_ms_beside_library": (t[0] + t[3]) / 2})
+            row["kernel_vs_library"] = (row["library_ms"]
+                                        / row["kernel_ms_beside_library"])
+            del kk, vv, qg, kg, vg, out, o2, lse2
+        timed[label] = row
+        emit(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    g, n = timed["gemma2-9b global"], timed["mistral-nemo-12b"]
+    return {"backward": "flash_bwd_delta, then flash_bwd_dkdv (a block per "
+                        "64-key tile walks its query tiles and the group's "
+                        "heads) and flash_bwd_dq (a block per 64-row query "
+                        "tile walks its kv tiles); mma.sync m16n8k16 bf16 "
+                        "fed by ldmatrix from cp.async tiles; no atomics",
+            "backward_source": "src/repro_torch/kernels/flash_attention/"
+                               "csrc/flash_attention.cu",
+            "backward_replaces": "no TPU kernel: the reference trains "
+                                 "through attention_mef's jnp custom VJP "
+                                 "(src/repro/kernels/flash_attention/"
+                                 "ops.py:189)",
+            "backward_shape": "gemma2-9b global layer at S 4,096 (B 1, Hq "
+                              "16, Hkv 8, D 256, softcap 50)",
+            "backward_ms": g["ms"], "backward_plain_ms": g["plain_ms"],
+            "backward_bound_ms": g["bound_ms"],
+            "backward_bound_by": g["bound_by"],
+            "backward_library_ms": g["library_ms"],
+            "backward_kernel_ms_beside_library":
+                g["kernel_ms_beside_library"],
+            "backward_local_ms": timed["gemma2-9b local"]["ms"],
+            "backward_d128_ms": n["ms"], "backward_d128_plain_ms":
+                n["plain_ms"], "backward_d128_bound_ms": n["bound_ms"],
+            "backward_d128_library_ms": n["library_ms"],
+            "backward_d128_kernel_ms_beside_library":
+                n["kernel_ms_beside_library"],
+            "backward_tflop_s": g["tflop_s"], "backward_ptxas": ptxas,
+            "backward_excess": worst_excess,
+            "backward_planted_fault_excess": worst_fault,
+            "backward_max_abs_err": worst_err,
+            "forward_lse_max_abs_err": worst_lse}
+
+
+def gemma2_at_depth(name: str, layers: int, smoke: bool = False):
+    """``get_arch`` with gemma2-9b cut to ``layers`` at full width (the seam
+    ``launch.steps`` and ``launch.train`` look the arch up through)."""
+    from repro_torch.config import get_arch
+
+    full = get_arch(name, smoke)
+    if name == "gemma2-9b" and not smoke:
+        return dataclasses.replace(full, n_layers=layers)
+    return full
+
+
+def leaf_rel_l2(torch, a, b, chunk: int = 1 << 26) -> float:
+    """||a - b|| / ||b|| of one leaf in float64 sums over float32 chunks."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, b.numel(), chunk):
+        x, y = a[i:i + chunk].float(), b[i:i + chunk].float()
+        num += float(((x - y) ** 2).sum(dtype=torch.float64))
+        den += float((y * y).sum(dtype=torch.float64))
+    return (num / den) ** 0.5 if den else (0.0 if num == 0 else math.inf)
+
+
+def lm_train_phase(torch, dev) -> dict:
+    """Phase 20 (``lm_train``): gemma2-9b's ``train_4k`` cell at full width,
+    cut in depth and batch to what the card holds; returns its depth,
+    batch and launch counts."""
+    from functools import partial
+
+    from repro_torch.common import Timer
+    from repro_torch.config import LM_SHAPES, get_arch
+    from repro_torch.data.pipeline import DataCursor, LMTokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    full = get_arch("gemma2-9b")
+    spec = {s.name: s for s in LM_SHAPES}["train_4k"]
+    B, S = LM_TRAIN_BATCH, spec.seq_len
+
+    def cell_at(layers):
+        steps.get_arch = partial(gemma2_at_depth, layers=layers)
+        try:
+            return steps.build_cell("gemma2-9b", "train_4k", device=dev,
+                                    batch=B, seq_len=S)
+        finally:
+            steps.get_arch = get_arch
+
+    batch_np = LMTokenPipeline(full, dataclasses.replace(
+        spec, global_batch=B), seed=0).batch(DataCursor())
+    # the depth: one step's peak reserved bytes at two depths, linear in
+    # the layers; the deepest even count whose fitted peak leaves
+    # LM_TRAIN_MARGIN of the free memory
+    peaks = {}
+    for layers in LM_TRAIN_FIT:
+        cell = cell_at(layers)
+        free_bytes(torch, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = cell.init(0)
+        params, opt, loss, _ = cell.step_fn(params, opt,
+                                            cell.inputs(batch_np))
+        torch.cuda.synchronize()
+        peaks[layers] = torch.cuda.max_memory_reserved(dev)
+        del params, opt, loss, cell
+    l0, l1 = LM_TRAIN_FIT
+    per_layer = (peaks[l1] - peaks[l0]) / (l1 - l0)
+    base = peaks[l0] - l0 * per_layer
+    free = free_bytes(torch, dev)
+    layers = min(full.n_layers,
+                 int((free - LM_TRAIN_MARGIN - base) // per_layer) // 2 * 2)
+    if layers < 2:
+        raise AssertionError(f"lm_train: no even depth fits {free} free "
+                             f"bytes (peaks {peaks})")
+    cell = cell_at(layers)
+    cfg = cell.cfg
+    cell.note = "; ".join(x for x in (
+        f"layers {layers} of {full.n_layers}", cell.note) if x)
+    n_params = 0
+
+    # the first step's gradients, the kernels against the plain attention
+    # (attention_mef), before the optimizer state exists
+    with Timer() as t_check:
+        params = tf.init_params(cfg, seed=0, device=dev)
+        n_params = sum(p.numel() for p in adamw.tree_leaves(params))
+        batch = cell.inputs(batch_np)
+
+        def grads(attn_impl):
+            p = adamw.tree_map(lambda t: t.detach().requires_grad_(),
+                               params)
+            loss = tf.lm_loss(p, batch, cfg, attn_impl=attn_impl)
+            loss.backward()
+            return float(loss.detach()), steps._leaf_paths(
+                adamw.tree_map(lambda t: t.grad, p))
+
+        loss_k, g_k = grads("auto")
+        loss_p, g_p = grads("blocked")
+        rels = {path: leaf_rel_l2(torch, a, b)
+                for (path, a), (_, b) in zip(g_k, g_p)}
+        del g_k, g_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(rels.values())
+    if not (worst <= LM_GRAD_REL and math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)):
+        raise AssertionError(f"lm_train gradients: loss {loss_k} against "
+                             f"{loss_p}, per-leaf relative L2 {rels}")
+
+    # -- the main path: LM_TRAIN_STEPS steps, the counts set to 0 before --
+    opt = adamw.init_state(params)
+    torch.cuda.synchronize()
+    fmod.flash_attention_cuda.launches = 0
+    fmod.flash_attention_bwd_cuda.launches = 0
+    losses, secs = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss, _ = cell.step_fn(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(LM_TRAIN_STEPS - 1):
+        with Timer() as t:
+            params, opt, loss, _ = cell.step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+        secs.append(t.seconds)
+        losses.append(loss)
+    fwd = fmod.flash_attention_cuda.launches
+    bwd = fmod.flash_attention_bwd_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).tolist()
+    med = float(np.median(secs))
+    row = {"phase": "lm_train", "arch": cfg.name, "shape": "train_4k",
+           "note": cell.note, "layers": layers, "batch": B, "seq_len": S,
+           "cuts": {"layers": [layers, full.n_layers],
+                    "batch": [B, spec.global_batch],
+                    "seq_len": [S, spec.seq_len]},
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+           "params": n_params, "fit_peaks_reserved": peaks,
+           "fit_free_bytes": free, "steps": LM_TRAIN_STEPS,
+           "seconds_median": med, "seconds_min": min(secs),
+           "seconds_max": max(secs), "tok_s": B * S / med,
+           "model_flops": cell.model_flops,
+           "model_tflop_s": cell.model_flops / med / 1e12,
+           "peak_bytes": peak, "flash_forward_launches": fwd,
+           "flash_backward_launches": bwd,
+           "forward_launches_per_step": fwd / LM_TRAIN_STEPS,
+           "backward_launches_per_step": bwd / LM_TRAIN_STEPS,
+           "sync_debug_error_first_step": True, "losses": losses,
+           "grad_check": {"plain": "attention_mef (attn_impl=blocked)",
+                          "rule": f"per-leaf relative L2 <= {LM_GRAD_REL}",
+                          "worst": worst, "loss_kernel": loss_k,
+                          "loss_plain": loss_p, "per_leaf": rels},
+           "check_seconds": t_check.seconds}
+    emit(row)
+    if fwd != 2 * layers * LM_TRAIN_STEPS or bwd != layers * LM_TRAIN_STEPS:
+        raise AssertionError(f"lm_train: {fwd} forward and {bwd} backward "
+                             f"launches in {LM_TRAIN_STEPS} steps of "
+                             f"{layers} layers")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"lm_train: the loss did not fall: {losses}")
+    del params, opt, loss, batch, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": layers, "batch": B, "forward": fwd, "backward": bwd,
+            "seconds_median": med}
+
+
+def lm_train_launcher_phase(torch, dev, layers: int, batch: int) -> dict:
+    """Phase 21 (``lm_train_launcher``): ``launch/train.py`` at phase 20's
+    depth and batch for LAUNCHER_STEPS steps without a save, then at its
+    smoke config (in bf16 at head dim 128, the backward kernel's) a save at
+    step 2, a real SIGTERM and ``--resume``, against an uninterrupted run;
+    returns the flash launch counts of the full-width run."""
+    from functools import partial
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.launch import train as trainer
+
+    ck = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    try:
+        fmod.flash_attention_cuda.launches = 0
+        fmod.flash_attention_bwd_cuda.launches = 0
+        trainer.get_arch = partial(gemma2_at_depth, layers=layers)
+        res = trainer.train(trainer.parse_args(
+            ["--arch", "gemma2-9b", "--steps", str(LAUNCHER_STEPS),
+             "--seq-len", str(FLASH_BWD_SEQ), "--batch", str(batch),
+             "--ckpt-every", str(10 ** 9), "--log-every", str(10 ** 9),
+             "--ckpt-dir", os.path.join(ck, "full"), "--device", str(dev)]))
+        fwd = fmod.flash_attention_cuda.launches
+        bwd = fmod.flash_attention_bwd_cuda.launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "lm_train_launcher", "run": "full width", **res,
+              "layers": layers, "batch": batch, "flash_forward_launches": fwd,
+              "flash_backward_launches": bwd,
+              "saved_files": os.listdir(ck)})
+        if not (res["exit"] == 0 and res["steps_run"] == LAUNCHER_STEPS
+                and not res["saved"] and not os.listdir(ck)
+                and all(math.isfinite(x) for x in res["losses"])
+                and fwd == 2 * layers * LAUNCHER_STEPS
+                and bwd == layers * LAUNCHER_STEPS):
+            raise AssertionError(f"lm_train_launcher at full width: {res}, "
+                                 f"{fwd} and {bwd} launches")
+
+        smoke_cfg = dataclasses.replace(get_arch("gemma2-9b", smoke=True),
+                                        dtype="bfloat16", d_head=128)
+
+        def smoke_arch(name, smoke=False):
+            return (smoke_cfg if name == "gemma2-9b" and smoke
+                    else get_arch(name, smoke))
+
+        trainer.get_arch = smoke_arch
+        base = ["--arch", "gemma2-9b", "--smoke", "--steps", "4",
+                "--seq-len", "128", "--batch", "4", "--ckpt-every", "2",
+                "--device", str(dev)]
+        whole = trainer.train(trainer.parse_args(
+            base + ["--ckpt-dir", os.path.join(ck, "a")]))
+        first = trainer.train(trainer.parse_args(
+            base + ["--ckpt-dir", os.path.join(ck, "b"),
+                    "--preempt-after", "2"]))
+        rest = trainer.train(trainer.parse_args(
+            base + ["--ckpt-dir", os.path.join(ck, "b"), "--resume"]))
+        worst, bit_equal = 0.0, True
+        a4, b4 = (pathlib.Path(ck, d, "step_00000004") for d in "ab")
+        for f in sorted(a4.glob("*.npy")):
+            x, y = np.load(f), np.load(b4 / f.name)
+            bit_equal &= x.tobytes() == y.tobytes()
+            if x.dtype.kind == "V":     # bf16 words
+                x, y = (torch.from_numpy(np.ascontiguousarray(z).view(
+                    np.int16)).view(torch.bfloat16).float().numpy()
+                        for z in (x, y))
+            den = float(np.linalg.norm(x.astype(np.float64)))
+            num = float(np.linalg.norm(x.astype(np.float64)
+                                       - y.astype(np.float64)))
+            worst = max(worst, num / den if den else num)
+        losses = first["losses"] + rest["losses"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, whole["losses"]))
+        row = {"phase": "lm_train_launcher", "run": "smoke, preempted and "
+               "resumed", "config": "gemma2-9b smoke in bf16 at head dim 128",
+               "uninterrupted_losses": whole["losses"],
+               "interrupted_losses": first["losses"],
+               "resumed_losses": rest["losses"],
+               "first_exit": first["exit"], "resumed_from":
+                   rest["resumed_from"], "cursor": rest["cursor"],
+               "saved": [first["saved"], rest["saved"]],
+               "step4_bit_equal": bit_equal,
+               "step4_worst_rel_l2": worst, "loss_worst_rel": loss_rel}
+        emit(row)
+        # equal up to the order in which the card sums a repeated token's
+        # embedding gradient (index_put_'s accumulation)
+        if not (first["exit"] == 75 and first["saved"] == [2]
+                and rest["exit"] == 0 and rest["resumed_from"] == 2
+                and rest["cursor"]["step"] == 4 and worst <= 1e-3
+                and loss_rel <= 1e-3):
+            raise AssertionError(f"lm_train_launcher resume: {row}")
+    finally:
+        trainer.get_arch = get_arch
+        shutil.rmtree(ck, ignore_errors=True)
+    return {"forward": fwd, "backward": bwd}
+
+
 def main() -> int:
     import torch
 
@@ -3673,6 +4236,17 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # each phase group's wall seconds, printed as it ends and again before
+    # the kernel table
+    group_seconds = {}
+    marks = [time.perf_counter()]
+
+    def group_done(name):
+        marks.append(time.perf_counter())
+        group_seconds[name] = marks[-1] - marks[-2]
+        emit({"phase": "group_seconds", "group": name,
+              "seconds": group_seconds[name]})
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3697,6 +4271,7 @@ def main() -> int:
         emit({"phase": "build", "kernel": name, "seconds": secs,
               "ptxas": ptxas_entries(log.read_text()) if log.exists()
               else []})
+    group_done("build")
 
     # -- phase 1: kernel vs plain --------------------------------------------
     max_err = 0
@@ -4739,7 +5314,7 @@ def main() -> int:
 
     # -- phase 3b: the paper's competitor on the same session (Table 3) -------
     # Bellman-Ford's supersteps grow linearly with n on road_like, so the
-    # road graph is cut to 131,072 nodes; RMAT social_like(20) at its size
+    # road graph is cut to 65,536 nodes; RMAT social_like(20) at its size
     sssp_launches = {}
     for name, e in ((f"road_like({SSSP_ROAD_NODES})",
                      road_like(SSSP_ROAD_NODES, seed=0)),
@@ -4910,25 +5485,30 @@ def main() -> int:
     del res_k, res_s, res_f, oneshot, dk, ds, fc, mask, start, b
     gc.collect()
     torch.cuda.empty_cache()
+    group_done("main (graph phases 1-3c)")
     flash_row = lm_phases(torch, dev)
+    group_done("lm_phases")
     gc.collect()
     torch.cuda.empty_cache()
     family = lm_family_phases(torch, dev)
+    group_done("lm_family_phases")
     flash_row["launches"] += sum(v["prefill"] for v in family.values())
     flash_row["launches_by_path"].update(
-        {f"{kind} {arch}": v[kind] for arch, v in family.items()
-         for kind in ("prefill", "serve")})
+        {f"prefill {arch}": v["prefill"] for arch, v in family.items()})
 
     # -- phases 7-10: CIN and xDeepFM serving at full width -------------------
     gc.collect()
     torch.cuda.empty_cache()
     cin_row = recsys_phases(torch, dev)
+    group_done("recsys_phases")
 
     # -- phases 10b-10c: the CIN's gradient kernels and xDeepFM training ---
     gc.collect()
     torch.cuda.empty_cache()
     grad_rows = cin_backward_phase(torch, dev)
+    group_done("cin_backward_phase")
     train_launches = recsys_train_phase(torch, dev)
+    group_done("recsys_train_phase")
     cin_row["launches"] += train_launches["forward"]
     cin_row["launches_by_path"]["recsys_train"] = train_launches["forward"]
     l2 = {w: grad_rows[("layer2", w)] for w in ("dx", "dw")}
@@ -4977,11 +5557,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     segmm_row, ogb_batch = gnn_phases(torch, dev)
+    group_done("gnn_phases")
 
     # -- phases 14-16: gatedgcn, meshgraphnet and equiformer-v2 ---------------
     gc.collect()
     torch.cuda.empty_cache()
     kinds, kinds_timed = gnn_kinds_phases(torch, dev, ogb_batch)
+    group_done("gnn_kinds_phases")
     segmm_row["launches"] += sum(kinds.values())
     segmm_row["launches_by_path"].update(kinds)
     segmm_row["gnn_kinds_layouts"] = kinds_timed
@@ -4996,6 +5578,7 @@ def main() -> int:
         mb_pool.shutdown()
         shutil.rmtree(mb_dir, ignore_errors=True)
     del ogb_batch
+    group_done("gnn_train_phases")
     segmm_row["launches"] += sum(train.values())
     segmm_row["launches_by_path"].update(
         {f"train {k}": v for k, v in train.items()})
@@ -5015,6 +5598,30 @@ def main() -> int:
         "backward_d7_library_ms": b7["library_ms"],
         "max_abs_err": max(segmm_row["max_abs_err"], b16["max_abs_err"],
                            b7["max_abs_err"])})
+
+    # -- phases 19-21: the flash attention backward and LM training ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_row.update(flash_backward_phase(torch, dev))
+    group_done("flash_backward_phase")
+    lm_train = lm_train_phase(torch, dev)
+    group_done("lm_train_phase")
+    lm_launcher = lm_train_launcher_phase(torch, dev, lm_train["layers"],
+                                          lm_train["batch"])
+    group_done("lm_train_launcher_phase")
+    flash_row["launches"] += lm_train["forward"] + lm_launcher["forward"]
+    flash_row["launches_by_path"].update(
+        {"lm_train": lm_train["forward"],
+         "lm_train_launcher": lm_launcher["forward"]})
+    flash_row["backward_launches"] = (lm_train["backward"]
+                                      + lm_launcher["backward"])
+    flash_row["backward_launches_by_path"] = {
+        "lm_train": lm_train["backward"],
+        "lm_train_launcher": lm_launcher["backward"]}
+    flash_row["backward_launches_per_training_step"] = (
+        lm_train["backward"] // LM_TRAIN_STEPS)
+    emit({"phase": "group_seconds_total", "groups": group_seconds,
+          "script_seconds": time.perf_counter() - marks[0]})
 
     emit({"kernels": [{
         "name": "edge_relax", "route": "cuda",

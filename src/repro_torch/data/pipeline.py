@@ -30,9 +30,17 @@ OVERDECOMPOSE = 4   # logical data shards per host
 
 @dataclass
 class DataCursor:
-    """Pipeline position."""
+    """Checkpointable pipeline position."""
     step: int = 0
     shard: int = 0
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"step": self.step, "shard": self.shard}
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "DataCursor":
+        return DataCursor(step=int(d.get("step", 0)),
+                          shard=int(d.get("shard", 0)))
 
 
 def _seed_for(base: int, shard: int, step: int) -> np.random.Generator:

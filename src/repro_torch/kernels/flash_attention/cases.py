@@ -1,5 +1,8 @@
-"""The cases the flash attention kernel is held to its plain version on, the
-bf16 rule it is held by, and a planted fault that the rule must reject.
+"""The cases the flash attention kernels are held to their plain versions
+on, the bf16 rules they are held by, and planted faults that the rules
+must reject: the forward's (``CASES``, ``bf16_excess``, ``planted_fault``)
+and the backward's (``GRAD_CASES``, ``grad_reference``, ``grad_excess``,
+``GRAD_FAULTS``; see "The backward" below).
 
 One table serves the CPU tests (the plain version against the reference's),
 the card tests and ``chip_smoke.py`` (the kernel against the plain version),
@@ -17,6 +20,31 @@ would not do: on a long row the outputs average thousands of keys and are
 small, so such a tolerance can exceed them and pass a kernel that drops
 keys. ``planted_fault`` makes such a kernel's output, so that a run can show
 that the rule rejects it.
+
+The backward. dq, dk and dv are held element by element to the float64
+evaluation of the same formulas (``grad_reference``: ``P = exp(S - lse)``,
+``dS = P (dP - delta) cf``, ``cf = 1 - (s/cap)^2``) on the kernel's own
+bf16 inputs and float32 ``lse``: ``|g - r| <= 2^-7 |r| + A``. ``2^-7 |r|``
+is one bf16 ulp of the element (each side rounds on its own). ``A`` bounds
+what the sum's terms may err by, taken on absolute values term by term:
+  * P and dS are rounded to bf16 before the products (``2^-8`` of each);
+  * P errs relatively by the float32 error of its score, ``D 2^-24
+    |cf| sum|q||k| scale`` (a worst-case float32 dot product), plus
+    ``2^-16`` for the fast exponential, divide and lse;
+  * ``dP - delta`` is a difference of two float32 sums over D that cancel
+    where a row's mass sits on one key (a row with one key has dS = 0
+    exactly): ``D 2^-24 (sum|dO||V| + sum|dO||O|)``;
+  * with a softcap, ``cf`` errs absolutely by ``2^-20`` (float32 tanh).
+So ``A = sum_q P (2^-8 + e_P) |dO|`` for dv, and ``sum E_dS |q| scale``
+(dk) or ``sum E_dS |k| scale`` (dq) with ``E_dS = (2^-8 + e_P) |dS| +
+P |cf| D 2^-24 (sum|dO||V| + sum|dO||O|) + 2^-20 P |dP - delta|``. Every
+other rounding (the float32 products' sums) is far below these. Read as
+"excess" (pass at <= 1); an element of allowance 0 (a key no query sees,
+a fully masked row) must be exactly 0. A kernel that skips one tile must
+read above 1: ``GRAD_FAULTS`` are the two faults the two launches can
+make, an off-by-one in a loop's start that drops the first query tile a
+kv tile's block visits (dK and dV) or the first kv tile a query tile's
+block visits (dQ).
 """
 from __future__ import annotations
 
@@ -24,7 +52,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import KV_TILE, Q_TILE
+from repro_torch.kernels.flash_attention.kernel import (BWD_TILE, KV_TILE,
+                                                       Q_TILE)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # name -> (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset,
@@ -123,3 +152,167 @@ def planted_fault(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal=True, window=window, softcap=softcap, scale=scale,
             q_offset=q0 - start)
     return out
+
+
+# the backward's cases (same fields as CASES): GQA 1, 2 and 4; causal and
+# bidirectional; windows; softcap 50 (q scaled by 30 so that it bites);
+# both; q_offset; kv_len per row (one row empty); ragged Sq and Skv past
+# the 64-row tiles; rows with no valid key; head dims 128 and 256
+GRAD_CASES = {
+    "gqa1-causal-d128": (2, 4, 4, 96, 96, 128, True, 0, 0.0, None, None,
+                         1.0),
+    "gqa2-causal-d256": (1, 4, 2, 130, 130, 256, True, 0, 0.0, None, None,
+                         1.0),
+    "gqa4-bidirectional-d128": (1, 8, 2, 77, 150, 128, False, 0, 0.0, None,
+                                None, 1.0),
+    "window40-d256": (1, 4, 2, 200, 200, 256, True, 40, 0.0, None, None,
+                      1.0),
+    "softcap50-d256": (1, 4, 2, 100, 100, 256, True, 0, 50.0, None, None,
+                       30.0),
+    "window40-softcap50-d128": (2, 4, 2, 160, 160, 128, True, 40, 50.0,
+                                None, None, 30.0),
+    "q_offset-d128": (1, 4, 2, 70, 200, 128, True, 0, 0.0, None, 130, 1.0),
+    "kv_len-per-row-d256": (3, 4, 2, 64, 150, 256, True, 0, 50.0,
+                            [150, 97, 0], 86, 30.0),
+    "ragged-bidirectional-d128": (2, 4, 2, 129, 193, 128, False, 0, 0.0,
+                                  None, None, 1.0),
+    # rows at 73 .. 101 see keys (qpos - 4, qpos], all at or past kv_len 70
+    "fully-masked-rows-d128": (1, 4, 2, 72, 130, 128, True, 4, 0.0, 70, 30,
+                               1.0),
+    # gemma2-9b's heads, head dim and softcap on a local layer
+    "gemma2-local-S300-w100": (1, 16, 8, 300, 300, 256, True, 100, 50.0,
+                               None, None, 1.0),
+}
+
+GRAD_FAULTS = ("dkdv", "dq")
+
+
+def pair_mask(B: int, Sq: int, Skv: int, kv_len=None, q_offset=None,
+              causal: bool = True, window: int = 0,
+              device=None) -> torch.Tensor:
+    """bool ``[B', Sq, Skv]`` (B' 1 or B): the unmasked (query, key)
+    pairs."""
+    off = 0 if q_offset is None else q_offset
+    q_pos = torch.arange(Sq, device=device).reshape(Sq, 1) + torch.as_tensor(
+        off, device=device).reshape(-1)[0]
+    k_pos = torch.arange(Skv, device=device)
+    kvl = torch.as_tensor(Skv if kv_len is None else kv_len,
+                          device=device).reshape(-1, 1, 1)
+    m = (k_pos < kvl) & torch.ones((Sq, Skv), dtype=torch.bool,
+                                   device=device)
+    if causal:
+        m = m & (q_pos >= k_pos)
+    if window > 0:
+        m = m & ((q_pos - k_pos) < window)
+    return m
+
+
+def dropped_pairs(mask: torch.Tensor, fault: str,
+                  tile: int = BWD_TILE) -> torch.Tensor:
+    """The pairs a kernel with the planted ``fault`` leaves out: for
+    ``"dkdv"``, per kv tile of ``tile`` keys, the pairs of the first query
+    tile that sees one of its keys; for ``"dq"``, per query tile, those of
+    the first kv tile one of its rows sees."""
+    Bp, Sq, Skv = mask.shape
+    drop = torch.zeros_like(mask)
+    rows_first = fault == "dkdv"
+    n_outer = -(-(Skv if rows_first else Sq) // tile)
+    for b in range(Bp):
+        for t in range(n_outer):
+            sl = slice(t * tile, (t + 1) * tile)
+            block = mask[b, :, sl] if rows_first else mask[b, sl, :]
+            seen = block.any(dim=1 if rows_first else 0)
+            hit = torch.nonzero(seen)
+            if hit.numel() == 0:
+                continue
+            f0 = int(hit[0]) // tile * tile
+            if rows_first:
+                drop[b, f0:f0 + tile, sl] = mask[b, f0:f0 + tile, sl]
+            else:
+                drop[b, sl, f0:f0 + tile] = mask[b, sl, f0:f0 + tile]
+    return drop
+
+
+def grad_reference(q, k, v, o, lse, do, *, kv_len=None, q_offset=None,
+                   causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, scale: Optional[float] = None,
+                   drop: Optional[str] = None, chunk: int = 512,
+                   dtype=torch.float64) -> dict:
+    """The backward in ``dtype`` on these inputs (lse as given): ``dq``,
+    ``dk``, ``dv`` and the rule's term bounds ``a_dq``, ``a_dk``, ``a_dv``
+    (module docstring), over the query rows in chunks of ``chunk``. With
+    ``drop`` (one of ``GRAD_FAULTS``) the gradients leave out the pairs of
+    ``dropped_pairs`` instead (the planted fault's output)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = float(scale if scale is not None else D ** -0.5)
+    dev = q.device
+    mask = pair_mask(B, Sq, Skv, kv_len, q_offset, causal, window, dev)
+    gone = dropped_pairs(mask, drop) if drop else None
+    kd = k.to(dtype).repeat_interleave(G, dim=1)
+    vd = v.to(dtype).repeat_interleave(G, dim=1)
+    out = {n: torch.zeros((B, Hq, Skv, D), dtype=dtype, device=dev)
+           for n in ("dk", "dv", "a_dk", "a_dv")}
+    out["dq"] = torch.zeros((B, Hq, Sq, D), dtype=dtype, device=dev)
+    out["a_dq"] = torch.zeros_like(out["dq"])
+    for i in range(0, Sq, chunk):
+        rows = slice(i, i + chunk)
+        qc, oc, dc = (t[:, :, rows].to(dtype) for t in (q, o, do))
+        s = torch.einsum("bhqd,bhkd->bhqk", qc * scale, kd)
+        cf = torch.ones((), dtype=dtype, device=dev)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+            cf = 1.0 - (s / softcap) ** 2
+        m = mask[:, None, rows]
+        p = torch.where(m, torch.exp(s - lse[:, :, rows, None].to(dtype)),
+                        0.0)
+        delta = (dc * oc).sum(-1, keepdim=True)
+        dpd = torch.einsum("bhqd,bhkd->bhqk", dc, vd) - delta
+        ds = p * dpd * cf
+        keep_kv = keep_q = None
+        if drop == "dkdv":
+            keep_kv = ~gone[:, None, rows]
+        elif drop == "dq":
+            keep_q = ~gone[:, None, rows]
+        pk = p if keep_kv is None else p * keep_kv
+        dsk = ds if keep_kv is None else ds * keep_kv
+        dsq = ds if keep_q is None else ds * keep_q
+        out["dv"] += torch.einsum("bhqk,bhqd->bhkd", pk, dc)
+        out["dk"] += torch.einsum("bhqk,bhqd->bhkd", dsk, qc) * scale
+        out["dq"][:, :, rows] = torch.einsum("bhqk,bhkd->bhqd", dsq,
+                                             kd) * scale
+        if drop is None:   # the rule's term bounds (module docstring)
+            dot_err = D * 2.0 ** -24
+            e_p = (2.0 ** -16 + cf.abs() * dot_err * scale * torch.einsum(
+                "bhqd,bhkd->bhqk", qc.abs(), kd.abs()))
+            term = 2.0 ** -8 + e_p
+            e_ds = (term * ds.abs() + p * cf.abs() * dot_err * (
+                torch.einsum("bhqd,bhkd->bhqk", dc.abs(), vd.abs())
+                + (dc.abs() * oc.abs()).sum(-1, keepdim=True)))
+            if softcap > 0:
+                e_ds = e_ds + 2.0 ** -20 * p * dpd.abs()
+            out["a_dv"] += torch.einsum("bhqk,bhqd->bhkd", p * term,
+                                        dc.abs())
+            out["a_dk"] += torch.einsum("bhqk,bhqd->bhkd", e_ds,
+                                        qc.abs()) * scale
+            out["a_dq"][:, :, rows] = torch.einsum(
+                "bhqk,bhkd->bhqd", e_ds, kd.abs()) * scale
+    for n in ("dk", "dv", "a_dk", "a_dv"):
+        out[n] = out[n].reshape(B, Hkv, G, Skv, D).sum(dim=2)
+    return out
+
+
+BWD_ELEMENT_ULPS = 2.0 ** -7    # of the element's own |r|
+
+
+def grad_excess(got: torch.Tensor, ref: torch.Tensor,
+                bound: torch.Tensor) -> float:
+    """The largest ``|got - ref|`` over ``2^-7 |ref| + bound`` (``bound``
+    the reference's ``a_*``; pass at <= 1); an element of allowance 0
+    counts as 0 if it equals ``ref`` exactly and as infinity if not."""
+    r = ref.to(torch.float64)
+    err = (got.to(torch.float64) - r).abs()
+    allow = BWD_ELEMENT_ULPS * r.abs() + bound
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    return float(ratio.max()) if ratio.numel() else 0.0

@@ -1,4 +1,5 @@
-// Online-softmax attention forward (flash attention) for Hopper (sm_90a).
+// Online-softmax attention forward (flash attention) for Hopper (sm_90a),
+// with its log-sum-exp, and the backward (at the end of the file).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_flash_kernel, line 36; entry flash_attention_pallas). It computes the
@@ -82,6 +83,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBQ = 128;       // query rows per block (64 per consumer)
 constexpr int kBK = 64;        // keys per kv tile
 constexpr int kStages = 2;     // K/V ring depth
@@ -93,6 +96,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                  // [B, Hq, Sq] m + log(l), natural log; or null
   const int32_t* kv_len;
   int kv_len_stride;           // 1: one per batch row; 0: one for all
   const int32_t* q_offset;
@@ -621,7 +625,6 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     rw.kvl = kvl;
     rw.t4 = t4;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-    constexpr float kLog2e = 1.4426950408889634f;
     rw.c1 = p.scale * kLog2e;
     rw.c2 = p.softcap > 0.f ? 2.f * p.scale * kLog2e * p.inv_softcap : 0.f;
     rw.c3 = p.softcap * kLog2e;
@@ -714,6 +717,14 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     l1 += __shfl_xor_sync(0xffffffff, l1, 2);
     const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;  // l = 0: no valid key, o = 0
     const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+    if (p.lse != nullptr && t4 == 0) {
+      // m is kept in log2 units: lse = ln 2 (m + log2 l); a row with no
+      // valid key gets the reference's m = NEG_INF, l -> 1
+      float* lg = p.lse + (static_cast<long long>(b) * p.Hq + h) * p.Sq + c0;
+      if (r0 < rows) lg[r0] = l0 > 0.f ? kLn2 * (m0 + log2f(l0)) : kNegInf;
+      if (r0 + 8 < rows)
+        lg[r0 + 8] = l1 > 0.f ? kLn2 * (m1 + log2f(l1)) : kNegInf;
+    }
     auto* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -780,6 +791,9 @@ flash_fwd_rows(const Params p) {
     const int d = lane + 32 * c;
     if (d < p.D) og[d] = acc[c] * inv;
   }
+  if (p.lse != nullptr && lane == 0)
+    p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] =
+        l > 0.f ? m + logf(l) : kNegInf;
 }
 
 // A 4-d TMA map of a [B, H, S, D] bf16 tensor with element strides
@@ -847,15 +861,481 @@ cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward (no TPU kernel: the reference trains through attention_mef's
+// custom VJP in jnp, src/repro/kernels/flash_attention/ops.py:189-218,
+// which recomputes each kv block from the residuals (q, k, v, o, lse)).
+// Three launches, no atomics, so two backward calls are bit-equal:
+//   * flash_bwd_delta: delta = rowsum(dO . O), float32 [B, Hq, Sq];
+//   * flash_bwd_dkdv<D>: a block per (64-key tile, b, kv head) walks the
+//     query tiles that the mask lets see its keys, for each of the group's
+//     query heads (the GQA sum stays in registers): S^T = K Q^T and
+//     dP^T = V dO^T, P^T = exp(S^T - lse) (masked entries 0), dS^T =
+//     P^T (dP^T - delta) (1 - (s / cap)^2), then dV += P^T dO and dK +=
+//     dS^T Q, with P^T and dS^T rounded to bf16 in shared memory;
+//   * flash_bwd_dq<D>: a block per (64-row q tile, b, q head) walks the kv
+//     tiles of its rows (the forward's range): S, dP, dS as above, then
+//     dQ += dS K.
+// dK and dQ take the score's scale at the end, in float32. The products are
+// mma.sync m16n8k16 (bf16 in, float32 sums), fed by ldmatrix from tiles in
+// shared memory with rows padded by 16 bytes (no bank conflicts), loaded by
+// cp.async (rows past the end zero-filled). Eight warps: four row groups
+// of 16 by two column halves, so a warp keeps 16 x D/2 of each float32
+// accumulator (64 registers a thread and accumulator at D = 256).
+// Bound (operations, chip_smoke.py computes it): the backward's useful
+// work is 2.5 times the forward's, 10 D flops per unmasked pair and query
+// head; this design recomputes S and dP in the dQ launch (14 D flops).
+// What holds it back is shared memory, not the tensor cores: every warp
+// loads its operands by ldmatrix, so a 64 x 64 tile of the dK/dV launch
+// at D = 256 reads about 690 KB of shared memory (5,400 cycles at 128
+// bytes a cycle) for 2,048 cycles of mma.sync. wgmma, which reads its
+// shared-memory operands once per warpgroup, is the way to the bound.
+
+constexpr int kBB = 64;           // rows and columns of a backward tile
+constexpr int kBwdThreads = 256;  // 8 warps
+
+struct BwdParams {
+  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  __nv_bfloat16 *dq, *dk, *dv;   // contiguous [B, H, S, D]
+  const int32_t* kv_len;
+  int kv_len_stride;
+  const int32_t* q_offset;
+  int B, Hq, Hkv, Sq, Skv;
+  long long q_sb, q_sh, q_ss;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  long long do_sb, do_sh, do_ss;
+  int causal, window;
+  float softcap, scale;
+  float c1, c2, c3;              // scale log2 e; 2 scale log2 e / cap; cap log2 e
+};
+
+template <int D>
+struct BwdTile {
+  static constexpr int LD = D + 8;       // elements a row of a [64, D] tile
+  static constexpr int LDP = kBB + 8;    // elements a row of a [64, 64] tile
+  static constexpr int T_BYTES = kBB * LD * 2;
+  static constexpr int P_BYTES = kBB * LDP * 2;
+  // K, V, Q, dO, then P and dS, then lse and delta of 64 rows
+  static constexpr int SMEM = 128 + 4 * T_BYTES + 2 * P_BYTES + 2 * kBB * 4;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b: m16n8k16, A row-major, B column-major, bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows r0 .. r0 + 63 of a [S, D] bf16 matrix (row stride ss elements) into
+// a [64, LD] tile; rows at or past S are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int r0, int S) {
+  constexpr int CH = D / 8;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kBB * CH; i += kBwdThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < S;
+    const __nv_bfloat16* g = ok ? src + (r0 + r) * ss + 8 * c : src;
+    cp_async16(dst + (r * BwdTile<D>::LD + 8 * c) * 2, g, ok);
+  }
+}
+
+// acc (16 x 32 a warp) = A[row0 .. row0 + 15] . B[col0 .. col0 + 31]^T
+// over D, both [64, LD] tiles in shared memory.
+template <int D>
+__device__ __forceinline__ void bwd_scores(float (&acc)[4][4], uint32_t sA,
+                                           uint32_t sB, int row0, int col0,
+                                           int lane) {
+  constexpr int LD = BwdTile<D>::LD;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int mi = lane >> 3, r = lane & 7;
+  const uint32_t a_addr = sA + ((row0 + r + 8 * (mi & 1)) * LD + 8 * (mi >> 1)) * 2;
+  const uint32_t b_addr = sB + ((col0 + r + 8 * (mi >> 1)) * LD + 8 * (mi & 1)) * 2;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4], b01[4], b23[4];
+    ldsm_x4(a, a_addr + kk * 32);
+    ldsm_x4(b01, b_addr + kk * 32);
+    ldsm_x4(b23, b_addr + 16 * LD * 2 + kk * 32);
+    mma_bf16(acc[0], a, b01[0], b01[1]);
+    mma_bf16(acc[1], a, b01[2], b01[3]);
+    mma_bf16(acc[2], a, b23[0], b23[1]);
+    mma_bf16(acc[3], a, b23[2], b23[3]);
+  }
+}
+
+// acc (16 x D/2 a warp) += P[row0 .. row0 + 15] . Y[:, col0 .. col0 + D/2)
+// over the tile's 64 columns of P: P a [64, LDP] tile, Y a [64, LD] one
+// (its rows the product's k, read transposed by ldmatrix).
+template <int D>
+__device__ __forceinline__ void bwd_accumulate(float (&acc)[D / 16][4],
+                                               uint32_t sP, uint32_t sY,
+                                               int row0, int col0, int lane) {
+  constexpr int LD = BwdTile<D>::LD, LDP = BwdTile<D>::LDP;
+  const int mi = lane >> 3, r = lane & 7;
+  const uint32_t a_addr = sP + ((row0 + r + 8 * (mi & 1)) * LDP + 8 * (mi >> 1)) * 2;
+  const uint32_t b_addr = sY + ((r + 8 * (mi & 1)) * LD + col0 + 8 * (mi >> 1)) * 2;
+#pragma unroll
+  for (int kk = 0; kk < kBB / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + kk * 32);
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      uint32_t bb[4];
+      ldsm_x4_t(bb, b_addr + (kk * 16 * LD + 16 * j) * 2);
+      mma_bf16(acc[2 * j], a, bb[0], bb[1]);
+      mma_bf16(acc[2 * j + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// The score of a raw q.k in the base-2 domain (s2 = log2(e) s) and the
+// softcap's chain-rule factor cf = 1 - (s / cap)^2 (1 without a cap);
+// tanh(y) = 1 - 2 / (e^{2y} + 1), as the forward computes it.
+__device__ __forceinline__ void bwd_score(const BwdParams& p, float dot,
+                                          float& s2, float& cf) {
+  if (p.softcap > 0.f) {
+    const float t = 1.f - __fdividef(2.f, ex2(dot * p.c2) + 1.f);
+    s2 = p.c3 * t;
+    cf = 1.f - t * t;
+  } else {
+    s2 = dot * p.c1;
+    cf = 1.f;
+  }
+}
+
+__device__ __forceinline__ int bwd_valid_kv(const BwdParams& p, int b) {
+  return min(max(p.kv_len[b * p.kv_len_stride], 0), p.Skv);
+}
+
+// P and dS of one 64 x 64 tile from the warp's S and dP fragments, stored
+// as bf16 into sP and sS ([64, LDP]; sP may be 0: not kept). KEY_ROWS: the
+// tile's rows are keys and its columns queries (the dK/dV launch), else
+// the other way round. sL (lse in log2 units) and sD (delta) are indexed
+// by the tile's query.
+template <bool KEY_ROWS>
+__device__ __forceinline__ void bwd_tile_ds(
+    const BwdParams& p, const float (&s)[4][4], const float (&dp)[4][4],
+    unsigned char* sP, unsigned char* sS, const float* sL, const float* sD,
+    int row0, int col0, int lane, int r_base, int c_base, int q_off,
+    int kvl) {
+  constexpr int LDP = kBB + 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      float pv[2], dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * j + 2 * t + e;
+        const int qi = KEY_ROWS ? c_base + col : r_base + row;
+        const int kpos = KEY_ROWS ? r_base + row : c_base + col;
+        const int qt = KEY_ROWS ? col : row;   // the query's row in the tile
+        const int qpos = q_off + qi;
+        const bool ok = qi < p.Sq && kpos < kvl &&
+                        (!p.causal || qpos >= kpos) &&
+                        (p.window <= 0 || qpos - kpos < p.window);
+        float s2, cf;
+        bwd_score(p, s[j][2 * half + e], s2, cf);
+        const float pe = ok ? ex2(s2 - sL[qt]) : 0.f;
+        pv[e] = pe;
+        dv[e] = pe * (dp[j][2 * half + e] - sD[qt]) * cf;
+      }
+      const int off = (row * LDP + col0 + 8 * j + 2 * t) * 2;
+      if (sP != nullptr)
+        *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(pv[0], pv[1]);
+      *reinterpret_cast<uint32_t*>(sS + off) = pack_bf16(dv[0], dv[1]);
+    }
+  }
+}
+
+// lse (in log2 units) and delta of query rows q0 .. q0 + 63 of (b, h) into
+// shared memory; rows past Sq get 0 (their entries are masked).
+__device__ __forceinline__ void load_rows(const BwdParams& p, float* sL,
+                                          float* sD, int b, int h, int q0) {
+  if (threadIdx.x < kBB) {
+    const int i = q0 + threadIdx.x;
+    const long long at = (static_cast<long long>(b) * p.Hq + h) * p.Sq + i;
+    sL[threadIdx.x] = i < p.Sq ? p.lse[at] * kLog2e : 0.f;
+    sD[threadIdx.x] = i < p.Sq ? p.delta[at] : 0.f;
+  }
+}
+
+// Store a warp's 16 x D/2 float32 accumulator, times `mul`, as bf16 rows
+// r0 + row of a contiguous [.., S, D] matrix at `dst` (rows past S are
+// not written).
+template <int D>
+__device__ __forceinline__ void bwd_store(__nv_bfloat16* dst,
+                                          const float (&acc)[D / 16][4],
+                                          float mul, int r0, int S, int row0,
+                                          int col0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + row0 + g + 8 * half;
+      if (row < S)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(row) * D + col) =
+            pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+    }
+  }
+}
+
+// delta = rowsum(dO . O) in float32, one warp a query row.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta(const __grid_constant__ BwdParams p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kBwdThreads / 32) + warp;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (row >= p.Sq) return;
+  const __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+  const __nv_bfloat16* dg = p.dout + b * p.do_sb + h * p.do_sh + row * p.do_ss;
+  float acc = 0.f;
+  for (int d = 8 * lane; d < D; d += 256) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(og + d);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dg + d);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 df = __bfloat1622float2(d2[i]);
+      acc += of.x * df.x + of.y * df.y;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffff, acc, off);
+  if (lane == 0)
+    p.delta[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] = acc;
+}
+
+// dK and dV of one 64-key tile of (b, kv head); blocks are numbered with
+// the key tile slowest, so the tiles with the most queries (the first,
+// under a causal mask) are scheduled first.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv(const __grid_constant__ BwdParams p) {
+  using T = BwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  unsigned char* tK = base;
+  unsigned char* tV = tK + T::T_BYTES;
+  unsigned char* tQ = tV + T::T_BYTES;
+  unsigned char* tO = tQ + T::T_BYTES;   // dO
+  unsigned char* tP = tO + T::T_BYTES;
+  unsigned char* tS = tP + T::P_BYTES;
+  float* sL = reinterpret_cast<float*>(tS + T::P_BYTES);
+  float* sD = sL + kBB;
+  const uint32_t sK = smem_u32(tK), sV = smem_u32(tV), sQ = smem_u32(tQ),
+                 sO = smem_u32(tO), sP = smem_u32(tP), sS = smem_u32(tS);
+
+  const int per_tile = p.Hkv * p.B;
+  const int kt = blockIdx.x / per_tile;
+  const int hk = (blockIdx.x % per_tile) % p.Hkv;
+  const int b = (blockIdx.x % per_tile) / p.Hkv;
+  const int k0 = kt * kBB;
+  const int G = p.Hq / p.Hkv;
+  const int q_off = *p.q_offset;
+  const int kvl = bwd_valid_kv(p, b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 16 * (warp & 3);            // this warp's 16 keys
+  const int scol0 = 32 * (warp >> 2);          // its 32 queries of S^T
+  const int ocol0 = (D / 2) * (warp >> 2);     // its D/2 columns of dK, dV
+
+  float dk[D / 16][4], dv[D / 16][4];
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  if (k0 < kvl) {
+    load_tile<D>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
+    load_tile<D>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
+    // the query rows that see a key of [k0, k_last]
+    const int k_last = min(k0 + kBB, kvl) - 1;
+    const int i_lo = p.causal ? max(0, k0 - q_off) : 0;
+    const int i_hi = p.window > 0 ? min(p.Sq, k_last + p.window - q_off)
+                                  : p.Sq;
+    for (int h = hk * G; h < hk * G + G; ++h) {
+      for (int q0 = i_lo / kBB * kBB; q0 < i_hi; q0 += kBB) {
+        load_tile<D>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
+        load_tile<D>(sO, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
+                     p.Sq);
+        load_rows(p, sL, sD, b, h, q0);
+        cp_async_wait_all();
+        __syncthreads();
+        float s[4][4], dp[4][4];
+        bwd_scores<D>(s, sK, sQ, row0, scol0, lane);
+        bwd_scores<D>(dp, sV, sO, row0, scol0, lane);
+        bwd_tile_ds<true>(p, s, dp, tP, tS, sL, sD, row0, scol0, lane, k0,
+                          q0, q_off, kvl);
+        __syncthreads();
+        bwd_accumulate<D>(dv, sP, sO, row0, ocol0, lane);
+        bwd_accumulate<D>(dk, sS, sQ, row0, ocol0, lane);
+        __syncthreads();
+      }
+    }
+    cp_async_wait_all();   // K and V, where no query tile saw them
+  }
+  const long long head = static_cast<long long>(b) * p.Hkv + hk;
+  bwd_store<D>(p.dk + head * p.Skv * D, dk, p.scale, k0, p.Skv, row0, ocol0,
+               lane);
+  bwd_store<D>(p.dv + head * p.Skv * D, dv, 1.f, k0, p.Skv, row0, ocol0,
+               lane);
+}
+
+// dQ of one 64-row query tile of (b, q head); the last tiles (the most
+// keys under a causal mask) are scheduled first.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq(const __grid_constant__ BwdParams p) {
+  using T = BwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  unsigned char* tK = base;
+  unsigned char* tV = tK + T::T_BYTES;
+  unsigned char* tQ = tV + T::T_BYTES;
+  unsigned char* tO = tQ + T::T_BYTES;
+  unsigned char* tS = tO + T::T_BYTES + T::P_BYTES;
+  float* sL = reinterpret_cast<float*>(tS + T::P_BYTES);
+  float* sD = sL + kBB;
+  const uint32_t sK = smem_u32(tK), sV = smem_u32(tV), sQ = smem_u32(tQ),
+                 sO = smem_u32(tO), sS = smem_u32(tS);
+
+  const int n_qt = (p.Sq + kBB - 1) / kBB;
+  const int per_tile = p.Hq * p.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int h = (blockIdx.x % per_tile) % p.Hq;
+  const int b = (blockIdx.x % per_tile) / p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q0 = qt * kBB;
+  const int q_off = *p.q_offset;
+  const int kvl = bwd_valid_kv(p, b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 16 * (warp & 3);            // this warp's 16 query rows
+  const int scol0 = 32 * (warp >> 2);          // its 32 keys of S
+  const int ocol0 = (D / 2) * (warp >> 2);     // its D/2 columns of dQ
+
+  float dq[D / 16][4];
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  // the keys of the tile's rows, as the forward's key_range
+  const int q_first = q_off + q0, q_last = q_off + min(q0 + kBB, p.Sq) - 1;
+  int k_hi = kvl;
+  if (p.causal) k_hi = min(k_hi, q_last + 1);
+  const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
+  const int k_begin = k_lo / kBB * kBB;
+  if (k_begin < k_hi) {
+    load_tile<D>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
+    load_tile<D>(sO, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.Sq);
+    load_rows(p, sL, sD, b, h, q0);
+    for (int k0 = k_begin; k0 < k_hi; k0 += kBB) {
+      load_tile<D>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
+      load_tile<D>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
+      cp_async_wait_all();
+      __syncthreads();
+      float s[4][4], dp[4][4];
+      bwd_scores<D>(s, sQ, sK, row0, scol0, lane);
+      bwd_scores<D>(dp, sO, sV, row0, scol0, lane);
+      bwd_tile_ds<false>(p, s, dp, nullptr, tS, sL, sD, row0, scol0, lane,
+                         q0, k0, q_off, kvl);
+      __syncthreads();
+      bwd_accumulate<D>(dq, sS, sK, row0, ocol0, lane);
+      __syncthreads();
+    }
+  }
+  const long long head = static_cast<long long>(b) * p.Hq + h;
+  bwd_store<D>(p.dq + head * p.Sq * D, dq, p.scale, q0, p.Sq, row0, ocol0,
+               lane);
+}
+
+template <int D>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  dim3 gd((p.Sq + kBwdThreads / 32 - 1) / (kBwdThreads / 32), p.Hq, p.B);
+  flash_bwd_delta<D><<<gd, kBwdThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int smem = BwdTile<D>::SMEM;
+  if (p.Skv > 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    const int n_kt = (p.Skv + kBB - 1) / kBB;
+    flash_bwd_dkdv<D><<<n_kt * p.Hkv * p.B, kBwdThreads, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.Sq + kBB - 1) / kBB;
+  flash_bwd_dq<D><<<n_qt * p.Hq * p.B, kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = bf16, 1 = float32. strides: 12 element strides, (b, h, s) of
-// q, k, v and o in that order; the d stride is 1. Returns the CUDA error of
+// q, k, v and o in that order; the d stride is 1. lse: a contiguous float32
+// [B, Hq, Sq] written with each row's log-sum-exp (the backward's
+// residual), or null. Returns the CUDA error of
 // the launch (0 on success; a tensor map the driver refuses gives
 // cudaErrorInvalidValue). The wrapper (kernel.py) checks shapes, types,
 // alignment and devices before calling.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const int32_t* kv_len, int kv_len_stride, const int32_t* q_offset,
     int B, int Hq, int Hkv, int Sq, int Skv, int D,
     const long long* strides, int causal, int window, float softcap,
@@ -866,6 +1346,7 @@ extern "C" int flash_attention_launch(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.kv_len = kv_len;
   p.kv_len_stride = kv_len_stride;
   p.q_offset = q_offset;
@@ -891,6 +1372,59 @@ extern "C" int flash_attention_launch(
     case 64: return static_cast<int>(launch_wgmma<64>(p, B, stream));
     case 128: return static_cast<int>(launch_wgmma<128>(p, B, stream));
     case 256: return static_cast<int>(launch_wgmma<256>(p, B, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward of the bf16 forward at D 128 or 256: dq [B, Hq, Sq, D] and
+// dk, dv [B, Hkv, Skv, D] (contiguous, bf16) from q, k, v, o and dO (the
+// caller's strides; 15 element strides, (b, h, s) of q, k, v, o and dO) and
+// the forward's lse (contiguous float32 [B, Hq, Sq]). delta is float32
+// scratch of [B, Hq, Sq]. Three launches on `stream`; returns the first
+// CUDA error (cudaErrorInvalidValue at another D).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, const int32_t* kv_len, int kv_len_stride,
+    const int32_t* q_offset, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+    const long long* strides, int causal, int window, float softcap,
+    float scale, void* stream_ptr) {
+  if (Sq == 0 || B == 0 || Hq == 0) return 0;
+  BwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.kv_len = kv_len;
+  p.kv_len_stride = kv_len_stride;
+  p.q_offset = q_offset;
+  p.B = B;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
+  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
+  p.do_sb = strides[12]; p.do_sh = strides[13]; p.do_ss = strides[14];
+  p.causal = causal;
+  p.window = window;
+  p.softcap = softcap;
+  p.scale = scale;
+  p.c1 = scale * kLog2e;
+  p.c2 = softcap > 0.f ? 2.f * scale * kLog2e / softcap : 0.f;
+  p.c3 = softcap * kLog2e;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (D) {
+    case 128: return static_cast<int>(launch_bwd<128>(p, stream));
+    case 256: return static_cast<int>(launch_bwd<256>(p, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,4 +1,5 @@
-"""ctypes wrapper of the hand-written CUDA flash attention forward.
+"""ctypes wrappers of the hand-written CUDA flash attention forward and
+backward.
 
 ``flash_attention_cuda`` (``csrc/flash_attention.cu``) replaces the Pallas
 kernel ``repro/kernels/flash_attention/kernel.py`` (``_flash_kernel``):
@@ -13,7 +14,18 @@ launches on PyTorch's current stream without synchronising, raises when
 the launch is refused (the C entry returns the CUDA error), and adds one
 to ``.launches``.
 
-The kernel masks the ragged edges itself, so the caller pads nothing.
+With ``return_lse=True`` the forward also writes each query row's
+log-sum-exp (float32 ``[B, Hq, Sq]``, ``m + log(l)`` in natural-log units,
+``-1e30`` for a row with no valid key), the residual the backward reads.
+
+``flash_attention_bwd_cuda`` (no TPU kernel: the reference trains through
+the jnp custom VJP of ``attention_mef``, ``ops.py:189-218``) computes
+``(dq, dk, dv)`` from ``q, k, v, o, lse`` and ``do`` in three launches
+(``delta``, then dK/dV, then dQ; ``csrc/flash_attention.cu``), bf16 at a
+head dim of 128 or 256; it adds one to ``.launches`` per call (not per
+launch).
+
+The kernels mask the ragged edges themselves, so the caller pads nothing.
 ``kv_len`` and ``q_offset`` may be Python ints or int32 device tensors
 (``kv_len`` ``[]`` or ``[B]``); the kernel reads them on the device, so a
 tensor costs no host read.
@@ -34,8 +46,10 @@ SOURCES = ("flash_attention/csrc/flash_attention.cu",)
 EXTRA_FLAGS = ("-lcuda",)   # cuTensorMapEncodeTiled
 MAX_HEAD_DIM = 256
 BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core instantiations
+BWD_HEAD_DIMS = (128, 256)                # the backward's instantiations
 Q_TILE = 128    # query rows per block of the tensor-core kernel
 KV_TILE = 64    # keys per kv tile (one stage of its ring)
+BWD_TILE = 64   # query rows and keys per tile of the backward's launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,9 +61,13 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declare its C entry."""
     lib = _build.load(NAME, SOURCES, EXTRA_FLAGS)
     fn = lib.flash_attention_launch
-    fn.argtypes = ([_P] * 5 + [_I, _P] + [_I] * 6 + [_P] + [_I, _I]
+    fn.argtypes = ([_P] * 6 + [_I, _P] + [_I] * 6 + [_P] + [_I, _I]
                    + [ctypes.c_float, ctypes.c_float, _I, _P])
     fn.restype = ctypes.c_int
+    bwd = lib.flash_attention_bwd_launch
+    bwd.argtypes = ([_P] * 11 + [_I, _P] + [_I] * 6 + [_P] + [_I, _I]
+                    + [ctypes.c_float, ctypes.c_float, _P])
+    bwd.restype = ctypes.c_int
     return lib
 
 
@@ -67,20 +85,23 @@ def _device_int32(x: IntLike, default: int, length: int, name: str,
     return t.contiguous()
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,            # [B, Hq, Sq, D]
-    k: torch.Tensor,            # [B, Hkv, Skv, D]
-    v: torch.Tensor,            # [B, Hkv, Skv, D]
-    kv_len: IntLike = None,     # [] or [B]; default Skv
-    q_offset: IntLike = None,   # []; default 0
-    causal: bool = True,
-    window: int = 0,
-    softcap: float = 0.0,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Attention forward on the card; returns ``[B, Hq, Sq, D]`` in q's
-    dtype (a new contiguous tensor)."""
-    who = "flash_attention_cuda"
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t`` as it lies: TMA (and the backward's
+    16-byte copies) want a unit last stride, a 16-byte aligned base and
+    strides of whole 16-byte rows (multiples of 8 elements)."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def _check_tma_operand(who: str, name: str, t: torch.Tensor) -> None:
+    if not tma_ready(t):
+        raise ValueError(f"{who}: {name} must be contiguous in its last dim "
+                         f"and 16-byte aligned with strides that are "
+                         f"multiples of 8 elements")
+
+
+def _check_qkv(who: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{who}: q, k, v must be 4-d [B, H, S, D]")
     B, Hq, Sq, D = q.shape
@@ -100,36 +121,121 @@ def flash_attention_cuda(
     if not 0 < D <= MAX_HEAD_DIM or D % 8:
         raise ValueError(f"{who}: head dim must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}], got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_tma_operand(who, name, t)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,            # [B, Hq, Sq, D]
+    k: torch.Tensor,            # [B, Hkv, Skv, D]
+    v: torch.Tensor,            # [B, Hkv, Skv, D]
+    kv_len: IntLike = None,     # [] or [B]; default Skv
+    q_offset: IntLike = None,   # []; default 0
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """Attention forward on the card; returns ``[B, Hq, Sq, D]`` in q's
+    dtype (a new contiguous tensor), and with ``return_lse`` also the
+    float32 ``[B, Hq, Sq]`` log-sum-exp: ``(o, lse)``."""
+    who = "flash_attention_cuda"
+    _check_qkv(who, q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16 and D not in BF16_HEAD_DIMS:
         raise ValueError(f"{who}: bf16 head dim must be one of "
                          f"{BF16_HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{who}: {name} must be contiguous in its last "
-                             f"dim")
-        # TMA wants a 16-byte aligned base and 16-byte multiples as strides
-        if t.data_ptr() % 16 or any(
-                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-            raise ValueError(f"{who}: {name} must be 16-byte aligned with "
-                             f"strides that are multiples of 8 elements")
     if window < 0 or softcap < 0:
         raise ValueError(f"{who}: window and softcap must be >= 0")
+    dev = q.device
     scale = float(scale if scale is not None else D ** -0.5)
     kvl = _device_int32(kv_len, Skv, B, "kv_len", dev)
     qoff = _device_int32(q_offset, 0, 1, "q_offset", dev)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     fn = load_library().flash_attention_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if lse is not None else None,
              kvl.data_ptr(), 1 if kvl.numel() > 1 else 0, qoff.data_ptr(),
              B, Hq, Hkv, Sq, Skv, D, strides, int(bool(causal)), int(window),
              float(softcap), scale, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{who}: launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,            # [B, Hq, Sq, D]
+    k: torch.Tensor,            # [B, Hkv, Skv, D]
+    v: torch.Tensor,            # [B, Hkv, Skv, D]
+    o: torch.Tensor,            # [B, Hq, Sq, D]: the forward's output
+    lse: torch.Tensor,          # float32 [B, Hq, Sq]: the forward's lse
+    do: torch.Tensor,           # [B, Hq, Sq, D]: the output's gradient
+    kv_len: IntLike = None,
+    q_offset: IntLike = None,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+):
+    """The attention backward on the card: ``(dq, dk, dv)``, new contiguous
+    bf16 tensors of q's, k's and v's shapes. The mask arguments must be
+    the forward's. bf16 only, at a head dim of 128 or 256."""
+    who = "flash_attention_bwd_cuda"
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{who}: the backward takes bfloat16, got {q.dtype}")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"{who}: head dim must be one of {BWD_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    _check_qkv(who, q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, Hq, Sq, D) or t.dtype != q.dtype \
+                or t.device != dev:
+            raise ValueError(f"{who}: {name} must be {q.dtype} "
+                             f"{(B, Hq, Sq, D)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        _check_tma_operand(who, name, t)
+    if tuple(lse.shape) != (B, Hq, Sq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"{who}: lse must be a contiguous float32 "
+                         f"{(B, Hq, Sq)} on {dev}")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"{who}: window and softcap must be >= 0")
+    scale = float(scale if scale is not None else D ** -0.5)
+    kvl = _device_int32(kv_len, Skv, B, "kv_len", dev)
+    qoff = _device_int32(q_offset, 0, 1, "q_offset", dev)
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=dev)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3])
+    fn = load_library().flash_attention_bwd_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), kvl.data_ptr(),
+             1 if kvl.numel() > 1 else 0, qoff.data_ptr(), B, Hq, Hkv, Sq,
+             Skv, D, strides, int(bool(causal)), int(window), float(softcap),
+             scale, stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: launch failed with CUDA error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

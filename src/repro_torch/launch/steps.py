@@ -1,9 +1,9 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
 of the JAX package's ``launch/steps.py`` ``build_cell`` for the LM
-family's serving kinds (``_lm_cell``), xDeepFM's training and two serving
-kinds (``_recsys_cell``), the GNN family's training cell (``_gnn_cell``)
-and the paper engine's cell (``_engine_cell``), on one device, with no
-mesh and no shardings.
+family's training (dense archs) and serving kinds (``_lm_cell``),
+xDeepFM's training and two serving kinds (``_recsys_cell``), the GNN
+family's training cell (``_gnn_cell``) and the paper engine's cell
+(``_engine_cell``), on one device, with no mesh and no shardings.
 
 ``build_cell(arch, shape_name, smoke=False, device="cuda")`` returns a
 ``Cell``:
@@ -17,7 +17,9 @@ mesh and no shardings.
               family's ``full_graph``, ``minibatch`` and
               ``batched_graphs``) or ``train_step(params, opt, batch,
               cin_impl="auto") -> (params, opt, loss, stats)``
-              (``recsys_train``)
+              (``recsys_train``) or ``train_step(params, opt, batch,
+              attn_impl="auto") -> (params, opt, loss, stats)`` (the LM
+              family's ``train``)
   arg_shapes  name -> (shape, dtype) of the step's inputs besides params
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
               item fields; an MoE arch: ``moe_groups`` 1)
@@ -32,7 +34,19 @@ int, as the reference sets it), and its MoE dispatch runs in one group:
 the reference sets ``moe_groups`` to its mesh's data shards, one here. The
 keyword arguments ``batch`` and ``seq_len`` cut an LM cell's shape to what
 one card holds; the cell's ``note`` lists each cut against the
-``ShapeSpec``. ``train_4k`` raises: training waits for its slice.
+``ShapeSpec``.
+
+A dense LM arch's ``train_4k`` cell (``LMTrainCell``) is the reference's
+training step: ``lm_loss`` (the sequence chunked, each chunk's logits
+recomputed in the backward; each layer under ``torch.utils.checkpoint``
+with the configs' ``remat="full"``), its gradient by autograd (the flash
+attention backward kernel on the card), then ``optim/adamw.apply_updates``
+in place with ``train_cfg``. Its inputs are ``tokens`` and ``labels``
+``[B, S]`` int32. One card holds no LM arch's training state whole, so a
+caller cuts ``batch`` and ``seq_len`` (listed in the note) and the depth
+through the config (``get_arch``). An MoE arch's ``train_4k`` raises:
+its dispatch's gradient is the next slice's. A step reads nothing from
+the device, and raises when a parameter gets no gradient.
 
 The ``paper-graph`` arch's cell (``build_cell("paper-graph", "n16M")``,
 keyword arguments ``n_nodes`` = 2^24 and ``avg_degree`` = 5 as the
@@ -70,10 +84,9 @@ reaches the loss, so a missing gradient is a fault (a kernel autograd
 cannot see), never a leaf the loss does not use. ``zero1`` shards the
 optimizer state across data replicas and means nothing on one device.
 
-Every other family and kind (the LM family's ``train`` too) raises
-``NotImplementedError`` naming the ported kinds and the family and kind
-asked for; an arch the port does not register raises the registry's
-``KeyError``.
+Every other family and kind raises ``NotImplementedError`` naming the
+ported kinds and the family and kind asked for; an arch the port does not
+register raises the registry's ``KeyError``.
 """
 from __future__ import annotations
 
@@ -103,7 +116,7 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.optim import adamw
 
 # the shape kinds build_cell ports, by family
-PORTED_KINDS = {"lm": ("prefill", "decode"),
+PORTED_KINDS = {"lm": ("train", "prefill", "decode"),
                 "recsys": ("recsys_train", "recsys_serve", "retrieval"),
                 "gnn": ("full_graph", "minibatch", "batched_graphs")}
 
@@ -390,10 +403,60 @@ def _lm_model_flops(cfg: TransformerConfig, shape: ShapeSpec,
     return 2.0 * n * shape.global_batch
 
 
+@dataclass
+class LMTrainCell(Cell):
+    """A dense LM arch's training cell. ``init(seed)`` gives the parameters
+    (``transformer.init_params`` seeded with ``seed`` on the cell's device)
+    and their AdamW state."""
+
+    train_cfg: TrainConfig = TrainConfig()
+
+    def init(self, seed: int = 0):
+        params = tf_mod.init_params(self.cfg, seed=seed, device=self.device)
+        return params, adamw.init_state(params)
+
+
+def lm_train_step(cfg: TransformerConfig, train_cfg: TrainConfig,
+                  total_steps: int = 0) -> Callable:
+    """``train_step(params, opt, batch, attn_impl="auto", grad_transform=
+    None) -> (params, opt, loss, stats)``: ``lm_loss``, autograd, then
+    AdamW in place. ``grad_transform`` maps the gradient tree before the
+    update (the launcher's int8 error feedback). The parameters come back
+    without their gradients, so none outlives the step."""
+    def train_step(params, opt, batch, attn_impl="auto",
+                   grad_transform=None):
+        params = adamw.tree_map(lambda p: p.detach().requires_grad_(),
+                                params)
+        loss = tf_mod.lm_loss(params, batch, cfg, attn_impl=attn_impl)
+        loss.backward()
+        missing = [path for path, p in _leaf_paths(params) if p.grad is None]
+        if missing:
+            raise RuntimeError(f"{cfg.name}: no gradient reached {missing}")
+        grads = adamw.tree_map(lambda p: p.grad, params)
+        for p in adamw.tree_leaves(params):
+            p.grad = None
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt, stats = adamw.apply_updates(params, opt, grads,
+                                                 train_cfg, total_steps)
+        return params, opt, loss.detach(), stats
+
+    return train_step
+
+
 def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec, dev: torch.device,
-             batch=None, seq_len=None) -> Cell:
-    """An LM serving cell on one device, at the shape's batch and length or
-    at the cuts ``batch`` / ``seq_len`` (listed in the note)."""
+             batch=None, seq_len=None,
+             train_cfg: TrainConfig = TrainConfig()) -> Cell:
+    """An LM cell on one device, at the shape's batch and length or at the
+    cuts ``batch`` / ``seq_len`` (listed in the note)."""
+    if shape.kind == "train" and isinstance(cfg, MoEConfig):
+        raise NotImplementedError(
+            f"{cfg.name} x {shape.name}: an MoE arch's training cell needs "
+            f"the MoE dispatch's gradient, which the next slice ports with "
+            f"the head-dim-128 archs' training cells")
+    if shape.kind != "train" and train_cfg != TrainConfig():
+        raise TypeError(f"train_cfg is an argument of a training cell, not "
+                        f"of {shape.kind}")
     if isinstance(cfg, MoEConfig):
         cfg = dataclasses.replace(cfg, moe_groups=1)   # one data shard
     cuts = []
@@ -406,6 +469,14 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec, dev: torch.device,
     B, S = shape.global_batch, shape.seq_len
     note = "; ".join(cuts)
     flops = _lm_model_flops(cfg, shape, shape.kind)
+
+    if shape.kind == "train":
+        return LMTrainCell(cfg.name, shape.name,
+                           lm_train_step(cfg, train_cfg),
+                           {"tokens": ((B, S), torch.int32),
+                            "labels": ((B, S), torch.int32)}, cfg, dev,
+                           note=note, model_flops=flops,
+                           train_cfg=train_cfg)
 
     if shape.kind == "prefill":
         def serve_prefill(params, batch):
@@ -441,7 +512,7 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
             raise KeyError(f"{arch}'s cell at this size is {cell.shape!r}, "
                            f"not {shape_name!r}")
         return cell
-    allowed = {"lm": ("batch", "seq_len"),
+    allowed = {"lm": ("batch", "seq_len", "train_cfg"),
                "gnn": ("n_nodes", "n_edges", "batch_nodes", "train_cfg"),
                "recsys": ("train_cfg",)}.get(cfg.family, ())
     extra = sorted(set(kw) - set(allowed))
@@ -451,14 +522,12 @@ def build_cell(arch: str, shape_name: str, smoke: bool = False,
         shape_name)
     if shape is None or shape.kind not in PORTED_KINDS.get(cfg.family, ()):
         kind = shape.kind if shape is not None else "unknown"
-        why = (": training waits for the training slice"
-               if kind == "train" else "")
         raise NotImplementedError(
             f"{arch} x {shape_name} is not ported; the port builds the "
             f"recsys family's {', '.join(PORTED_KINDS['recsys'])} shapes, "
-            f"the lm family's {' and '.join(PORTED_KINDS['lm'])} shapes "
+            f"the lm family's {', '.join(PORTED_KINDS['lm'])} shapes "
             f"and the gnn family's {', '.join(PORTED_KINDS['gnn'])} shapes, "
-            f"and this is the {cfg.family} family's {kind} kind{why}")
+            f"and this is the {cfg.family} family's {kind} kind")
     dev = resolve_device(device)
     if cfg.family == "lm":
         return _lm_cell(cfg, shape, dev, **kw)

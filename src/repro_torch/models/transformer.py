@@ -49,11 +49,26 @@ Where it differs from the reference, on purpose:
     ``convert.transformer_params_from_reference``). It keeps one quirk of
     the reference's: ``ws_gate`` and ``ws_up`` come from one key there,
     so they are equal, and here ``ws_up`` is a copy of ``ws_gate``.
+Training: ``lm_loss`` is the reference's next-token cross-entropy,
+chunked over the sequence (each chunk's float32 logits recomputed in the
+backward by ``torch.utils.checkpoint``, labels ``-1`` masked, an MoE
+config's router aux loss added), and a config's ``remat="full"`` wraps
+each layer in ``torch.utils.checkpoint`` (non-reentrant) when autograd
+records: the layer's forward runs again in the backward, so a layer
+launches the flash attention forward twice a step and its backward once.
+Under autograd the final softcap is taken out of place (its ``tanh``'s
+backward needs its output); the no-grad serve path keeps it in place.
+The stacked layer weights are sliced by one ``unbind`` a forward, whose
+backward stacks the layers' gradients once (a per-layer index would
+write a full-size gradient per layer). Work that the reference does in
+float32 is done in ``promote_types(dtype, float32)``: float32 for the bf16
+and float32 configs, float64 for a float64 one (the tests' precision).
+
 Not ported: the reference's ``MOE_CONSTRAINTS`` and ``MOE_A2A`` hooks
 (sharding constraints and the multi-device all-to-all dispatch of
 ``moe_a2a.py``; on one device the reference runs the group-local dispatch
-above), ``lm_loss``, remat and the sharding constraints (the training and
-multi-device slices).
+above), ``act_spec`` and the sharding constraints (the multi-device
+slice).
 """
 from __future__ import annotations
 
@@ -62,6 +77,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.config.base import MoEConfig, TransformerConfig
@@ -76,6 +92,12 @@ _INIT_SLICE = 1 << 26
 
 def _dtype(cfg: TransformerConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _f32(dtype: torch.dtype) -> torch.dtype:
+    """Where the reference computes in float32: float32, or float64 for
+    float64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +183,7 @@ def layer_params(params: Params, i: int) -> Params:
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     """float32 normalisation, cast back, then times ``g`` (not ``1 + g``),
     as the reference (``transformer.py:119-122``)."""
-    xf = x.float()
+    xf = x.to(_f32(x.dtype))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
 
@@ -176,9 +198,10 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     (or ``[B, S]``); float32 angles, the result cast back to x's dtype."""
     dh = x.shape[-1]
     half = dh // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = pos.to(torch.float32)[..., None] * freqs          # [..., S, half]
+    wt = _f32(x.dtype)
+    freqs = theta ** (-torch.arange(0, half, dtype=wt, device=x.device)
+                      / half)
+    ang = pos.to(wt)[..., None] * freqs                     # [..., S, half]
     cos = torch.cos(ang)[..., None, :]                      # broadcast heads
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -273,7 +296,7 @@ def moe_route(h: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     expert index wins, as in ``lax.top_k`` (``torch.topk`` breaks ties
     otherwise)."""
     E = cfg.n_experts
-    probs = torch.softmax((h @ router).float(), dim=-1)
+    probs = torch.softmax((h @ router).to(_f32(h.dtype)), dim=-1)
     gate_vals, exp_idx = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
     gate_vals, exp_idx = gate_vals[..., :cfg.top_k], exp_idx[..., :cfg.top_k]
@@ -282,7 +305,7 @@ def moe_route(h: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     # load-balance aux loss (Switch eq. 4) over all groups; the one-hot by
     # a comparison (no bincount, no device read)
     first = exp_idx[..., :1] == torch.arange(E, device=h.device)
-    aux = E * torch.sum(first.float().mean(dim=(0, 1))
+    aux = E * torch.sum(first.to(probs.dtype).mean(dim=(0, 1))
                         * probs.mean(dim=(0, 1)))
     return probs, gate_vals, exp_idx, aux
 
@@ -391,31 +414,48 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone only: (hidden ``[B, S, D]`` after the final norm, the MoE
-    aux loss averaged over the layers; 0 for a dense config)."""
+    aux loss averaged over the layers; 0 for a dense config). With
+    ``cfg.remat != "none"`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint``."""
     _, S = tokens.shape
     x = _embed(params, tokens, cfg)
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    aux = torch.zeros((), dtype=_f32(x.dtype), device=x.device)
+    slices = {k: v.unbind(0) for k, v in params["layers"].items()}
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+
+    def layer(x, i):
+        lp = {k: v[i] for k, v in slices.items()}
         x, _ = _attention_block(x, lp, cfg, pos, S, _layer_window(cfg, i),
                                 attn_impl=attn_impl)
         x, a = _mlp(x, lp, cfg)
-        if a is not None:
-            aux = aux + a / cfg.n_layers
+        return (x,) if a is None else (x, a)
+
+    for i in range(cfg.n_layers):
+        out = (checkpoint(layer, x, i, use_reentrant=False,
+                          preserve_rng_state=False) if remat
+               else layer(x, i))
+        x = out[0]
+        if len(out) > 1:
+            aux = aux + out[1] / cfg.n_layers
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 
 
 def _unembed_logits(params: Params, x: torch.Tensor,
                     cfg: TransformerConfig) -> torch.Tensor:
-    """A product in the model dtype, then float32, then the final softcap
-    (in place: at gemma2-9b's S = 8192 the float32 logits are 8.4 GB)."""
+    """A product in the model dtype, then float32, then the final softcap:
+    in place where autograd does not record (at gemma2-9b's S = 8192 the
+    float32 logits are 8.4 GB), out of place where it does (``tanh``'s
+    backward reads its output)."""
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = (x @ unembed).float()
+    logits = (x @ unembed).to(_f32(x.dtype))
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
-        logits.div_(c).tanh_().mul_(c)
+        if torch.is_grad_enabled() and logits.requires_grad:
+            logits = torch.tanh(logits / c) * c
+        else:
+            logits.div_(c).tanh_().mul_(c)
     return logits
 
 
@@ -424,6 +464,52 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Full forward with logits (prefill / small shapes)."""
     x, aux = forward_hidden(params, tokens, cfg, attn_impl=attn_impl)
     return _unembed_logits(params, x, cfg), aux
+
+
+def _chunk_nll(params: Params, x_c: torch.Tensor, labels_c: torch.Tensor,
+               cfg: TransformerConfig):
+    """One chunk's summed NLL and its count of unmasked labels."""
+    logits = _unembed_logits(params, x_c, cfg)       # [B, S_c, V]
+    mask = labels_c >= 0
+    lab = torch.where(mask, labels_c, 0).to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig, attn_impl: str = "auto",
+            loss_chunks: int = 0) -> torch.Tensor:
+    """Next-token cross-entropy, chunked over the sequence as the
+    reference's (``transformer.py:462-505``): ``n_chunks = loss_chunks or
+    cfg.loss_chunks or (8 if S >= 2048 else 1)``, lowered until it divides
+    S; each chunk's ``[B, S_c, V]`` float32 logits are made, reduced to its
+    NLL and freed, and made again in the backward
+    (``torch.utils.checkpoint``), so the full logits never exist. Labels
+    ``-1`` are masked. An MoE config adds ``router_aux_loss`` times the
+    layers' mean aux loss."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg,
+                            attn_impl=attn_impl)
+    labels = batch["labels"]
+    B, S = labels.shape
+    n_chunks = loss_chunks or cfg.loss_chunks or (8 if S >= 2048 else 1)
+    while S % n_chunks:
+        n_chunks -= 1
+    sc = S // n_chunks
+    tot = torch.zeros((), dtype=_f32(x.dtype), device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * sc, (c + 1) * sc)
+        args = (params, x[:, sl], labels[:, sl], cfg)
+        t, n = (checkpoint(_chunk_nll, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+                if torch.is_grad_enabled() else _chunk_nll(*args))
+        tot, cnt = tot + t, cnt + n
+    loss = tot / torch.clamp_min(cnt, 1)
+    if isinstance(cfg, MoEConfig):
+        loss = loss + cfg.router_aux_loss * aux
+    return loss
 
 
 def prefill_step(params: Params, tokens: torch.Tensor,

@@ -1,7 +1,15 @@
-"""Lossless int32 column packing for ``graph.storage.GraphStore``, the
-numpy half of the JAX package's ``runtime/compression.py`` (its int8
-gradient codecs belong to training and multi-device, which the port does
-not have yet).
+"""Compression codecs, the port of the JAX package's
+``runtime/compression.py``: lossless int32 column packing for
+``graph.storage.GraphStore`` and lossy int8 codecs for gradients.
+
+Error-feedback int8 gradient compression (``ef_compress_grads``, used by
+``launch/train.py --grad-compression int8_ef``): each leaf, plus the
+residual that the last step's quantization left, is quantized to int8
+with one symmetric per-tensor scale, and the new residual is what that
+quantization lost, so the errors telescope. The arithmetic is the
+reference's float32, element for element. Its all-reduce
+(``compressed_psum``, ``int8_allreduce_shardmap``) belongs to the
+multi-device slice and is not ported.
 
 A slab column (sorted destination ids, near-sorted sources) is
 delta-encoded, zig-zag mapped to unsigned and stored at the narrowest
@@ -14,6 +22,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from repro_torch.common import tree_map
 
 
 class PackedI32(NamedTuple):
@@ -64,3 +75,39 @@ def unpack_i32(p: PackedI32) -> np.ndarray:
          ^ -(z & np.uint64(1)).astype(np.int64))
     d[0] = p.first
     return np.cumsum(d).astype(np.int32)
+
+
+def quantize_int8(x: torch.Tensor):
+    """``(q, scale)``: int8 ``round(x / scale)`` clipped to +-127, with the
+    float32 ``scale = max|x| / 127 + 1e-12``."""
+    scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def ef_compress_grads(grads, residual):
+    """Add the error feedback and quantize: ``(q tree, scale tree, new
+    residual tree)``."""
+    corrected = tree_map(lambda g, r: g.to(torch.float32) + r, grads,
+                         residual)
+    done = {}
+
+    def quantize(c):
+        done[id(c)] = quantize_int8(c)
+        return done[id(c)][0]
+
+    q = tree_map(quantize, corrected)
+    s = tree_map(lambda c: done[id(c)][1], corrected)
+    new_resid = tree_map(lambda c, qq, ss: c - dequantize_int8(qq, ss),
+                         corrected, q, s)
+    return q, s, new_resid
+
+
+def init_residual(grads):
+    """Zero float32 residuals in the gradients' shapes."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)

@@ -133,3 +133,14 @@ def test_adamw_clipping():
     _, _, stats = adamw.apply_updates(params, adamw.init_state(params),
                                       {"w": torch.full((4,), 100.0)}, tc)
     assert float(stats["grad_norm"]) == pytest.approx(200.0)
+
+
+def test_apply_updates_refuses_a_leaf_that_is_not_contiguous():
+    """The step updates each leaf in slices of its flat view, so a leaf
+    that is not contiguous is refused, not updated another way."""
+    tc = TrainConfig(lr=1e-3, warmup=1)
+    params = {"w": torch.zeros((4, 3)).t()}
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.apply_updates(params, adamw.init_state(params),
+                            {"w": torch.ones((3, 4))}, tc)
+

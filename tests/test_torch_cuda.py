@@ -43,7 +43,14 @@ training batch's layers (B 65,536, in chunks), each with its planted
 fault above the rule, their plans against the Python mirrors, two
 launches bit for bit equal, the wrappers' refusals, and xDeepFM's smoke
 training step through ``build_cell`` (3 forward and 6 backward launches,
-gradients against the plain path's, no read of the device).
+gradients against the plain path's, no read of the device); the flash
+attention forward's log-sum-exp against the plain ``mef_forward``'s, the
+backward kernel against the float64 plain backward under
+``kernels/flash_attention/cases.py``'s rule over its ``GRAD_CASES`` (both
+planted faults above it, two launches bit for bit equal, autograd through
+``ops.attention``), and an LM training step through ``build_cell``
+(``train_4k`` cut, head dim 128: 2L forward and L backward launches,
+gradients against the plain attention's, no read of the device).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -57,7 +64,7 @@ import dataclasses
 import types
 
 from repro_torch.common import GraphEngineConfig
-from repro_torch.config import GNN_SHAPES, get_arch
+from repro_torch.config import GNN_SHAPES, LM_SHAPES, get_arch
 from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
                               DeltaSteppingEstimator, KernelBackend,
                               SessionPool, SingleDeviceBackend, UpdateBatch,
@@ -81,6 +88,8 @@ from repro_torch.kernels.flash_attention import kernel as fmod
 from repro_torch.kernels.flash_attention.cases import CASES as FLASH_CASES
 from repro_torch.kernels.flash_attention.cases import (bf16_excess,
                                                        case_kwargs)
+from repro_torch.kernels.flash_attention import blocked as fblocked
+from repro_torch.kernels.flash_attention import cases as fcases
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_mm import kernel as smod
@@ -1616,6 +1625,8 @@ def test_gnn_train_step_on_card(cuda_device, arch):
         fault = grads(params, gnn_check.drop_one_transposed(graph, cfg))
     assert gnn_check.grad_excess(got, exact, plains) <= 1.0
     assert gnn_check.grad_excess(fault, exact, plains) > 1.0
+    # the step updates the parameters in place: keep a copy to compare
+    before = [t.clone() for t in adamw.tree_leaves(params)]
     torch.cuda.synchronize()
     smod.segment_mm_cuda.launches = 0
     torch.cuda.set_sync_debug_mode("error")
@@ -1626,4 +1637,123 @@ def test_gnn_train_step_on_card(cuda_device, arch):
     assert smod.segment_mm_cuda.launches == 2 * gnn.segment_mm_launches(cfg)
     assert np.isfinite(float(loss)) and int(opt.step) == 1
     assert any(not torch.equal(a, b) for a, b in zip(
-        adamw.tree_leaves(new), adamw.tree_leaves(params)))
+        adamw.tree_leaves(new), before))
+
+
+def _flash_grad_inputs(case, dev, seed=0):
+    B, Hq, Hkv, Sq, Skv, D, *_, qs = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    return (randn(B, Hq, Sq, D, scale=qs), randn(B, Hkv, Skv, D),
+            randn(B, Hkv, Skv, D), randn(B, Hq, Sq, D))
+
+
+@pytest.mark.parametrize("name", sorted(fcases.GRAD_CASES))
+def test_flash_backward_matches_plain(cuda_device, name):
+    """The forward's lse against the plain forward's (float32 sums and the
+    fast exponential: 1e-4 absolute); dq, dk and dv under the backward rule
+    of ``cases.py`` against float64 on the same inputs, both planted
+    faults above it, two launches bit for bit equal, one count a call."""
+    case = fcases.GRAD_CASES[name]
+    q, k, v, do = _flash_grad_inputs(case, cuda_device)
+    kw = fcases.case_kwargs(case, cuda_device)
+    o, lse = fmod.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, lse_ref = fblocked.mef_forward(q, k, v, **kw)
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live].float(), rtol=0,
+                               atol=1e-4)
+    assert bool((lse[~live] == -1e30).all())
+    before = fmod.flash_attention_bwd_cuda.launches
+    got = fmod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = fmod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_bwd_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fcases.grad_reference(q, k, v, o, lse, do, **kw)
+    for n, g in zip(("dq", "dk", "dv"), got):
+        assert g.dtype == torch.bfloat16 and g.shape == ref[n].shape
+        assert fcases.grad_excess(g, ref[n], ref["a_" + n]) <= 1.0, n
+    for fault in fcases.GRAD_FAULTS:
+        bad = fcases.grad_reference(q, k, v, o, lse, do, drop=fault, **kw)
+        assert max(fcases.grad_excess(bad[n], ref[n], ref["a_" + n])
+                   for n in ("dq", "dk", "dv")) > 1.0, fault
+
+
+def test_flash_attention_autograd_goes_through_the_kernels(cuda_device):
+    """``ops.attention`` on CUDA tensors that require grad: one forward and
+    one backward launch, the gradients the backward kernel's, the
+    strided [B, S, H, D] views the model passes taken as they are; the
+    backward wrapper refuses float32 and other head dims."""
+    case = fcases.GRAD_CASES["window40-softcap50-d128"]
+    q, k, v, do = _flash_grad_inputs(case, cuda_device, seed=2)
+    kw = fcases.case_kwargs(case, cuda_device)
+    qq, kk, vv = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  .requires_grad_() for x in (q, k, v))
+    f0 = fmod.flash_attention_cuda.launches
+    b0 = fmod.flash_attention_bwd_cuda.launches
+    attention(qq, kk, vv, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_cuda.launches == f0 + 1
+    assert fmod.flash_attention_bwd_cuda.launches == b0 + 1
+    o, lse = fmod.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want = fmod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b.grad) for a, b in zip(want, (qq, kk, vv)))
+    with pytest.raises(ValueError, match="bfloat16"):
+        f = q.float()
+        fmod.flash_attention_bwd_cuda(f, k.float(), v.float(), f, lse, f)
+    with pytest.raises(ValueError, match="head dim"):
+        fmod.flash_attention_bwd_cuda(q[..., :64], k[..., :64],
+                                      v[..., :64], o[..., :64], lse,
+                                      do[..., :64])
+
+
+def test_lm_train_step_through_the_kernels_on_card(cuda_device):
+    """gemma2's smoke model in bf16 at head dim 128 and remat: a train_4k
+    step cut to batch 2 and length 256 launches the flash forward 2L
+    times (the remat recomputes) and its backward L times; its gradients
+    are within bf16 noise of the plain attention's (5e-2 relative L2 per
+    leaf, ``chip_smoke.py``'s rule: the kernel rounds P and dS to bf16
+    where the plain version does not, and that rounding is carried
+    through the layers' backward; measured 2.2% at this size); step 1
+    reads nothing from the device; the loss falls over 5 steps."""
+    cfg = dataclasses.replace(get_arch("gemma2-9b", smoke=True),
+                              dtype="bfloat16", d_head=128, remat="full")
+    shape = {s.name: s for s in LM_SHAPES}["train_4k"]
+    cell = steps._lm_cell(cfg, shape, cuda_device, batch=2, seq_len=256)
+    params, opt = cell.init(0)
+    r = np.random.default_rng(0)
+    toks = r.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    batch = cell.inputs({"tokens": toks, "labels": labels})
+
+    def grads(attn_impl):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        tf.lm_loss(p, batch, cfg, attn_impl=attn_impl).backward()
+        return adamw.tree_leaves(adamw.tree_map(lambda t: t.grad, p))
+
+    for a, b in zip(grads("auto"), grads("blocked")):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel < 5e-2
+    fmod.flash_attention_cuda.launches = 0
+    fmod.flash_attention_bwd_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss, _ = cell.step_fn(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_cuda.launches == 2 * cfg.n_layers
+    assert fmod.flash_attention_bwd_cuda.launches == cfg.n_layers
+    losses = [loss]
+    for _ in range(4):
+        params, opt, loss, _ = cell.step_fn(params, opt, batch)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -269,25 +269,24 @@ def test_build_cell_runs_both_serving_kinds_on_cpu():
 
 
 @pytest.mark.parametrize("arch,shape", [("xdeepfm", "molecule"),
-                                        ("gemma2-9b", "train_4k"),
+                                        ("gemma2-9b", "no_such_shape"),
                                         ("gcn-cora", "no_such_shape"),
                                         ("xdeepfm", "no_such_shape"),
                                         ("gatedgcn", "serve_p99")])
 def test_build_cell_raises_for_what_is_not_ported(arch, shape):
     """A family or kind the port lacks raises NotImplementedError naming
-    the ported kinds and the family and kind asked for (an LM's train_4k,
-    and shapes an arch's family does not have: a GNN shape of xdeepfm,
+    the ported kinds and the family and kind asked for (shapes an arch's
+    family does not have: an unknown LM shape, a GNN shape of xdeepfm,
     whose train_batch is ported with its serving shapes, and a recsys
     shape of a GNN arch, whose four shapes are ported as training
     cells)."""
     match = (f"{arch} x {shape} is not ported; the port builds the recsys "
              f"family's recsys_train, recsys_serve, retrieval shapes, the lm "
-             f"family's prefill and decode shapes and the gnn family's "
+             f"family's train, prefill, decode shapes and the gnn family's "
              f"full_graph, minibatch, batched_graphs shapes")
     with pytest.raises(NotImplementedError, match=match) as err:
         build_cell(arch, shape, smoke=True, device="cpu")
     if arch in ("gcn-cora", "gatedgcn"):
         assert "the gnn family's unknown kind" in str(err.value)
     if arch == "gemma2-9b":
-        assert "the lm family's train kind" in str(err.value)
-        assert "training waits for the training slice" in str(err.value)
+        assert "the lm family's unknown kind" in str(err.value)

@@ -382,10 +382,12 @@ def test_cell_shapes_equal_reference_and_refusals():
                             device="cpu",
                             train_cfg=steps.TrainConfig(lr=0.0))
     p0 = _port_tree(_ref_params(False), cfg)
+    # the step updates in place: compare with a copy of the parameters
+    before = [t.clone() for t in adamw.tree_leaves(p0)]
     p1, _, _, stats = slow.step_fn(p0, adamw.init_state(p0),
                                    _inputs(_batches(False)[0]))
     assert float(stats["lr"]) == 0.0
-    for a, b in zip(adamw.tree_leaves(p1), adamw.tree_leaves(p0)):
+    for a, b in zip(adamw.tree_leaves(p1), before):
         assert torch.equal(a, b)
     with pytest.raises(TypeError, match="no cell arguments"):
         steps.build_cell("xdeepfm", "train_batch", smoke=True, device="cpu",
