@@ -3704,7 +3704,9 @@ def flash_backward_phase(torch, dev) -> dict:
     The backward is checked twice a case: from the plain forward's ``o``
     and ``lse`` (so the check does not lean on the forward kernel; the
     planted faults and the bit-equal launches are read there), and from
-    the forward kernel's, as the training path chains them."""
+    the forward kernel's, as the training path chains them. The phase
+    fails if ptxas reports a spill in any backward entry; each timed row
+    also holds each launch's ms alone (``launch_ms``)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.config import get_arch
@@ -3762,6 +3764,17 @@ def flash_backward_phase(torch, dev) -> dict:
                                  f"faults {planted}, finite {finite}")
         return excess, err, planted, got
 
+    def bwd_launch_ms(q, k, v, o, lse, do, kw):
+        """Each of the backward's three launches alone (CUDA events over
+        ``FLASH_BWD_ITERS`` launches; dK/dV and dQ after one delta launch),
+        so that the row says which launch sets the pace."""
+        run, _ = fmod.flash_attention_bwd_launcher(q, k, v, o, lse, do, **kw)
+        run(fmod.BWD_DELTA)
+        return {name: time_ms(torch, lambda b=bit: run(b), FLASH_BWD_ITERS)
+                for name, bit in (("flash_bwd_delta", fmod.BWD_DELTA),
+                                  ("flash_bwd_dkdv_wgmma", fmod.BWD_DKDV),
+                                  ("flash_bwd_dq_wgmma", fmod.BWD_DQ))}
+
     worst_excess, worst_fault, worst_err, worst_lse = 0.0, math.inf, 0.0, 0.0
     for name, case in cases.GRAD_CASES.items():
         B, Hq, Hkv, Sq, Skv, D, *_, qs = case
@@ -3797,9 +3810,14 @@ def flash_backward_phase(torch, dev) -> dict:
     ptxas = {f"{entry}<{d}>": ptxas_entry(fmod.NAME, fmod.SOURCES,
                                           fmod.EXTRA_FLAGS,
                                           f"{entry}ILi{d}E")
-             for d in (256, 128) for entry in ("flash_bwd_dkdv",
-                                               "flash_bwd_dq",
+             for d in (256, 128) for entry in ("flash_bwd_dkdv_wgmma",
+                                               "flash_bwd_dq_wgmma",
                                                "flash_bwd_delta")}
+    spilled = {key: r for key, r in ptxas.items()
+               if not r or r.get("spill_stores") or r.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"flash backward: ptxas reports spills (or no "
+                             f"entry) in {spilled}")
     gemma, nemo = get_arch("gemma2-9b"), get_arch("mistral-nemo-12b")
     shapes = (("gemma2-9b global", gemma, 0, True),
               ("gemma2-9b local", gemma, gemma.sliding_window, False),
@@ -3830,6 +3848,7 @@ def flash_backward_phase(torch, dev) -> dict:
                "excess_from_forward_kernel": excess,
                "ms": time_ms(torch, lambda: fmod.flash_attention_bwd_cuda(
                    q, k, v, o, lse, do, **kw), FLASH_BWD_ITERS),
+               "launch_ms": bwd_launch_ms(q, k, v, o, lse, do, kw),
                "forward_ms": time_ms(torch, lambda: fmod.flash_attention_cuda(
                    q, k, v, return_lse=True, **kw), FLASH_BWD_ITERS),
                "plain_ms": time_ms(torch, lambda: blocked.mef_backward(
@@ -3881,11 +3900,14 @@ def flash_backward_phase(torch, dev) -> dict:
         torch.cuda.empty_cache()
 
     g, n = timed["gemma2-9b global"], timed["mistral-nemo-12b"]
-    return {"backward": "flash_bwd_delta, then flash_bwd_dkdv (a block per "
-                        "64-key tile walks its query tiles and the group's "
-                        "heads) and flash_bwd_dq (a block per 64-row query "
-                        "tile walks its kv tiles); mma.sync m16n8k16 bf16 "
-                        "fed by ldmatrix from cp.async tiles; no atomics",
+    return {"backward": "flash_bwd_delta, then flash_bwd_dkdv_wgmma (a "
+                        "block per key tile, 128 keys at D 128 and 64 at D "
+                        "256, walks the 64-row query tiles of the group's "
+                        "heads; at D 256 one consumer does S^T, P and dV, "
+                        "the other dP^T, dS and dK) and flash_bwd_dq_wgmma "
+                        "(a block per 128 or 64 query rows walks its 64-key "
+                        "tiles); wgmma bf16 fed by a TMA ring under "
+                        "mbarriers, warp-specialised; no atomics",
             "backward_source": "src/repro_torch/kernels/flash_attention/"
                                "csrc/flash_attention.cu",
             "backward_replaces": "no TPU kernel: the reference trains "
@@ -3900,12 +3922,14 @@ def flash_backward_phase(torch, dev) -> dict:
             "backward_library_ms": g["library_ms"],
             "backward_kernel_ms_beside_library":
                 g["kernel_ms_beside_library"],
+            "backward_launch_ms": g["launch_ms"],
             "backward_local_ms": timed["gemma2-9b local"]["ms"],
             "backward_d128_ms": n["ms"], "backward_d128_plain_ms":
                 n["plain_ms"], "backward_d128_bound_ms": n["bound_ms"],
             "backward_d128_library_ms": n["library_ms"],
             "backward_d128_kernel_ms_beside_library":
                 n["kernel_ms_beside_library"],
+            "backward_d128_launch_ms": n["launch_ms"],
             "backward_tflop_s": g["tflop_s"], "backward_ptxas": ptxas,
             "backward_excess": worst_excess,
             "backward_planted_fault_excess": worst_fault,

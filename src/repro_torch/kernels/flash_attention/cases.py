@@ -43,8 +43,12 @@ other rounding (the float32 products' sums) is far below these. Read as
 a fully masked row) must be exactly 0. A kernel that skips one tile must
 read above 1: ``GRAD_FAULTS`` are the two faults the two launches can
 make, an off-by-one in a loop's start that drops the first query tile a
-kv tile's block visits (dK and dV) or the first kv tile a query tile's
-block visits (dQ).
+key tile's block visits (dK and dV) or the first kv tile a query tile's
+block visits (dQ). ``bwd_loops`` gives those loops as the kernels run
+them (``kernel.BWD_BLOCK_ROWS`` and ``BWD_STAGE_ROWS``), and
+``emulated_backward`` the kernels' arithmetic in their tile order: P and
+dS in float32, rounded to bf16 where they become an operand, float32
+sums.
 """
 from __future__ import annotations
 
@@ -52,8 +56,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (BWD_TILE, KV_TILE,
-                                                       Q_TILE)
+from repro_torch.kernels.flash_attention.kernel import (BWD_BLOCK_ROWS,
+                                                       BWD_STAGE_ROWS,
+                                                       KV_TILE, Q_TILE)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # name -> (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, kv_len, q_offset,
@@ -207,49 +212,88 @@ def pair_mask(B: int, Sq: int, Skv: int, kv_len=None, q_offset=None,
     return m
 
 
-def dropped_pairs(mask: torch.Tensor, fault: str,
-                  tile: int = BWD_TILE) -> torch.Tensor:
-    """The pairs a kernel with the planted ``fault`` leaves out: for
-    ``"dkdv"``, per kv tile of ``tile`` keys, the pairs of the first query
-    tile that sees one of its keys; for ``"dq"``, per query tile, those of
-    the first kv tile one of its rows sees."""
+def bwd_loops(Sq: int, Skv: int, head_dim: int, kv_len: int,
+              q_offset: int = 0, causal: bool = True, window: int = 0,
+              group: int = 1) -> dict:
+    """The backward kernels' loops for one batch row (``kv_len`` its valid
+    keys), as ``csrc/flash_attention.cu`` runs them at ``head_dim``:
+    ``dkdv``, per block, ``(k0, [(g, q0), ...])``: its first key and the
+    (query head in the group, 64-row query tile) of each iteration, in
+    order; ``dq``, per block, ``(q0, [k0, ...])``: its first query row and
+    the 64-key tiles it walks. Blocks span ``BWD_BLOCK_ROWS[head_dim]``
+    keys (dK/dV) or query rows (dQ)."""
+    outer, r = BWD_BLOCK_ROWS[head_dim], BWD_STAGE_ROWS
+    off = q_offset or 0
+    dkdv = []
+    for k0 in range(0, Skv, outer):
+        its = []
+        if k0 < kv_len:
+            k_last = min(k0 + outer, kv_len) - 1
+            i_lo = max(0, k0 - off) if causal else 0
+            i_hi = min(Sq, k_last + window - off) if window > 0 else Sq
+            start = i_lo // r * r
+            its = [(g, q0) for g in range(group)
+                   for q0 in range(start, i_hi, r)]
+        dkdv.append((k0, its))
+    dq = []
+    for q0 in range(0, Sq, outer):
+        q_last = off + min(q0 + outer, Sq) - 1
+        k_hi = min(kv_len, q_last + 1) if causal else kv_len
+        k_lo = max(0, off + q0 - window + 1) if window > 0 else 0
+        dq.append((q0, list(range(k_lo // r * r, k_hi, r))))
+    return {"dkdv": dkdv, "dq": dq}
+
+
+def _row_kv_lens(B: int, Skv: int, kv_len) -> list:
+    kvl = torch.as_tensor(Skv if kv_len is None else kv_len).reshape(-1)
+    return [min(max(int(kvl[b if kvl.numel() > 1 else 0]), 0), Skv)
+            for b in range(B)]
+
+
+def dropped_pairs(mask: torch.Tensor, fault: str, head_dim: int,
+                  kv_len=None, q_offset=None, causal: bool = True,
+                  window: int = 0) -> torch.Tensor:
+    """The pairs a kernel with the planted ``fault`` leaves out, by
+    ``bwd_loops``: for ``"dkdv"``, per key block, the unmasked pairs of the
+    first query tile it visits; for ``"dq"``, per query block, those of the
+    first kv tile it visits."""
     Bp, Sq, Skv = mask.shape
+    outer, r = BWD_BLOCK_ROWS[head_dim], BWD_STAGE_ROWS
     drop = torch.zeros_like(mask)
-    rows_first = fault == "dkdv"
-    n_outer = -(-(Skv if rows_first else Sq) // tile)
-    for b in range(Bp):
-        for t in range(n_outer):
-            sl = slice(t * tile, (t + 1) * tile)
-            block = mask[b, :, sl] if rows_first else mask[b, sl, :]
-            seen = block.any(dim=1 if rows_first else 0)
-            hit = torch.nonzero(seen)
-            if hit.numel() == 0:
-                continue
-            f0 = int(hit[0]) // tile * tile
-            if rows_first:
-                drop[b, f0:f0 + tile, sl] = mask[b, f0:f0 + tile, sl]
-            else:
-                drop[b, sl, f0:f0 + tile] = mask[b, sl, f0:f0 + tile]
-    return drop
+    for b, kvl in enumerate(_row_kv_lens(Bp, Skv, kv_len)):
+        loops = bwd_loops(Sq, Skv, head_dim, kvl, q_offset, causal, window)
+        if fault == "dkdv":
+            for k0, its in loops["dkdv"]:
+                if its:
+                    q0 = its[0][1]
+                    drop[b, q0:q0 + r, k0:k0 + outer] = True
+        else:
+            for q0, kts in loops["dq"]:
+                if kts:
+                    drop[b, q0:q0 + outer, kts[0]:kts[0] + r] = True
+    return drop & mask
 
 
 def grad_reference(q, k, v, o, lse, do, *, kv_len=None, q_offset=None,
                    causal: bool = True, window: int = 0,
                    softcap: float = 0.0, scale: Optional[float] = None,
                    drop: Optional[str] = None, chunk: int = 512,
-                   dtype=torch.float64) -> dict:
+                   dtype=torch.float64, tiles_of: Optional[int] = None
+                   ) -> dict:
     """The backward in ``dtype`` on these inputs (lse as given): ``dq``,
     ``dk``, ``dv`` and the rule's term bounds ``a_dq``, ``a_dk``, ``a_dv``
     (module docstring), over the query rows in chunks of ``chunk``. With
     ``drop`` (one of ``GRAD_FAULTS``) the gradients leave out the pairs of
-    ``dropped_pairs`` instead (the planted fault's output)."""
+    ``dropped_pairs`` instead (the planted fault's output), in the kernels'
+    tiles at head dim ``tiles_of`` (default: q's)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = float(scale if scale is not None else D ** -0.5)
     dev = q.device
     mask = pair_mask(B, Sq, Skv, kv_len, q_offset, causal, window, dev)
-    gone = dropped_pairs(mask, drop) if drop else None
+    gone = (dropped_pairs(mask, drop, tiles_of or D, kv_len, q_offset,
+                          causal, window) if drop else None)
     kd = k.to(dtype).repeat_interleave(G, dim=1)
     vd = v.to(dtype).repeat_interleave(G, dim=1)
     out = {n: torch.zeros((B, Hq, Skv, D), dtype=dtype, device=dev)
@@ -301,6 +345,94 @@ def grad_reference(q, k, v, o, lse, do, *, kv_len=None, q_offset=None,
     for n in ("dk", "dv", "a_dk", "a_dv"):
         out[n] = out[n].reshape(B, Hkv, G, Skv, D).sum(dim=2)
     return out
+
+
+LOG2E = 1.4426950408889634
+
+
+def emulated_backward(q, k, v, o, lse, do, *, kv_len=None, q_offset=None,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, scale: Optional[float] = None,
+                      tiles_of: Optional[int] = None) -> tuple:
+    """The backward kernels' arithmetic on CPU tensors, in their tile order
+    (``bwd_loops`` at head dim ``tiles_of``, default q's): delta and lse
+    log2(e) in float32; per tile, S and dP in float32 from the bf16
+    operands, P = 2^(s log2(e) - lse log2(e)) (0 on a masked pair) and
+    dS = P (dP - delta) cf in float32, each rounded to bf16 as the operand
+    of dV += P^T dO, dK += dS^T Q or dQ += dS K, whose sums are float32
+    (a tile's product, then the running sum); dK and dQ scaled at the end.
+    Returns bf16 ``(dq, dk, dv)``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def c(x):
+        return torch.tensor(x, dtype=f32)
+
+    scale = float(scale if scale is not None else D ** -0.5)
+    c1 = c(scale) * c(LOG2E)
+    c2 = c(2.0) * c(scale) * c(LOG2E) / c(softcap) if softcap > 0 else None
+    c3 = c(softcap) * c(LOG2E)
+    qf, kf, vf, dof = (t.to(f32) for t in (q, k, v, do))
+    lse2 = lse.to(f32) * c(LOG2E)
+    delta = (dof * o.to(f32)).sum(-1)
+    dq = torch.zeros((B, Hq, Sq, D), dtype=f32)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=f32)
+    dv = torch.zeros_like(dk)
+    r = BWD_STAGE_ROWS
+    outer = BWD_BLOCK_ROWS[tiles_of or D]
+    off = q_offset or 0
+
+    def p_ds(s, dp, rows_l, rows_d, q0, k0, kvl):
+        """P and dS of a [.., queries, keys] tile at query row q0, key k0."""
+        if softcap > 0:
+            t = 1 - 2 / (torch.exp2(s * c2) + 1)
+            cf = 1 - t * t
+            pe = torch.exp2(c3 * t - rows_l[..., None])
+        else:
+            cf = 1.0
+            pe = torch.exp2(s * c1 - rows_l[..., None])
+        qpos = off + q0 + torch.arange(s.shape[-2]).reshape(-1, 1)
+        kpos = k0 + torch.arange(s.shape[-1])
+        m = kpos < kvl
+        if causal:
+            m = m & (qpos >= kpos)
+        if window > 0:
+            m = m & (qpos - kpos < window)
+        pe = torch.where(m, pe, torch.zeros((), dtype=f32))
+        return pe, pe * (dp - rows_d[..., None]) * cf
+
+    def operand(x):
+        return x.to(bf16).to(f32)
+
+    for b, kvl in enumerate(_row_kv_lens(B, Skv, kv_len)):
+        loops = bwd_loops(Sq, Skv, tiles_of or D, kvl, off, causal, window,
+                          G)
+        for k0, its in loops["dkdv"]:
+            ks, vs = kf[b, :, k0:k0 + outer], vf[b, :, k0:k0 + outer]
+            for g, q0 in its:
+                heads = torch.arange(Hkv) * G + g
+                qs = qf[b, heads, q0:q0 + r]
+                ds_ = dof[b, heads, q0:q0 + r]
+                pe, dsv = p_ds(qs @ ks.transpose(1, 2),
+                               ds_ @ vs.transpose(1, 2),
+                               lse2[b, heads, q0:q0 + r],
+                               delta[b, heads, q0:q0 + r], q0, k0, kvl)
+                dv[b, :, k0:k0 + outer] += operand(pe).transpose(1, 2) @ ds_
+                dk[b, :, k0:k0 + outer] += operand(dsv).transpose(1, 2) @ qs
+        kx = kf[b].repeat_interleave(G, dim=0)
+        vx = vf[b].repeat_interleave(G, dim=0)
+        for q0, kts in loops["dq"]:
+            qs, ds_ = qf[b, :, q0:q0 + outer], dof[b, :, q0:q0 + outer]
+            for k0 in kts:
+                ks, vs = kx[:, k0:k0 + r], vx[:, k0:k0 + r]
+                _, dsv = p_ds(qs @ ks.transpose(1, 2),
+                              ds_ @ vs.transpose(1, 2),
+                              lse2[b, :, q0:q0 + outer],
+                              delta[b, :, q0:q0 + outer], q0, k0, kvl)
+                dq[b, :, q0:q0 + outer] += operand(dsv) @ ks
+    return ((dq * scale).to(bf16), (dk * scale).to(bf16), dv.to(bf16))
 
 
 BWD_ELEMENT_ULPS = 2.0 ** -7    # of the element's own |r|

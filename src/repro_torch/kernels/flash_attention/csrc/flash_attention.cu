@@ -864,46 +864,90 @@ cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // The backward (no TPU kernel: the reference trains through attention_mef's
-// custom VJP in jnp, src/repro/kernels/flash_attention/ops.py:189-218,
+// custom VJP in jnp, src/repro/kernels/flash_attention/ops.py:189-245,
 // which recomputes each kv block from the residuals (q, k, v, o, lse)).
 // Three launches, no atomics, so two backward calls are bit-equal:
-//   * flash_bwd_delta: delta = rowsum(dO . O), float32 [B, Hq, Sq];
-//   * flash_bwd_dkdv<D>: a block per (64-key tile, b, kv head) walks the
-//     query tiles that the mask lets see its keys, for each of the group's
-//     query heads (the GQA sum stays in registers): S^T = K Q^T and
-//     dP^T = V dO^T, P^T = exp(S^T - lse) (masked entries 0), dS^T =
-//     P^T (dP^T - delta) (1 - (s / cap)^2), then dV += P^T dO and dK +=
-//     dS^T Q, with P^T and dS^T rounded to bf16 in shared memory;
-//   * flash_bwd_dq<D>: a block per (64-row q tile, b, q head) walks the kv
-//     tiles of its rows (the forward's range): S, dP, dS as above, then
-//     dQ += dS K.
-// dK and dQ take the score's scale at the end, in float32. The products are
-// mma.sync m16n8k16 (bf16 in, float32 sums), fed by ldmatrix from tiles in
-// shared memory with rows padded by 16 bytes (no bank conflicts), loaded by
-// cp.async (rows past the end zero-filled). Eight warps: four row groups
-// of 16 by two column halves, so a warp keeps 16 x D/2 of each float32
-// accumulator (64 registers a thread and accumulator at D = 256).
-// Bound (operations, chip_smoke.py computes it): the backward's useful
-// work is 2.5 times the forward's, 10 D flops per unmasked pair and query
-// head; this design recomputes S and dP in the dQ launch (14 D flops).
-// What holds it back is shared memory, not the tensor cores: every warp
-// loads its operands by ldmatrix, so a 64 x 64 tile of the dK/dV launch
-// at D = 256 reads about 690 KB of shared memory (5,400 cycles at 128
-// bytes a cycle) for 2,048 cycles of mma.sync. wgmma, which reads its
-// shared-memory operands once per warpgroup, is the way to the bound.
+//   * flash_bwd_delta: delta = rowsum(dO . O) and lse in log2 units, float32
+//     [B, Hq, Sqp] (rows padded with zeros to a multiple of kRowPad, so that
+//     a block's rows are one aligned bulk copy);
+//   * flash_bwd_dkdv_wgmma<D>: a block per (key tile, b, kv head) walks the
+//     64-row query tiles that the mask lets see its keys, for each of the
+//     group's query heads (the GQA sum stays in registers), the tiles with
+//     the most queries (the first, under a causal mask) scheduled first;
+//   * flash_bwd_dq_wgmma<D, NC>: a block per (query tile, b, q head) walks
+//     the 64-key tiles of its rows (the forward's range), the last query
+//     tiles first, and recomputes S and dP there: 14 D flops a pair against
+//     the useful 10 D. That is the price of no atomics (float32 atomicAdd
+//     into a dQ sum would break bit-equality; a dS written to memory and
+//     read back would move up to 0.5 GB each way a call at B 1).
+// Both are built as the forward is. Warpgroup 0, the producer, gives up
+// registers; one of its threads issues every copy: the tiles the block
+// keeps (K and V; Q and dO) once, the streamed tiles through a ring of
+// stages guarded by "full" (TMA's transaction bytes) and "empty" (one
+// arrival per consumer warp) mbarriers, from 4-d [B, H, S, D] tensor maps
+// over the caller's strides, in the 128-byte swizzle the wgmma descriptors
+// name (rows past S zero-filled by the hardware); the rows' lse and delta
+// by 1-d bulk copies. The consumer warpgroups multiply with wgmma (bf16 in,
+// float32 sums): S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q K^T and dP =
+// dO V^T (dQ) as m64n64k16 with both operands in shared memory; dV += P^T
+// dO, dK += dS^T Q and dQ += dS K as m64nDk16 with the A operand (P or dS
+// rounded to bf16) in registers and B read through the descriptor's
+// transpose, as the forward's P V.
+//   * dK/dV at D = 128: a 128-key tile, each consumer owns 64 keys with
+//     both float32 sums in registers (64 + 64 a thread); Q, dO, lse and
+//     delta stream through a ring of 4 stages (195 KB of shared memory).
+//   * dK/dV at D = 256: one warpgroup's dK and dV would take 256 registers
+//     a thread, so the two consumers share a 64-key tile. Consumer 0
+//     computes S^T, P and dV += P^T dO and hands P times the softcap's
+//     factor (float32, 16 KB) to consumer 1 through shared memory under two
+//     mbarriers; consumer 1 computes dP^T, dS and dK += dS^T Q. No product
+//     is done twice. K, V 64 KB + 2 stages of 64 KB + 16 KB = 210 KB.
+//   * dQ: 64 query rows a consumer, dQ's sums (D / 2 a thread) in
+//     registers; at D = 128 two consumers and 4 K/V stages (194 KB), at
+//     D = 256 one consumer and 2 stages (194 KB; Q and dO of 128 rows would
+//     leave room for one stage).
+// The order of a consumer's products follows the ring's depth. With 4
+// stages (dQ at D = 128) a consumer issues S and dP of tile t together with
+// dQ += dS K of tile t - 1 and forms dS of tile t while that product runs.
+// With 2 stages (every launch at D = 256), and where registers are short
+// (dK/dV at D = 128), it issues tile t's last products at the end of tile
+// t, waits for them at the start of tile t + 1 and releases tile t's stage
+// there, so that the producer has a whole tile's time to bring in tile
+// t + 2: holding a stage into the next tile, as the 4-stage order does,
+// leaves the copies of a 2-stage ring exposed, and on the card the D-256
+// launches were markedly slower that way. There the two consumers of a
+// block overlap each other's products and element-wise work; dQ's one
+// consumer at D = 256 does not. A tile that no mask cuts (most of them)
+// tests no element.
+// Numerics: P and dS in float32 from the float32 score and dP, rounded to
+// bf16 only where they become an operand; float32 sums; dK and dQ take the
+// score's scale at the end, in float32.
+// Bound (operations, chip_smoke.py computes it): the backward's useful work
+// is 2.5 times the forward's, 10 D flops per unmasked pair and query head.
+// The mma.sync version this replaces was held back by shared memory: each
+// warp loaded its operands by ldmatrix, about 690 KB a 64 x 64 tile at
+// D = 256 (5,400 cycles at 128 bytes a cycle) for 2,048 cycles of
+// products. wgmma reads a shared operand once per warpgroup, about 210 KB
+// a tile, under the products' time; then the recomputed products, the
+// special function unit (with the softcap, three ex2 or divides a pair)
+// and dQ's one consumer at D = 256 (its element-wise work overlaps no
+// product) are what is left.
 
-constexpr int kBB = 64;           // rows and columns of a backward tile
-constexpr int kBwdThreads = 256;  // 8 warps
+constexpr int kBR = 64;       // rows of a streamed tile: the queries of a
+                              // dK/dV stage, the keys of a dQ stage
+constexpr int kRowPad = 128;  // lse2 and delta rows: a multiple of this
 
 struct BwdParams {
-  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const void *q, *k, *v;                // for the tensor maps (host side)
+  const __nv_bfloat16 *o, *dout;
   const float* lse;
-  float* delta;
+  float* lse2;                   // [B, Hq, Sqp]: lse log2(e), 0 past Sq
+  float* delta;                  // [B, Hq, Sqp]: rowsum(dO . O), 0 past Sq
   __nv_bfloat16 *dq, *dk, *dv;   // contiguous [B, H, S, D]
   const int32_t* kv_len;
   int kv_len_stride;
   const int32_t* q_offset;
-  int B, Hq, Hkv, Sq, Skv;
+  int B, Hq, Hkv, Sq, Skv, Sqp;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -914,133 +958,73 @@ struct BwdParams {
   float c1, c2, c3;              // scale log2 e; 2 scale log2 e / cap; cap log2 e
 };
 
-template <int D>
-struct BwdTile {
-  static constexpr int LD = D + 8;       // elements a row of a [64, D] tile
-  static constexpr int LDP = kBB + 8;    // elements a row of a [64, 64] tile
-  static constexpr int T_BYTES = kBB * LD * 2;
-  static constexpr int P_BYTES = kBB * LDP * 2;
-  // K, V, Q, dO, then P and dS, then lse and delta of 64 rows
-  static constexpr int SMEM = 128 + 4 * T_BYTES + 2 * P_BYTES + 2 * kBB * 4;
+// The TMA descriptors of the backward's bf16 operands (kernel parameters).
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+// Shared memory of the dK/dV launch at head dim D: K and V [KT rows], then
+// per stage Q and dO [64 rows], then per stage lse2 and delta [64], then
+// (D = 256) the P handover [64 x 64 float32], then the mbarriers.
+template <int D>
+struct DkdvGeo {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int KT = SPLIT ? 64 : 128;  // keys a block
+  static constexpr int NS = SPLIT ? 2 : 4;     // ring stages
+  static constexpr int KV_BYTES = KT * D * 2;
+  static constexpr int QS_BYTES = kBR * D * 2;
+  static constexpr int P_BYTES = SPLIT ? 64 * 64 * 4 : 0;
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * NS * QS_BYTES +
+                              NS * 2 * kBR * 4 + P_BYTES + 8 * (2 * NS + 3);
+};
+
+// Shared memory of the dQ launch: Q and dO [QR rows], then per stage K and
+// V [64 rows], then lse2 and delta [QR], then the mbarriers.
+template <int D, int NC>
+struct DqGeo {
+  static constexpr int QR = 64 * NC;           // query rows a block
+  static constexpr int NS = NC == 2 ? 4 : 2;   // ring stages
+  static constexpr int Q_BYTES = QR * D * 2;
+  static constexpr int KV_BYTES = kBR * D * 2;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * NS * KV_BYTES +
+                              2 * QR * 4 + 8 * (2 * NS + 1);
+};
+
+// `bytes` contiguous bytes global -> shared by the TMA engine; completion
+// is counted in `bar`'s transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a b: m16n8k16, A row-major, B column-major, bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows r0 .. r0 + 63 of a [S, D] bf16 matrix (row stride ss elements) into
-// a [64, LD] tile; rows at or past S are zero-filled.
+// A tile as the K-major operand of an SS product (D contiguous), and a
+// 64-row tile as the B operand of an RS product read through the transpose
+// (its rows the product's k, D its n).
 template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int r0, int S) {
-  constexpr int CH = D / 8;   // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kBB * CH; i += kBwdThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < S;
-    const __nv_bfloat16* g = ok ? src + (r0 + r) * ss + 8 * c : src;
-    cp_async16(dst + (r * BwdTile<D>::LD + 8 * c) * 2, g, ok);
-  }
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 8 * Tile<D>::RB, Tile<D>::MODE);
+}
+template <int D>
+__device__ __forceinline__ uint64_t trans_desc(uint32_t addr) {
+  return smem_desc(addr, kBR * Tile<D>::RB, 8 * Tile<D>::RB, Tile<D>::MODE);
 }
 
-// acc (16 x 32 a warp) = A[row0 .. row0 + 15] . B[col0 .. col0 + 31]^T
-// over D, both [64, LD] tiles in shared memory.
-template <int D>
-__device__ __forceinline__ void bwd_scores(float (&acc)[4][4], uint32_t sA,
-                                           uint32_t sB, int row0, int col0,
-                                           int lane) {
-  constexpr int LD = BwdTile<D>::LD;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int mi = lane >> 3, r = lane & 7;
-  const uint32_t a_addr = sA + ((row0 + r + 8 * (mi & 1)) * LD + 8 * (mi >> 1)) * 2;
-  const uint32_t b_addr = sB + ((col0 + r + 8 * (mi >> 1)) * LD + 8 * (mi & 1)) * 2;
+// acc = A B^T over D in m64n64k16 steps: A the 64 rows at da of a tile of
+// AR rows, B the 64 rows at db of a tile of BR rows, both stored in panels
+// of COLS columns (a panel of a tile of R rows is R * RB bytes).
+template <int D, int AR, int BR>
+__device__ __forceinline__ void issue_ss(float (&acc)[32], uint64_t da,
+                                         uint64_t db) {
+  using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4], b01[4], b23[4];
-    ldsm_x4(a, a_addr + kk * 32);
-    ldsm_x4(b01, b_addr + kk * 32);
-    ldsm_x4(b23, b_addr + 16 * LD * 2 + kk * 32);
-    mma_bf16(acc[0], a, b01[0], b01[1]);
-    mma_bf16(acc[1], a, b01[2], b01[3]);
-    mma_bf16(acc[2], a, b23[0], b23[1]);
-    mma_bf16(acc[3], a, b23[2], b23[3]);
-  }
-}
-
-// acc (16 x D/2 a warp) += P[row0 .. row0 + 15] . Y[:, col0 .. col0 + D/2)
-// over the tile's 64 columns of P: P a [64, LDP] tile, Y a [64, LD] one
-// (its rows the product's k, read transposed by ldmatrix).
-template <int D>
-__device__ __forceinline__ void bwd_accumulate(float (&acc)[D / 16][4],
-                                               uint32_t sP, uint32_t sY,
-                                               int row0, int col0, int lane) {
-  constexpr int LD = BwdTile<D>::LD, LDP = BwdTile<D>::LDP;
-  const int mi = lane >> 3, r = lane & 7;
-  const uint32_t a_addr = sP + ((row0 + r + 8 * (mi & 1)) * LDP + 8 * (mi >> 1)) * 2;
-  const uint32_t b_addr = sY + ((r + 8 * (mi & 1)) * LD + col0 + 8 * (mi >> 1)) * 2;
-#pragma unroll
-  for (int kk = 0; kk < kBB / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_addr + kk * 32);
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      uint32_t bb[4];
-      ldsm_x4_t(bb, b_addr + (kk * 16 * LD + 16 * j) * 2);
-      mma_bf16(acc[2 * j], a, bb[0], bb[1]);
-      mma_bf16(acc[2 * j + 1], a, bb[2], bb[3]);
-    }
-  }
-}
-
-// The score of a raw q.k in the base-2 domain (s2 = log2(e) s) and the
-// softcap's chain-rule factor cf = 1 - (s / cap)^2 (1 without a cap);
-// tanh(y) = 1 - 2 / (e^{2y} + 1), as the forward computes it.
-__device__ __forceinline__ void bwd_score(const BwdParams& p, float dot,
-                                          float& s2, float& cf) {
-  if (p.softcap > 0.f) {
-    const float t = 1.f - __fdividef(2.f, ex2(dot * p.c2) + 1.f);
-    s2 = p.c3 * t;
-    cf = 1.f - t * t;
-  } else {
-    s2 = dot * p.c1;
-    cf = 1.f;
+    const int pn = kk * 16 / T::COLS, col = kk * 16 % T::COLS;
+    wgmma_ss(acc, da + ((pn * AR * T::RB + col * 2) >> 4),
+             db + ((pn * BR * T::RB + col * 2) >> 4), kk > 0);
   }
 }
 
@@ -1048,91 +1032,143 @@ __device__ __forceinline__ int bwd_valid_kv(const BwdParams& p, int b) {
   return min(max(p.kv_len[b * p.kv_len_stride], 0), p.Skv);
 }
 
-// P and dS of one 64 x 64 tile from the warp's S and dP fragments, stored
-// as bf16 into sP and sS ([64, LDP]; sP may be 0: not kept). KEY_ROWS: the
-// tile's rows are keys and its columns queries (the dK/dV launch), else
-// the other way round. sL (lse in log2 units) and sD (delta) are indexed
-// by the tile's query.
-template <bool KEY_ROWS>
-__device__ __forceinline__ void bwd_tile_ds(
-    const BwdParams& p, const float (&s)[4][4], const float (&dp)[4][4],
-    unsigned char* sP, unsigned char* sS, const float* sL, const float* sD,
-    int row0, int col0, int lane, int r_base, int c_base, int q_off,
-    int kvl) {
-  constexpr int LDP = kBB + 8;
-  const int g = lane >> 2, t = lane & 3;
+// Whether query row qi (q_offset + qi its position) sees key kpos.
+__device__ __forceinline__ bool bwd_unmasked(const BwdParams& p, int kvl,
+                                             int q_off, int qi, int kpos) {
+  const int qpos = q_off + qi;
+  return qi < p.Sq && kpos < kvl && (!p.causal || qpos >= kpos) &&
+         (p.window <= 0 || qpos - kpos < p.window);
+}
+
+// Whether every pair of query rows [qa, qb] and keys [ka, kb] is unmasked.
+__device__ __forceinline__ bool bwd_interior(const BwdParams& p, int kvl,
+                                             int q_off, int qa, int qb,
+                                             int ka, int kb) {
+  return qb < p.Sq && kb < kvl && (!p.causal || q_off + qa >= kb) &&
+         (p.window <= 0 || q_off + qb - ka < p.window);
+}
+
+// P = exp(s - lse) of a raw q.k in the base-2 domain (L: lse log2 e), and
+// the softcap's chain-rule factor cf = 1 - (s / cap)^2 (1 without a cap);
+// tanh(y) = 1 - 2 / (e^{2y} + 1), as the forward computes it.
+template <bool CAP>
+__device__ __forceinline__ float bwd_p(const BwdParams& p, float dot,
+                                       float L, float& cf) {
+  if (CAP) {
+    const float t = 1.f - __fdividef(2.f, ex2(dot * p.c2) + 1.f);
+    cf = 1.f - t * t;
+    return ex2(p.c3 * t - L);
+  }
+  cf = 1.f;
+  return ex2(dot * p.c1 - L);
+}
+
+// One 64 x 64 tile of S^T and dP^T of the dK/dV launch, in accumulator
+// order (element i of a thread: key kr0 + 8 ((i >> 1) & 1), query
+// q0 + 8 (i / 4) + 2 t4 + (i & 1)), with the stage's lse2 (sL) and delta
+// (sD) of the tile's 64 queries: P into s and dS = P (dP - delta) cf into
+// dp; or (PCF) P into s and P cf to pcf, a float4 a thread and 4 elements
+// (pcf[128 j] holds elements 4j .. 4j + 3), dp untouched.
+template <bool EDGE, bool CAP, bool PCF>
+__device__ __forceinline__ void tile_kv(const BwdParams& p, float (&s)[32],
+                                        float (&dp)[32], float4* pcf,
+                                        const float* sL, const float* sD,
+                                        int kr0, int q0, int t4, int kvl,
+                                        int q_off) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+    const float2 L = *reinterpret_cast<const float2*>(sL + col);
+    float2 dl = make_float2(0.f, 0.f);
+    if constexpr (!PCF) dl = *reinterpret_cast<const float2*>(sD + col);
+    float f[4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + g + 8 * half;
-      float pv[2], dv[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = col0 + 8 * j + 2 * t + e;
-        const int qi = KEY_ROWS ? c_base + col : r_base + row;
-        const int kpos = KEY_ROWS ? r_base + row : c_base + col;
-        const int qt = KEY_ROWS ? col : row;   // the query's row in the tile
-        const int qpos = q_off + qi;
-        const bool ok = qi < p.Sq && kpos < kvl &&
-                        (!p.causal || qpos >= kpos) &&
-                        (p.window <= 0 || qpos - kpos < p.window);
-        float s2, cf;
-        bwd_score(p, s[j][2 * half + e], s2, cf);
-        const float pe = ok ? ex2(s2 - sL[qt]) : 0.f;
-        pv[e] = pe;
-        dv[e] = pe * (dp[j][2 * half + e] - sD[qt]) * cf;
-      }
-      const int off = (row * LDP + col0 + 8 * j + 2 * t) * 2;
-      if (sP != nullptr)
-        *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(pv[0], pv[1]);
-      *reinterpret_cast<uint32_t*>(sS + off) = pack_bf16(dv[0], dv[1]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float cf;
+      float pe = bwd_p<CAP>(p, s[i], (e & 1) ? L.y : L.x, cf);
+      if (EDGE && !bwd_unmasked(p, kvl, q_off, q0 + col + (e & 1),
+                                kr0 + 8 * (e >> 1)))
+        pe = 0.f;
+      s[i] = pe;
+      if constexpr (PCF) f[e] = pe * cf;
+      else dp[i] = pe * (dp[i] - ((e & 1) ? dl.y : dl.x)) * cf;
     }
+    if constexpr (PCF) pcf[128 * j] = make_float4(f[0], f[1], f[2], f[3]);
   }
 }
 
-// lse (in log2 units) and delta of query rows q0 .. q0 + 63 of (b, h) into
-// shared memory; rows past Sq get 0 (their entries are masked).
-__device__ __forceinline__ void load_rows(const BwdParams& p, float* sL,
-                                          float* sD, int b, int h, int q0) {
-  if (threadIdx.x < kBB) {
-    const int i = q0 + threadIdx.x;
-    const long long at = (static_cast<long long>(b) * p.Hq + h) * p.Sq + i;
-    sL[threadIdx.x] = i < p.Sq ? p.lse[at] * kLog2e : 0.f;
-    sD[threadIdx.x] = i < p.Sq ? p.delta[at] : 0.f;
+// dS = P cf (dP - delta) of a tile_kv<..., PCF> tile, into dp.
+__device__ __forceinline__ void tile_kv_ds(float (&dp)[32], const float4* pcf,
+                                           const float* sD, int t4) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(sD + 8 * j + 2 * t4);
+    const float4 f = pcf[128 * j];
+    dp[4 * j] = f.x * (dp[4 * j] - dl.x);
+    dp[4 * j + 1] = f.y * (dp[4 * j + 1] - dl.y);
+    dp[4 * j + 2] = f.z * (dp[4 * j + 2] - dl.x);
+    dp[4 * j + 3] = f.w * (dp[4 * j + 3] - dl.y);
   }
 }
 
-// Store a warp's 16 x D/2 float32 accumulator, times `mul`, as bf16 rows
-// r0 + row of a contiguous [.., S, D] matrix at `dst` (rows past S are
-// not written).
-template <int D>
+// One 64 x 64 tile of S and dP of the dQ launch (element i of a thread:
+// query row qi0 + 8 ((i >> 1) & 1), key k0 + 8 (i / 4) + 2 t4 + (i & 1);
+// L0, D0 the lse2 and delta of its first row, L1, D1 of its second): dS =
+// P (dP - delta) cf into dp.
+template <bool EDGE, bool CAP>
+__device__ __forceinline__ void tile_q(const BwdParams& p, const float (&s)[32],
+                                       float (&dp)[32], float L0, float L1,
+                                       float D0, float D1, int qi0, int k0,
+                                       int t4, int kvl, int q_off) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool hi = (i & 2) != 0;
+    float cf;
+    float pe = bwd_p<CAP>(p, s[i], hi ? L1 : L0, cf);
+    if (EDGE && !bwd_unmasked(p, kvl, q_off, qi0 + (hi ? 8 : 0),
+                              k0 + 8 * (i / 4) + 2 * t4 + (i & 1)))
+      pe = 0.f;
+    dp[i] = pe * (dp[i] - (hi ? D1 : D0)) * cf;
+  }
+}
+
+// A thread's float32 sums (N = D / 2: rows row0 and row0 + 8, columns
+// 8 j + 2 t4 + {0, 1}), times `mul`, as bf16 rows of a contiguous [S, D]
+// matrix at dst; rows at or past S are not written.
+template <int N>
 __device__ __forceinline__ void bwd_store(__nv_bfloat16* dst,
-                                          const float (&acc)[D / 16][4],
-                                          float mul, int r0, int S, int row0,
-                                          int col0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+                                          const float (&acc)[N], float mul,
+                                          int row0, int S, int t4) {
+  constexpr int D = 2 * N;
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    const int col = col0 + 8 * j + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + row0 + g + 8 * half;
-      if (row < S)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(row) * D + col) =
-            pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(row0) * D +
+                                   col) =
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (row0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(row0 + 8) * D +
+                                   col) =
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
-// delta = rowsum(dO . O) in float32, one warp a query row.
+// delta = rowsum(dO . O) in float32 and lse2 = lse log2(e), one warp a
+// query row; the padding rows [Sq, Sqp) get zeros.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(256)
 flash_bwd_delta(const __grid_constant__ BwdParams p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kBwdThreads / 32) + warp;
+  const int row = blockIdx.x * 8 + warp;
   const int h = blockIdx.y, b = blockIdx.z;
-  if (row >= p.Sq) return;
+  if (row >= p.Sqp) return;
+  const long long at = (static_cast<long long>(b) * p.Hq + h) * p.Sqp + row;
+  if (row >= p.Sq) {
+    if (lane == 0) p.lse2[at] = p.delta[at] = 0.f;
+    return;
+  }
   const __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
   const __nv_bfloat16* dg = p.dout + b * p.do_sb + h * p.do_sh + row * p.do_ss;
   float acc = 0.f;
@@ -1151,178 +1187,500 @@ flash_bwd_delta(const __grid_constant__ BwdParams p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffff, acc, off);
-  if (lane == 0)
-    p.delta[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] = acc;
+  if (lane == 0) {
+    p.delta[at] = acc;
+    p.lse2[at] =
+        p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] * kLog2e;
+  }
 }
 
-// dK and dV of one 64-key tile of (b, kv head); blocks are numbered with
-// the key tile slowest, so the tiles with the most queries (the first,
-// under a causal mask) are scheduled first.
+// dK and dV of one key tile of (b, kv head); blocks are numbered with the
+// key tile slowest.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dkdv(const __grid_constant__ BwdParams p) {
-  using T = BwdTile<D>;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ BwdParams p,
+                     const __grid_constant__ BwdMaps maps) {
+  using T = Tile<D>;
+  using Gm = DkdvGeo<D>;
+  constexpr int KT = Gm::KT, NS = Gm::NS, QS = Gm::QS_BYTES;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  unsigned char* tK = base;
-  unsigned char* tV = tK + T::T_BYTES;
-  unsigned char* tQ = tV + T::T_BYTES;
-  unsigned char* tO = tQ + T::T_BYTES;   // dO
-  unsigned char* tP = tO + T::T_BYTES;
-  unsigned char* tS = tP + T::P_BYTES;
-  float* sL = reinterpret_cast<float*>(tS + T::P_BYTES);
-  float* sD = sL + kBB;
-  const uint32_t sK = smem_u32(tK), sV = smem_u32(tV), sQ = smem_u32(tQ),
-                 sO = smem_u32(tO), sP = smem_u32(tP), sS = smem_u32(tS);
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = (base + 1023) & ~1023u;
+  const uint32_t sV = sK + Gm::KV_BYTES;
+  const uint32_t sQ0 = sV + Gm::KV_BYTES;              // stage s: Q, then dO
+  const uint32_t sRows = sQ0 + 2 * NS * QS;            // stage s: lse2, delta
+  const uint32_t sP = sRows + NS * 2 * kBR * 4;        // the P handover
+  const uint32_t bars = sP + Gm::P_BYTES;
+  // kv, full[NS], empty[NS], pfull, pempty
+  const uint32_t kvbar = bars, full0 = bars + 8, empty0 = bars + 8 * (1 + NS);
+  const uint32_t pfull = bars + 8 * (1 + 2 * NS), pempty = pfull + 8;
 
-  const int per_tile = p.Hkv * p.B;
-  const int kt = blockIdx.x / per_tile;
-  const int hk = (blockIdx.x % per_tile) % p.Hkv;
-  const int b = (blockIdx.x % per_tile) / p.Hkv;
-  const int k0 = kt * kBB;
+  const int per = p.Hkv * p.B;
+  const int kt = blockIdx.x / per;
+  const int hk = (blockIdx.x % per) % p.Hkv, b = (blockIdx.x % per) / p.Hkv;
+  const int k0 = kt * KT;
   const int G = p.Hq / p.Hkv;
   const int q_off = *p.q_offset;
   const int kvl = bwd_valid_kv(p, b);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = 16 * (warp & 3);            // this warp's 16 keys
-  const int scol0 = 32 * (warp >> 2);          // its 32 queries of S^T
-  const int ocol0 = (D / 2) * (warp >> 2);     // its D/2 columns of dK, dV
-
-  float dk[D / 16][4], dv[D / 16][4];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
+  // the 64-row query tiles that see a key of [k0, k_last], per query head
+  int q_start = 0, n_q = 0;
   if (k0 < kvl) {
-    load_tile<D>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
-    load_tile<D>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
-    // the query rows that see a key of [k0, k_last]
-    const int k_last = min(k0 + kBB, kvl) - 1;
+    const int k_last = min(k0 + KT, kvl) - 1;
     const int i_lo = p.causal ? max(0, k0 - q_off) : 0;
     const int i_hi = p.window > 0 ? min(p.Sq, k_last + p.window - q_off)
                                   : p.Sq;
-    for (int h = hk * G; h < hk * G + G; ++h) {
-      for (int q0 = i_lo / kBB * kBB; q0 < i_hi; q0 += kBB) {
-        load_tile<D>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
-        load_tile<D>(sO, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
-                     p.Sq);
-        load_rows(p, sL, sD, b, h, q0);
-        cp_async_wait_all();
-        __syncthreads();
-        float s[4][4], dp[4][4];
-        bwd_scores<D>(s, sK, sQ, row0, scol0, lane);
-        bwd_scores<D>(dp, sV, sO, row0, scol0, lane);
-        bwd_tile_ds<true>(p, s, dp, tP, tS, sL, sD, row0, scol0, lane, k0,
-                          q0, q_off, kvl);
-        __syncthreads();
-        bwd_accumulate<D>(dv, sP, sO, row0, ocol0, lane);
-        bwd_accumulate<D>(dk, sS, sQ, row0, ocol0, lane);
-        __syncthreads();
+    q_start = i_lo / kBR * kBR;
+    n_q = i_hi > q_start ? (i_hi - q_start + kBR - 1) / kBR : 0;
+  }
+  const int n_it = G * n_q;   // iteration it: head hk G + it / n_q
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one per consumer warp
+    }
+    mbar_init(pfull, 128);
+    mbar_init(pempty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(kvbar, 2 * Gm::KV_BYTES);
+      for (int pn = 0; pn < T::NP; ++pn) {
+        tma_load_4d(sK + pn * KT * T::RB, &maps.k, pn * T::COLS, k0, hk, b,
+                    kvbar);
+        tma_load_4d(sV + pn * KT * T::RB, &maps.v, pn * T::COLS, k0, hk, b,
+                    kvbar);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NS;
+        const int h = hk * G + it / n_q, q0 = q_start + (it % n_q) * kBR;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * QS + 2 * kBR * 4);
+        const uint32_t sQ = sQ0 + 2 * s * QS;
+        for (int pn = 0; pn < T::NP; ++pn) {
+          tma_load_4d(sQ + pn * kBR * T::RB, &maps.q, pn * T::COLS, q0, h, b,
+                      full);
+          tma_load_4d(sQ + QS + pn * kBR * T::RB, &maps.dout, pn * T::COLS,
+                      q0, h, b, full);
+        }
+        const long long row = (static_cast<long long>(b) * p.Hq + h) * p.Sqp + q0;
+        const uint32_t sr = sRows + s * 2 * kBR * 4;
+        bulk_load(sr, p.lse2 + row, kBR * 4, full);
+        bulk_load(sr + kBR * 4, p.delta + row, kBR * 4, full);
       }
     }
-    cp_async_wait_all();   // K and V, where no query tile saw them
+  } else {
+    // ---- consumers -----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * warp + g;      // this thread's keys: r0 and r0 + 8
+    const int kc0 = Gm::SPLIT ? k0 : k0 + 64 * c;   // this consumer's keys
+    const bool cap = p.softcap > 0.f;
+    const long long head = static_cast<long long>(b) * p.Hkv + hk;
+    auto stage = [&](int it) { return sQ0 + 2 * (it % NS) * QS; };
+    auto rows = [&](int it) {
+      return reinterpret_cast<const float*>(
+          smem_raw + (sRows + (it % NS) * 2 * kBR * 4 - base));
+    };
+    auto wait_full = [&](int it) {
+      mbar_wait(full0 + 8 * (it % NS), (it / NS) & 1);
+    };
+    auto release = [&](int it) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * (it % NS));
+    };
+    auto q_of = [&](int it) { return q_start + (it % n_q) * kBR; };
+    auto edge = [&](int it) {
+      const int q0 = q_of(it);
+      return !bwd_interior(p, kvl, q_off, q0, q0 + kBR - 1, kc0, kc0 + 63);
+    };
+    if constexpr (!Gm::SPLIT) {
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      if (n_it > 0) {
+        mbar_wait(kvbar, 0);
+        const uint64_t ak = kmajor_desc<D>(sK + 64 * c * T::RB);
+        const uint64_t av = kmajor_desc<D>(sV + 64 * c * T::RB);
+        float sc[32], dp[32];
+        uint32_t pa[4][4], da[4][4];
+        for (int it = 0; it < n_it; ++it) {
+          const uint32_t sQ = stage(it);
+          wait_full(it);
+          reg_fence(sc);
+          reg_fence(dp);
+          wgmma_fence();
+          issue_ss<D, KT, kBR>(sc, ak, kmajor_desc<D>(sQ));
+          issue_ss<D, KT, kBR>(dp, av, kmajor_desc<D>(sQ + QS));
+          wgmma_commit();
+          wgmma_wait<0>();   // and dV, dK of the tile before
+          reg_fence(sc);
+          reg_fence(dp);
+          reg_fence(dk);
+          reg_fence(dv);
+          if (it > 0) release(it - 1);
+          const float* rw = rows(it);
+          const int q0 = q_of(it);
+          if (edge(it)) {
+            if (cap) tile_kv<true, true, false>(p, sc, dp, nullptr, rw, rw + kBR, kc0 + r0, q0, t4, kvl, q_off);
+            else tile_kv<true, false, false>(p, sc, dp, nullptr, rw, rw + kBR, kc0 + r0, q0, t4, kvl, q_off);
+          } else {
+            if (cap) tile_kv<false, true, false>(p, sc, dp, nullptr, rw, rw + kBR, kc0 + r0, q0, t4, kvl, q_off);
+            else tile_kv<false, false, false>(p, sc, dp, nullptr, rw, rw + kBR, kc0 + r0, q0, t4, kvl, q_off);
+          }
+          pack_p(sc, pa);
+          pack_p(dp, da);
+          wgmma_fence();
+          issue_pv(dv, pa, trans_desc<D>(sQ + QS));
+          issue_pv(dk, da, trans_desc<D>(sQ));
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        reg_fence(dk);
+        reg_fence(dv);
+        release(n_it - 1);
+      }
+      bwd_store(p.dk + head * p.Skv * D, dk, p.scale, kc0 + r0, p.Skv, t4);
+      bwd_store(p.dv + head * p.Skv * D, dv, 1.f, kc0 + r0, p.Skv, t4);
+    } else if (c == 0) {
+      // S^T, P, dV; P cf handed to consumer 1
+      float dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv[i] = 0.f;
+      if (n_it > 0) {
+        mbar_wait(kvbar, 0);
+        const uint64_t ak = kmajor_desc<D>(sK);
+        float4* pcf = reinterpret_cast<float4*>(smem_raw + (sP - base)) + tid;
+        float sc[32];
+        uint32_t pa[4][4];
+        for (int it = 0; it < n_it; ++it) {
+          const uint32_t sQ = stage(it);
+          wait_full(it);
+          reg_fence(sc);
+          reg_fence(dv);
+          wgmma_fence();
+          issue_ss<D, KT, kBR>(sc, ak, kmajor_desc<D>(sQ));
+          wgmma_commit();
+          wgmma_wait<0>();   // and dV of the tile before
+          reg_fence(sc);
+          reg_fence(dv);
+          if (it > 0) release(it - 1);
+          mbar_wait(pempty, (it & 1) ^ 1);   // consumer 1 read the last one
+          const float* rw = rows(it);
+          const int q0 = q_of(it);
+          if (edge(it)) {
+            if (cap) tile_kv<true, true, true>(p, sc, sc, pcf, rw, rw + kBR, k0 + r0, q0, t4, kvl, q_off);
+            else tile_kv<true, false, true>(p, sc, sc, pcf, rw, rw + kBR, k0 + r0, q0, t4, kvl, q_off);
+          } else {
+            if (cap) tile_kv<false, true, true>(p, sc, sc, pcf, rw, rw + kBR, k0 + r0, q0, t4, kvl, q_off);
+            else tile_kv<false, false, true>(p, sc, sc, pcf, rw, rw + kBR, k0 + r0, q0, t4, kvl, q_off);
+          }
+          mbar_arrive(pfull);
+          pack_p(sc, pa);
+          wgmma_fence();
+          issue_pv(dv, pa, trans_desc<D>(sQ + QS));
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        reg_fence(dv);
+        release(n_it - 1);
+      }
+      bwd_store(p.dv + head * p.Skv * D, dv, 1.f, k0 + r0, p.Skv, t4);
+    } else {
+      // dP^T, dS from consumer 0's P cf, dK
+      float dk[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+      if (n_it > 0) {
+        mbar_wait(kvbar, 0);
+        const uint64_t av = kmajor_desc<D>(sV);
+        const float4* pcf =
+            reinterpret_cast<const float4*>(smem_raw + (sP - base)) + tid;
+        float dp[32];
+        uint32_t da[4][4];
+        for (int it = 0; it < n_it; ++it) {
+          const uint32_t sQ = stage(it);
+          wait_full(it);
+          reg_fence(dp);
+          reg_fence(dk);
+          wgmma_fence();
+          issue_ss<D, KT, kBR>(dp, av, kmajor_desc<D>(sQ + QS));
+          wgmma_commit();
+          wgmma_wait<0>();   // and dK of the tile before
+          reg_fence(dp);
+          reg_fence(dk);
+          if (it > 0) release(it - 1);
+          mbar_wait(pfull, it & 1);
+          tile_kv_ds(dp, pcf, rows(it) + kBR, t4);
+          mbar_arrive(pempty);
+          pack_p(dp, da);
+          wgmma_fence();
+          issue_pv(dk, da, trans_desc<D>(sQ));
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        reg_fence(dk);
+        release(n_it - 1);
+      }
+      bwd_store(p.dk + head * p.Skv * D, dk, p.scale, k0 + r0, p.Skv, t4);
+    }
   }
-  const long long head = static_cast<long long>(b) * p.Hkv + hk;
-  bwd_store<D>(p.dk + head * p.Skv * D, dk, p.scale, k0, p.Skv, row0, ocol0,
-               lane);
-  bwd_store<D>(p.dv + head * p.Skv * D, dv, 1.f, k0, p.Skv, row0, ocol0,
-               lane);
 }
 
-// dQ of one 64-row query tile of (b, q head); the last tiles (the most
-// keys under a causal mask) are scheduled first.
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dq(const __grid_constant__ BwdParams p) {
-  using T = BwdTile<D>;
+// dQ of one query tile of (b, q head); the last tiles (the most keys under
+// a causal mask) are scheduled first.
+template <int D, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+flash_bwd_dq_wgmma(const __grid_constant__ BwdParams p,
+                   const __grid_constant__ BwdMaps maps) {
+  using T = Tile<D>;
+  using Gm = DqGeo<D, NC>;
+  constexpr int QR = Gm::QR, NS = Gm::NS, KVB = Gm::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  unsigned char* tK = base;
-  unsigned char* tV = tK + T::T_BYTES;
-  unsigned char* tQ = tV + T::T_BYTES;
-  unsigned char* tO = tQ + T::T_BYTES;
-  unsigned char* tS = tO + T::T_BYTES + T::P_BYTES;
-  float* sL = reinterpret_cast<float*>(tS + T::P_BYTES);
-  float* sD = sL + kBB;
-  const uint32_t sK = smem_u32(tK), sV = smem_u32(tV), sQ = smem_u32(tQ),
-                 sO = smem_u32(tO), sS = smem_u32(tS);
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = (base + 1023) & ~1023u;
+  const uint32_t sDO = sQ + Gm::Q_BYTES;
+  const uint32_t sKV = sDO + Gm::Q_BYTES;      // stage s: K, then V
+  const uint32_t sRows = sKV + 2 * NS * KVB;   // lse2 [QR], delta [QR]
+  const uint32_t bars = sRows + 2 * QR * 4;    // full[NS], empty[NS], q
+  const uint32_t qbar = bars + 16 * NS;
 
-  const int n_qt = (p.Sq + kBB - 1) / kBB;
-  const int per_tile = p.Hq * p.B;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile;
-  const int h = (blockIdx.x % per_tile) % p.Hq;
-  const int b = (blockIdx.x % per_tile) / p.Hq;
+  const int n_qt = (p.Sq + QR - 1) / QR;
+  const int per = p.Hq * p.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = (blockIdx.x % per) % p.Hq, b = (blockIdx.x % per) / p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
-  const int q0 = qt * kBB;
+  const int q0 = qt * QR;
   const int q_off = *p.q_offset;
   const int kvl = bwd_valid_kv(p, b);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = 16 * (warp & 3);            // this warp's 16 query rows
-  const int scol0 = 32 * (warp >> 2);          // its 32 keys of S
-  const int ocol0 = (D / 2) * (warp >> 2);     // its D/2 columns of dQ
-
-  float dq[D / 16][4];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
-  // the keys of the tile's rows, as the forward's key_range
-  const int q_first = q_off + q0, q_last = q_off + min(q0 + kBB, p.Sq) - 1;
+  // the keys of the block's rows, as the forward's key_range
+  const int q_first = q_off + q0, q_last = q_off + min(q0 + QR, p.Sq) - 1;
   int k_hi = kvl;
   if (p.causal) k_hi = min(k_hi, q_last + 1);
   const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
-  const int k_begin = k_lo / kBB * kBB;
-  if (k_begin < k_hi) {
-    load_tile<D>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
-    load_tile<D>(sO, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.Sq);
-    load_rows(p, sL, sD, b, h, q0);
-    for (int k0 = k_begin; k0 < k_hi; k0 += kBB) {
-      load_tile<D>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
-      load_tile<D>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
-      cp_async_wait_all();
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      bwd_scores<D>(s, sQ, sK, row0, scol0, lane);
-      bwd_scores<D>(dp, sO, sV, row0, scol0, lane);
-      bwd_tile_ds<false>(p, s, dp, nullptr, tS, sL, sD, row0, scol0, lane,
-                         q0, k0, q_off, kvl);
-      __syncthreads();
-      bwd_accumulate<D>(dq, sS, sK, row0, ocol0, lane);
-      __syncthreads();
+  const int k_begin = k_lo / kBR * kBR;
+  const int n_tiles = k_begin < k_hi ? (k_hi - k_begin + kBR - 1) / kBR : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (NS + s), 4 * NC);  // one per consumer warp
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const long long head = static_cast<long long>(b) * p.Hq + h;
-  bwd_store<D>(p.dq + head * p.Sq * D, dq, p.scale, q0, p.Sq, row0, ocol0,
-               lane);
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy --------------------------
+    if constexpr (NC > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(qbar, 2 * Gm::Q_BYTES + 2 * QR * 4);
+      for (int pn = 0; pn < T::NP; ++pn) {
+        tma_load_4d(sQ + pn * QR * T::RB, &maps.q, pn * T::COLS, q0, h, b,
+                    qbar);
+        tma_load_4d(sDO + pn * QR * T::RB, &maps.dout, pn * T::COLS, q0, h,
+                    b, qbar);
+      }
+      const long long row = (static_cast<long long>(b) * p.Hq + h) * p.Sqp + q0;
+      bulk_load(sRows, p.lse2 + row, QR * 4, qbar);
+      bulk_load(sRows + QR * 4, p.delta + row, QR * 4, qbar);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % NS, kt0 = k_begin + t * kBR;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (NS + s), ((t / NS) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * KVB);
+        const uint32_t sK = sKV + 2 * s * KVB;
+        for (int pn = 0; pn < T::NP; ++pn) {
+          tma_load_4d(sK + pn * kBR * T::RB, &maps.k, pn * T::COLS, kt0, hk,
+                      b, full);
+          tma_load_4d(sK + KVB + pn * kBR * T::RB, &maps.v, pn * T::COLS,
+                      kt0, hk, b, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each -------------------------------------
+    if constexpr (NC > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int c0 = q0 + 64 * c;   // this consumer's first row
+    const int r0 = 16 * warp + g;   // this thread's rows: r0 and r0 + 8
+    const bool cap = p.softcap > 0.f;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    if (n_tiles > 0) {
+      auto wait_full = [&](int t) {
+        mbar_wait(bars + 8 * (t % NS), (t / NS) & 1);
+      };
+      auto release = [&](int t) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (NS + t % NS));
+      };
+      auto k_at = [&](int t) { return sKV + 2 * (t % NS) * KVB; };
+      const uint64_t aq = kmajor_desc<D>(sQ + 64 * c * T::RB);
+      const uint64_t ado = kmajor_desc<D>(sDO + 64 * c * T::RB);
+      mbar_wait(qbar, 0);
+      const float* rw = reinterpret_cast<const float*>(smem_raw + (sRows - base));
+      const float L0 = rw[64 * c + r0], L1 = rw[64 * c + r0 + 8];
+      const float D0 = rw[QR + 64 * c + r0], D1 = rw[QR + 64 * c + r0 + 8];
+      float sc[32], dp[32];
+      uint32_t da[4][4];
+      auto ds = [&](int t) {
+        const int kt0 = k_begin + t * kBR;
+        const bool edge = !bwd_interior(p, kvl, q_off, c0, c0 + 63, kt0, kt0 + kBR - 1);
+        if (edge) {
+          if (cap) tile_q<true, true>(p, sc, dp, L0, L1, D0, D1, c0 + r0, kt0, t4, kvl, q_off);
+          else tile_q<true, false>(p, sc, dp, L0, L1, D0, D1, c0 + r0, kt0, t4, kvl, q_off);
+        } else {
+          if (cap) tile_q<false, true>(p, sc, dp, L0, L1, D0, D1, c0 + r0, kt0, t4, kvl, q_off);
+          else tile_q<false, false>(p, sc, dp, L0, L1, D0, D1, c0 + r0, kt0, t4, kvl, q_off);
+        }
+      };
+      if constexpr (NC == 1) {
+        // one consumer, two stages: tile t - 1's stage is released as soon
+        // as tile t's products are issued and waited for, so that the
+        // producer has a whole tile's time to bring in tile t + 1
+        for (int t = 0; t < n_tiles; ++t) {
+          wait_full(t);
+          reg_fence(sc);
+          reg_fence(dp);
+          reg_fence(dq);
+          wgmma_fence();
+          issue_ss<D, QR, kBR>(sc, aq, kmajor_desc<D>(k_at(t)));
+          issue_ss<D, QR, kBR>(dp, ado, kmajor_desc<D>(k_at(t) + KVB));
+          wgmma_commit();
+          wgmma_wait<0>();   // and dQ += dS K of tile t - 1
+          reg_fence(sc);
+          reg_fence(dp);
+          reg_fence(dq);
+          if (t > 0) release(t - 1);
+          ds(t);
+          pack_p(dp, da);
+          wgmma_fence();
+          issue_pv(dq, da, trans_desc<D>(k_at(t)));
+          wgmma_commit();
+        }
+      } else {
+        wait_full(0);
+        reg_fence(sc);
+        reg_fence(dp);
+        wgmma_fence();
+        issue_ss<D, QR, kBR>(sc, aq, kmajor_desc<D>(k_at(0)));
+        issue_ss<D, QR, kBR>(dp, ado, kmajor_desc<D>(k_at(0) + KVB));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        reg_fence(dp);
+        ds(0);
+        pack_p(dp, da);
+        for (int t = 1; t < n_tiles; ++t) {
+          wait_full(t);
+          reg_fence(sc);
+          reg_fence(dp);
+          reg_fence(dq);
+          wgmma_fence();
+          issue_ss<D, QR, kBR>(sc, aq, kmajor_desc<D>(k_at(t)));
+          issue_ss<D, QR, kBR>(dp, ado, kmajor_desc<D>(k_at(t) + KVB));
+          wgmma_commit();
+          issue_pv(dq, da, trans_desc<D>(k_at(t - 1)));
+          wgmma_commit();
+          wgmma_wait<1>();   // S and dP of tile t
+          reg_fence(sc);
+          reg_fence(dp);
+          ds(t);
+          wgmma_wait<0>();   // dQ += dS K of tile t - 1
+          reg_fence(dq);
+          release(t - 1);
+          pack_p(dp, da);
+        }
+        reg_fence(dq);
+        wgmma_fence();
+        issue_pv(dq, da, trans_desc<D>(k_at(n_tiles - 1)));
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      reg_fence(dq);
+      release(n_tiles - 1);
+    }
+    const long long head = static_cast<long long>(b) * p.Hq + h;
+    bwd_store(p.dq + head * p.Sq * D, dq, p.scale, c0 + r0, p.Sq, t4);
+  }
 }
 
+// parts: bit 0 the delta launch, bit 1 dK/dV, bit 2 dQ (7: the backward).
 template <int D>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  dim3 gd((p.Sq + kBwdThreads / 32 - 1) / (kBwdThreads / 32), p.Hq, p.B);
-  flash_bwd_delta<D><<<gd, kBwdThreads, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int smem = BwdTile<D>::SMEM;
-  if (p.Skv > 0) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    const int n_kt = (p.Skv + kBB - 1) / kBB;
-    flash_bwd_dkdv<D><<<n_kt * p.Hkv * p.B, kBwdThreads, smem, stream>>>(p);
+cudaError_t launch_bwd(const BwdParams& p, int parts, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (parts & 1) {
+    dim3 gd(p.Sqp / 8, p.Hq, p.B);
+    flash_bwd_delta<D><<<gd, 256, 0, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int n_qt = (p.Sq + kBB - 1) / kBB;
-  flash_bwd_dq<D><<<n_qt * p.Hq * p.B, kBwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (p.Skv == 0)   // no key: dQ is zero (dK and dV are empty)
+    return (parts & 4) ? cudaMemsetAsync(p.dq, 0,
+                                         static_cast<size_t>(p.B) * p.Hq *
+                                             p.Sq * D * 2,
+                                         stream)
+                       : cudaSuccess;
+  using A = DkdvGeo<D>;
+  constexpr int NC = D == 256 ? 1 : 2;
+  using Q = DqGeo<D, NC>;
+  BwdMaps ma, mq;   // the dK/dV launch's boxes, the dQ launch's
+  const bool ok =
+      encode_map(&ma.q, p.q, p.B, p.Hq, p.Sq, D, p.q_sb, p.q_sh, p.q_ss,
+                 kBR) == CUDA_SUCCESS &&
+      encode_map(&ma.dout, p.dout, p.B, p.Hq, p.Sq, D, p.do_sb, p.do_sh,
+                 p.do_ss, kBR) == CUDA_SUCCESS &&
+      encode_map(&ma.k, p.k, p.B, p.Hkv, p.Skv, D, p.k_sb, p.k_sh, p.k_ss,
+                 A::KT) == CUDA_SUCCESS &&
+      encode_map(&ma.v, p.v, p.B, p.Hkv, p.Skv, D, p.v_sb, p.v_sh, p.v_ss,
+                 A::KT) == CUDA_SUCCESS &&
+      encode_map(&mq.q, p.q, p.B, p.Hq, p.Sq, D, p.q_sb, p.q_sh, p.q_ss,
+                 Q::QR) == CUDA_SUCCESS &&
+      encode_map(&mq.dout, p.dout, p.B, p.Hq, p.Sq, D, p.do_sb, p.do_sh,
+                 p.do_ss, Q::QR) == CUDA_SUCCESS &&
+      encode_map(&mq.k, p.k, p.B, p.Hkv, p.Skv, D, p.k_sb, p.k_sh, p.k_ss,
+                 kBR) == CUDA_SUCCESS &&
+      encode_map(&mq.v, p.v, p.B, p.Hkv, p.Skv, D, p.v_sb, p.v_sh, p.v_ss,
+                 kBR) == CUDA_SUCCESS;
+  if (!ok) return cudaErrorInvalidValue;
+  if (parts & 2) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               A::SMEM);
+    if (err != cudaSuccess) return err;
+    const int n_kt = (p.Skv + A::KT - 1) / A::KT;
+    flash_bwd_dkdv_wgmma<D><<<n_kt * p.Hkv * p.B, kWgThreads, A::SMEM,
+                              stream>>>(p, ma);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & 4) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D, NC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Q::SMEM);
+    if (err != cudaSuccess) return err;
+    const int n_qt = (p.Sq + Q::QR - 1) / Q::QR;
+    flash_bwd_dq_wgmma<D, NC><<<n_qt * p.Hq * p.B, 128 * (NC + 1), Q::SMEM,
+                                 stream>>>(p, mq);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -1379,25 +1737,30 @@ extern "C" int flash_attention_launch(
 // The backward of the bf16 forward at D 128 or 256: dq [B, Hq, Sq, D] and
 // dk, dv [B, Hkv, Skv, D] (contiguous, bf16) from q, k, v, o and dO (the
 // caller's strides; 15 element strides, (b, h, s) of q, k, v, o and dO) and
-// the forward's lse (contiguous float32 [B, Hq, Sq]). delta is float32
-// scratch of [B, Hq, Sq]. Three launches on `stream`; returns the first
-// CUDA error (cudaErrorInvalidValue at another D).
+// the forward's lse (contiguous float32 [B, Hq, Sq]). rows is float32
+// scratch of 2 x [B, Hq, Sqp], Sqp = Sq rounded up to a multiple of 128
+// (lse in log2 units, then delta). Three launches on `stream` (parts 7; a
+// part alone, bits as launch_bwd's, times one launch); returns the first
+// CUDA error (cudaErrorInvalidValue at another D, or for a tensor map the
+// driver refuses).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    const void* dout, const float* lse, float* rows, void* dq, void* dk,
     void* dv, const int32_t* kv_len, int kv_len_stride,
     const int32_t* q_offset, int B, int Hq, int Hkv, int Sq, int Skv, int D,
     const long long* strides, int causal, int window, float softcap,
-    float scale, void* stream_ptr) {
+    float scale, int parts, void* stream_ptr) {
   if (Sq == 0 || B == 0 || Hq == 0) return 0;
   BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = lse;
-  p.delta = delta;
+  p.Sqp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  p.lse2 = rows;
+  p.delta = rows + static_cast<long long>(B) * Hq * p.Sqp;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
@@ -1423,8 +1786,8 @@ extern "C" int flash_attention_bwd_launch(
   p.c3 = softcap * kLog2e;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
-    case 128: return static_cast<int>(launch_bwd<128>(p, stream));
-    case 256: return static_cast<int>(launch_bwd<256>(p, stream));
+    case 128: return static_cast<int>(launch_bwd<128>(p, parts, stream));
+    case 256: return static_cast<int>(launch_bwd<256>(p, parts, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,11 +19,15 @@ log-sum-exp (float32 ``[B, Hq, Sq]``, ``m + log(l)`` in natural-log units,
 ``-1e30`` for a row with no valid key), the residual the backward reads.
 
 ``flash_attention_bwd_cuda`` (no TPU kernel: the reference trains through
-the jnp custom VJP of ``attention_mef``, ``ops.py:189-218``) computes
+the jnp custom VJP of ``attention_mef``, ``ops.py:189-245``) computes
 ``(dq, dk, dv)`` from ``q, k, v, o, lse`` and ``do`` in three launches
-(``delta``, then dK/dV, then dQ; ``csrc/flash_attention.cu``), bf16 at a
-head dim of 128 or 256; it adds one to ``.launches`` per call (not per
-launch).
+(``csrc/flash_attention.cu``): ``flash_bwd_delta`` (delta and lse in log2
+units, rows padded to ``BWD_ROW_PAD``), ``flash_bwd_dkdv_wgmma`` (a block
+per ``BWD_BLOCK_ROWS[D]`` keys walks the 64-row query tiles that see them)
+and ``flash_bwd_dq_wgmma`` (a block per ``BWD_BLOCK_ROWS[D]`` query rows
+walks their 64-key tiles), warp-specialised ``wgmma`` kernels fed by TMA
+under mbarriers like the forward, no atomics; bf16 at a head dim of
+128 or 256. It adds one to ``.launches`` per call (not per launch).
 
 The kernels mask the ragged edges themselves, so the caller pads nothing.
 ``kv_len`` and ``q_offset`` may be Python ints or int32 device tensors
@@ -49,7 +53,10 @@ BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core instantiations
 BWD_HEAD_DIMS = (128, 256)                # the backward's instantiations
 Q_TILE = 128    # query rows per block of the tensor-core kernel
 KV_TILE = 64    # keys per kv tile (one stage of its ring)
-BWD_TILE = 64   # query rows and keys per tile of the backward's launches
+BWD_STAGE_ROWS = 64   # queries a dK/dV stage, keys a dQ stage (inner loops)
+BWD_BLOCK_ROWS = {128: 128, 256: 64}   # keys a dK/dV block, query rows a
+                                       # dQ block (outer tiles), by head dim
+BWD_ROW_PAD = 128     # the backward's lse and delta rows: a multiple of this
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,7 +73,7 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     bwd = lib.flash_attention_bwd_launch
     bwd.argtypes = ([_P] * 11 + [_I, _P] + [_I] * 6 + [_P] + [_I, _I]
-                    + [ctypes.c_float, ctypes.c_float, _P])
+                    + [ctypes.c_float, ctypes.c_float, _I, _P])
     bwd.restype = ctypes.c_int
     return lib
 
@@ -174,7 +181,11 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 
 
-def flash_attention_bwd_cuda(
+BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4   # the backward's launches (bits)
+BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
+
+
+def flash_attention_bwd_launcher(
     q: torch.Tensor,            # [B, Hq, Sq, D]
     k: torch.Tensor,            # [B, Hkv, Skv, D]
     v: torch.Tensor,            # [B, Hkv, Skv, D]
@@ -188,9 +199,11 @@ def flash_attention_bwd_cuda(
     softcap: float = 0.0,
     scale: Optional[float] = None,
 ):
-    """The attention backward on the card: ``(dq, dk, dv)``, new contiguous
-    bf16 tensors of q's, k's and v's shapes. The mask arguments must be
-    the forward's. bf16 only, at a head dim of 128 or 256."""
+    """Checks the backward's operands and allocates its outputs and scratch
+    once; returns ``(run, (dq, dk, dv))``, where ``run(parts)`` launches
+    the chosen launches (``BWD_DELTA | BWD_DKDV | BWD_DQ``, in that order)
+    on those buffers. ``flash_attention_bwd_cuda`` runs all three; a run
+    of one alone (after a run of the delta launch) times that launch."""
     who = "flash_attention_bwd_cuda"
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{who}: the backward takes bfloat16, got {q.dtype}")
@@ -220,22 +233,50 @@ def flash_attention_bwd_cuda(
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=dev)
     dv = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=dev)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    sqp = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    rows = torch.empty((2, B, Hq, sqp), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3])
     fn = load_library().flash_attention_bwd_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), kvl.data_ptr(),
-             1 if kvl.numel() > 1 else 0, qoff.data_ptr(), B, Hq, Hkv, Sq,
-             Skv, D, strides, int(bool(causal)), int(window), float(softcap),
-             scale, stream)
-    if err != 0:
-        raise RuntimeError(f"{who}: launch failed with CUDA error {err}")
+
+    def run(parts: int) -> None:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), kvl.data_ptr(),
+                 1 if kvl.numel() > 1 else 0, qoff.data_ptr(), B, Hq, Hkv,
+                 Sq, Skv, D, strides, int(bool(causal)), int(window),
+                 float(softcap), scale, int(parts), stream)
+        if err != 0:
+            raise RuntimeError(f"{who}: launch failed with CUDA error {err}")
+
+    return run, (dq, dk, dv)
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,            # [B, Hq, Sq, D]
+    k: torch.Tensor,            # [B, Hkv, Skv, D]
+    v: torch.Tensor,            # [B, Hkv, Skv, D]
+    o: torch.Tensor,            # [B, Hq, Sq, D]: the forward's output
+    lse: torch.Tensor,          # float32 [B, Hq, Sq]: the forward's lse
+    do: torch.Tensor,           # [B, Hq, Sq, D]: the output's gradient
+    kv_len: IntLike = None,
+    q_offset: IntLike = None,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+):
+    """The attention backward on the card: ``(dq, dk, dv)``, new contiguous
+    bf16 tensors of q's, k's and v's shapes. The mask arguments must be
+    the forward's. bf16 only, at a head dim of 128 or 256."""
+    run, grads = flash_attention_bwd_launcher(
+        q, k, v, o, lse, do, kv_len=kv_len, q_offset=q_offset, causal=causal,
+        window=window, softcap=softcap, scale=scale)
+    run(BWD_ALL)
     flash_attention_bwd_cuda.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_bwd_cuda.launches = 0

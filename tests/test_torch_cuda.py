@@ -1653,13 +1653,25 @@ def _flash_grad_inputs(case, dev, seed=0):
             randn(B, Hkv, Skv, D), randn(B, Hq, Sq, D))
 
 
-@pytest.mark.parametrize("name", sorted(fcases.GRAD_CASES))
+# card-only backward cases (same fields as GRAD_CASES), long enough to wrap
+# the kernels' TMA rings many times and give each head several blocks;
+# the CPU tests do not run them
+CARD_GRAD_CASES = {
+    "gemma2-heads-S2048-softcap50": (1, 16, 8, 2048, 2048, 256, True, 0,
+                                     50.0, None, None, 30.0),
+    "gqa4-d128-kv_len-per-row-q_offset": (2, 16, 4, 1536, 2048, 128, True,
+                                          0, 0.0, [2048, 1500], 512, 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(fcases.GRAD_CASES)
+                         + sorted(CARD_GRAD_CASES))
 def test_flash_backward_matches_plain(cuda_device, name):
     """The forward's lse against the plain forward's (float32 sums and the
     fast exponential: 1e-4 absolute); dq, dk and dv under the backward rule
     of ``cases.py`` against float64 on the same inputs, both planted
     faults above it, two launches bit for bit equal, one count a call."""
-    case = fcases.GRAD_CASES[name]
+    case = fcases.GRAD_CASES.get(name) or CARD_GRAD_CASES[name]
     q, k, v, do = _flash_grad_inputs(case, cuda_device)
     kw = fcases.case_kwargs(case, cuda_device)
     o, lse = fmod.flash_attention_cuda(q, k, v, return_lse=True, **kw)

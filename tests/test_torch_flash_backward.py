@@ -41,7 +41,8 @@ import torch  # noqa: E402
 
 from repro.kernels.flash_attention import ops as ref_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import blocked, cases  # noqa: E402
-from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.config import get_arch  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_cuda, tma_ready)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -165,13 +166,15 @@ def test_mef_matches_reference_vjp_and_blocked_ad(name):
         _close(got.grad, b)
 
 
-@pytest.mark.parametrize("name", ["gqa1-causal-d128", "softcap50-d256",
-                                  "kv_len-per-row-d256"])
+@pytest.mark.parametrize("name", list(cases.GRAD_CASES))
 def test_backward_rule_accepts_sound_float32_and_rejects_faults(name):
-    """A float32 backward (``mef_backward``) on bf16 inputs, o and lse reads
-    under the rule; both planted faults read above it, and every fully
+    """A float32 backward (``mef_backward``) and the kernels' emulation
+    (``emulated_backward``: their rounding points in their tile order at
+    the case's head dim) on bf16 inputs, o and lse read under the rule;
+    both planted faults (in the same tiles) read above it, and every fully
     masked element is exactly zero."""
     case = cases.GRAD_CASES[name]
+    D = case[5]
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
                    for x in _inputs(case, seed=1))
     kw = cases.case_kwargs(case)
@@ -179,11 +182,15 @@ def test_backward_rule_accepts_sound_float32_and_rejects_faults(name):
     o = o.to(torch.bfloat16)
     ref = cases.grad_reference(q, k, v, o, lse, do, chunk=40, **kw)
     sound = blocked.mef_backward(q, k, v, o, lse, do, **kw)
-    for n, g in zip(("dq", "dk", "dv"), sound):
+    emulated = cases.emulated_backward(q, k, v, o, lse.float(), do,
+                                       tiles_of=D, **kw)
+    for n, g, e in zip(("dq", "dk", "dv"), sound, emulated):
         assert cases.grad_excess(g.to(torch.bfloat16), ref[n],
-                                 ref["a_" + n]) <= 1.0
+                                 ref["a_" + n]) <= 1.0, n
+        assert cases.grad_excess(e, ref[n], ref["a_" + n]) <= 1.0, n
     for fault in cases.GRAD_FAULTS:
-        bad = cases.grad_reference(q, k, v, o, lse, do, drop=fault, **kw)
+        bad = cases.grad_reference(q, k, v, o, lse, do, drop=fault,
+                                   tiles_of=D, **kw)
         assert max(cases.grad_excess(bad[n], ref[n], ref["a_" + n])
                    for n in ("dq", "dk", "dv")) > 1.0, fault
     if isinstance(kw["kv_len"], torch.Tensor):   # batch row 2 sees no key
@@ -192,16 +199,75 @@ def test_backward_rule_accepts_sound_float32_and_rejects_faults(name):
 
 
 def test_dropped_pairs_follow_the_kernels_loops():
-    """The dK/dV fault drops, per 64-key tile, the pairs of the first
-    64-row query tile that sees it; the dQ fault, per query tile, those of
-    the first kv tile it sees."""
-    mask = cases.pair_mask(1, 130, 130, causal=True, window=0)
-    gone = cases.dropped_pairs(mask, "dkdv")
+    """The dK/dV fault drops, per key block (128 keys at D 128, 64 at D
+    256), the pairs of the first 64-row query tile it visits; the dQ fault,
+    per query block (128 or 64 rows), those of the first kv tile of 64."""
+    mask = cases.pair_mask(1, 200, 200, causal=True, window=0)
+    gone = cases.dropped_pairs(mask, "dkdv", 128)
+    assert bool(gone[0, 128:192, 128:].equal(mask[0, 128:192, 128:]))
+    assert not bool(gone[0, 192:, 128:].any())
+    gone = cases.dropped_pairs(mask, "dkdv", 256)
     assert bool(gone[0, 64:128, 64:128].equal(mask[0, 64:128, 64:128]))
     assert not bool(gone[0, 128:, 64:128].any())
-    gone = cases.dropped_pairs(mask, "dq")
+    gone = cases.dropped_pairs(mask, "dq", 128)
     assert bool(gone[0, 128:, :64].equal(mask[0, 128:, :64]))
     assert not bool(gone[0, 128:, 64:].any())
+    gone = cases.dropped_pairs(mask, "dq", 256)
+    assert bool(gone[0, 64:128, :64].equal(mask[0, 64:128, :64]))
+    assert not bool(gone[0, 64:128, 64:].any())
+
+
+def _timed_shape(name):
+    """(B, Hq, Hkv, S, S, D, causal, window, ...) of a timed shape: the
+    training cell's length at gemma2-9b's global and local layers and at
+    mistral-nemo-12b's."""
+    arch, layer = name.split(":")
+    c = get_arch(arch)
+    window = c.sliding_window if layer == "local" else 0
+    return (1, c.n_heads, c.n_kv_heads, 4096, 4096, c.head_dim, True,
+            window, c.attn_logit_softcap, None, None, 1.0)
+
+
+@pytest.mark.parametrize("name", list(cases.GRAD_CASES) + [
+    "gemma2-9b:global", "gemma2-9b:local", "mistral-nemo-12b:global"])
+def test_backward_loops_visit_each_unmasked_pair_once(name):
+    """Each launch's loops (``cases.bwd_loops``, the kernels' own ranges)
+    visit every tile that holds an unmasked pair exactly once, for every
+    query head of a group, and no tile twice."""
+    case = (cases.GRAD_CASES[name] if name in cases.GRAD_CASES
+            else _timed_shape(name))
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    kw = cases.case_kwargs(case)
+    G, r, outer = Hq // Hkv, kernel.BWD_STAGE_ROWS, kernel.BWD_BLOCK_ROWS[D]
+    mask = cases.pair_mask(B, Sq, Skv, kw["kv_len"], kw["q_offset"],
+                           kw["causal"], kw["window"])
+    kvls = (kw["kv_len"].tolist() if isinstance(kw["kv_len"], torch.Tensor)
+            else [Skv if kw["kv_len"] is None else kw["kv_len"]] * B)
+
+    def live(m, rows, cols):
+        """bool [ceil(Sq / rows), ceil(Skv / cols)]: tiles with a pair."""
+        pad = torch.zeros((-(-Sq // rows) * rows, -(-Skv // cols) * cols),
+                          dtype=torch.bool)
+        pad[:Sq, :Skv] = m
+        return pad.reshape(pad.shape[0] // rows, rows, -1, cols).any(3).any(1)
+
+    for b, kvl in enumerate(kvls):
+        m = mask[b if mask.shape[0] > 1 else 0]
+        loops = cases.bwd_loops(Sq, Skv, D, min(max(kvl, 0), Skv),
+                                kw["q_offset"], kw["causal"], kw["window"], G)
+        seen = torch.zeros((G, -(-Sq // r), -(-Skv // outer)),
+                           dtype=torch.int32)
+        for k0, its in loops["dkdv"]:
+            for g, q0 in its:
+                seen[g, q0 // r, k0 // outer] += 1
+        want = live(m, r, outer)
+        assert bool((seen[:, want] == 1).all()) and int(seen.max()) <= 1
+        seen = torch.zeros((-(-Sq // outer), -(-Skv // r)), dtype=torch.int32)
+        for q0, kts in loops["dq"]:
+            for k0 in kts:
+                seen[q0 // outer, k0 // r] += 1
+        want = live(m, outer, r)
+        assert bool((seen[want] == 1).all()) and int(seen.max()) <= 1
 
 
 def test_ops_runs_the_plain_mef_under_autograd_on_the_cpu():
