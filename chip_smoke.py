@@ -119,10 +119,11 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      per graph, tau 16): ``ClusterQuotientEstimator``,
      ``CascadeEstimator(levels=2, tau_solve=32)``,
      ``DeltaSteppingEstimator(seed=7)`` (Bellman-Ford) and the same with
-     Δ = the mean weight, on ``road_like(65_536)`` (cut from 1,890,815:
+     Δ = the mean weight, on ``road_like(32_768)`` (cut from 1,890,815:
      Bellman-Ford's supersteps grow linearly with n on this family; at
-     262,144 until the GNN training phases needed its time, and at
-     131,072 until the LM training phases did) and
+     262,144 until the GNN training phases needed its time, at 131,072
+     until the LM training phases did, and at 65,536 until the rest of
+     the LM family's training did) and
      RMAT ``social_like(20)``. Bellman-Ford's and Δ-stepping's distance
      planes from the same source must be equal element for element, and
      the SSSP lower bound at most either cluster estimate's Phi; each
@@ -197,7 +198,14 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      under its rule, its planted fault (one slot fewer than the fullest
      expert's pairs) rejected, both timed, the top-k ties, the capacity
      and the dropped pairs; one prefill under
-     ``torch.cuda.set_sync_debug_mode("error")``; 6d. ``decode_32k``
+     ``torch.cuda.set_sync_debug_mode("error")``; once the model is freed
+     (after 6d), the layer's backward at the training shape (B 4 x S
+     4,096 tokens, the last layer's input over two sequences, its weights
+     kept on the host meanwhile): the gradients in h, the router, every
+     expert and the shared experts against the dense version's under
+     ``moe_check.moe_grad_excess`` (2^-6 relative L2: h by token row, an
+     expert leaf by expert), the dense version at one slot fewer above
+     it, two backwards bit-equal, both backwards timed; 6d. ``decode_32k``
      against a cache of seeded bf16 values (mistral-nemo batch 8 at
      32,768; moonshot batch 1 at 32,768; qwen and mixtral batch 1 at the
      longest cache that fits), its first step under sync debug mode
@@ -255,7 +263,7 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      against the float64 plain path in batch chunks under
      ``gnn_check.grad_excess`` (per leaf), a dW with one tile of k left
      out above it; step 1 under ``torch.cuda.set_sync_debug_mode(
-     "error")``; steps 2-20 timed (median seconds, rows/s, peak bytes);
+     "error")``; steps 2-10 timed (median seconds, rows/s, peak bytes);
      exactly 3 forward, 3 dx (dxk and dx0 in one launch) and 3 dW
      launches a step; the loss falling.
   11. segment_mm vs plain: ``segment_mm_cuda`` against ``segment_mm_ref``
@@ -360,7 +368,7 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      edge
      dropped from the transposed layout beside it (above 1 at
      ``molecule`` and ``full_graph_sm``); step 1 under
-     ``torch.cuda.set_sync_debug_mode("error")``; steps 2-20 on the same
+     ``torch.cuda.set_sync_debug_mode("error")``; steps 2-10 on the same
      batch (median seconds, nodes, graphs or seeds per second, peak
      bytes) with exactly ``2 segment_mm_launches(cfg)`` launches a step;
      the loss of every step, falling (equiformer-v2's one-class cells,
@@ -375,30 +383,48 @@ linked with the driver library, ``-lcuda``, for its TMA tensor maps), then:
      backward rule, both planted faults (a dropped query tile in dK/dV,
      a dropped kv tile in dQ) above it, two launches bit-equal; timed at
      S 4,096 on gemma2-9b's global and local layers (B 1, 16 / 8 heads of
-     256, softcap 50) and mistral-nemo-12b's (32 / 8 of 128), each under
-     the rule, beside the plain ``mef_backward``, the bound (2.5 times
-     the forward's flops), ptxas's registers and spills, and (global and
-     mistral-nemo) SDPA's backward on its flash backend in turns with
-     the kernel at the causal function without softcap.
+     256, softcap 50), mistral-nemo-12b's (32 / 8 of 128) and the MHA
+     layers of qwen1.5-32b (40 / 40) and moonshot-v1-16b-a3b (16 / 16),
+     each under the rule, beside the plain ``mef_backward``, the bound
+     (2.5 times the forward's flops), ptxas's registers and spills, and
+     (all but gemma2's local layer) SDPA's backward on its flash backend
+     in turns with the kernel at the causal function without softcap.
   20. LM training at full width (``lm_train``): gemma2-9b's ``train_4k``
      through ``build_cell`` at batch 4 and S 4,096, cut in depth to the
      deepest even count whose fitted peak (one step at 2 and 4 layers,
-     ``max_memory_reserved``, linear in the layers) leaves 4 GiB free;
-     the first step's gradients against the plain attention's
-     (``attention_mef``) per leaf, before the optimizer state exists;
+     ``max_memory_reserved``, linear in the layers) leaves 4 GiB free,
+     two layers less while a step runs out of memory;
+     the first step's gradients (from the same seed, without optimizer
+     state) against the plain attention's (``attention_mef``) per leaf;
      step 1 under sync debug mode "error"; steps 2-10 timed (median, min,
      max; tokens/s, model TFLOP/s from ``_lm_model_flops``, peak bytes);
      exactly 2L forward and L backward flash launches a step; the loss
      falling.
+  20b. the rest of the LM family's training (``lm_family_train``):
+     mistral-nemo-12b, qwen1.5-32b, moonshot-v1-16b-a3b and mixtral-8x7b
+     as phase 20 runs gemma2-9b (any depth; the fit at 2 and 4 layers,
+     mixtral's at 1 and 2; batch 4, halved while fewer than 2 layers
+     fit), 4 steps (3 timed), the gradient check at 2 layers (the
+     script's time limit). For the MoE archs the gradient check pins
+     the routing (``RoutePin``, in this script only): the plain pass
+     routes each token to the kernel pass's forward choices, with gates
+     from its own probabilities, and counts the tokens it would have
+     routed otherwise; remat's recompute in the kernel pass must route as
+     its forward, layer by layer; the first step's dropped share is
+     printed; on moonshot a planted fault (layer 0's dispatched
+     activations detached) must read above the rule.
   21. the train launcher (``lm_train_launcher``): ``launch/train.py`` at
      phase 20's depth and batch for 3 steps, no save (at that size one
-     would write about 47 GB); then at the smoke config in bf16 at head
+     would write about 47 GB), and at its default arch (mistral-nemo-12b,
+     no ``--arch``) at phase 20b's depth and batch; then at the smoke
+     config in bf16 at head
      dim 128, 4 steps with a save every 2, a real SIGTERM after step 2
      (exit 75), ``--resume``, and the result against an uninterrupted run.
 
 Prints one JSON line per phase, the wall seconds of each phase group as
-it ends (``group_seconds``) and all of them together
-(``group_seconds_total``), the kernel table, the card's name and power
+it ends (``group_seconds``; the graph group's also phase by phase, with
+``graph_phase``) and all of them together (``group_seconds_total``), the
+kernel table, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -438,7 +464,7 @@ except ImportError:   # not a checkout of the repository: main() refuses
 INF, BIG = 2**31 - 1, 2**30
 CAL_NODES = 1_890_815           # DIMACS 9th Challenge USA-road-d.CAL
 CASCADE_MAX_LEVELS = 6          # the tau-130 cascade's level cap
-SSSP_ROAD_NODES = 65_536        # the competitor's road graph (see phase 3b)
+SSSP_ROAD_NODES = 32_768        # the competitor's road graph (see phase 3b)
 PAPER_GRAPH_NODES = 1 << 24     # the paper-graph cell's roads-USA scale
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
@@ -805,7 +831,7 @@ def profile_paths() -> int:
     from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.launch import steps as steps_mod
 
-    steps_mod.get_arch = partial(gemma2_at_depth,
+    steps_mod.get_arch = partial(arch_at_depth,
                                  layers=PROFILE_TRAIN_LAYERS)
     try:
         cell = build_cell("gemma2-9b", "train_4k", device=dev,
@@ -1527,18 +1553,34 @@ def lm_family_arch(torch, dev, arch, cfg, spec, S, cut, gen) -> dict:
     # evenly than layer 0, whose input is the embedding)
     if is_moe:
         E, kk, last = cfg.n_experts, cfg.top_k, cfg.n_layers - 1
-        with torch.inference_mode():
-            x = tf._embed(params, tokens, cfg)
+        lpl = tf.layer_params(params, last)
+
+        def moe_input(toks):
+            """The last layer's MoE input for one sequence of S tokens."""
+            x = tf._embed(params, toks, cfg)
             for i in range(last):
                 x, _ = tf._attention_block(x, tf.layer_params(params, i), cfg,
                                            pos, S, tf._layer_window(cfg, i))
                 x = tf._mlp(x, tf.layer_params(params, i), cfg)[0]
-            lpl = tf.layer_params(params, last)
             x, _ = tf._attention_block(x, lpl, cfg, pos, S,
                                        tf._layer_window(cfg, last))
-            h = tf.rmsnorm(x, lpl["mlp_norm"], cfg.norm_eps).reshape(
+            return tf.rmsnorm(x, lpl["mlp_norm"], cfg.norm_eps).reshape(
                 1, S, cfg.d_model)
-            del x
+
+        # the backward's input at the training shape (B 4 x S 4,096
+        # tokens): the last layer's input over as many sequences as that
+        # takes, and the layer's weights, kept on the host until the model
+        # is freed after phase 6d
+        T_train = LM_TRAIN_BATCH * FLASH_BWD_SEQ
+        more = [cell.inputs(LMTokenPipeline(cell.cfg, shape, seed=0).batch(
+            DataCursor(step=j)))["tokens"] for j in range(1, -(-T_train // S))]
+        with torch.inference_mode():
+            h = moe_input(tokens)
+            h_train = torch.cat([h] + [moe_input(t) for t in more],
+                                dim=1)[:, :T_train]
+        h_train = h_train.clone()       # a tensor autograd may record
+        w_host = {name: t.to("cpu") for name, t in lpl.items()}
+        with torch.inference_mode():
             probs, gates, experts, aux = tf.moe_route(h, lpl["router"], cfg)
             ranked = probs.sort(dim=-1, descending=True)[0]
             ties = int((ranked[..., kk - 1] == ranked[..., kk]).sum())
@@ -1560,7 +1602,8 @@ def lm_family_arch(torch, dev, arch, cfg, spec, S, cut, gen) -> dict:
             raise AssertionError(f"{arch}: MoE layer {last} against its "
                                  f"dense check: excess {excess}, planted "
                                  f"{fault}")
-        emit({"phase": "lm_family_moe_layer", "arch": arch, "layer": last,
+        emit({"phase": "lm_family_moe_layer", "direction": "forward",
+              "arch": arch, "layer": last,
               "tokens": S, "experts": E, "top_k": kk,
               "capacity_factor": cfg.capacity_factor, "capacity": cap,
               "top_k_ties": ties, "pairs": S * kk, "dropped_pairs": dropped,
@@ -1637,11 +1680,96 @@ def lm_family_arch(torch, dev, arch, cfg, spec, S, cut, gen) -> dict:
     del params, cache, new_cache, logits, lp, cell
     gc.collect()
     torch.cuda.empty_cache()
+    if is_moe:
+        moe_layer_backward(torch, dev, tf, cfg, arch, last, h_train, w_host)
+        del h_train, w_host
+        gc.collect()
+        torch.cuda.empty_cache()
     if torch.cuda.memory_allocated(dev) > LEAK_BYTES:
         raise AssertionError(f"{arch}: {torch.cuda.memory_allocated(dev)} "
                              f"bytes still allocated after the arch")
 
     return {"prefill": prefill_launches}
+
+
+def moe_layer_backward(torch, dev, tf, cfg, arch, layer, h, w_host) -> None:
+    """Phase 6c's backward: the MoE layer's gradients in ``h`` and its
+    weights, ``_moe_ffn``'s against ``moe_check.moe_ffn_dense``'s under
+    ``moe_check.moe_grad_excess``'s rule, at the training shape (``h``
+    ``[1, B S, d]`` bf16, one dispatch group), with the dense check at one
+    slot fewer read above it; two backwards of the dispatch bit-equal, and
+    both backwards timed."""
+    from repro_torch.models import moe_check
+
+    lp = {name: t.to(dev) for name, t in w_host.items()}
+    names = [n for n in ("router", "w_gate", "w_up", "w_down", "ws_gate",
+                         "ws_up", "ws_down") if n in lp]
+    T, E = h.shape[1], cfg.n_experts
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cot = torch.randn(h.shape, generator=gen, device=dev).to(
+        torch.bfloat16).float()
+
+    def graph(fn, **kw):
+        # the dense check takes h in float32 (moe_check.moe_grad_excess)
+        hh = (h if fn is tf._moe_ffn else h.float()).detach().requires_grad_()
+        w = {n: t.detach().requires_grad_() if n in names else t
+             for n, t in lp.items()}
+        out = fn(hh, w, cfg, **kw)
+        return [hh] + [w[n] for n in names], (
+            out[0] if isinstance(out, tuple) else out)
+
+    def grads(fn, **kw):
+        leaves, out = graph(fn, **kw)
+        return dict(zip(["h"] + names, torch.autograd.grad(out, leaves,
+                                                           cot)))
+
+    grads(tf._moe_ffn)                  # a warm-up
+    got = grads(tf._moe_ffn)
+    again = grads(tf._moe_ffn)
+    bit_equal = all(torch.equal(got[n], again[n]) for n in got)
+    del again
+    want = grads(moe_check.moe_ffn_dense)
+    excess = moe_check.moe_grad_excess(got, want)
+    del got
+    with torch.no_grad():
+        experts = tf.moe_route(h, lp["router"], cfg)[2]
+        cap = tf.moe_capacity(T, cfg)
+        keep = tf.moe_dispatch(experts, torch.ones(experts.shape,
+                                                   device=dev), cap, E)[3]
+        dropped = int((~keep).sum())
+        fault_cap = moe_check.fault_capacity(experts, cap, E)
+    fault = moe_check.moe_grad_excess(
+        grads(moe_check.moe_ffn_dense, capacity=fault_cap), want)
+    del want
+    ms = {}
+    for label, fn, iters in (("dispatch", tf._moe_ffn, 5),
+                             ("dense", moe_check.moe_ffn_dense, 3)):
+        leaves, out = graph(fn)
+        ms[label] = time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True), iters)
+        del leaves, out
+    row = {"phase": "lm_family_moe_layer", "direction": "backward",
+           "arch": arch, "layer": layer, "tokens": T,
+           "shape": f"training: B {LM_TRAIN_BATCH} x S {FLASH_BWD_SEQ} "
+                    f"tokens in one dispatch group, bf16",
+           "capacity": cap, "dropped_pairs": dropped,
+           "dropped_share": dropped / (T * cfg.top_k),
+           "rule": "per leaf <= 2^-6 relative L2: h by token row, each "
+                   "expert's slice of w_gate/w_up/w_down, the router and "
+                   "shared experts whole (models/moe_check.py)",
+           "excess": excess, "worst": max(excess.values()),
+           "planted_fault": "dense check at one slot fewer",
+           "planted_fault_capacity": fault_cap,
+           "planted_fault_excess": fault,
+           "planted_fault_worst": max(fault.values()),
+           "two_backwards_bit_equal": bit_equal,
+           "backward_ms": ms["dispatch"], "dense_backward_ms": ms["dense"]}
+    emit(row)
+    if not (row["worst"] <= 1.0 and row["planted_fault_worst"] > 1.0
+            and bit_equal):
+        raise AssertionError(f"{arch}: MoE layer {layer}'s backward against "
+                             f"its dense check: {row}")
 
 
 XDEEPFM_PARAMS = 432_747_202     # parameter elements at full width
@@ -2161,10 +2289,11 @@ def recsys_train_phase(torch, dev) -> dict:
         leaves out one tile of 128 values of k at layer 2 read beside it
         (above 1);
       * step 1 under ``torch.cuda.set_sync_debug_mode("error")``;
-      * steps 2-20 on the host clock, each ending in a synchronize: the
-        median seconds, rows/s, peak bytes; the forward's and the two
-        gradient kernels' launches (dx: dxk and dx0 in one; dW) over the
-        20 steps, each exactly 3 a step; the losses, read once at the
+      * steps 2 to ``TRAIN_STEPS`` on the host clock, each ending in a
+        synchronize: the median seconds, rows/s, peak bytes; the
+        forward's and the two gradient kernels' launches (dx: dxk and dx0
+        in one; dW) over the steps, each exactly 3 a step; the losses,
+        read once at the
         end, falling."""
     from repro_torch.common import Timer
     from repro_torch.config import RECSYS_SHAPES
@@ -2256,7 +2385,7 @@ def recsys_train_phase(torch, dev) -> dict:
             and abs(loss_k - loss_x) <= 1e-4 * abs(loss_x)):
         raise AssertionError(f"recsys_train gradients: {row}")
 
-    # -- the main path: 20 steps, every count set to 0 just before --------
+    # -- the main path: TRAIN_STEPS steps, every count set to 0 before ----
     losses = []
     torch.cuda.synchronize()
     for c in counts.values():
@@ -3115,7 +3244,7 @@ def gnn_kinds_phases(torch, dev, ogb_batch) -> tuple:
     return launches, at_largest
 
 
-TRAIN_STEPS = 20                # steps of a cell on its fixed batch
+TRAIN_STEPS = 10                # steps of a cell on its fixed batch
 TRAIN_MARGIN = 12 << 30         # bytes kept free beside a cut's fitted peak
 TRAIN_FIT = {"ogb_products": (1 << 14, 1 << 15),    # nodes
              "minibatch_lg": (16, 32)}              # seeds
@@ -3673,9 +3802,20 @@ FLASH_BWD_ITERS = 10            # timed launches of each backward timing
 FLASH_LSE_ATOL = 1e-4           # the forward's lse against the plain one's
 LM_TRAIN_STEPS = 10             # steps of the LM training cell on one batch
 LM_TRAIN_BATCH = 4              # its batch rows (of train_4k's 256)
+LM_TRAIN_BATCHES = (LM_TRAIN_BATCH, 2, 1)  # tried in turn until 2 layers fit
 LM_TRAIN_FIT = (2, 4)           # depths the memory fit steps at
 LM_TRAIN_MARGIN = 4 << 30       # bytes kept free beside the fitted peak
 LM_GRAD_REL = 5e-2              # per-leaf rule of the gradient check
+# phase 20b's archs and the two depths each one's memory fit steps at
+# (mistral-nemo's peak at 2 and 4 layers grew 2.5 GB a layer where 17
+# layers took 3.4: its fit steps deeper; mixtral's 4 layers alone hold
+# about 70 GB of training state)
+LM_FAMILY_TRAIN = {"mistral-nemo-12b": (4, 8), "qwen1.5-32b": (2, 4),
+                   "moonshot-v1-16b-a3b": (2, 4), "mixtral-8x7b": (1, 2)}
+LM_FAMILY_TRAIN_STEPS = 4       # steps of each of those cells on one batch
+LM_FAMILY_CHECK_LAYERS = 2      # the gradient check's depth
+MOE_FAULT_ARCH = "moonshot-v1-16b-a3b"  # where the planted fault is read
+MOE_FAULT_LAYER = 0             # the layer whose dispatch it detaches
 PROFILE_TRAIN_LAYERS = 16       # the --profile training step's depth
 LAUNCHER_STEPS = 3              # the launcher's steps at the cut depth
 
@@ -3697,9 +3837,10 @@ def flash_bwd_bound_ms(B, Hq, Hkv, S, D, causal, window) -> tuple:
 def flash_backward_phase(torch, dev) -> dict:
     """Phase 19 (``flash_backward``): the forward kernel's lse against the
     plain forward's, and the backward kernel against the float64 plain
-    backward, over ``cases.GRAD_CASES`` and at gemma2-9b's and
-    mistral-nemo-12b's training shapes, where it is also timed; returns
-    the ``backward_*`` fields of the flash attention row.
+    backward, over ``cases.GRAD_CASES`` and at gemma2-9b's,
+    mistral-nemo-12b's, qwen1.5-32b's and moonshot-v1-16b-a3b's training
+    shapes (the last two MHA), where it is also timed; returns the
+    ``backward_*`` fields of the flash attention row.
 
     The backward is checked twice a case: from the plain forward's ``o``
     and ``lse`` (so the check does not lean on the forward kernel; the
@@ -3819,9 +3960,14 @@ def flash_backward_phase(torch, dev) -> dict:
         raise AssertionError(f"flash backward: ptxas reports spills (or no "
                              f"entry) in {spilled}")
     gemma, nemo = get_arch("gemma2-9b"), get_arch("mistral-nemo-12b")
+    qwen, moon = get_arch("qwen1.5-32b"), get_arch("moonshot-v1-16b-a3b")
+    # qwen's and moonshot's heads are MHA (group 1): the dK/dV block walks
+    # one head's query tiles
     shapes = (("gemma2-9b global", gemma, 0, True),
               ("gemma2-9b local", gemma, gemma.sliding_window, False),
-              ("mistral-nemo-12b", nemo, nemo.sliding_window, True))
+              ("mistral-nemo-12b", nemo, nemo.sliding_window, True),
+              ("qwen1.5-32b", qwen, qwen.sliding_window, True),
+              ("moonshot-v1-16b-a3b", moon, moon.sliding_window, True))
     S = FLASH_BWD_SEQ
     timed = {}
     for label, c, window, library in shapes:
@@ -3930,6 +4076,11 @@ def flash_backward_phase(torch, dev) -> dict:
             "backward_d128_kernel_ms_beside_library":
                 n["kernel_ms_beside_library"],
             "backward_d128_launch_ms": n["launch_ms"],
+            "backward_mha": {label: {key: timed[label][key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "kernel_ms_beside_library", "launch_ms",
+                "tflop_s", "bound_share")}
+                for label in ("qwen1.5-32b", "moonshot-v1-16b-a3b")},
             "backward_tflop_s": g["tflop_s"], "backward_ptxas": ptxas,
             "backward_excess": worst_excess,
             "backward_planted_fault_excess": worst_fault,
@@ -3937,13 +4088,14 @@ def flash_backward_phase(torch, dev) -> dict:
             "forward_lse_max_abs_err": worst_lse}
 
 
-def gemma2_at_depth(name: str, layers: int, smoke: bool = False):
-    """``get_arch`` with gemma2-9b cut to ``layers`` at full width (the seam
+def arch_at_depth(name: str, layers: int, smoke: bool = False,
+                  arch: str = "gemma2-9b"):
+    """``get_arch`` with ``arch`` cut to ``layers`` at full width (the seam
     ``launch.steps`` and ``launch.train`` look the arch up through)."""
     from repro_torch.config import get_arch
 
     full = get_arch(name, smoke)
-    if name == "gemma2-9b" and not smoke:
+    if name == arch and not smoke:
         return dataclasses.replace(full, n_layers=layers)
     return full
 
@@ -3959,160 +4111,336 @@ def leaf_rel_l2(torch, a, b, chunk: int = 1 << 26) -> float:
     return (num / den) ** 0.5 if den else (0.0 if num == 0 else math.inf)
 
 
-def lm_train_phase(torch, dev) -> dict:
-    """Phase 20 (``lm_train``): gemma2-9b's ``train_4k`` cell at full width,
-    cut in depth and batch to what the card holds; returns its depth,
-    batch and launch counts."""
+class _TorchView:
+    """``torch`` as ``models/transformer.py`` sees it, with ``bmm``
+    replaced."""
+
+    def __init__(self, torch, bmm):
+        self._torch, self.bmm = torch, bmm
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+class RoutePin:
+    """Wraps ``transformer.moe_route`` (and, through ``torch.bmm`` as
+    ``transformer`` sees it, the expert products) for the gradient check of
+    an MoE training step; the package has no such knob. While
+    ``pinned`` is None it records each layer's experts, call by call (the
+    forward's, then remat's recompute in the backward). Once ``pinned``
+    holds a layer's experts, each call routes there, with the gates taken
+    from that pass's own probabilities and renormalised, and the aux loss
+    from the pinned top-1, as ``moe_route`` does; the tokens whose own top k
+    differ are counted by layer, on the device. With ``detach_layer`` set,
+    that layer's dispatched activations enter the expert products detached
+    (the planted fault)."""
+
+    def __init__(self, torch, tf, params, cfg):
+        self.torch, self.tf, self.cfg = torch, tf, cfg
+        self.real = tf.moe_route
+        router = params["layers"]["router"]
+        self.layer_of = {router[i].data_ptr(): i
+                         for i in range(cfg.n_layers)}
+        self.calls, self.moved = {}, {}
+        self.pinned = self.detach_layer = self.current = None
+
+    def route(self, h, router, cfg):
+        probs, gates, experts, aux = self.real(h, router, cfg)
+        layer = self.current = self.layer_of[router.data_ptr()]
+        if self.pinned is None:
+            self.calls.setdefault(layer, []).append(experts)
+            return probs, gates, experts, aux
+        pin = self.pinned[layer]
+        if layer not in self.moved:
+            self.moved[layer] = (experts.sort(dim=-1)[0]
+                                 != pin.sort(dim=-1)[0]).any(dim=-1).sum()
+        torch = self.torch
+        g = probs.gather(-1, pin)
+        g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+        first = pin[..., :1] == torch.arange(cfg.n_experts, device=h.device)
+        aux = cfg.n_experts * torch.sum(first.to(probs.dtype).mean(
+            dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        return probs, g, pin, aux
+
+    def bmm(self, a, b):
+        if (self.current == self.detach_layer
+                and a.shape[-1] == self.cfg.d_model):
+            a = a.detach()      # the dispatched activations (x_disp's view)
+        return self.torch.bmm(a, b)
+
+    def __enter__(self):
+        self.tf.moe_route = self.route
+        self.tf.torch = _TorchView(self.torch, self.bmm)
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.moe_route = self.real
+        self.tf.torch = self.torch
+
+
+def lm_train_arch(torch, dev, arch: str, fit: tuple, n_steps: int,
+                  phase: str, even: bool = False, check_layers: int = 0,
+                  fault_layer=None) -> dict:
+    """One LM arch's ``train_4k`` cell at full width through
+    ``build_cell``, cut in depth (and, where fewer than 2 layers fit at
+    batch ``LM_TRAIN_BATCH``, in batch) to what the card holds; emits its
+    ``phase`` row and returns its depth, batch and launch counts.
+
+    The depth: one step's ``max_memory_reserved`` at the two depths of
+    ``fit``, linear in the layers, the deepest count (even, with ``even``)
+    whose fitted peak leaves ``LM_TRAIN_MARGIN`` of the free memory; one
+    layer (two with ``even``) less, and the steps run again, while a step
+    runs out of memory (the allocator's cache fragments past the fit).
+    Then ``n_steps`` steps on one batch, step 1 under sync debug mode
+    "error", steps 2 on timed; exactly 2L forward and L backward flash
+    launches a step, and the loss falling. Then the first step's
+    gradients again from the same seed, the kernels against the plain
+    attention (``attention_mef``) per leaf under ``LM_GRAD_REL``, without
+    optimizer state, at ``check_layers`` (0: the trained depth). An MoE
+    arch's check pins the routing (``RoutePin``): the plain pass routes
+    as the kernel pass's forward did, and remat's recompute in the kernel
+    pass must route as its forward; with ``fault_layer``, that layer's
+    dispatched activations detached must read above the rule."""
     from functools import partial
 
     from repro_torch.common import Timer
-    from repro_torch.config import LM_SHAPES, get_arch
+    from repro_torch.config import LM_SHAPES, MoEConfig, get_arch
     from repro_torch.data.pipeline import DataCursor, LMTokenPipeline
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw
 
-    full = get_arch("gemma2-9b")
+    full = get_arch(arch)
+    is_moe = isinstance(full, MoEConfig)
     spec = {s.name: s for s in LM_SHAPES}["train_4k"]
-    B, S = LM_TRAIN_BATCH, spec.seq_len
+    S, unit = spec.seq_len, 2 if even else 1
 
-    def cell_at(layers):
-        steps.get_arch = partial(gemma2_at_depth, layers=layers)
+    def cell_at(layers, B):
+        steps.get_arch = partial(arch_at_depth, layers=layers, arch=arch)
         try:
-            return steps.build_cell("gemma2-9b", "train_4k", device=dev,
-                                    batch=B, seq_len=S)
+            return steps.build_cell(arch, "train_4k", device=dev, batch=B,
+                                    seq_len=S)
         finally:
             steps.get_arch = get_arch
 
-    batch_np = LMTokenPipeline(full, dataclasses.replace(
-        spec, global_batch=B), seed=0).batch(DataCursor())
-    # the depth: one step's peak reserved bytes at two depths, linear in
-    # the layers; the deepest even count whose fitted peak leaves
-    # LM_TRAIN_MARGIN of the free memory
-    peaks = {}
-    for layers in LM_TRAIN_FIT:
-        cell = cell_at(layers)
-        free_bytes(torch, dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    with Timer() as t_fit:
+        for B in LM_TRAIN_BATCHES:
+            batch_np = LMTokenPipeline(full, dataclasses.replace(
+                spec, global_batch=B), seed=0).batch(DataCursor())
+            peaks = {}
+            for layers in fit:
+                cell = cell_at(layers, B)
+                free_bytes(torch, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                params, opt = cell.init(0)
+                params, opt, loss, _ = cell.step_fn(params, opt,
+                                                    cell.inputs(batch_np))
+                torch.cuda.synchronize()
+                peaks[layers] = torch.cuda.max_memory_reserved(dev)
+                del params, opt, loss, cell
+            l0, l1 = fit
+            per_layer = (peaks[l1] - peaks[l0]) / (l1 - l0)
+            base = peaks[l0] - l0 * per_layer
+            free = free_bytes(torch, dev)
+            layers = min(full.n_layers, int(
+                (free - LM_TRAIN_MARGIN - base) // per_layer) // unit * unit)
+            if layers >= 2:
+                break
+        else:
+            raise AssertionError(f"{phase} {arch}: 2 layers fit at no batch "
+                                 f"of {LM_TRAIN_BATCHES} in {free} free "
+                                 f"bytes (peaks {peaks})")
+    fit_layers = layers
+
+    # -- the main path: n_steps steps, the counts set to 0 before --------
+    def run_steps(cell, batch):
         params, opt = cell.init(0)
-        params, opt, loss, _ = cell.step_fn(params, opt,
-                                            cell.inputs(batch_np))
         torch.cuda.synchronize()
-        peaks[layers] = torch.cuda.max_memory_reserved(dev)
-        del params, opt, loss, cell
-    l0, l1 = LM_TRAIN_FIT
-    per_layer = (peaks[l1] - peaks[l0]) / (l1 - l0)
-    base = peaks[l0] - l0 * per_layer
-    free = free_bytes(torch, dev)
-    layers = min(full.n_layers,
-                 int((free - LM_TRAIN_MARGIN - base) // per_layer) // 2 * 2)
-    if layers < 2:
-        raise AssertionError(f"lm_train: no even depth fits {free} free "
-                             f"bytes (peaks {peaks})")
-    cell = cell_at(layers)
-    cfg = cell.cfg
-    cell.note = "; ".join(x for x in (
-        f"layers {layers} of {full.n_layers}", cell.note) if x)
-    n_params = 0
-
-    # the first step's gradients, the kernels against the plain attention
-    # (attention_mef), before the optimizer state exists
-    with Timer() as t_check:
-        params = tf.init_params(cfg, seed=0, device=dev)
-        n_params = sum(p.numel() for p in adamw.tree_leaves(params))
-        batch = cell.inputs(batch_np)
-
-        def grads(attn_impl):
-            p = adamw.tree_map(lambda t: t.detach().requires_grad_(),
-                               params)
-            loss = tf.lm_loss(p, batch, cfg, attn_impl=attn_impl)
-            loss.backward()
-            return float(loss.detach()), steps._leaf_paths(
-                adamw.tree_map(lambda t: t.grad, p))
-
-        loss_k, g_k = grads("auto")
-        loss_p, g_p = grads("blocked")
-        rels = {path: leaf_rel_l2(torch, a, b)
-                for (path, a), (_, b) in zip(g_k, g_p)}
-        del g_k, g_p
-        gc.collect()
-        torch.cuda.empty_cache()
-    worst = max(rels.values())
-    if not (worst <= LM_GRAD_REL and math.isfinite(loss_k)
-            and abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)):
-        raise AssertionError(f"lm_train gradients: loss {loss_k} against "
-                             f"{loss_p}, per-leaf relative L2 {rels}")
-
-    # -- the main path: LM_TRAIN_STEPS steps, the counts set to 0 before --
-    opt = adamw.init_state(params)
-    torch.cuda.synchronize()
-    fmod.flash_attention_cuda.launches = 0
-    fmod.flash_attention_bwd_cuda.launches = 0
-    losses, secs = [], []
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        params, opt, loss, _ = cell.step_fn(params, opt, batch)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    losses.append(loss)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(LM_TRAIN_STEPS - 1):
-        with Timer() as t:
+        fmod.flash_attention_cuda.launches = 0
+        fmod.flash_attention_bwd_cuda.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
             params, opt, loss, _ = cell.step_fn(params, opt, batch)
-            torch.cuda.synchronize()
-        secs.append(t.seconds)
-        losses.append(loss)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses, secs = [loss], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(n_steps - 1):
+            with Timer() as t:
+                params, opt, loss, _ = cell.step_fn(params, opt, batch)
+                torch.cuda.synchronize()
+            secs.append(t.seconds)
+            losses.append(loss)
+        n = sum(p.numel() for p in adamw.tree_leaves(params))
+        return n, torch.stack(losses).tolist(), secs
+
+    out_of_memory = []
+    while True:
+        cell = cell_at(layers, B)
+        batch = cell.inputs(batch_np)
+        try:
+            n_params, losses, secs = run_steps(cell, batch)
+            break
+        except torch.OutOfMemoryError:
+            if layers - unit < 2:
+                raise
+        out_of_memory.append(layers)
+        free_bytes(torch, dev)
+        layers -= unit
     fwd = fmod.flash_attention_cuda.launches
     bwd = fmod.flash_attention_bwd_cuda.launches
     peak = torch.cuda.max_memory_allocated(dev)
-    losses = torch.stack(losses).tolist()
     med = float(np.median(secs))
-    row = {"phase": "lm_train", "arch": cfg.name, "shape": "train_4k",
+    cfg = cell.cfg
+    cell.note = "; ".join(x for x in (
+        f"layers {layers} of {full.n_layers}", cell.note) if x)
+    free_bytes(torch, dev)
+
+    def grads(p0, c, attn_impl):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), p0)
+        loss = tf.lm_loss(p, batch, c, attn_impl=attn_impl)
+        loss.backward()
+        return float(loss.detach()), steps._leaf_paths(
+            adamw.tree_map(lambda t: t.grad, p))
+
+    def rel_by_leaf(ga, gb):
+        return {path: leaf_rel_l2(torch, a, b)
+                for (path, a), (_, b) in zip(ga, gb)}
+
+    # the first step's gradients (the same seed), the kernels against the
+    # plain attention, without optimizer state
+    chk_layers = min(layers, check_layers or layers)
+    moe, fault = None, None
+    with Timer() as t_check:
+        chk_cfg = dataclasses.replace(cfg, n_layers=chk_layers)
+        params = tf.init_params(chk_cfg, seed=0, device=dev)
+        pin = RoutePin(torch, tf, params, chk_cfg) if is_moe else None
+        with pin or contextlib.nullcontext():
+            loss_k, g_k = grads(params, chk_cfg, "auto")
+            if pin:
+                # remat's recompute routes as the forward did; the forward's
+                # experts pin the plain pass
+                calls = [pin.calls.get(i, []) for i in range(chk_layers)]
+                recompute_equal = [len(c) == 2 and torch.equal(c[0], c[1])
+                                   for c in calls]
+                pin.pinned = {i: c[0] for i, c in enumerate(calls)}
+                T, k = B * S, cfg.top_k
+                cap = tf.moe_capacity(T, cfg)
+                dropped = sum(int((~tf.moe_dispatch(
+                    e, torch.ones(e.shape, device=dev), cap,
+                    cfg.n_experts)[3]).sum()) for e in pin.pinned.values())
+            loss_p, g_p = grads(params, chk_cfg, "blocked")
+            rels = rel_by_leaf(g_k, g_p)
+            del g_k
+            if fault_layer is not None:
+                pin.detach_layer = fault_layer
+                loss_f, g_f = grads(params, chk_cfg, "auto")
+                fault = {"layer": fault_layer, "what": "the layer's "
+                         "dispatched activations detached (x_disp)",
+                         "per_leaf": rel_by_leaf(g_f, g_p), "loss": loss_f}
+                fault["worst"] = max(fault["per_leaf"].values())
+                del g_f
+        del g_p
+        if pin:
+            moe = {"routing": "pinned: the plain pass routes to the kernel "
+                              "pass's forward choices, gates from its own "
+                              "probabilities",
+                   "plain_pass_would_reroute_tokens_by_layer": [
+                       int(pin.moved[i]) for i in range(chk_layers)],
+                   "recompute_routes_as_forward_by_layer": recompute_equal,
+                   "capacity": cap, "pairs_per_layer": T * k,
+                   "dropped_pairs_first_step": dropped,
+                   "dropped_share_first_step":
+                       dropped / (chk_layers * T * k)}
+        del pin, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(rels.values())
+    row = {"phase": phase, "arch": cfg.name, "shape": "train_4k",
            "note": cell.note, "layers": layers, "batch": B, "seq_len": S,
            "cuts": {"layers": [layers, full.n_layers],
                     "batch": [B, spec.global_batch],
                     "seq_len": [S, spec.seq_len]},
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
-           "params": n_params, "fit_peaks_reserved": peaks,
-           "fit_free_bytes": free, "steps": LM_TRAIN_STEPS,
+           "window": cfg.sliding_window, "qkv_bias": cfg.qkv_bias,
+           "params": n_params, "fit_layers": list(fit),
+           "fit_peaks_reserved": peaks, "fit_free_bytes": free,
+           "fitted_depth": fit_layers, "out_of_memory_at": out_of_memory,
+           "fit_seconds": t_fit.seconds, "steps": n_steps,
            "seconds_median": med, "seconds_min": min(secs),
            "seconds_max": max(secs), "tok_s": B * S / med,
            "model_flops": cell.model_flops,
            "model_tflop_s": cell.model_flops / med / 1e12,
            "peak_bytes": peak, "flash_forward_launches": fwd,
            "flash_backward_launches": bwd,
-           "forward_launches_per_step": fwd / LM_TRAIN_STEPS,
-           "backward_launches_per_step": bwd / LM_TRAIN_STEPS,
+           "forward_launches_per_step": fwd / n_steps,
+           "backward_launches_per_step": bwd / n_steps,
            "sync_debug_error_first_step": True, "losses": losses,
            "grad_check": {"plain": "attention_mef (attn_impl=blocked)",
                           "rule": f"per-leaf relative L2 <= {LM_GRAD_REL}",
-                          "worst": worst, "loss_kernel": loss_k,
-                          "loss_plain": loss_p, "per_leaf": rels},
+                          "layers": chk_layers, "worst": worst,
+                          "loss_kernel_is_step1_loss": loss_k == losses[0],
+                          "loss_kernel": loss_k, "loss_plain": loss_p,
+                          "per_leaf": rels, "moe": moe,
+                          "planted_fault": fault},
            "check_seconds": t_check.seconds}
     emit(row)
-    if fwd != 2 * layers * LM_TRAIN_STEPS or bwd != layers * LM_TRAIN_STEPS:
-        raise AssertionError(f"lm_train: {fwd} forward and {bwd} backward "
-                             f"launches in {LM_TRAIN_STEPS} steps of "
+    if not (worst <= LM_GRAD_REL and math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+            and (moe is None
+                 or all(moe["recompute_routes_as_forward_by_layer"]))
+            and (fault is None or fault["worst"] > LM_GRAD_REL)):
+        raise AssertionError(f"{phase} {arch} gradients: loss {loss_k} "
+                             f"against {loss_p}, per-leaf relative L2 "
+                             f"{rels}; MoE {moe}; planted fault {fault}")
+    if fwd != 2 * layers * n_steps or bwd != layers * n_steps:
+        raise AssertionError(f"{phase} {arch}: {fwd} forward and {bwd} "
+                             f"backward launches in {n_steps} steps of "
                              f"{layers} layers")
     if not (all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
-        raise AssertionError(f"lm_train: the loss did not fall: {losses}")
-    del params, opt, loss, batch, cell
+        raise AssertionError(f"{phase} {arch}: the loss did not fall: "
+                             f"{losses}")
+    del cell
     gc.collect()
     torch.cuda.empty_cache()
     return {"layers": layers, "batch": B, "forward": fwd, "backward": bwd,
             "seconds_median": med}
 
 
-def lm_train_launcher_phase(torch, dev, layers: int, batch: int) -> dict:
+def lm_train_phase(torch, dev) -> dict:
+    """Phase 20 (``lm_train``): gemma2-9b's ``train_4k`` cell at full width,
+    cut in depth (even: its layers alternate local and global) and batch
+    to what the card holds; returns its depth, batch and launch counts."""
+    return lm_train_arch(torch, dev, "gemma2-9b", LM_TRAIN_FIT,
+                         LM_TRAIN_STEPS, "lm_train", even=True)
+
+
+def lm_family_train_phase(torch, dev) -> dict:
+    """Phase 20b (``lm_family_train``): the ``train_4k`` cell of each arch
+    of ``LM_FAMILY_TRAIN`` as phase 20 runs gemma2-9b's, the MoE archs
+    through the dispatch's gradient with the routing pinned for the check
+    (and, on ``MOE_FAULT_ARCH``, the planted fault); returns each arch's
+    depth, batch and launch counts."""
+    return {arch: lm_train_arch(
+        torch, dev, arch, fit, LM_FAMILY_TRAIN_STEPS, "lm_family_train",
+        check_layers=LM_FAMILY_CHECK_LAYERS,
+        fault_layer=MOE_FAULT_LAYER if arch == MOE_FAULT_ARCH else None)
+        for arch, fit in LM_FAMILY_TRAIN.items()}
+
+
+def lm_train_launcher_phase(torch, dev, cuts: dict) -> dict:
     """Phase 21 (``lm_train_launcher``): ``launch/train.py`` at phase 20's
-    depth and batch for LAUNCHER_STEPS steps without a save, then at its
-    smoke config (in bf16 at head dim 128, the backward kernel's) a save at
-    step 2, a real SIGTERM and ``--resume``, against an uninterrupted run;
-    returns the flash launch counts of the full-width run."""
+    depth and batch for gemma2-9b, and at phase 20b's for its default
+    arch (mistral-nemo-12b, no ``--arch``), ``LAUNCHER_STEPS`` steps each
+    without a save (``cuts``: arch -> phase 20's or 20b's result); then at
+    gemma2-9b's smoke config (in bf16 at head dim 128, the backward
+    kernel's) a save at step 2, a real SIGTERM and ``--resume``, against an
+    uninterrupted run; returns the flash launch counts of the full-width
+    runs, by arch."""
     from functools import partial
 
     from repro_torch.config import get_arch
@@ -4120,30 +4448,41 @@ def lm_train_launcher_phase(torch, dev, layers: int, batch: int) -> dict:
     from repro_torch.launch import train as trainer
 
     ck = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    counts = {}
     try:
-        fmod.flash_attention_cuda.launches = 0
-        fmod.flash_attention_bwd_cuda.launches = 0
-        trainer.get_arch = partial(gemma2_at_depth, layers=layers)
-        res = trainer.train(trainer.parse_args(
-            ["--arch", "gemma2-9b", "--steps", str(LAUNCHER_STEPS),
-             "--seq-len", str(FLASH_BWD_SEQ), "--batch", str(batch),
-             "--ckpt-every", str(10 ** 9), "--log-every", str(10 ** 9),
-             "--ckpt-dir", os.path.join(ck, "full"), "--device", str(dev)]))
-        fwd = fmod.flash_attention_cuda.launches
-        bwd = fmod.flash_attention_bwd_cuda.launches
-        gc.collect()
-        torch.cuda.empty_cache()
-        emit({"phase": "lm_train_launcher", "run": "full width", **res,
-              "layers": layers, "batch": batch, "flash_forward_launches": fwd,
-              "flash_backward_launches": bwd,
-              "saved_files": os.listdir(ck)})
-        if not (res["exit"] == 0 and res["steps_run"] == LAUNCHER_STEPS
-                and not res["saved"] and not os.listdir(ck)
-                and all(math.isfinite(x) for x in res["losses"])
-                and fwd == 2 * layers * LAUNCHER_STEPS
-                and bwd == layers * LAUNCHER_STEPS):
-            raise AssertionError(f"lm_train_launcher at full width: {res}, "
-                                 f"{fwd} and {bwd} launches")
+        default = trainer.parse_args([]).arch
+        for arch, cut in cuts.items():
+            layers, batch = cut["layers"], cut["batch"]
+            fmod.flash_attention_cuda.launches = 0
+            fmod.flash_attention_bwd_cuda.launches = 0
+            trainer.get_arch = partial(arch_at_depth, layers=layers,
+                                       arch=arch)
+            res = trainer.train(trainer.parse_args(
+                ([] if arch == default else ["--arch", arch])
+                + ["--steps", str(LAUNCHER_STEPS),
+                   "--seq-len", str(FLASH_BWD_SEQ), "--batch", str(batch),
+                   "--ckpt-every", str(10 ** 9), "--log-every",
+                   str(10 ** 9), "--ckpt-dir", os.path.join(ck, "full"),
+                   "--device", str(dev)]))
+            fwd = fmod.flash_attention_cuda.launches
+            bwd = fmod.flash_attention_bwd_cuda.launches
+            counts[arch] = {"forward": fwd, "backward": bwd}
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"phase": "lm_train_launcher", "run": "full width", **res,
+                  "launcher_default_arch": arch == default,
+                  "layers": layers, "batch": batch,
+                  "flash_forward_launches": fwd,
+                  "flash_backward_launches": bwd,
+                  "saved_files": os.listdir(ck)})
+            if not (res["arch"] == get_arch(arch).name and res["exit"] == 0
+                    and res["steps_run"] == LAUNCHER_STEPS
+                    and not res["saved"] and not os.listdir(ck)
+                    and all(math.isfinite(x) for x in res["losses"])
+                    and fwd == 2 * layers * LAUNCHER_STEPS
+                    and bwd == layers * LAUNCHER_STEPS):
+                raise AssertionError(f"lm_train_launcher at full width: "
+                                     f"{res}, {fwd} and {bwd} launches")
 
         smoke_cfg = dataclasses.replace(get_arch("gemma2-9b", smoke=True),
                                         dtype="bfloat16", d_head=128)
@@ -4200,7 +4539,7 @@ def lm_train_launcher_phase(torch, dev, layers: int, batch: int) -> dict:
     finally:
         trainer.get_arch = get_arch
         shutil.rmtree(ck, ignore_errors=True)
-    return {"forward": fwd, "backward": bwd}
+    return counts
 
 
 def main() -> int:
@@ -4270,6 +4609,19 @@ def main() -> int:
         group_seconds[name] = marks[-1] - marks[-2]
         emit({"phase": "group_seconds", "group": name,
               "seconds": group_seconds[name]})
+
+    # and each graph phase's inside the graph group, so that a cut can be
+    # chosen by what each costs
+    graph_group = "main (graph phases 1-3c)"
+    graph_phase_seconds = {}
+    graph_marks = []
+
+    def graph_phase_done(name):
+        start = graph_marks[-1] if graph_marks else marks[-1]
+        graph_marks.append(time.perf_counter())
+        graph_phase_seconds[name] = graph_marks[-1] - start
+        emit({"phase": "group_seconds", "group": graph_group,
+              "graph_phase": name, "seconds": graph_phase_seconds[name]})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4371,6 +4723,8 @@ def main() -> int:
                               dev),
             tuple(x[keep] for x in rmat_planes), rmat_delta, iters=50)
     del g, social
+
+    graph_phase_done("1 kernel vs plain")
 
     # -- phase 1b: megakernel vs plain ----------------------------------------
     mega_err = 0
@@ -4486,6 +4840,9 @@ def main() -> int:
         iters=5)
     del g, social, tp
 
+    graph_phase_done("1b megakernel vs plain")
+
+    # -- phase 2: the main path at full size ---------------------------------
     with Timer() as t:
         edges = road_like(CAL_NODES, seed=0)
     emit({"phase": "graph", "family": "road_like", "n": edges.n_nodes,
@@ -4656,6 +5013,8 @@ def main() -> int:
 
     launches_c2 = {}
 
+    graph_phase_done("2 main path")
+
     # -- phase 2b: the same query through the fused megakernel ---------------
     res_f, row_f, launches_stages_fused, _ = run_main(
         "kernel", GraphEngineConfig(fuse_supersteps=8),
@@ -4670,6 +5029,8 @@ def main() -> int:
           "phi_approx": res_f.phi_approx,
           "launches_fused": launches_stages_fused,
           "launches_unfused": launches})
+
+    graph_phase_done("2b fused megakernel")
 
     # -- phase 2b': how far k moves with the seed alone -----------------------
     # the stages decomposition (kernel backend) for seeds 0-4: k is the drawn
@@ -4713,6 +5074,8 @@ def main() -> int:
           **spread})
     del dec
 
+    graph_phase_done("2b' seed spread")
+
     # -- phase 2c: one-shot at full size, fused and unfused -------------------
     tau_oneshot = tau_for(edges.n_nodes)
     oneshot = {}
@@ -4731,6 +5094,8 @@ def main() -> int:
           "tau": tau_oneshot, "phi_approx": oneshot[8][0].phi_approx,
           "clusters": oneshot[8][0].n_clusters,
           "supersteps": oneshot[8][0].growing_steps})
+
+    graph_phase_done("2c one-shot")
 
     # -- phase 2d: the quotient cascade at full size --------------------------
     sess_k = kept["main_path", "kernel"]
@@ -4791,6 +5156,8 @@ def main() -> int:
     sess130.close()
     del res, sess130
 
+    graph_phase_done("2d quotient cascade")
+
     # -- phase 2e: CLUSTER2 at full size, unfused and fused -------------------
     c2 = {}
     for fuse, sess in ((0, sess_k), (8, kept["main_path_fused", "kernel"])):
@@ -4823,6 +5190,8 @@ def main() -> int:
         raise AssertionError("cluster2 at n=65536: kernel and plain differ")
     del small, e
 
+    graph_phase_done("2e CLUSTER2")
+
     # -- phase 2f: one host read after a launch ------------------------------
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     reads = []
@@ -4837,6 +5206,8 @@ def main() -> int:
           "median_s": host_read_s, "p10_s": float(reads[19]),
           "p90_s": float(reads[179]), "min_s": float(reads[0]),
           "autotune_host_sync_s": at._HOST_SYNC_S})
+
+    graph_phase_done("2f host read")
 
     # -- phase 2g: graph serving at full size ---------------------------------
     serve_graphs = [edges, road_like(CAL_NODES, seed=1)]
@@ -4876,6 +5247,8 @@ def main() -> int:
           "phi_approx": casc16.phi_approx,
           "rounds_equal": True})
     del results, by_graph   # casc16 stays: phases 2k and 2l equal it
+
+    graph_phase_done("2g graph serving")
 
     # -- phase 2h: autotuned serving ------------------------------------------
     e_pad = served["e_pad"]
@@ -4933,6 +5306,8 @@ def main() -> int:
                              "launches counted, not the queries'")
     del results
 
+    graph_phase_done("2h autotuned serving")
+
     # -- phase 2i: dynamic updates at full size -------------------------------
     dyn_args = serve.parse_args(dyn_argv + ["--batch", "2",
                                             "--backend", "kernel"])
@@ -4963,6 +5338,8 @@ def main() -> int:
     if dyn["update_batches"] != 8 or dyn["n"] != [CAL_NODES] * 2:
         raise AssertionError("graph_dynamic: not 4 batches on each CAL-size "
                              "graph")
+
+    graph_phase_done("2i dynamic updates")
 
     # -- phase 2j: the dynamic path, kernel against plain --------------------
     def timeless(rows):
@@ -5072,6 +5449,8 @@ def main() -> int:
           "n4096_brackets": brackets,
           "n4096_launches": launches_dyn_tiny})
     del small, small_trace, replays, base, tiny, tiny_trace, serve_graphs
+
+    graph_phase_done("2j dynamic kernel vs plain")
 
     # -- phase 2k: kill and resume at full size --------------------------------
     def same_query(a, b) -> bool:
@@ -5198,6 +5577,8 @@ def main() -> int:
           "equal_to_uninterrupted": True})
     del runs, served
 
+    graph_phase_done("2k kill and resume")
+
     # -- phase 2l: GraphStore, spill and the quickstart example ---------------
     # the diameter launcher over 4 compressed shards, on phase 2's graph
     # (its build_graph would make road_like(CAL_NODES, seed=0) again)
@@ -5312,6 +5693,8 @@ def main() -> int:
                              f"({capped})")
     del road_graph, edges, s0, rw0, rc, rp, frozen, front, p64, f64
 
+    graph_phase_done("2l GraphStore")
+
     # -- phase 3: certified bracket ------------------------------------------
     for n, check_exact, mode in ((65_536, False, "stages"),
                                  (4_096, True, "stages"),
@@ -5336,9 +5719,12 @@ def main() -> int:
                                      f"[{iv.lower}, {iv.upper}]")
         emit(row)
 
+    graph_phase_done("3 certified bracket")
+
     # -- phase 3b: the paper's competitor on the same session (Table 3) -------
     # Bellman-Ford's supersteps grow linearly with n on road_like, so the
-    # road graph is cut to 65,536 nodes; RMAT social_like(20) at its size
+    # road graph is cut to SSSP_ROAD_NODES; RMAT social_like(20) at its
+    # size
     sssp_launches = {}
     for name, e in ((f"road_like({SSSP_ROAD_NODES})",
                      road_like(SSSP_ROAD_NODES, seed=0)),
@@ -5391,6 +5777,8 @@ def main() -> int:
               / max(ests["cluster"].growing_steps, 1)})
         sess.close()
         del ests, bf, dstep, e
+
+    graph_phase_done("3b competitor (Table 3)")
 
     # -- phase 3c: the paper-graph cell and a query at roads-USA scale --------
     edges24, gen_seconds = paper_job.result()
@@ -5509,7 +5897,8 @@ def main() -> int:
     del res_k, res_s, res_f, oneshot, dk, ds, fc, mask, start, b
     gc.collect()
     torch.cuda.empty_cache()
-    group_done("main (graph phases 1-3c)")
+    graph_phase_done("3c paper-graph cell")
+    group_done(graph_group)
     flash_row = lm_phases(torch, dev)
     group_done("lm_phases")
     gc.collect()
@@ -5630,21 +6019,31 @@ def main() -> int:
     group_done("flash_backward_phase")
     lm_train = lm_train_phase(torch, dev)
     group_done("lm_train_phase")
-    lm_launcher = lm_train_launcher_phase(torch, dev, lm_train["layers"],
-                                          lm_train["batch"])
+    family_train = lm_family_train_phase(torch, dev)
+    group_done("lm_family_train_phase")
+    default_arch = "mistral-nemo-12b"    # launch/train.py's default
+    lm_launcher = lm_train_launcher_phase(
+        torch, dev, {"gemma2-9b": lm_train,
+                     default_arch: family_train[default_arch]})
     group_done("lm_train_launcher_phase")
-    flash_row["launches"] += lm_train["forward"] + lm_launcher["forward"]
+    runs = {"lm_train": lm_train,
+            **{f"lm_family_train {arch}": r
+               for arch, r in family_train.items()},
+            **{f"lm_train_launcher {arch}": r
+               for arch, r in lm_launcher.items()}}
+    flash_row["launches"] += sum(r["forward"] for r in runs.values())
     flash_row["launches_by_path"].update(
-        {"lm_train": lm_train["forward"],
-         "lm_train_launcher": lm_launcher["forward"]})
-    flash_row["backward_launches"] = (lm_train["backward"]
-                                      + lm_launcher["backward"])
+        {path: r["forward"] for path, r in runs.items()})
+    flash_row["backward_launches"] = sum(r["backward"]
+                                         for r in runs.values())
     flash_row["backward_launches_by_path"] = {
-        "lm_train": lm_train["backward"],
-        "lm_train_launcher": lm_launcher["backward"]}
-    flash_row["backward_launches_per_training_step"] = (
-        lm_train["backward"] // LM_TRAIN_STEPS)
+        path: r["backward"] for path, r in runs.items()}
+    flash_row["backward_launches_per_training_step"] = {
+        "gemma2-9b": lm_train["backward"] // LM_TRAIN_STEPS,
+        **{arch: r["backward"] // LM_FAMILY_TRAIN_STEPS
+           for arch, r in family_train.items()}}
     emit({"phase": "group_seconds_total", "groups": group_seconds,
+          "graph_phases": graph_phase_seconds,
           "script_seconds": time.perf_counter() - marks[0]})
 
     emit({"kernels": [{

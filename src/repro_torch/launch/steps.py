@@ -1,6 +1,6 @@
 """Step builders for the ported (arch x shape) cells: the eager counterpart
 of the JAX package's ``launch/steps.py`` ``build_cell`` for the LM
-family's training (dense archs) and serving kinds (``_lm_cell``),
+family's training and serving kinds (``_lm_cell``),
 xDeepFM's training and two serving kinds (``_recsys_cell``), the GNN
 family's training cell (``_gnn_cell``) and the paper engine's cell
 (``_engine_cell``), on one device, with no mesh and no shardings.
@@ -24,9 +24,9 @@ family's training cell (``_gnn_cell``) and the paper engine's cell
   cfg         the config the step runs (retrieval: ``n_sparse`` = user +
               item fields; an MoE arch: ``moe_groups`` 1)
   device      where ``Cell.inputs`` puts the inputs
-  model_flops the reference's analytic useful FLOPs of one step (LM: 2 N
-              a token, N the active parameters of an MoE arch; 0 where the
-              reference has none)
+  model_flops the reference's analytic useful FLOPs of one step (LM: 6 N
+              a token to train, 2 N to serve, N the active parameters of
+              an MoE arch; 0 where the reference has none)
 
 An LM cell's ``serve_decode`` decodes one new token against a cache that
 already holds ``S - 1`` (the cache's ``len`` is set to ``S - 1``, a Python
@@ -36,7 +36,7 @@ keyword arguments ``batch`` and ``seq_len`` cut an LM cell's shape to what
 one card holds; the cell's ``note`` lists each cut against the
 ``ShapeSpec``.
 
-A dense LM arch's ``train_4k`` cell (``LMTrainCell``) is the reference's
+An LM arch's ``train_4k`` cell (``LMTrainCell``) is the reference's
 training step: ``lm_loss`` (the sequence chunked, each chunk's logits
 recomputed in the backward; each layer under ``torch.utils.checkpoint``
 with the configs' ``remat="full"``), its gradient by autograd (the flash
@@ -44,9 +44,14 @@ attention backward kernel on the card), then ``optim/adamw.apply_updates``
 in place with ``train_cfg``. Its inputs are ``tokens`` and ``labels``
 ``[B, S]`` int32. One card holds no LM arch's training state whole, so a
 caller cuts ``batch`` and ``seq_len`` (listed in the note) and the depth
-through the config (``get_arch``). An MoE arch's ``train_4k`` raises:
-its dispatch's gradient is the next slice's. A step reads nothing from
-the device, and raises when a parameter gets no gradient.
+through the config (``get_arch``). An MoE arch trains through the
+group-local capacity dispatch's gradient in one dispatch group
+(``moe_groups`` 1) on one card, where the reference uses its data shards;
+its ``model_flops`` counts the active parameters. The routing is the
+model's own: the package has no knob that pins it (``chip_smoke.py``
+pins it for its check against the plain attention, and only there). A
+step reads nothing from the device, and raises when a parameter gets no
+gradient.
 
 The ``paper-graph`` arch's cell (``build_cell("paper-graph", "n16M")``,
 keyword arguments ``n_nodes`` = 2^24 and ``avg_degree`` = 5 as the
@@ -405,7 +410,7 @@ def _lm_model_flops(cfg: TransformerConfig, shape: ShapeSpec,
 
 @dataclass
 class LMTrainCell(Cell):
-    """A dense LM arch's training cell. ``init(seed)`` gives the parameters
+    """An LM arch's training cell. ``init(seed)`` gives the parameters
     (``transformer.init_params`` seeded with ``seed`` on the cell's device)
     and their AdamW state."""
 
@@ -449,16 +454,13 @@ def _lm_cell(cfg: TransformerConfig, shape: ShapeSpec, dev: torch.device,
              train_cfg: TrainConfig = TrainConfig()) -> Cell:
     """An LM cell on one device, at the shape's batch and length or at the
     cuts ``batch`` / ``seq_len`` (listed in the note)."""
-    if shape.kind == "train" and isinstance(cfg, MoEConfig):
-        raise NotImplementedError(
-            f"{cfg.name} x {shape.name}: an MoE arch's training cell needs "
-            f"the MoE dispatch's gradient, which the next slice ports with "
-            f"the head-dim-128 archs' training cells")
     if shape.kind != "train" and train_cfg != TrainConfig():
         raise TypeError(f"train_cfg is an argument of a training cell, not "
                         f"of {shape.kind}")
     if isinstance(cfg, MoEConfig):
-        cfg = dataclasses.replace(cfg, moe_groups=1)   # one data shard
+        # one data shard: the reference sets moe_groups to its mesh's data
+        # shards, so its dispatch runs one group per shard
+        cfg = dataclasses.replace(cfg, moe_groups=1)
     cuts = []
     if batch is not None and batch != shape.global_batch:
         cuts.append(f"batch {batch} of {shape.global_batch}")

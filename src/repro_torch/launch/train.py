@@ -4,10 +4,11 @@
       --smoke --steps 50 [--resume] [--grad-compression int8_ef] \
       [--device cuda]
 
-Trains a dense LM arch (``launch/steps.lm_train_step``: ``lm_loss``,
-autograd with the flash attention backward kernel on the card, AdamW in
-place) on ``LMTokenPipeline`` batches, with the reference's production
-semantics on one device:
+Trains an LM arch, dense or MoE (``launch/steps.lm_train_step``:
+``lm_loss``, autograd with the flash attention backward kernel on the
+card and, for an MoE arch, through the capacity dispatch in one group,
+AdamW in place) on ``LMTokenPipeline`` batches, with the reference's
+production semantics on one device:
   * checkpoints of ``params``, ``m`` and ``v`` with ``extra = {cursor,
     opt_step}`` every ``--ckpt-every`` steps (``checkpoint.save``; bf16
     leaves written as the reference writes them), and ``--resume`` from

@@ -1,7 +1,7 @@
 """Decoder-only transformer: the port of the JAX package's
-``models/transformer.py`` for serving its five LM archs (gemma2-9b,
-mistral-nemo-12b, qwen1.5-32b, and the MoE archs moonshot-v1-16b-a3b and
-mixtral-8x7b).
+``models/transformer.py`` for serving and training its five LM archs
+(gemma2-9b, mistral-nemo-12b, qwen1.5-32b, and the MoE archs
+moonshot-v1-16b-a3b and mixtral-8x7b).
 
 Parameters are a plain dict with layers STACKED on a leading ``[L]`` axis,
 as in the reference (``embed``, ``final_norm``, optional ``unembed``, and
@@ -63,6 +63,11 @@ backward stacks the layers' gradients once (a per-layer index would
 write a full-size gradient per layer). Work that the reference does in
 float32 is done in ``promote_types(dtype, float32)``: float32 for the bf16
 and float32 configs, float64 for a float64 one (the tests' precision).
+An MoE layer trains through the dispatch above: the router's gradient
+comes through the renormalised top-k gates and the aux loss's mean
+probabilities (the one-hot counts take none), and a dropped pair gets
+none, as in the reference. Its forward has fixed shapes and no atomics,
+so remat's recompute routes every token as the forward did.
 
 Not ported: the reference's ``MOE_CONSTRAINTS`` and ``MOE_A2A`` hooks
 (sharding constraints and the multi-device all-to-all dispatch of
@@ -358,6 +363,10 @@ def _moe_ffn(h: torch.Tensor, lp: Params,
     group = torch.arange(G, device=h.device)[:, None]
     row = (flat_e * G + group) * C + slot                     # [G, Tg k]
     dest = torch.where(keep, row, E * G * C)
+    # The dropped pairs all land on the extra row, in an order left
+    # undefined. No product reads that row, so its gradient is zero and a
+    # dropped pair's token gets none through the copy, as the reference's
+    # multiply by keep gives it none. The source is a [T k, d] copy of h.
     x_disp = h.new_zeros((E * G * C + 1, d))
     x_disp.index_copy_(0, dest.reshape(-1),
                        h[:, :, None].expand(G, Tg, k, d).reshape(-1, d))
@@ -365,8 +374,13 @@ def _moe_ffn(h: torch.Tensor, lp: Params,
     gu = _act(torch.bmm(xe, lp["w_gate"]), cfg.act) * torch.bmm(xe,
                                                                 lp["w_up"])
     y = torch.bmm(gu, lp["w_down"]).view(E * G * C, d)
-    # bf16 x float32 promotes to float32, as in JAX
-    y_tok = y[row.reshape(-1)].view(G, Tg * k, d) * gate[..., None]
+    # The combine gathers by index_select, whose backward is index_add_
+    # into y's rows: a kept pair owns its slot, so a slot gets that one
+    # pair's gradient, and a dropped pair reads slot C - 1 with gate 0 and
+    # adds an exact zero. So the sum is exact, the same in any order of
+    # the card's atomics. bf16 x float32 promotes to float32, as in JAX.
+    y_tok = (y.index_select(0, row.reshape(-1)).view(G, Tg * k, d)
+             * gate[..., None])
     out = y_tok.view(G, Tg, k, d).sum(dim=2)
     if cfg.n_shared_experts:
         gs = _act(h @ lp["ws_gate"], cfg.act) * (h @ lp["ws_up"])

@@ -77,11 +77,17 @@ def wsd_schedule(step: torch.Tensor, cfg: TrainConfig,
 
 def global_norm(tree: Any) -> torch.Tensor:
     """The float32 L2 norm of every leaf together, summed leaf by leaf in
-    tree order from a float32 zero."""
+    tree order from a float32 zero. A leaf of more than ``UPDATE_SLICE``
+    elements is summed slice by slice, so that its float32 square is a
+    slice's and not the leaf's (a full-width LM's stacked layer gradients
+    would take 8 bytes a parameter more at the step's peak)."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        flat = g.reshape(-1)
+        for i in range(0, flat.numel(), UPDATE_SLICE):
+            total = total + torch.sum(torch.square(
+                flat[i:i + UPDATE_SLICE].to(torch.float32)))
     return torch.sqrt(total)
 
 

@@ -50,7 +50,12 @@ backward kernel against the float64 plain backward under
 planted faults above it, two launches bit for bit equal, autograd through
 ``ops.attention``), and an LM training step through ``build_cell``
 (``train_4k`` cut, head dim 128: 2L forward and L backward launches,
-gradients against the plain attention's, no read of the device).
+gradients against the plain attention's, no read of the device); an MoE
+training step at capacity factor 1.0 (no read of the device, two steps
+from one state bit for bit equal), the MoE FFN's gradients against its
+dense check's under ``moe_check.moe_grad_excess`` (and its planted
+fault), and a training step with QKV biases (qwen1.5-32b's smoke model:
+launch counts, gradients against the plain attention's).
 This file imports no JAX, so it runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -1769,3 +1774,127 @@ def test_lm_train_step_through_the_kernels_on_card(cuda_device):
         losses.append(loss)
     losses = torch.stack(losses).tolist()
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _lm_train_cell(arch, device, **replace):
+    """A smoke arch's train_4k cell in bf16 at head dim 128 (the backward
+    kernel's) with remat, cut to batch 2 and length 256, its state and a
+    seeded batch."""
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="bfloat16",
+                              d_head=128, remat="full", **replace)
+    shape = {s.name: s for s in LM_SHAPES}["train_4k"]
+    cell = steps._lm_cell(cfg, shape, device, batch=2, seq_len=256)
+    r = np.random.default_rng(0)
+    toks = r.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    return cell, cell.init(0), cell.inputs({"tokens": toks,
+                                            "labels": labels})
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_train_step_reads_nothing_and_repeats_bit_equal_on_card(
+        cuda_device, arch):
+    """An MoE smoke arch's training step at capacity factor 1.0 (pairs
+    dropped) under sync debug mode "error": 2L forward and L backward
+    flash launches, nothing read from the device; the same step from the
+    same state again gives the same loss, parameters and moments bit for
+    bit (the combine's index_add_ sums one pair's gradient per slot and
+    exact zeros)."""
+    cell, (params, opt), batch = _lm_train_cell(arch, cuda_device,
+                                                capacity_factor=1.0)
+    start = [t.clone() for t in adamw.tree_leaves((params, opt.m, opt.v))]
+    fmod.load_library()                 # the build, outside the mode
+    torch.cuda.synchronize()
+    fmod.flash_attention_cuda.launches = 0
+    fmod.flash_attention_bwd_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, loss, _ = cell.step_fn(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    L = cell.cfg.n_layers
+    assert fmod.flash_attention_cuda.launches == 2 * L
+    assert fmod.flash_attention_bwd_cuda.launches == L
+    assert bool(torch.isfinite(loss))
+
+    def step_from_start():
+        p, o = cell.init(0)
+        for a, b in zip(adamw.tree_leaves((p, o.m, o.v)), start):
+            a.copy_(b)
+        p, o, loss, _ = cell.step_fn(p, o, batch)
+        return [loss] + adamw.tree_leaves((p, o.m, o.v))
+
+    for a, b in zip(step_from_start(), step_from_start()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_ffn_gradients_match_their_dense_check_on_card(cuda_device,
+                                                           arch):
+    """``_moe_ffn``'s gradients in h and every layer weight at capacity
+    factor 1.0 in two groups against ``moe_ffn_dense``'s (h in float32
+    there), under ``moe_check.moe_grad_excess``'s rule; the dense check at
+    one slot fewer reads above it."""
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="bfloat16",
+                              capacity_factor=1.0, moe_groups=2)
+    lp = tf.layer_params(tf.init_params(cfg, seed=5, device=cuda_device), 0)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(2)
+    x = torch.randn(2, 64, cfg.d_model, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    h = tf.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps).reshape(2, 64,
+                                                            cfg.d_model)
+    cot = torch.randn(h.shape, generator=g, device=cuda_device).to(
+        torch.bfloat16).float()
+    names = [n for n in ("router", "w_gate", "w_up", "w_down", "ws_gate",
+                         "ws_up", "ws_down") if n in lp]
+
+    def grads(fn, hh, **kw):
+        hh = hh.detach().requires_grad_()
+        w = {n: t.detach().requires_grad_() for n, t in lp.items()}
+        out = fn(hh, w, cfg, **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        return dict(zip(["h"] + names, torch.autograd.grad(
+            out, [hh] + [w[n] for n in names], cot)))
+
+    got = grads(tf._moe_ffn, h)
+    want = grads(moe_check.moe_ffn_dense, h.float())
+    assert max(moe_check.moe_grad_excess(got, want).values()) <= 1.0
+    experts = tf.moe_route(h, lp["router"], cfg)[2]
+    cap = moe_check.fault_capacity(experts, tf.moe_capacity(64, cfg),
+                                   cfg.n_experts)
+    fault = grads(moe_check.moe_ffn_dense, h.float(), capacity=cap)
+    assert max(moe_check.moe_grad_excess(fault, want).values()) > 1.0
+
+
+def test_qkv_bias_train_step_launches_the_backward_once_a_layer(cuda_device):
+    """qwen1.5-32b's smoke model (QKV biases, MHA) in bf16 at head dim 128:
+    a training step launches the flash forward 2L times and its backward
+    L times, and its gradients, biases included, are within
+    ``chip_smoke.py``'s 5e-2 relative L2 per leaf of the plain
+    attention's."""
+    cell, (params, opt), batch = _lm_train_cell("qwen1.5-32b", cuda_device)
+    cfg = cell.cfg
+    params["layers"]["bq"].normal_(0, 0.1)
+
+    def grads(attn_impl):
+        p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        tf.lm_loss(p, batch, cfg, attn_impl=attn_impl).backward()
+        return p["layers"], adamw.tree_leaves(adamw.tree_map(
+            lambda t: t.grad, p))
+
+    layers, got = grads("auto")
+    assert all(float(layers[b].grad.abs().max()) > 0
+               for b in ("bq", "bk", "bv"))
+    for a, b in zip(got, grads("blocked")[1]):
+        assert float((a.float() - b.float()).norm()
+                     / b.float().norm()) < 5e-2
+    fmod.flash_attention_cuda.launches = 0
+    fmod.flash_attention_bwd_cuda.launches = 0
+    params, opt, loss, _ = cell.step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention_cuda.launches == 2 * cfg.n_layers
+    assert fmod.flash_attention_bwd_cuda.launches == cfg.n_layers
+    assert bool(torch.isfinite(loss))

@@ -260,20 +260,18 @@ def test_cells_match_reference(arch, kind):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_cell_raises_and_cell_arguments_are_checked(arch):
-    """A dense arch's train_4k is the training cell (tokens and labels at
-    the shape's batch and length); an MoE arch's raises, naming the slice
-    that ports its dispatch's gradient."""
-    if arch in DENSE:
-        cell = build_cell(arch, "train_4k", smoke=True, device="cpu")
-        assert cell.arg_shapes == {"tokens": ((256, 4096), torch.int32),
-                                   "labels": ((256, 4096), torch.int32)}
-        assert cell.note == "" and cell.model_flops == _lm_model_flops(
-            cell.cfg, SHAPES["train_4k"], "train")
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="x train_4k: an MoE arch's training "
-                                 "cell.*next slice"):
-            build_cell(arch, "train_4k", smoke=True, device="cpu")
+    """Every arch's train_4k is the training cell (tokens and labels at
+    the shape's batch and length; an MoE arch's in one dispatch group,
+    its FLOPs from the active parameters); wrong cell arguments raise."""
+    cell = build_cell(arch, "train_4k", smoke=True, device="cpu")
+    assert cell.arg_shapes == {"tokens": ((256, 4096), torch.int32),
+                               "labels": ((256, 4096), torch.int32)}
+    assert cell.note == "" and cell.model_flops == _lm_model_flops(
+        cell.cfg, SHAPES["train_4k"], "train")
+    if arch not in DENSE:
+        assert cell.cfg.moe_groups == 1
+        assert cell.model_flops == 6.0 * cell.cfg.active_param_count() \
+            * 256 * 4096
     with pytest.raises(TypeError, match="n_nodes"):
         build_cell(arch, "prefill_32k", smoke=True, device="cpu",
                    n_nodes=8)

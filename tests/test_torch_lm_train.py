@@ -1,8 +1,9 @@
 """The port's LM training path against the JAX package's:
 ``models/transformer.lm_loss`` (chunked over the sequence, each chunk's
 logits recomputed in the backward) and its gradients by autograd against
-``jax.value_and_grad`` of the reference's ``lm_loss``, at gemma2-9b's and
-mistral-nemo-12b's smoke configs, four loss chunks and masked labels, in
+``jax.value_and_grad`` of the reference's ``lm_loss``, at gemma2-9b's,
+mistral-nemo-12b's and qwen1.5-32b's smoke configs (qwen's QKV biases
+drawn non-zero), four loss chunks and masked labels, in
 float64 (the reference's weights carried over with
 ``convert.transformer_params_from_reference``); remat on and off; an MoE
 smoke arch's loss; three AdamW steps on a bf16 tree; the int8
@@ -113,10 +114,20 @@ def _setup(arch):
     return ref_cfg, cfg, ref_params, params
 
 
-@pytest.fixture(scope="module", params=["gemma2-9b", "mistral-nemo-12b"])
+@pytest.fixture(scope="module", params=["gemma2-9b", "mistral-nemo-12b",
+                                        "qwen1.5-32b"])
 def dense(request):
-    """(cfg, port params, batch, the reference's loss and gradients)."""
+    """(cfg, port params, batch, the reference's loss and gradients);
+    qwen's QKV biases drawn away from their zero init."""
     ref_cfg, cfg, ref_params, params = _setup(request.param)
+    if ref_cfg.qkv_bias:
+        r = np.random.default_rng(8)
+        layers = dict(ref_params["layers"])
+        for b in ("bq", "bk", "bv"):
+            layers[b] = 0.1 * r.standard_normal(layers[b].shape)
+        ref_params = dict(ref_params, layers=layers)
+        params = transformer_params_from_reference(ref_params, cfg,
+                                                   device="cpu")
     batch = _batch(cfg)
     with reference_in_float64(ref_tf, ref_ops):
         loss, grads = jax.jit(jax.value_and_grad(
