@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import guard
-from repro_torch.common import get_logger
+from repro_torch.common import get_logger, to_device
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.fault import retriable
 
@@ -130,24 +130,26 @@ def save(ckpt_dir: str, step: int, tree: Any,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     flat = _flatten(tree)
-    manifest = {"step": step, "extra": extra or {}, "leaves": {},
-                "written_at": telemetry.wall_time()}
-    write, write_bf16 = retriable(_write_npy), retriable(_write_bf16_npy)
-    for key, leaf in flat.items():
-        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
-        if isinstance(leaf, torch.Tensor):
-            # the one device->host seam: an active meter counts the save's
-            # reads (EngineMetrics.checkpoint_syncs); numpy has no
-            # bfloat16, so such a leaf is fetched as its 2-byte words
-            leaf = guard.fetch(
-                leaf.view(torch.int16) if bf16 else leaf,
-                reason=f"checkpoint save: materialize leaf {key}")
-        arr = np.asarray(leaf)
-        fname = f"{key}.npy"
-        (write_bf16 if bf16 else write)(os.path.join(tmp, fname), arr)
-        manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape),
-            "dtype": _BF16 if bf16 else str(arr.dtype)}
+    with telemetry.span("checkpoint.save", step=step, leaves=len(flat)):
+        manifest = {"step": step, "extra": extra or {}, "leaves": {},
+                    "written_at": telemetry.wall_time()}
+        write, write_bf16 = retriable(_write_npy), retriable(_write_bf16_npy)
+        for key, leaf in flat.items():
+            bf16 = (isinstance(leaf, torch.Tensor)
+                    and leaf.dtype == torch.bfloat16)
+            if isinstance(leaf, torch.Tensor):
+                # the one device->host seam: an active meter counts the save's
+                # reads (EngineMetrics.checkpoint_syncs); numpy has no
+                # bfloat16, so such a leaf is fetched as its 2-byte words
+                leaf = guard.fetch(
+                    leaf.view(torch.int16) if bf16 else leaf,
+                    reason=f"checkpoint save: materialize leaf {key}")
+            arr = np.asarray(leaf)
+            fname = f"{key}.npy"
+            (write_bf16 if bf16 else write)(os.path.join(tmp, fname), arr)
+            manifest["leaves"][key] = {
+                "file": fname, "shape": list(arr.shape),
+                "dtype": _BF16 if bf16 else str(arr.dtype)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -185,9 +187,10 @@ def _place(arr: np.ndarray, like, dtype: str):
         # ascontiguousarray makes a 0-d array 1-d: the leaf keeps its shape
         t = torch.from_numpy(np.ascontiguousarray(arr).view(
             np.int16 if dtype == _BF16 else arr.dtype)).reshape(arr.shape)
+        t = to_device(t, like.device)
         if dtype == _BF16:
-            return t.to(like.device).view(torch.bfloat16).to(like.dtype)
-        return t.to(device=like.device, dtype=like.dtype)
+            return t.view(torch.bfloat16).to(like.dtype)
+        return t.to(like.dtype)
     if dtype == _BF16:
         return arr
     return np.asarray(arr, dtype=np.asarray(like).dtype)
@@ -204,17 +207,21 @@ def restore(ckpt_dir: str, like: Any,
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
-    flat_like = _flatten(like)
-    loaded = {}
-    for key, meta in manifest["leaves"].items():
-        if key not in flat_like:
-            log.warning("checkpoint leaf %s not in target tree; skipped", key)
-            continue
-        loaded[key] = _place(np.load(os.path.join(d, meta["file"])),
-                             flat_like[key], meta["dtype"])
-    missing = set(flat_like) - set(loaded)
-    if missing:
-        raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]}...")
+    with telemetry.span("checkpoint.restore", step=step) as sp:
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        flat_like = _flatten(like)
+        loaded = {}
+        for key, meta in manifest["leaves"].items():
+            if key not in flat_like:
+                log.warning("checkpoint leaf %s not in target tree; skipped",
+                            key)
+                continue
+            loaded[key] = _place(np.load(os.path.join(d, meta["file"])),
+                                 flat_like[key], meta["dtype"])
+        missing = set(flat_like) - set(loaded)
+        if missing:
+            raise ValueError(
+                f"checkpoint missing leaves: {sorted(missing)[:5]}...")
+        sp.set(leaves=len(loaded))
     return _unflatten(like, loaded), manifest["extra"]

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 import sys
-from typing import Any, Callable, List, Union
+from typing import Any, Callable, List, Optional, Union
 
 import torch
 
@@ -21,7 +21,8 @@ from repro_torch.config.base import GraphEngineConfig
 from repro_torch.runtime.telemetry import clock
 
 __all__ = ["GraphEngineConfig", "Timer", "ceil_div", "get_logger",
-           "next_multiple", "resolve_device", "tree_leaves", "tree_map"]
+           "next_multiple", "resolve_device", "to_device", "tree_leaves",
+           "tree_map"]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -91,3 +92,20 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "repro_torch: device 'cuda' requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def to_device(a, device: Union[str, torch.device],
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` (a numpy array, a host tensor or a device tensor), cast to
+    ``dtype`` if given, as a new tensor on ``device``.
+
+    A host array reaches the card through pinned memory, copied
+    asynchronously on the current stream: a copy from pageable memory
+    makes the host wait for the card's queue to drain, which is a
+    synchronisation that ``guard.measured_transfers("disallow")`` refuses.
+    Otherwise the result is a copy, so it never aliases ``a``."""
+    t = torch.as_tensor(a, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev, copy=True)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import guard
-from repro_torch.common import get_logger, resolve_device
+from repro_torch.common import get_logger, resolve_device, to_device
 from repro_torch.graph.structures import EdgeList
 from repro_torch.kernels.edge_relax.megakernel import DEFAULT_K_FUSED
 from repro_torch.runtime.roofline import HBM_BYTES_PER_S, relax_pass_bytes
@@ -137,8 +137,8 @@ def _stats_pass(dst: torch.Tensor, weight: torch.Tensor,
     deg.index_add_(0, dst.to(torch.int64),
                    torch.ones_like(dst, dtype=torch.int64))
     w = weight.to(torch.int64)
-    bounds = torch.tensor(BUCKET_THRESHOLDS, dtype=torch.int64,
-                          device=dst.device)
+    bounds = to_device(np.asarray(BUCKET_THRESHOLDS), dst.device,
+                       torch.int64)
     scalars = torch.stack([deg.max(), w.min(), w.max()])
     return torch.cat([_hist(deg, bounds), _hist(w, bounds), scalars])
 
@@ -154,8 +154,8 @@ def compute_graph_stats(edges: EdgeList,
         return GraphStats(n, e, 0.0, 0, 1, 1, 1, 0, zeros, zeros)
     dev = resolve_device(device)
     vec = guard.fetch(
-        _stats_pass(torch.from_numpy(edges.dst).to(dev),
-                    torch.from_numpy(edges.weight).to(dev), n),
+        _stats_pass(to_device(edges.dst, dev), to_device(edges.weight, dev),
+                    n),
         reason="autotune: packed degree/weight histograms")
     deg_hist = tuple(int(x) for x in vec[:N_BUCKETS])
     w_hist = tuple(int(x) for x in vec[N_BUCKETS:2 * N_BUCKETS])

@@ -25,7 +25,7 @@ from typing import Protocol, Tuple, runtime_checkable
 
 import torch
 
-from repro_torch.common import Timer, resolve_device
+from repro_torch.common import Timer, resolve_device, to_device
 from repro_torch.core.chunked import DEFAULT_CHUNK
 from repro_torch.core.delta_growing import (GrowthStats, growth_loop,
                                             partial_growth)
@@ -66,9 +66,10 @@ class RelaxBackend(Protocol):
         ...
 
     def rebind(self, src: torch.Tensor, dst: torch.Tensor,
-               weight: torch.Tensor) -> None:
+               weight: torch.Tensor, in_degree=None) -> None:
         """Point the backend at mutated edge arrays on its device (a
-        dynamic session's store, ``core/dynamic.py``); not a build."""
+        dynamic session's store, ``core/dynamic.py``; ``in_degree`` is the
+        store's host count of each node's in-edges); not a build."""
         ...
 
 
@@ -81,9 +82,9 @@ class SingleDeviceBackend:
         self.device = resolve_device(device)
         self.n_nodes = edges.n_nodes
         self.n_pad = edges.n_nodes
-        self.src = torch.as_tensor(edges.src).to(self.device)
-        self.dst = torch.as_tensor(edges.dst).to(self.device)
-        self.weight = torch.as_tensor(edges.weight).to(self.device)
+        self.src = to_device(edges.src, self.device)
+        self.dst = to_device(edges.dst, self.device)
+        self.weight = to_device(edges.weight, self.device)
         self.transfers = 0
         self.launches = 0   # the plain superstep launches no kernel of ours
 
@@ -107,7 +108,7 @@ class SingleDeviceBackend:
     def flat_edges(self):
         return self.src, self.dst, self.weight
 
-    def rebind(self, src, dst, weight):
+    def rebind(self, src, dst, weight, in_degree=None):
         """Swap in the arrays, as the reference does (the superstep reads
         the flat arrays, inert slots included)."""
         self.src, self.dst, self.weight = src, dst, weight
@@ -180,16 +181,18 @@ class KernelBackend:
     def flat_edges(self):
         return self.graph.src, self.graph.dst, self.graph.w
 
-    def rebind(self, src, dst, weight):
+    def rebind(self, src, dst, weight, in_degree=None):
         """Rebuild the CSR from a dynamic session's store arrays on the
         device (two stable sorts, a new long-row list, the out-CSR again
         on first use). The store's inert slots are sorted past the last
         row (``build_relax_graph(inert_tail=True)``), so no kernel scans
-        them. The long-row list's length is one implicit host read, and
-        ``rebind_seconds`` includes the sorts it waits for."""
+        them. The long-row list's length comes from the store's host
+        ``in_degree``; without it, it is one read (``guard.fetch``).
+        ``rebind_seconds`` is the host clock of the rebuild."""
         with Timer() as t:
             self.graph = build_relax_graph(src, dst, weight, self.n_nodes,
-                                           self.device, inert_tail=True)
+                                           self.device, inert_tail=True,
+                                           in_degree=in_degree)
         self.rebind_seconds += t.seconds
 
     def grow(self, state, delta, half_target, num_it, variant,

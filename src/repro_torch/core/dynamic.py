@@ -41,7 +41,9 @@ Host reads: ``DynamicMetrics.update_syncs`` counts the reads the
 reference counts (one per packed plane fetch and per dead-node count);
 ``engine_syncs`` counts the rest, which the reference's jitted loops do
 not make: the engine's chunk or launch reads in every full decomposition
-and repair grow, and a rebuild's recertify fetch.
+and repair grow, and a rebuild's recertify fetch. The kernel backend's
+``rebind`` reads nothing: the store keeps each node's in-degree on the
+host, which gives the CSR's long rows.
 """
 from __future__ import annotations
 
@@ -54,12 +56,14 @@ import numpy as np
 import torch
 
 from repro_torch import guard
-from repro_torch.common import Timer, get_logger, next_multiple
+from repro_torch.common import (Timer, get_logger, next_multiple,
+                                to_device)
 from repro_torch.core.engine import Decomposition
 from repro_torch.core.state import INF, EngineState
 from repro_torch.graph.segment_ops import segment_min_triple
 from repro_torch.graph.storage import EdgeStore
 from repro_torch.graph.structures import MAX_WEIGHT
+from repro_torch.runtime import telemetry
 
 log = get_logger("repro_torch.dynamic")
 
@@ -339,15 +343,19 @@ def _recertify(session, dec: Decomposition,
     n = session.n_nodes
     if n == 0 or dec.final_c_dev is None:
         return dec, 0, 0
-    src, dst, w = session.flat_device_edges()
-    rounds = _pointer_rounds(n)
-    alive, fp_base = _forest_repair(src, dst, w, dec.final_c_dev,
-                                    dec.final_pathw_dev, n=n,
-                                    k_rounds=rounds)
-    state = _repair_state(dec.final_c_dev, fp_base, alive, n, confine=True)
-    state, grow_steps = _grow(session, state, None, m)
-    c_dev, p_dev, n_single = _finalize_repair(state, n=n)
-    fc, fp, singles = _fetch_repair_planes(c_dev, p_dev, (n_single,))
+    with telemetry.span("dynamic.recertify", n=n) as sp:
+        src, dst, w = session.flat_device_edges()
+        rounds = _pointer_rounds(n)
+        alive, fp_base = _forest_repair(src, dst, w, dec.final_c_dev,
+                                        dec.final_pathw_dev, n=n,
+                                        k_rounds=rounds)
+        state = _repair_state(dec.final_c_dev, fp_base, alive, n,
+                              confine=True)
+        state, grow_steps = _grow(session, state, None, m)
+        c_dev, p_dev, n_single = _finalize_repair(state, n=n)
+        fc, fp, singles = _fetch_repair_planes(c_dev, p_dev, (n_single,))
+        sp.set(pointer_rounds=rounds, supersteps=1 + grow_steps,
+               singletons=singles)
     if singles:
         log.info("recertify: %d unreachable nodes became singletons", singles)
     dec = _make_decomposition(dec, fc, fp, c_dev, p_dev, 0,
@@ -375,7 +383,8 @@ def ensure_dynamic(session) -> DynamicState:
         store = EdgeStore(session.edges, device=session.device)
     else:
         store.ensure_device()
-    session.backend.rebind(store.src, store.dst, store.weight)
+    session.backend.rebind(store.src, store.dst, store.weight,
+                           store.in_degree)
     # the host mirror turns lazy (materialized from the store on access);
     # the edge count tracks the store (the build drops self-loops and
     # min-coalesces duplicates)
@@ -538,7 +547,8 @@ def apply_updates(session, batch: UpdateBatch, *,
                 seconds=t.seconds)
 
         store.flush()
-        session.backend.rebind(store.src, store.dst, store.weight)
+        session.backend.rebind(store.src, store.dst, store.weight,
+                               store.in_degree)
         m.store_uploads = store.uploads
         m.store_scatters = store.scatters
         # the host caches of the mutated graph: the mirror re-materializes
@@ -562,12 +572,16 @@ def apply_updates(session, batch: UpdateBatch, *,
             # only true orphans come out dead, and their fraction picks
             # repair or rebuild
             rounds = _pointer_rounds(n)
-            alive, fp_base = _forest_repair(
-                store.src, store.dst, store.weight, fc_dev, fp_dev, n=n,
-                k_rounds=rounds)
-            dead = int(guard.fetch(
-                (~alive).sum(),
-                reason="dynamic: dead-node count picks repair vs rebuild"))
+            with telemetry.span("dynamic.forest_repair", n=n,
+                                pointer_rounds=rounds) as sp:
+                alive, fp_base = _forest_repair(
+                    store.src, store.dst, store.weight, fc_dev, fp_dev, n=n,
+                    k_rounds=rounds)
+                dead = int(guard.fetch(
+                    (~alive).sum(),
+                    reason="dynamic: dead-node count picks repair vs "
+                           "rebuild"))
+                sp.set(dead=dead)
             m.update_syncs += 1
             m.update_supersteps += 1   # the parent-selection edge sweep
             m.pointer_rounds += rounds
@@ -576,12 +590,15 @@ def apply_updates(session, batch: UpdateBatch, *,
             action = ("rebuild" if dirty_fraction > session.rebuild_fraction
                       else "repair")
         if action == "rebuild":
-            dec = _full_decomposition(session, m)
-            m.full_rebuilds += 1
-            m.rebuild_supersteps += dec.growing_steps
-            m.baseline_supersteps = dec.growing_steps
-            # a fresh decomposition is not forest-witnessed: recertify
-            dec, r_sweeps, r_rounds = _recertify(session, dec, m)
+            with telemetry.span("dynamic.rebuild", n=n,
+                                dirty_fraction=dirty_fraction) as sp:
+                dec = _full_decomposition(session, m)
+                m.full_rebuilds += 1
+                m.rebuild_supersteps += dec.growing_steps
+                m.baseline_supersteps = dec.growing_steps
+                # a fresh decomposition is not forest-witnessed: recertify
+                dec, r_sweeps, r_rounds = _recertify(session, dec, m)
+                sp.set(supersteps=dec.growing_steps + r_sweeps)
             m.engine_syncs += 1
             m.update_supersteps += r_sweeps
             m.pointer_rounds += r_rounds
@@ -592,9 +609,11 @@ def apply_updates(session, batch: UpdateBatch, *,
             if action == "repair":
                 # confined regrow from the alive boundary; the wave cannot
                 # leave the dead region
-                state = _repair_state(fc_dev, fp_base, alive, n,
-                                      confine=True)
-                state, grow_steps = _grow(session, state, regrow_cap, m)
+                with telemetry.span("dynamic.regrow", n=n, dead=dead,
+                                    cap=regrow_cap):
+                    state = _repair_state(fc_dev, fp_base, alive, n,
+                                          confine=True)
+                    state, grow_steps = _grow(session, state, regrow_cap, m)
             else:
                 state = _repair_state(
                     fc_dev, fp_base,
@@ -604,10 +623,16 @@ def apply_updates(session, batch: UpdateBatch, *,
             if plan.has_decrease and tighten_cap != 0:
                 # a monotone relax whose every prefix is certified, so the
                 # cap bounds the cost without giving anything up
-                state = state.replace(is_center=state.pathw == 0)
-                state, tighten_steps = _grow(session, state, tighten_cap, m)
-            c_dev, p_dev, n_single = _finalize_repair(state, n=n)
-            fc, fp, singles = _fetch_repair_planes(c_dev, p_dev, (n_single,))
+                with telemetry.span("dynamic.relax", n=n, cap=tighten_cap):
+                    state = state.replace(is_center=state.pathw == 0)
+                    state, tighten_steps = _grow(session, state, tighten_cap,
+                                                 m)
+            with telemetry.span("dynamic.finalize", n=n) as sp:
+                c_dev, p_dev, n_single = _finalize_repair(state, n=n)
+                fc, fp, singles = _fetch_repair_planes(c_dev, p_dev,
+                                                       (n_single,))
+                sp.set(supersteps=grow_steps + tighten_steps,
+                       singletons=singles)
             m.update_syncs += 1
             steps += grow_steps + tighten_steps
             m.update_supersteps += grow_steps + tighten_steps
@@ -671,8 +696,8 @@ def _dirty_incident_slice(store: EdgeStore, fc: np.ndarray,
     dst[: len(idx)] = store.h_dst[idx]
     w[: len(idx)] = store.h_weight[idx]
     dev = store.device
-    return (torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev),
-            torch.from_numpy(w).to(dev), len(idx))
+    return (to_device(src, dev), to_device(dst, dev), to_device(w, dev),
+            len(idx))
 
 
 def solve_session_quotient(session, pm) -> Tuple[int, np.ndarray, bool]:
@@ -701,10 +726,11 @@ def solve_session_quotient(session, pm) -> Tuple[int, np.ndarray, bool]:
         st.dirty_centers.clear()
         return 0, np.zeros(k, np.int64), k <= 1
 
-    with Timer() as t:
+    with Timer() as t, telemetry.span("quotient.build", dynamic=True) as sp:
         if st.dq is None or st.quotient_stale or st.dq_counters is None:
             dq = _quotient_kernel(*session.flat_device_edges(),
                                   dec.final_c_dev, dec.final_pathw_dev, n=n)
+            sp.set(incremental=False)
         else:
             dirty_ids = np.fromiter(  # det: ids only scatter into boolean masks
                 st.dirty_centers, np.int64, count=len(st.dirty_centers))
@@ -713,7 +739,9 @@ def solve_session_quotient(session, pm) -> Tuple[int, np.ndarray, bool]:
             dq = quotient_update_device(
                 st.dq, st.dq_counters[1], (sub_src, sub_dst, sub_w),
                 dec.final_c_dev, dec.final_pathw_dev, dirty_ids, n)
+            sp.set(incremental=True, dirty_centers=len(dirty_ids))
         k, mq, wmax, wsum = fetch_quotient_counters(dq)
+        sp.set(clusters=k, edges=mq)
     pm.quotient_seconds += t.seconds
     pm.quotient_syncs += 1
     pm.n_quotient_edges = mq
@@ -723,8 +751,10 @@ def solve_session_quotient(session, pm) -> Tuple[int, np.ndarray, bool]:
     if k <= 1:
         st.solution = (0, np.zeros(k, np.int64), True, 0)
         return 0, np.zeros(k, np.int64), True
-    with Timer() as t:
+    with Timer() as t, telemetry.span("quotient.solve", dynamic=True,
+                                      clusters=k) as sp:
         sol = solve_device_quotient(dq, k, mq, wmax)
+        sp.set(supersteps=sol.supersteps)
     pm.solve_seconds += t.seconds
     pm.solve_syncs += sol.reads
     pm.solve_supersteps = sol.supersteps

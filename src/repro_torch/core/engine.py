@@ -15,7 +15,12 @@ Eager PyTorch cannot loop on a device value without reading it, so here:
   * the stage opens with ONE packed read of (uncovered count, centers
     drawn) — the uncovered count doubles as the previous stage's stop
     decision, and the center probability is computed on the device from
-    it (float32, as ``engine.py:406``);
+    it (float32, as ``engine.py:406``). The read is made at the end of
+    the previous stage, inside its ``engine.stage`` span, so the stop
+    decision lies in the stage that made it, as in the reference; the
+    first stage's uncovered count is ``n`` (or the checkpoint's), known on
+    the host, so its opening read is the draw's size alone, and a graph
+    below the stop threshold reads nothing before its final planes;
   * every grow call reads one packed stats vector per chunk of supersteps
     (``core/chunked.py``); its last read carries ``reached``, so the
     Δ-doubling decision needs no read of its own;
@@ -55,7 +60,7 @@ import torch
 
 from repro_torch import guard
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.common import Timer, get_logger
+from repro_torch.common import Timer, get_logger, to_device
 from repro_torch.core import prng
 from repro_torch.core.backend import RelaxBackend
 from repro_torch.core.state import (
@@ -70,6 +75,7 @@ from repro_torch.core.state import (
 )
 from repro_torch.graph.structures import EdgeList
 from repro_torch.runtime.fault import Preempted, PreemptionGuard
+from repro_torch.runtime import telemetry
 from repro_torch.runtime.telemetry import clock
 
 log = get_logger("repro_torch.engine")
@@ -117,9 +123,11 @@ class EngineMetrics:
     dma_stall_blocks: int = 0   # rows the fused calls skipped (frontier or
                                 # frozen); the reference counted edge blocks
     # reads spent by stage-boundary checkpoint saves (the planes and the
-    # boundary's uncovered count). Outside host_syncs: the save cadence is
-    # a durability knob, not a round of the algorithm. Every read of a
-    # query is host_syncs + finalize_syncs + checkpoint_syncs.
+    # boundary's uncovered count) and by a resume's restore (the kernel
+    # backend's long-row count when a store is restored). Outside
+    # host_syncs: the save cadence is a durability knob, not a round of
+    # the algorithm. Every read of a query is host_syncs + finalize_syncs
+    # + checkpoint_syncs.
     checkpoint_syncs: int = 0
 
 
@@ -198,11 +206,10 @@ class StageCheckpointer:
     ``every``-th stage the tree goes through ``checkpoint.save`` (an atomic
     rename, so a writer killed midway never corrupts the latest step).
 
-    The stage loop reads the uncovered count at the NEXT stage's opening
-    read, so at a boundary it is still a device scalar: a save reads it
-    (and the planes) inside its own ``guard.metered()`` region and books
-    those reads as ``EngineMetrics.checkpoint_syncs``; a boundary without a
-    save reads nothing.
+    The boundary hands the hook the uncovered count as a device scalar: a
+    save reads it (and the planes) inside its own ``guard.metered()``
+    region and books those reads as ``EngineMetrics.checkpoint_syncs``; a
+    boundary without a save reads nothing.
 
     Under an entered :class:`PreemptionGuard` whose signal fired, the save
     is unconditional and :class:`Preempted` is raised AFTER it is durable.
@@ -372,10 +379,13 @@ def _finalize(state: EngineState, n: int, delta_end: int, n_stages: int,
     state = finalize_singletons(state)
     fc_dev = state.final_c[:n]
     fp_dev = state.final_pathw[:n]
-    # ONE packed device->host read for both final planes
-    planes = guard.fetch(torch.stack([fc_dev, fp_dev]),
-                         reason="finalize: packed (final_c, final_pathw)")
-    metrics.finalize_syncs += 1
+    with telemetry.span("engine.finalize", n=n) as sp:
+        # ONE packed device->host read for both final planes
+        planes = guard.fetch(torch.stack([fc_dev, fp_dev]),
+                             reason="finalize: packed (final_c, final_pathw)")
+        metrics.finalize_syncs += 1
+        sp.set(supersteps=total_steps,
+               checkpoint_syncs=metrics.checkpoint_syncs)
     final_c, final_pathw = planes[0], planes[1]
     if not (final_pathw < INF).all():
         raise AssertionError("uncovered node escaped finalization")
@@ -440,7 +450,8 @@ def run_cluster(
     injected = uniform_fn is not None
     if uniform_fn is None:
         uniform_fn = default_uniform_fn(seed, dev)
-    p_scale = torch.tensor(gamma * tau * logn, dtype=torch.float32, device=dev)
+    p_scale = torch.full((), gamma * tau * logn, dtype=torch.float32,
+                         device=dev)
 
     transfers0 = backend.transfers
     launches0 = backend.launches
@@ -448,11 +459,16 @@ def run_cluster(
     # the reference's PRNGKey(seed): the root every stage's draw folds from
     key = np.asarray(prng.prng_key(seed), np.uint32)
     delta_host = int(delta0)
-    u_dev = torch.tensor(n, dtype=torch.int64, device=dev)
+    u_dev = torch.full((), n, dtype=torch.int64, device=dev)
+    u_host = n
     total_steps = n_stages = stage = 0
 
     if checkpointer is not None and checkpointer.resume:
-        restored = checkpointer.try_restore(state, key, backend)
+        # a store's restore rebinds the backend, which reads the kernel
+        # backend's long-row count once: a checkpoint read, not a round
+        with guard.metered() as restore_reads:
+            restored = checkpointer.try_restore(state, key, backend)
+        metrics.checkpoint_syncs += restore_reads.transfers
         checkpointer.resume = False   # consumed either way
         if restored is not None:
             state, key, sc = restored
@@ -464,8 +480,8 @@ def run_cluster(
                         f"run's {want}={got!r}; refusing a divergent resume")
             stage = int(sc["stage"])
             delta_host = int(sc["delta"])
-            u_dev = torch.tensor(int(sc["uncovered"]), dtype=torch.int64,
-                                 device=dev)
+            u_host = int(sc["uncovered"])
+            u_dev = torch.full((), u_host, dtype=torch.int64, device=dev)
             total_steps = int(sc["total_steps"])
             n_stages = int(sc["n_stages"])
             metrics.stages = stage
@@ -475,48 +491,75 @@ def run_cluster(
                      "delta=%d) from %s", stage, int(sc["uncovered"]),
                      delta_host, checkpointer.ckpt_dir)
 
-    while stage < max_stages:
-        t_stage = clock()
+    def open_stage(stage: int):
+        """The stage's center probability, computed on the device from the
+        uncovered count (float32, as ``engine.py:406``), and its first
+        draw."""
         p = torch.clamp_max(p_scale / u_dev.to(torch.float32), 1.0)
-        mask = _sample_centers(uniform_fn, stage, 0, p, state, n)
-        # the stage's opening read: the uncovered count (the previous
-        # stage's stop decision) and the size of the first draw
-        u_host, n_new = map(int, guard.fetch(
-            torch.stack([u_dev, mask.sum()]),
-            reason="stage open: packed (uncovered, centers drawn)"))
-        metrics.host_syncs += 1
-        if u_host < threshold:
-            metrics.uncovered_at_stop = u_host
-            break
-        resamples = 0
-        while n_new == 0 and resamples < max_resamples:
-            resamples += 1
-            mask = _sample_centers(uniform_fn, stage, resamples, p, state, n)
-            n_new = int(guard.fetch(mask.sum(), reason="stage redraw: centers"))
-            metrics.host_syncs += 1
-        steps = grows = 0
-        metrics.centers_drawn += n_new
-        if n_new > 0:
-            state, delta_host, steps, grows = _cluster_stage(
-                backend, state, mask, n_new, u_host, delta_host, max_delta,
-                num_it, variant, metrics)
-            u_dev = uncovered_count(state)
-            n_stages += 1
-        metrics.resamples += resamples
-        total_steps += steps
-        stage += 1
-        metrics.stages = stage
+        return p, _sample_centers(uniform_fn, stage, 0, p, state, n)
+
+    mask = None   # the stage's first draw, once its size has been read
+    n_new = 0
+    while stage < max_stages and u_host >= threshold:
+        t_stage = clock()
+        with telemetry.span("engine.stage", stage=stage) as sp:
+            launches_stage = backend.launches
+            stall_stage = metrics.dma_stall_blocks
+            if mask is None:
+                # the first stage's opening read (its uncovered count is
+                # known on the host): the size of its draw
+                p, mask = open_stage(stage)
+                n_new = int(guard.fetch(mask.sum(),
+                                        reason="stage open: centers drawn"))
+                metrics.host_syncs += 1
+            resamples = 0
+            while n_new == 0 and resamples < max_resamples:
+                resamples += 1
+                mask = _sample_centers(uniform_fn, stage, resamples, p, state,
+                                       n)
+                n_new = int(guard.fetch(mask.sum(),
+                                        reason="stage redraw: centers"))
+                metrics.host_syncs += 1
+            steps = grows = 0
+            metrics.centers_drawn += n_new
+            if n_new > 0:
+                state, delta_host, steps, grows = _cluster_stage(
+                    backend, state, mask, n_new, u_host, delta_host,
+                    max_delta, num_it, variant, metrics)
+                u_dev = uncovered_count(state)
+                n_stages += 1
+            metrics.resamples += resamples
+            total_steps += steps
+            centers, u_before = n_new, u_host
+            stage += 1
+            metrics.stages = stage
+            sp.set(centers=centers, supersteps=steps, grow_calls=grows,
+                   kernel_launches=backend.launches - launches_stage,
+                   dma_stall_blocks=metrics.dma_stall_blocks - stall_stage)
+            mask = None
+            if stage < max_stages:
+                # the next stage's opening read, inside this stage's span:
+                # the uncovered count is this stage's stop decision, packed
+                # with the size of the next stage's first draw
+                p, mask = open_stage(stage)
+                u_host, n_new = map(int, guard.fetch(
+                    torch.stack([u_dev, mask.sum()]),
+                    reason="stage open: packed (uncovered, centers drawn)"))
+                metrics.host_syncs += 1
+                sp.set(uncovered=u_host)
         log.info("stage %d: centers+%d steps=%d grows=%d resamples=%d "
-                 "uncovered_before=%d", stage, n_new, steps, grows,
-                 resamples, u_host)
+                 "uncovered_before=%d", stage, centers, steps, grows,
+                 resamples, u_before)
         if checkpointer is not None:
-            # "uncovered" is still on the device: a save reads it
+            # the boundary hands a save the device count, which it reads
             checkpointer.at_stage_boundary(
                 state, key,
                 {"stage": stage, "delta": delta_host, "uncovered": u_dev,
                  "total_steps": total_steps, "n_stages": n_stages,
                  "seed": seed, "n": n, "tau": tau, "variant": variant},
                 metrics, stage_seconds=clock() - t_stage)
+    if u_host < threshold:
+        metrics.uncovered_at_stop = u_host
 
     if checkpointer is not None:
         checkpointer.complete()
@@ -560,8 +603,10 @@ def run_cluster2(
     compared as float32; the last stage takes p = 1), grows them with the
     ``complete`` variant to quiescence (``num_it = 4n``) and covers what
     lies within ``delta``. Each stage opens with ONE packed read of
-    (uncovered, centers drawn): the loop ends when nothing is uncovered,
-    and a barren stage runs no grow.
+    (uncovered, centers drawn), made at the end of the stage before it
+    inside its span (the first stage reads its draw's size alone): the
+    loop ends when nothing is uncovered, and a barren stage runs no
+    grow.
     """
     n = edges.n_nodes
     metrics = EngineMetrics()
@@ -575,33 +620,61 @@ def run_cluster2(
     state = backend.init_state()
     stages = int(math.ceil(math.log2(max(n, 2)))) + 1
     total_steps = stage_count = 0
-    u_dev = torch.tensor(n, dtype=torch.int64, device=dev)
+    u_dev = torch.full((), n, dtype=torch.int64, device=dev)
+    u_host = n
 
-    for i in range(1, stages + 1):
+    def draw(i: int) -> torch.Tensor:
         p = 1.0 if i == stages else min(1.0, (2.0 ** i) / n)
-        mask = _sample_centers(uniform_fn, i, 0,
-                               torch.tensor(p, dtype=torch.float32,
-                                            device=dev), state, n)
-        u_host, n_new = map(int, guard.fetch(
-            torch.stack([u_dev, mask.sum()]),
-            reason="cluster2 stage open: packed (uncovered, centers drawn)"))
-        metrics.host_syncs += 1
+        return _sample_centers(uniform_fn, i, 0,
+                               torch.full((), p, dtype=torch.float32,
+                                          device=dev), state, n)
+
+    mask = None   # the stage's draw, once its size has been read
+    n_new = 0
+    for i in range(1, stages + 1):
         if u_host == 0:
             break
-        steps = 0
-        if n_new > 0:
-            state = reset_in_stage(promote_centers(state, mask))
-            state, gs = _grow(backend, state, delta, 0, num_it, "complete",
-                              metrics)
-            state = cover(state, delta)
-            u_dev = uncovered_count(state)
-            steps = gs.steps
-            stage_count += 1
-        metrics.stages += 1
-        metrics.centers_drawn += n_new
-        total_steps += steps
-        log.info("cluster2 stage %d: p=%.3g centers+%d steps=%d "
-                 "uncovered_before=%d", i, p, n_new, steps, u_host)
+        with telemetry.span("engine.stage", stage=i,
+                            variant="cluster2") as sp:
+            launches_stage = backend.launches
+            stall_stage = metrics.dma_stall_blocks
+            if mask is None:
+                # the first stage's opening read (every node is uncovered):
+                # the size of its draw
+                mask = draw(i)
+                n_new = int(guard.fetch(
+                    mask.sum(), reason="cluster2 stage open: centers drawn"))
+                metrics.host_syncs += 1
+            steps = 0
+            if n_new > 0:
+                state = reset_in_stage(promote_centers(state, mask))
+                state, gs = _grow(backend, state, delta, 0, num_it,
+                                  "complete", metrics)
+                state = cover(state, delta)
+                u_dev = uncovered_count(state)
+                steps = gs.steps
+                stage_count += 1
+            metrics.stages += 1
+            metrics.centers_drawn += n_new
+            total_steps += steps
+            centers, u_before = n_new, u_host
+            sp.set(centers=centers, supersteps=steps,
+                   kernel_launches=backend.launches - launches_stage,
+                   dma_stall_blocks=metrics.dma_stall_blocks - stall_stage)
+            mask = None
+            if i < stages:
+                # the next stage's opening read, inside this stage's span:
+                # the uncovered count (this stage's stop decision) and the
+                # size of the next draw
+                mask = draw(i + 1)
+                u_host, n_new = map(int, guard.fetch(
+                    torch.stack([u_dev, mask.sum()]),
+                    reason="cluster2 stage open: packed (uncovered, "
+                           "centers drawn)"))
+                metrics.host_syncs += 1
+                sp.set(uncovered=u_host)
+        log.info("cluster2 stage %d: centers+%d steps=%d "
+                 "uncovered_before=%d", i, centers, steps, u_before)
 
     metrics.growing_steps = total_steps
     metrics.state_transfers = backend.transfers - transfers0
@@ -641,11 +714,11 @@ def oneshot_centers(u1: torch.Tensor, u2: torch.Tensor, p: float,
     """
     dev = u1.device
     ids = torch.arange(u1.shape[0], dtype=torch.int64, device=dev)
-    mask = u1 < torch.tensor(p, dtype=torch.float32, device=dev)
+    mask = u1 < torch.full((), p, dtype=torch.float32, device=dev)
     mask = torch.where(mask.any(), mask, ids == torch.argmin(u1))
     f32 = dict(dtype=torch.float32, device=dev)
-    shift = torch.minimum(-torch.log(u2) * torch.tensor(shift_scale, **f32),
-                          torch.tensor(float(shift_max), **f32))
+    shift = torch.minimum(-torch.log(u2) * torch.full((), shift_scale, **f32),
+                          torch.full((), float(shift_max), **f32))
     shift_i = torch.clamp(shift.to(torch.int32), 0, shift_max)
     return mask, (shift_max - shift_i).to(torch.int32)
 
@@ -730,22 +803,29 @@ def run_oneshot(
     transfers0 = backend.transfers
     launches0 = backend.launches
     state = backend.init_state()
-    if deterministic:
-        u1, u2 = hashed_uniforms(n, dev)
-    else:
-        draw = uniform_fn or default_oneshot_uniform_fn(seed, dev)
-        u1 = draw(0, 0, n).to(device=dev, dtype=torch.float32)
-        u2 = torch.clamp_min(draw(0, 1, n).to(device=dev, dtype=torch.float32),
-                             2.0 ** -32)
-    mask, start = oneshot_centers(u1, u2, p, shift_max, shift_scale)
-    if start_d is not None:
-        start = torch.as_tensor(start_d, dtype=torch.int32).to(dev)
-    state = promote_centers_shifted(state, mask, start)
-    # no in-stage reset: every non-center is already unreached, and a reset
-    # would zero the shifts
-    state, gs = _grow(backend, state, max_delta, 0, num_it, "complete",
-                      metrics)
-    state = cover(state, max_delta)
+    with telemetry.span("engine.oneshot", n=n,
+                        deterministic=deterministic) as sp:
+        if deterministic:
+            u1, u2 = hashed_uniforms(n, dev)
+        else:
+            draw = uniform_fn or default_oneshot_uniform_fn(seed, dev)
+            u1 = draw(0, 0, n).to(device=dev, dtype=torch.float32)
+            u2 = torch.clamp_min(
+                draw(0, 1, n).to(device=dev, dtype=torch.float32), 2.0 ** -32)
+        mask, start = oneshot_centers(u1, u2, p, shift_max, shift_scale)
+        if start_d is not None:
+            start = to_device(start_d, dev, torch.int32)
+        state = promote_centers_shifted(state, mask, start)
+        # no in-stage reset: every non-center is already unreached, and a
+        # reset would zero the shifts
+        state, gs = _grow(backend, state, max_delta, 0, num_it, "complete",
+                          metrics)
+        state = cover(state, max_delta)
+        # the centers drawn and the nodes left uncovered stay on the
+        # device (the reference reads them with its stats): no read here
+        sp.set(supersteps=gs.steps,
+               kernel_launches=backend.launches - launches0,
+               dma_stall_blocks=metrics.dma_stall_blocks)
     metrics.stages = 1
     metrics.growing_steps = gs.steps
     metrics.state_transfers = backend.transfers - transfers0

@@ -52,6 +52,7 @@ from repro_torch.core.quotient import (
     solve_device_quotient,
 )
 from repro_torch.core.session import GraphSession, tau_for
+from repro_torch.runtime import telemetry
 
 log = get_logger("repro_torch.estimators")
 
@@ -180,12 +181,13 @@ def _cascade_quotient_solve(edges, dec: Decomposition, backend,
     connected, extra_steps), the tail being everything but level 0's
     ``2 R_0``.
     """
-    with Timer() as t:
+    with Timer() as t, telemetry.span("quotient.build") as sp:
         dq = build_quotient_device(edges, dec, backend)
         if dq is None:  # no nodes or no edges: the quotient is trivially empty
             k = dec.n_clusters
             return 0, np.zeros(k, np.int64), k <= 1, 0
         k, m, wmax, wsum = fetch_quotient_counters(dq)
+        sp.set(clusters=k, edges=m)
     pm.quotient_seconds += t.seconds
     pm.quotient_syncs += 1
     pm.n_quotient_edges = m
@@ -195,7 +197,7 @@ def _cascade_quotient_solve(edges, dec: Decomposition, backend,
     level = 0
     while level < max_levels and k > max(tau_solve, 1) and m > 0:
         level += 1
-        with Timer() as t:
+        with Timer() as t, telemetry.span("cascade.level", level=level) as sp:
             lv = quotient_as_edgelist(dq, k, m, wmax, wsum)
             be = SingleDeviceBackend.from_device(lv.n_nodes, lv.src, lv.dst,
                                                  lv.weight)
@@ -222,6 +224,8 @@ def _cascade_quotient_solve(edges, dec: Decomposition, backend,
             dq = build_quotient_from_level(lv, dec_l)
             k, m, wmax, wsum = fetch_quotient_counters(dq)
             pm.quotient_syncs += 1
+            sp.set(clusters=k, supersteps=dec_l.growing_steps,
+                   syncs=ml.host_syncs + ml.finalize_syncs + 1)
         pm.level_syncs.append(ml.host_syncs + ml.finalize_syncs + 1)
         pm.level_supersteps.append(dec_l.growing_steps)
         pm.level_clusters.append(k)
@@ -234,8 +238,9 @@ def _cascade_quotient_solve(edges, dec: Decomposition, backend,
     pm.cascade_levels = level
     if k <= 1:
         return radius_tail, np.zeros(k, np.int64), True, extra_steps
-    with Timer() as t:
+    with Timer() as t, telemetry.span("quotient.solve", clusters=k) as sp:
         sol = solve_device_quotient(dq, k, m, wmax)
+        sp.set(supersteps=sol.supersteps)
     pm.solve_seconds += t.seconds
     pm.solve_syncs += sol.reads
     pm.solve_supersteps = sol.supersteps
@@ -457,8 +462,11 @@ def _sssp_from(session: GraphSession, source: int,
     src, dst, w = session.flat_device_edges()
     dtype, inf = sssp.sssp_dtype_for(session.n_nodes, session.max_weight,
                                      0 if delta is None else delta)
-    return sssp._sssp_from(src, dst, w.to(dtype), source, session.n_nodes,
-                           inf, DEFAULT_CHUNK, delta=delta)
+    with telemetry.span("sssp.solve", source=source) as sp:
+        res = sssp._sssp_from(src, dst, w.to(dtype), source, session.n_nodes,
+                              inf, DEFAULT_CHUNK, delta=delta)
+        sp.set(supersteps=res.supersteps)
+    return res
 
 
 @dataclass

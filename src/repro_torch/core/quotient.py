@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import guard
-from repro_torch.common import next_multiple
+from repro_torch.common import next_multiple, to_device
 from repro_torch.core.chunked import DEFAULT_CHUNK
 from repro_torch.core.engine import Decomposition
 from repro_torch.core.sssp import INF32, batched_bf_loop
@@ -116,7 +116,7 @@ def _unique_padded(final_c: torch.Tensor, n: int):
     dev = final_c.device
     lab = final_c.to(torch.int64)
     present = torch.zeros(n, dtype=torch.bool, device=dev)
-    present[lab] = True
+    present.index_fill_(0, lab, True)
     rank = torch.cumsum(present.to(torch.int64), 0) - 1
     slot = torch.where(present, rank, n)    # absent labels go to slot n
     centers = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
@@ -253,8 +253,8 @@ def quotient_update_device(
     dirty_node = np.zeros(n + 1, bool)
     dirty_node[np.asarray(dirty_center_ids, np.int64)] = True
     # centers[i] is the i-th cluster's center (n on padding slots)
-    dirty_compact = torch.from_numpy(dirty_node).to(
-        cached.centers.device)[cached.centers.to(torch.int64)]
+    dirty_compact = to_device(dirty_node, cached.centers.device)[
+        cached.centers.to(torch.int64)]
     m_pad = min(next_multiple(max(m_cached, 1), K_BUCKET * 8),
                 int(cached.src.shape[0]))
     src, dst, w, n_q, wmax, wsum = _merge_quotient_kernel(
@@ -363,7 +363,7 @@ def _solve_kernel(qsrc, qdst, qw, k: int, *, k_pad: int,
     d_fin = torch.where(finite, d, 0).to(torch.int64)
     ecc = torch.amax(d_fin, dim=0)   # [node, source]: reduce over nodes
     head = torch.stack([d_fin.max(), connected.to(torch.int64),
-                        torch.tensor(steps, dtype=torch.int64, device=dev)])
+                        torch.full((), steps, dtype=torch.int64, device=dev)])
     return torch.cat([head, ecc]), reads
 
 

@@ -57,6 +57,7 @@ from repro_torch.core.engine import (StageCheckpointer, UniformFn,
                                      resolve_engine_mode)
 from repro_torch.graph.storage import EdgeStore, GraphStore
 from repro_torch.graph.structures import EdgeList
+from repro_torch.runtime import telemetry
 
 log = get_logger("repro_torch.session")
 
@@ -168,14 +169,19 @@ class GraphSession:
         self.metrics = metrics if metrics is not None else SessionMetrics()
         self.metrics.sessions_opened += 1
         self._edges: Optional[EdgeList] = edges
-        if isinstance(backend, str):
-            self._backend_kind = backend
-            self._fuse = self.cfg.fuse_supersteps or (
-                self.tuning.fuse if self.tuning is not None else 0)
-            backend = self._build_backend()
-        else:
-            self._backend_kind = backend.kind
-            self._fuse = getattr(backend, "fuse", 0)
+        # the open cost center: building the backend uploads the edges
+        # (and, on the kernel backend, sorts them into its CSR)
+        with telemetry.span("session.open", nodes=edges.n_nodes,
+                            edges=edges.n_edges, mode=self.cfg.mode) as sp:
+            if isinstance(backend, str):
+                self._backend_kind = backend
+                self._fuse = self.cfg.fuse_supersteps or (
+                    self.tuning.fuse if self.tuning is not None else 0)
+                backend = self._build_backend()
+            else:
+                self._backend_kind = backend.kind
+                self._fuse = getattr(backend, "fuse", 0)
+            sp.set(backend=getattr(backend, "kind", "custom"))
         # a prebuilt backend counts too: its construction and upload are
         # this session's open cost
         self.metrics.backend_builds += 1
@@ -352,8 +358,10 @@ class GraphSession:
         if not self._spilled:
             return
         self._spilled = False
-        self.store.ensure_device()
-        self.backend = self._build_backend()
+        with telemetry.span("session.unspill", nodes=self._n_nodes,
+                            edges=self._n_edges):
+            self.store.ensure_device()
+            self.backend = self._build_backend()
         self.metrics.backend_builds += 1
         self.metrics.edge_uploads += 1
 

@@ -29,6 +29,7 @@ from repro_torch.common import resolve_device
 from repro_torch.core.chunked import DEFAULT_CHUNK, chunked_while
 from repro_torch.graph.segment_ops import segment_min
 from repro_torch.graph.structures import EdgeList
+from repro_torch.runtime import telemetry
 
 INF32 = 2**31 - 1
 INF64 = 2**62  # int64 unreached sentinel; guarded adds stay < 2^63
@@ -156,7 +157,7 @@ def _delta_stepping_loop(src, dst, w, d0, delta: int, inf: int,
     idx = src.to(torch.int64)
     light = w < delta
     heavy = ~light
-    dl = torch.tensor(delta, dtype=d0.dtype, device=dev)
+    dl = torch.full((), delta, dtype=d0.dtype, device=dev)
     one = torch.ones((), dtype=d0.dtype, device=dev)
     true = torch.ones((), dtype=torch.bool, device=dev)
 
@@ -207,7 +208,7 @@ def _sssp_from(src, dst, w, source: int, n_nodes: int, inf: int,
     if n_nodes == 0:  # nothing to relax
         d, k, reads = d0, 0, 0
     else:
-        d0[source] = 0
+        d0.narrow(0, source, 1).fill_(0)
         if delta is None:
             d, k, reads = _bf_loop(src, dst, w, d0, inf, n_nodes, chunk)
         else:
@@ -298,7 +299,11 @@ def farthest_point_lower_bound(src, dst, w, n_nodes: int, max_weight: int,
     s = int(rng.integers(n_nodes))
     out = FarthestPoint(0, True, 0, 0, 0, 0)
     for _ in range(rounds):
-        res = _sssp_from(src, dst, wd, s, n_nodes, inf, chunk)
+        # each hop is one "sssp.solve" span, as each of the reference
+        # estimator's hops is
+        with telemetry.span("sssp.solve", source=s) as sp:
+            res = _sssp_from(src, dst, wd, s, n_nodes, inf, chunk)
+            sp.set(supersteps=res.supersteps)
         out.hops += 1
         out.supersteps += res.supersteps
         out.syncs += res.syncs

@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.common import next_multiple, resolve_device
+from repro_torch.common import next_multiple, resolve_device, to_device
 from repro_torch.graph.partition import apply_partition, cluster_partition
 from repro_torch.graph.structures import MAX_WEIGHT, EdgeList
 from repro_torch.runtime.compression import PackedI32, pack_i32, unpack_i32
@@ -85,6 +85,7 @@ class EdgeStore:
             self.slot_of = dict(zip(
                 zip(clean.src.tolist(), clean.dst.tolist()), range(k)))
         self.free: List[int] = list(range(int(self.valid.sum()), cap))[::-1]
+        self._count_in_degrees()
         self._pending: Dict[int, Tuple[int, int, int]] = {}
         self.src: Optional[torch.Tensor] = None
         self.dst: Optional[torch.Tensor] = None
@@ -93,11 +94,20 @@ class EdgeStore:
         self.scatters = 0  # in-place scatter rounds (one per flushed batch)
         self._upload()
 
+    def _count_in_degrees(self) -> None:
+        """``in_degree``: each node's valid in-edges other than self-loops
+        (the rows of the kernel backend's CSR), kept up to date by
+        ``set_edge`` and ``delete_edge``, so a rebind reads no row length
+        back from the card."""
+        live = self.valid & (self.h_src != self.h_dst)
+        self.in_degree = np.bincount(self.h_dst[live],
+                                     minlength=self.n_nodes).astype(np.int64)
+
     def _upload(self) -> None:
-        # torch.tensor copies: the device arrays never alias the mirrors
-        self.src = torch.tensor(self.h_src, device=self.device)
-        self.dst = torch.tensor(self.h_dst, device=self.device)
-        self.weight = torch.tensor(self.h_weight, device=self.device)
+        # to_device copies: the device arrays never alias the mirrors
+        self.src = to_device(self.h_src, self.device)
+        self.dst = to_device(self.h_dst, self.device)
+        self.weight = to_device(self.h_weight, self.device)
         self.uploads += 1
 
     # -- introspection ------------------------------------------------------
@@ -140,6 +150,7 @@ class EdgeStore:
             s = self.free.pop()
             self.slot_of[(u, v)] = s
             self.valid[s] = True
+            self.in_degree[v] += u != v
         self.h_src[s], self.h_dst[s], self.h_weight[s] = u, v, w
         self._pending[s] = (u, v, w)
 
@@ -150,6 +161,7 @@ class EdgeStore:
         if s is None:
             raise ValueError(f"cannot delete missing edge ({u}, {v})")
         self.valid[s] = False
+        self.in_degree[v] -= u != v
         self.free.append(s)
         self.h_src[s], self.h_dst[s], self.h_weight[s] = 0, 0, 1
         self._pending[s] = (0, 0, 1)
@@ -173,11 +185,11 @@ class EdgeStore:
         if grew:
             self._upload()
         elif self._pending:
-            slots = torch.from_numpy(np.fromiter(
-                self._pending, np.int64, count=len(self._pending)))
-            svw = torch.from_numpy(np.array(list(self._pending.values()),
-                                            np.int32))
-            slots, svw = slots.to(self.device), svw.to(self.device)
+            slots = to_device(np.fromiter(
+                self._pending, np.int64, count=len(self._pending)),
+                self.device)
+            svw = to_device(np.array(list(self._pending.values()), np.int32),
+                            self.device)
             self.src.index_copy_(0, slots, svw[:, 0])
             self.dst.index_copy_(0, slots, svw[:, 1])
             self.weight.index_copy_(0, slots, svw[:, 2])
@@ -241,6 +253,7 @@ class EdgeStore:
         self.h_weight = np.asarray(tree["h_weight"], np.int32).copy()
         self.valid = np.asarray(tree["valid"], bool).copy()
         self.free = [int(s) for s in np.asarray(tree["free"])]
+        self._count_in_degrees()
         live = np.flatnonzero(self.valid)
         self.slot_of = dict(zip(
             zip(self.h_src[live].tolist(), self.h_dst[live].tolist()),

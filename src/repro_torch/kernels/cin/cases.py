@@ -133,6 +133,7 @@ def excess(out: torch.Tensor, ref: torch.Tensor,
     err = (out - ref).abs()
     ratio = torch.where(err == 0, torch.zeros_like(err),
                         err / (RULE_C * magnitude))
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(ratio.max())
 
 
@@ -274,6 +275,7 @@ def dw_excess(out: torch.Tensor, r: torch.Tensor, S: torch.Tensor,
     err = (out.to(r.device).double() - r).abs()
     allow = GRAD_RULE_C * U * math.sqrt(K) * (S + r.abs())
     ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(ratio.max()) if ratio.numel() else 0.0
 
 
@@ -365,6 +367,7 @@ def emulated_dw(x0: torch.Tensor, xk: torch.Tensor, dy: torch.Tensor,
             stages = (torch.einsum("skn,skj->snj", yh, zh)
                       + torch.einsum("skn,skj->snj", yl, zh)
                       + torch.einsum("skn,skj->snj", yh, zl))
+            # sync: unbinds the stage axis on the card; no element is read
             for st in stages:
                 tot += st           # float32, one stage after another
         out = tot if out is None else out + tot

@@ -24,24 +24,31 @@ tensor either goes through the kernel or the call raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import guard
+from repro_torch.common import to_device
 from repro_torch.kernels.edge_relax.kernel import LONG_ROW, edge_relax_cuda
 from repro_torch.kernels.edge_relax.ref import edge_relax_ref
 
 
-def long_rows_of(row_ptr: torch.Tensor) -> torch.Tensor:
+def long_rows_of(row_ptr: torch.Tensor,
+                 n_long: Optional[int] = None) -> torch.Tensor:
     """The rows of a CSR with more than ``LONG_ROW`` edges, int32, longest
-    first (ties by row id), so their blocks start first. ``nonzero`` reads
-    the count back to the host once."""
+    first (ties by row id), so their blocks start first: the head of all
+    rows sorted by degree (stable, so ties stay in row order). Their count
+    ``n_long`` is one counted host read (``guard.fetch``) unless the caller
+    knows it."""
     deg = row_ptr[1:] - row_ptr[:-1]
-    rows = torch.nonzero(deg > LONG_ROW).flatten()
-    order = torch.sort(deg[rows], descending=True, stable=True).indices
-    return rows[order].to(torch.int32).contiguous()
+    if n_long is None:
+        n_long = int(guard.fetch((deg > LONG_ROW).sum(),
+                                 reason="relax graph: long-row count"))
+    order = torch.sort(deg, descending=True, stable=True).indices[:n_long]
+    return order.to(torch.int32).contiguous()
 
 
 @dataclass
@@ -57,12 +64,15 @@ class RelaxGraph:
     dst: torch.Tensor       # int32 [E] (row of each edge)
     w: torch.Tensor         # int32 [E]
     inert_tail: bool = field(default=False, kw_only=True)
+    # the long rows' count when the builder knows it (else one read); not
+    # a field, so dataclasses.replace derives the list again
+    n_long: InitVar[Optional[int]] = field(default=None, kw_only=True)
     long_rows: torch.Tensor = field(init=False)  # int32 [L]: > LONG_ROW
     _out: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
 
-    def __post_init__(self) -> None:
-        self.long_rows = long_rows_of(self.row_ptr)
+    def __post_init__(self, n_long: Optional[int]) -> None:
+        self.long_rows = long_rows_of(self.row_ptr, n_long)
 
     @property
     def n_edges(self) -> int:
@@ -99,14 +109,25 @@ def build_relax_graph(src: Union[np.ndarray, torch.Tensor],
                       w: Union[np.ndarray, torch.Tensor],
                       n_nodes: int,
                       device: Union[str, torch.device],
-                      inert_tail: bool = False) -> RelaxGraph:
+                      inert_tail: bool = False,
+                      in_degree: Optional[np.ndarray] = None) -> RelaxGraph:
     """Sort the edges by (dst, src) on ``device``, build ``row_ptr`` and
     list the rows with more than ``LONG_ROW`` in-edges. ``inert_tail``
-    sorts every self-loop past the last row."""
+    sorts every self-loop past the last row. The long rows' count comes
+    from the host: from ``in_degree`` (each row's edge count, an edge
+    store's) or from numpy edges; device edges without ``in_degree`` read
+    it back once (``guard.fetch``)."""
     dev = torch.device(device)
-    src_t = torch.as_tensor(src, dtype=torch.int32).to(dev)
-    dst_t = torch.as_tensor(dst, dtype=torch.int32).to(dev)
-    w_t = torch.as_tensor(w, dtype=torch.int32).to(dev)
+    n_long = None
+    if in_degree is not None:
+        n_long = int(np.count_nonzero(np.asarray(in_degree) > LONG_ROW))
+    elif isinstance(dst, np.ndarray):
+        key_h = (np.where(src == dst, n_nodes, dst) if inert_tail
+                 else dst).astype(np.int64)
+        deg_h = np.bincount(key_h[key_h < n_nodes], minlength=n_nodes)
+        n_long = int(np.count_nonzero(deg_h > LONG_ROW))
+    src_t, dst_t, w_t = (to_device(a, dev, torch.int32)
+                         for a in (src, dst, w))
     if src_t.shape[0] >= 2**31 - 1:
         raise ValueError("edge count must fit int32 row pointers")
     key = (torch.where(src_t == dst_t, n_nodes, dst_t) if inert_tail
@@ -122,7 +143,8 @@ def build_relax_graph(src: Union[np.ndarray, torch.Tensor],
         out_int32=True)
     return RelaxGraph(n_nodes=n_nodes, row_ptr=row_ptr,
                       src=src_t.contiguous(), dst=dst_t.contiguous(),
-                      w=w_t.contiguous(), inert_tail=inert_tail)
+                      w=w_t.contiguous(), inert_tail=inert_tail,
+                      n_long=n_long)
 
 
 def edge_relax_plain(planes: Sequence[torch.Tensor], g: RelaxGraph,

@@ -132,6 +132,7 @@ def bf16_excess(out: torch.Tensor, ref: torch.Tensor,
         allow = (BF16_ELEMENT_ULPS * r.abs()
                  + BF16_ROW_SHARE * r.abs().amax(dim=-1, keepdim=True))
         ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+        # sync: a check's verdict, read once per comparison (tests, chip_smoke)
         worst = max(worst, float(ratio.max()))
     return worst
 
@@ -246,6 +247,7 @@ def bwd_loops(Sq: int, Skv: int, head_dim: int, kv_len: int,
 
 def _row_kv_lens(B: int, Skv: int, kv_len) -> list:
     kvl = torch.as_tensor(Skv if kv_len is None else kv_len).reshape(-1)
+    # sync: a test case's kv_len rows, given on the host
     return [min(max(int(kvl[b if kvl.numel() > 1 else 0]), 0), Skv)
             for b in range(B)]
 
@@ -447,4 +449,5 @@ def grad_excess(got: torch.Tensor, ref: torch.Tensor,
     err = (got.to(torch.float64) - r).abs()
     allow = BWD_ELEMENT_ULPS * r.abs() + bound
     ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(ratio.max()) if ratio.numel() else 0.0

@@ -138,6 +138,7 @@ def excess(out: torch.Tensor, ref: torch.Tensor,
     err = (out.double() - ref.double()).abs()
     ratio = torch.where(err == 0, torch.zeros_like(err),
                         err / allowance.double())
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(ratio.max())
 
 
@@ -188,6 +189,7 @@ def mean_length_row(layout) -> int:
     live = k > 0
     gap = torch.where(live, (k - k[live].mean()).abs(),
                       torch.full_like(k, float("inf")))
+    # sync: picks a test case's row, off the main path
     return int(torch.argmin(gap))
 
 
@@ -207,6 +209,7 @@ def drop_one_chunk(x, src, dst, coeff, n_nodes: int,
     longest row (in the layout's (dst, src) order)."""
     layout = csr_layout(src, dst, n_nodes)
     k = layout.in_degree()
+    # sync: picks a test case's row, off the main path
     r = int(torch.argmax(k))
     n_chunks = -(-int(k[r]) // chunk)
     if n_chunks < 2:

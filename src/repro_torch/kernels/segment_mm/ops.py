@@ -95,7 +95,9 @@ def csr_layout(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
                          f"{tuple(dst.shape)} must be equal 1-d shapes")
     dev = dst.device
     if src.numel():
+        # sync: the id range, read once per graph when its CSR is built
         lo = min(int(src.min()), int(dst.min()))
+        # sync: the id range, read once per graph when its CSR is built
         hi = max(int(src.max()), int(dst.max()))
         if lo < 0 or hi >= n_nodes:
             raise ValueError(f"csr_layout: node ids span [{lo}, {hi}], "

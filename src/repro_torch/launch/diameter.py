@@ -6,7 +6,7 @@
       [--levels L --tau-solve T] [--delta-init avg|min|<int>] \
       [--compare-sssp] [--autotune off|auto|record] \
       [--shards 4] [--compress] [--partition range|cluster] \
-      [--checkpoint-dir DIR [--resume]]
+      [--checkpoint-dir DIR [--resume]] [--telemetry-out DIR]
 
 Prints one JSON line: Phi_approx, the cluster count, quotient size,
 supersteps, host reads, kernel launches, seconds and (on CUDA) peak device
@@ -37,6 +37,9 @@ yet, so here it changes nothing (the log says so). ``--checkpoint-dir``
 saves the decomposition at every stage boundary under a
 ``PreemptionGuard``; a SIGTERM saves, and the launcher exits with
 ``EXIT_PREEMPTED`` (75); ``--resume`` finishes from the latest step.
+``--telemetry-out DIR`` traces the session's open and every query
+(``runtime/telemetry.py``) and writes ``trace.json`` (Perfetto),
+``spans.jsonl`` and ``metrics.prom`` under DIR.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from repro_torch.core import (CascadeEstimator, ClusterQuotientEstimator,
                               LowerBoundEstimator, check_engine_mode,
                               open_session)
 from repro_torch.graph import GraphStore, grid_mesh, road_like, social_like
+from repro_torch.runtime import telemetry
 from repro_torch.runtime.fault import (EXIT_PREEMPTED, Preempted,
                                        PreemptionGuard)
 
@@ -113,6 +117,15 @@ def add_query_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda")
 
 
+def add_telemetry_argument(ap: argparse.ArgumentParser) -> None:
+    """The shared ``--telemetry-out`` flag (also ``launch/serve.py``'s)."""
+    ap.add_argument("--telemetry-out", default=None, metavar="DIR",
+                    help="write a span trace (trace.json, loads in "
+                         "ui.perfetto.dev), spans.jsonl and metrics.prom "
+                         "under DIR. Tracing adds no host read: the "
+                         "measured/counted read equalities hold with it on")
+
+
 def check_query_arguments(ap: argparse.ArgumentParser, args) -> None:
     """Refuse bad shared flags before any graph or device work."""
     if args.tau is not None and args.tau < 1:
@@ -157,6 +170,7 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest stage checkpoint in "
                          "--checkpoint-dir")
+    add_telemetry_argument(ap)
     args = ap.parse_args(argv)
     check_query_arguments(ap, args)
     if args.shards < 0:
@@ -186,7 +200,12 @@ def main(argv=None) -> int:
     guard = PreemptionGuard() if args.checkpoint_dir else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    with Timer() as t:
+    # --telemetry-out arms the span tracer for the session's lifetime (open,
+    # decomposition stages, quotient, solve); without it every span is the
+    # shared no-op
+    tracer = telemetry.Tracer() if args.telemetry_out else None
+    with (telemetry.tracing(tracer) if tracer is not None
+          else contextlib.nullcontext()), Timer() as t:
         cfg = GraphEngineConfig(variant=args.variant,
                                 delta_init=args.delta_init,
                                 use_cluster2=args.cluster2, seed=args.seed,
@@ -222,6 +241,7 @@ def main(argv=None) -> int:
         sssp = (session.estimate(DeltaSteppingEstimator(seed=args.seed))
                 if args.compare_sssp else None)
         if dev.type == "cuda":
+            # sync: the run's host clock ends when the card is done
             torch.cuda.synchronize(dev)
     pm = upper.pipeline
     out = {
@@ -269,6 +289,15 @@ def main(argv=None) -> int:
                    / max(upper.growing_steps, 1))
     if dev.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if tracer is not None:
+        registry = telemetry.MetricsRegistry()
+        registry.ingest(pm, "pipeline")
+        registry.ingest(session.metrics, "session")
+        written = telemetry.write_telemetry(args.telemetry_out, tracer,
+                                            registry)
+        log.info("telemetry: %d spans, %d measured transfers attributed "
+                 "-> %s", len(tracer.spans), tracer.total_transfers(),
+                 sorted(written.values()))
     print(json.dumps(out))
     return 0
 

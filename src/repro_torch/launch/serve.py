@@ -27,7 +27,8 @@ each session then serves ``--queries`` rounds of queries.
       [--check-amortization 2.0] [--sync-budget off|<int>] \
       [--update-trace 4 [--update-events 0] [--update-mix mixed] \
        [--check-update-cost 5] [--bracket-rounds 4]] \
-      [--shards 4] [--checkpoint-dir DIR [--resume] [--preempt-after K]]
+      [--shards 4] [--checkpoint-dir DIR [--resume] [--preempt-after K]] \
+      [--telemetry-out DIR]
 
 With ``--update-trace N`` the run is a DYNAMIC replay: each session gets a
 seeded ``temporal_trace`` of N batches (``--update-events`` undirected
@@ -50,13 +51,19 @@ at boundary K of the first session's first decomposition.
 Contracts (exit 1 when one fails): from round 1 on no query builds a
 backend or uploads an edge array (``SessionMetrics``; updates mutate the
 resident store, counted in ``DynamicMetrics``); every host read is a
-counted one (``guard.metered()`` equals the queries' summed
+counted one (``guard.measured_transfers()`` equals the queries' summed
 ``total_host_syncs`` and ``checkpoint_syncs`` plus the updates'
-``update_syncs`` and ``engine_syncs``); ``--check-amortization`` (cold
-over steady query time)
-and ``--sync-budget`` (a query's host reads; an interval is judged by its
+``update_syncs`` and ``engine_syncs``; on the card the replay runs under
+sync debug mode "error", so a read that bypasses ``guard.fetch`` raises);
+``--check-amortization`` (cold over steady query time) and
+``--sync-budget`` (a query's host reads; an interval is judged by its
 worst member). Records are collected in the loop and written after it.
-Prints one JSON line of the run's numbers.
+Prints one JSON line of the run's numbers. ``--telemetry-out DIR`` traces
+the opens and the replay (``serve.replay``, ``serve.update``,
+``serve.query`` and the engine's spans below them), keeps the query
+latencies as ``serve.latency.<estimator>`` histograms (and ``.cold`` /
+``.warm``), and writes ``trace.json``, ``spans.jsonl`` and
+``metrics.prom`` under DIR after the loop.
 """
 from __future__ import annotations
 
@@ -70,9 +77,11 @@ import torch
 
 from repro_torch.common import Timer, get_logger, resolve_device
 from repro_torch.config.registry import get_arch
-from repro_torch.launch.diameter import (add_query_arguments, build_graph,
+from repro_torch.launch.diameter import (add_query_arguments,
+                                         add_telemetry_argument, build_graph,
                                          check_query_arguments)
 from repro_torch.models import transformer as tf_mod
+from repro_torch.runtime import telemetry
 from repro_torch.runtime.fault import (EXIT_PREEMPTED, Preempted,
                                        PreemptionGuard)
 
@@ -138,6 +147,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="test hook: a real SIGTERM at this stage boundary "
                          "of the first session's first decomposition "
                          "(requires --checkpoint-dir)")
+    add_telemetry_argument(ap)
     args = ap.parse_args(argv)
     if args.mode == "graph-diameter":
         _check_graph_args(ap, args)
@@ -307,6 +317,7 @@ def serve_graph_diameter(args: argparse.Namespace,
     estimator = _make_estimator(est_name, levels=args.levels)
     sync_budget = None if args.sync_budget == "off" else int(args.sync_budget)
     if dev.type == "cuda":
+        # sync: the timed run starts from an idle card
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -317,9 +328,17 @@ def serve_graph_diameter(args: argparse.Namespace,
     cold: List[float] = []        # each session's first query
     warm: List[float] = []
     pguard = PreemptionGuard() if args.checkpoint_dir else None
-    with SessionPool(cfg, tau_solve=args.tau_solve, device=dev,
-                     checkpoint_dir=args.checkpoint_dir, shards=args.shards,
-                     resume=args.resume, guard=pguard) as pool:
+    # --telemetry-out arms the span tracer (spans push guard meters and
+    # read nothing, so the measured/counted equality below holds with it
+    # on) and a registry fed per-estimator latency histograms
+    tracer = telemetry.Tracer() if args.telemetry_out else None
+    registry = telemetry.MetricsRegistry() if args.telemetry_out else None
+    with (telemetry.tracing(tracer) if tracer is not None
+          else contextlib.nullcontext()), \
+            SessionPool(cfg, tau_solve=args.tau_solve, device=dev,
+                        checkpoint_dir=args.checkpoint_dir,
+                        shards=args.shards, resume=args.resume,
+                        guard=pguard) as pool:
         # one edge-pad bucket across the whole batch
         e_pad = e_pad or next_multiple(max(g.n_edges for g in graphs) or 1,
                                        pool.edge_bucket)
@@ -328,8 +347,12 @@ def serve_graph_diameter(args: argparse.Namespace,
                         for g in graphs]
         if args.preempt_after:
             sessions[0].checkpointer.preempt_after_stage = args.preempt_after
+        # on the card the replay runs under sync debug mode "error": a read
+        # or blocking copy that bypasses guard.fetch raises
         with pguard if pguard is not None else contextlib.nullcontext(), \
-                guard.metered() as meter, Timer() as t_total:
+                guard.measured_transfers() as meter, Timer() as t_total, \
+                telemetry.span("serve.replay", batch=len(graphs),
+                               queries=args.queries, estimator=est_name):
             for round_idx in range(args.queries):
                 if round_idx == 1:
                     # from here on NOTHING may build a backend or upload
@@ -340,15 +363,25 @@ def serve_graph_diameter(args: argparse.Namespace,
                     # resident store in place
                     for i, sess in enumerate(sessions):
                         if round_idx - 1 < len(traces[i]):
-                            updates.append((i, round_idx - 1, *_apply_batch(
-                                sess, traces[i][round_idx - 1], dev)))
+                            with telemetry.span("serve.update", graph=i,
+                                                batch=round_idx - 1):
+                                rep = _apply_batch(
+                                    sess, traces[i][round_idx - 1], dev)
+                            updates.append((i, round_idx - 1, *rep))
                 for i, sess in enumerate(sessions):
-                    with Timer() as tq:
+                    with Timer() as tq, telemetry.span(
+                            "serve.query", graph=i, round=round_idx) as qs:
                         res = sess.estimate(estimator)
                         _sync(dev)
+                        syncs = _query_syncs(res)
+                        qs.set(host_syncs=syncs)
                     (cold if round_idx == 0 else warm).append(tq.seconds)
-                    records.append((i, round_idx, res, _query_syncs(res),
-                                    tq.seconds))
+                    if registry is not None:
+                        lat = f"serve.latency.{est_name or 'default'}"
+                        kind = "cold" if round_idx == 0 else "warm"
+                        registry.observe(lat, tq.seconds)
+                        registry.observe(f"{lat}.{kind}", tq.seconds)
+                    records.append((i, round_idx, res, syncs, tq.seconds))
             if traces:
                 # drain the batches past the rounds, then bracket each
                 # session's final graph
@@ -362,6 +395,17 @@ def serve_graph_diameter(args: argparse.Namespace,
                     brackets.append((i, iv, tb.seconds))
         m = pool.metrics
         dyn = [s.dynamic.metrics for s in sessions if s.dynamic is not None]
+        if registry is not None:
+            registry.ingest(m, "session")
+            registry.ingest(meter, "serve.transfers")
+            for i, sess in enumerate(sessions):
+                if sess.dynamic is not None:
+                    registry.ingest(sess.dynamic.metrics, f"dynamic.g{i}")
+            written = telemetry.write_telemetry(args.telemetry_out, tracer,
+                                                registry)
+            log.info("telemetry: %d spans, %d measured transfers "
+                     "attributed -> %s", len(tracer.spans),
+                     tracer.total_transfers(), sorted(written.values()))
         backend_launches = [s.backend.launches for s in sessions]
         out: Dict[str, Any] = {
             "mode": "graph-diameter", "graph": args.graph,
@@ -502,6 +546,7 @@ def serve_graph_main(args: argparse.Namespace) -> int:
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
+        # sync: a timed query or step ends when the card is done
         torch.cuda.synchronize(dev)
 
 
@@ -545,6 +590,7 @@ def serve_lm(args: argparse.Namespace) -> Dict[str, Any]:
                 cur = torch.argmax(logits, -1)[:, None]
         _sync(dev)
 
+    # sync: LM serving reads the decoded ids once, at the end
     ids = torch.cat(toks, dim=1).cpu()   # one read of all decoded ids
     res = {
         "arch": cfg.name, "params": cfg.param_count(), "batch": args.batch,
@@ -556,6 +602,7 @@ def serve_lm(args: argparse.Namespace) -> Dict[str, Any]:
         "decode_tok_s": args.batch * args.gen / t_decode.seconds,
         "decode_tok_s_per_seq": args.gen / t_decode.seconds,
         "decode_ms_per_step": 1e3 * t_decode.seconds / args.gen,
+        # sync: LM serving reads the logits' finiteness once, at the end
         "logits_finite": bool(torch.isfinite(logits).all()),
         "ids": ids,
     }

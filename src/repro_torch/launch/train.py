@@ -144,6 +144,7 @@ def train(args: argparse.Namespace) -> dict:
                 params, opt, loss, stats = step_fn(params, opt, batch,
                                                    grad_transform=transform)
                 if dev.type == "cuda":
+                    # sync: the step's host clock ends when the card is done
                     torch.cuda.synchronize(dev)
             mon.record(cursor.step, t.seconds)
             secs.append(t.seconds)

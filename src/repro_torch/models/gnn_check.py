@@ -145,6 +145,7 @@ def as64(tree: Any) -> Any:
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     """``max|a - b| / max|b|`` in float64."""
     a, b = a.double(), b.to(a.device).double()
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float((a - b).abs().max() / b.abs().max())
 
 
@@ -163,8 +164,10 @@ def elementwise_excess(out: torch.Tensor, exact: torch.Tensor,
     ``|exact|``)."""
     x = exact.double()
     o, p = out.to(x.device).double(), plain.to(x.device).double()
-    allow = SPREAD_C * torch.clamp_min((p - x).abs(),
-                                       ELEM_FLOOR * float(x.abs().max()))
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
+    floor = ELEM_FLOOR * float(x.abs().max())
+    allow = SPREAD_C * torch.clamp_min((p - x).abs(), floor)
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(((o - x).abs() / allow).max())
 
 
@@ -211,6 +214,7 @@ def grad_excess(got: Any, exact: Any, plains: list,
         err = torch.stack([(p.to(x.device).double() - x).abs()
                            for p in ps]).amax(0)
         allow = SPREAD_C * torch.clamp_min(err, floor)
+        # sync: a check's verdict, read once per comparison (tests, chip_smoke)
         worst = max(worst, float(((o - x).abs() / allow).max()))
     return worst
 
@@ -231,6 +235,7 @@ def grad_rel(got: Any, plain: Any) -> float:
 
 def invariance_rel(out: torch.Tensor, rotated: torch.Tensor) -> float:
     o, r = out.double(), rotated.to(out.device).double()
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float((o - r).abs().max() / (o.abs().max() + 1e-9))
 
 

@@ -73,6 +73,7 @@ def fault_capacity(exp_idx: torch.Tensor, capacity: int,
     fullest expert of any group keeps (reads the device once)."""
     load = (exp_idx.reshape(exp_idx.shape[0], -1, 1)
             == torch.arange(n_experts, device=exp_idx.device)).sum(dim=1)
+    # sync: the planted fault's capacity, read once per check
     return min(capacity, int(load.max())) - 1
 
 
@@ -119,6 +120,7 @@ def moe_excess(out: torch.Tensor, ref: torch.Tensor) -> float:
     err = (o - r).norm(dim=-1)
     allow = ROW_SHARE * r.norm(dim=-1)
     ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    # sync: a check's verdict, read once per comparison (tests, chip_smoke)
     return float(ratio.max())
 
 

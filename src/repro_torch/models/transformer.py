@@ -416,6 +416,7 @@ def _embed(params: Params, tokens: torch.Tensor,
     # reference's jnp.asarray(d ** 0.5, dtype) (sqrt(3584) -> 59.75 in bf16);
     # the product of two model-dtype values is then rounded once, as there.
     # A host scalar, so no step copies to the device.
+    # sync: a CPU tensor; rounds a host scalar to the model dtype
     scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=_dtype(cfg)))
     return params["embed"][tokens] * scale
 

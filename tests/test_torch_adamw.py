@@ -12,18 +12,10 @@ arithmetic on both sides; the global norm's sums may be ordered
 differently, which moves the clipping scale by an ulp). Measured: at most
 2.3e-7 of a leaf's largest magnitude (about 2^-22) on these cases.
 """
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -10,20 +10,12 @@ rejections; the cache and its file; the session's pin semantics; and an
 autotuned session's estimate equal to the reference's autotuned session's
 at a pinned mode. Every compared value is an integer or a string, so
 every comparison is exact."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import json
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

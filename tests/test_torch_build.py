@@ -5,6 +5,8 @@ TMA tensor maps); include directories named by ``-I`` are checked before
 anything is built, and a missing one (CUTLASS's headers where a library
 asks for them) raises with its path; the hashed library name follows the
 flags and the headers beside the sources as well as the sources."""
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import pytest
 
 from repro_torch.kernels import _build

@@ -8,20 +8,13 @@ the min-plus oracle equals scipy's; degenerate graphs; the launcher's
 ``--levels``/``--tau-solve``. Every array is an integer, so every
 comparison is exact. No case here hits the one-ulp float32 ``log``
 difference of the one-shot shifts, so no start plane is injected."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import json
 
 import jax
 import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -53,15 +46,6 @@ from repro_torch.graph.structures import (MAX_WEIGHT, EdgeList,  # noqa: E402
                                           to_scipy_csr)
 from repro_torch.launch import diameter as launcher  # noqa: E402
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The plain path's eager operations are small: one intra-op thread
-    each, so that parallel test workers do not oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 GRAPHS = {
     "road_like(2000)": lambda g: g.road_like(2000, seed=0),

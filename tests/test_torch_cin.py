@@ -17,18 +17,10 @@ another order, which moves an element by a few ``2^-24 A``; measured here,
 the rule reads at most about 0.03 on sound outputs and above 600 on the
 planted fault.
 """
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

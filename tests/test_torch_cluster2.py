@@ -3,19 +3,11 @@ the final planes of ``cluster2`` equal the reference's, with the port's
 default draws, on the plain backend and on the kernel backend's plain
 path, fused and unfused; the estimator and the launcher's ``--cluster2``.
 Every plane is an integer, so every comparison is exact."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import json
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -39,15 +31,6 @@ from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structures import EdgeList  # noqa: E402
 from repro_torch.launch import diameter as launcher  # noqa: E402
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The plain path's eager operations are small: one intra-op thread
-    each, so that parallel test workers do not oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 CASES = {
     "road_like(2000) tau 4": (lambda g: g.road_like(2000, seed=0), 4),

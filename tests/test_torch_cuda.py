@@ -61,6 +61,8 @@ This file imports no JAX, so it runs where only the port is installed:
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips where there is no GPU (the kernel has no CPU mode)."""
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import numpy as np
 import pytest
 import torch

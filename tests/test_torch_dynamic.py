@@ -11,7 +11,8 @@ capped-repair and ``rebuild_fraction`` cases, the session's caches, the
 serve launcher's replay, ``KernelBackend.rebind``'s CSR (the store's inert
 slots in no row) and an import of the dynamic path with JAX blocked.
 Every compared value is an integer, so every comparison is exact."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import functools
 import json
@@ -22,14 +23,6 @@ import sys
 
 import jax
 import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -69,16 +62,6 @@ EST_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
               "lower", "upper")
 PM_FIELDS = ("quotient_syncs", "n_quotient_edges", "solve_supersteps")
 REF_METRICS = [f.name for f in dataclasses.fields(ref_dyn.DynamicMetrics)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, so that parallel test workers do not
-    oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _exact(edges) -> int:

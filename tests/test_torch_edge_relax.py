@@ -5,20 +5,12 @@ int32). The graph layout's long-row list, and the tuple-min taken the way
 the kernels split a row across lanes and blocks, are checked here too. A
 CUDA-only case compares the hand-written kernel with the plain version on
 the card; it skips where there is no GPU."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import re
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -2,18 +2,10 @@
 (stop and complete), the chunked superstep loop against an unchunked one,
 and whole CLUSTER decompositions with the reference's ``jax.random``
 center draws injected. Every plane is an integer: equality is exact."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -13,18 +13,10 @@ only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 Tolerance, float32: 2e-5 absolute and relative. Both sides sum the same
 float32 products in another order, and the Pallas kernel scales q before
 the q.k product where the plain versions scale the score after it."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

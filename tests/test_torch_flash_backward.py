@@ -21,18 +21,10 @@ batch row runs the reference row by row.
 Tolerance: 1e-9 of the reference's largest magnitude (float64 sums in
 other orders differ by about 1e-14).
 """
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -46,30 +38,10 @@ from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_cuda, tma_ready)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from torch_testing import reference_in_float64  # noqa: E402
 
 D_CPU, BK = 16, 32
 TOL = 1e-9
-
-
-class _Float64Numpy:
-    """``jax.numpy`` with ``float32`` read as ``float64``."""
-
-    def __getattr__(self, name):
-        return jnp.float64 if name == "float32" else getattr(jnp, name)
-
-
-@contextlib.contextmanager
-def reference_in_float64(*modules):
-    """The reference modules' float32 casts made float64, under x64."""
-    saved = [m.jnp for m in modules]
-    for m in modules:
-        m.jnp = _Float64Numpy()
-    try:
-        with jax.enable_x64(True):
-            yield
-    finally:
-        for m, j in zip(modules, saved):
-            m.jnp = j
 
 
 def _inputs(case, seed=0):

@@ -43,20 +43,12 @@ Tolerances (float64):
   * every step on the CPU launches no kernel; its ``segment_mm`` calls
     are twice a forward's (one backward each).
 """
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import functools
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -287,24 +279,19 @@ def test_no_grad_forward_bit_equal_to_recorded(arch, monkeypatch):
     """Chunked and in place without autograd, whole with it: the same
     bits (float32, edge chunks of 64 on the 400-edge graph)."""
     monkeypatch.setattr(gnn, "EDGE_CHUNK", 64)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cfg = _cfgs(arch, "full_graph")[0]
-        cell = steps._gnn_cell(cfg, SHAPES["full_graph"], torch.device("cpu"))
-        graph = cell.graph(_batches(arch, "full_graph")[0])
-        params = _port_tree(_ref_params(arch, "full_graph"), cfg)
-        params = adamw.tree_map(lambda p: p.float(), params)
-        with torch.no_grad():
-            quiet = gnn.gnn_forward(params, graph, cfg)
-        plain = gnn.gnn_forward(params, graph, cfg)
-        taped = gnn.gnn_forward(adamw.tree_map(
-            lambda p: p.detach().requires_grad_(), params), graph, cfg)
-        assert taped.requires_grad and not quiet.requires_grad
-        assert torch.equal(quiet, taped.detach())
-        assert torch.equal(quiet, plain)
-    finally:
-        torch.set_num_threads(threads)
+    cfg = _cfgs(arch, "full_graph")[0]
+    cell = steps._gnn_cell(cfg, SHAPES["full_graph"], torch.device("cpu"))
+    graph = cell.graph(_batches(arch, "full_graph")[0])
+    params = _port_tree(_ref_params(arch, "full_graph"), cfg)
+    params = adamw.tree_map(lambda p: p.float(), params)
+    with torch.no_grad():
+        quiet = gnn.gnn_forward(params, graph, cfg)
+    plain = gnn.gnn_forward(params, graph, cfg)
+    taped = gnn.gnn_forward(adamw.tree_map(
+        lambda p: p.detach().requires_grad_(), params), graph, cfg)
+    assert taped.requires_grad and not quiet.requires_grad
+    assert torch.equal(quiet, taped.detach())
+    assert torch.equal(quiet, plain)
 
 
 def test_cell_refuses_wrong_inputs_and_cuts():

@@ -30,20 +30,13 @@ Tolerances:
     result an ulp away may round to the other side of a bf16 boundary);
   * the int8 codec: bit for bit.
 """
-import contextlib
+import torch_testing  # first: one thread, the x64 shim
+
 import dataclasses
+import functools
 import json
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -70,27 +63,10 @@ REL = 2.0 ** -22
 B, S, CHUNKS = 2, 32, 4
 
 
-class _Float64Numpy:
-    """``jax.numpy`` with ``float32`` read as ``float64`` and ``int32`` as
-    ``int64``: under x64 the loss's chunk scan sums an int64 mask count
-    into its ``jnp.int32(0)`` carry, which JAX refuses."""
-
-    def __getattr__(self, name):
-        wide = {"float32": jnp.float64, "int32": jnp.int64}
-        return wide.get(name) or getattr(jnp, name)
-
-
-@contextlib.contextmanager
-def reference_in_float64(*modules):
-    saved = [m.jnp for m in modules]
-    for m in modules:
-        m.jnp = _Float64Numpy()
-    try:
-        with jax.enable_x64(True):
-            yield
-    finally:
-        for m, j in zip(modules, saved):
-            m.jnp = j
+# under x64 the loss's chunk scan sums an int64 mask count into its
+# ``jnp.int32(0)`` carry, which JAX refuses: int32 is read as int64 too
+reference_in_float64 = functools.partial(torch_testing.reference_in_float64,
+                                         wide_ints=True)
 
 
 def _batch(cfg, seed=0):

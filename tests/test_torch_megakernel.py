@@ -4,18 +4,10 @@ reference's megakernel matches byte for byte by contract (its Pallas kernel
 itself cannot run on JAX 0.9). On CPU tensors every fused call runs
 ``fused_grow_supersteps_plain``, the plain version the CUDA kernel is held
 against on the card. Every plane is an integer: equality is exact."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

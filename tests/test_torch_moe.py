@@ -26,19 +26,11 @@ Tolerances:
     |logit|) of each other (the two frameworks' bf16 router products may
     round a logit a step of 2^-8 of it apart).
 """
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

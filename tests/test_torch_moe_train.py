@@ -23,6 +23,8 @@ Tolerances:
     capacity slots or over every token with zero weights);
   * remat on and off: bit for bit.
 """
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import functools
 import json

@@ -3,18 +3,10 @@
 decompositions byte for byte, with the deterministic hashed draw and with
 the reference's ``jax.random`` uniforms injected; the engine-mode names;
 the fused grow path in one-shot mode; and a certified bracket."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -4,18 +4,10 @@ and the LPT fill it falls back to), ``apply_partition``,
 ``partition_for_backend`` and ``cut_fraction`` give the reference's arrays
 and numbers; ``pack_i32`` gives the reference's bytes at the reference's
 width, and ``unpack_i32`` inverts it exactly, int32 extremes included."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402

@@ -18,6 +18,8 @@
     superstep against the reference's ``growth_loop`` + ``edge_relax_ref``
     on the same planes, and both example scripts against the reference's.
 """
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import contextlib
 import dataclasses
 import io
@@ -29,15 +31,6 @@ import sys
 from typing import NamedTuple
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -83,16 +76,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ESTIMATE_FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
                    "growing_steps", "n_stages", "delta_end", "connected")
 BACKENDS = [("single", 0), ("kernel", 0), ("kernel", 8)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, so that parallel test workers do not
-    oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ ClusterQuotientEstimator with the reference's center draws injected must
 give the reference's Phi, radius and cluster count; the interval must
 bracket scipy's exact diameter; the package must import neither jax nor
 the JAX package; CUDA entry points must raise where there is no GPU."""
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import ast
-import contextlib
 import json
 import os
 import pathlib
@@ -13,15 +14,6 @@ import subprocess
 import sys
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402

@@ -3,18 +3,10 @@ against JAX itself, bit for bit; and the port's DEFAULT center draws, with
 nothing injected, against the reference's: the stages decomposition, its
 quotient and Phi must be byte-identical for the same seed, and the random
 one-shot draw must be the reference's ``split`` uniforms."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402

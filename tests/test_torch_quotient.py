@@ -1,18 +1,11 @@
 """The port's quotient pass, quotient solve and Bellman-Ford loops against
 the JAX package and scipy. Edge arrays, counters and distances are
 integers: equality is exact."""
-import contextlib
+
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
 
 import jax
 import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -16,19 +16,11 @@ reference's ``minibatch`` cell from it.
     the same arrays as a host one, and its padding is inert: the loss and
     its gradient (float64) do not change when the batch is padded further.
 """
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402

@@ -29,22 +29,14 @@ measured here, the rule reads 0 against ``segment_sum`` (the same order:
 bit-equal), at most 0.12 against the interpret mode, and above 10 on the
 faults.
 """
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import re
 import types
 from pathlib import Path
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

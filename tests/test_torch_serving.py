@@ -14,7 +14,8 @@ against the reference's pool, the launchers' ``--shards``, ``--compress``,
 subprocess killed by a real SIGTERM exits 75, and its ``--resume`` rerun
 gives the uninterrupted estimate). Every compared value is an integer, so
 every comparison is exact."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 import json
 import os
@@ -23,15 +24,6 @@ import subprocess
 import sys
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -68,16 +60,6 @@ CPU = torch.device("cpu")
 FIELDS = ("phi_approx", "phi_quotient", "radius", "n_clusters",
           "growing_steps", "n_stages", "delta_end", "connected", "lower",
           "upper")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, so that parallel test workers do not
-    oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _edgeless(n):
@@ -448,7 +430,6 @@ def test_serve_metered_transfers_equal_query_syncs():
                     CascadeEstimator(levels=1, tau_solve=8))]
             assert meter.transfers == sum(r.pipeline.total_host_syncs
                                           for r in res)
-
 
 
 # ---------------------------------------------------------------------------

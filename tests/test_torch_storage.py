@@ -8,19 +8,11 @@ shards with and without pilot centers and compression (slabs, halo index,
 a mismatched geometry is refused), and ``temporal_trace`` batch for batch
 (every mix, both insert modes, a graph of 20,000 nodes). Every compared
 value is an integer, so every comparison is exact."""
-import contextlib
+import torch_testing  # noqa: F401  (first: one thread, the x64 shim)
+
 import dataclasses
 
 import jax
-import jax.experimental
-
-if not hasattr(jax.experimental, "enable_x64"):
-    @contextlib.contextmanager
-    def _enable_x64(new_val: bool = True):
-        with jax.enable_x64(new_val):
-            yield
-
-    jax.experimental.enable_x64 = _enable_x64
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -40,16 +32,6 @@ from repro_torch.graph import generators as gen  # noqa: E402
 from repro_torch.graph.structures import EdgeList  # noqa: E402
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, so that parallel test workers do not
-    oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(n, src, dst, w, **kw):
